@@ -1,0 +1,54 @@
+"""Weight conversion from the JAX package's models to the port's modules."""
+
+import numpy as np
+import torch
+
+#: flax submodule name -> port submodule name inside one bottleneck block
+_BLOCK_LAYERS = (('Conv_0', 'conv1'), ('BatchNorm_0', 'bn1'), ('Conv_1', 'conv2'),
+                 ('BatchNorm_1', 'bn2'), ('Conv_2', 'conv3'), ('BatchNorm_2', 'bn3'),
+                 ('conv_proj', 'conv_proj'), ('norm_proj', 'norm_proj'))
+
+
+def _conv(params):
+    # flax HWIO -> torch OIHW
+    return {'weight': np.transpose(np.asarray(params['kernel']), (3, 2, 0, 1))}
+
+
+def _norm(params, stats):
+    return {'weight': np.asarray(params['scale']), 'bias': np.asarray(params['bias']),
+            'running_mean': np.asarray(stats['mean']),
+            'running_var': np.asarray(stats['var'])}
+
+
+def resnet_state_dict_from_flax(variables):
+    """``petastorm_tpu.models.resnet.ResNet`` variables (``{'params': ...,
+    'batch_stats': ...}`` with numpy leaves) -> a ``state_dict`` for
+    :class:`petastorm_tpu_torch.models.resnet.ResNet` of the same
+    configuration: conv kernels HWIO -> OIHW, the dense kernel ``(in, out)`` ->
+    ``(out, in)``, batch-norm scale/bias/mean/var as they are."""
+    params = variables['params']
+    stats = variables['batch_stats']
+    out = {}
+
+    def put(prefix, tensors):
+        for name, value in tensors.items():
+            out['{}.{}'.format(prefix, name)] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+
+    put('conv_init', _conv(params['conv_init']))
+    put('bn_init', _norm(params['bn_init'], stats['bn_init']))
+    index = 0
+    while 'BottleneckBlock_{}'.format(index) in params:
+        key = 'BottleneckBlock_{}'.format(index)
+        for flax_name, port_name in _BLOCK_LAYERS:
+            if flax_name not in params[key]:
+                continue
+            prefix = 'blocks.{}.{}'.format(index, port_name)
+            if flax_name.startswith(('Conv', 'conv')):
+                put(prefix, _conv(params[key][flax_name]))
+            else:
+                put(prefix, _norm(params[key][flax_name], stats[key][flax_name]))
+        index += 1
+    dense = params['Dense_0']
+    put('head', {'weight': np.asarray(dense['kernel']).T, 'bias': np.asarray(dense['bias'])})
+    return out

@@ -1,0 +1,121 @@
+"""Work ventilation with bounded in-flight items and per-epoch reshuffling: the
+ventilator feeds rowgroup work items into a pool at a bounded rate, every
+epoch, optionally in a new seeded order. The seeded order is the same
+``numpy.random.RandomState`` stream ``petastorm_tpu`` draws, so both packages
+visit rowgroups in the same order for the same seed."""
+
+import threading
+
+import numpy as np
+
+
+class ConcurrentVentilator(object):
+    """Feeds ``items_to_ventilate`` (list of kwargs dicts) from a daemon thread,
+    keeping at most ``max_ventilation_queue_size`` items in flight, for
+    ``iterations`` epochs (None = forever), shuffling the item order each epoch
+    when ``randomize_item_order``. Every ventilated call gets an
+    ``epoch_index`` keyword carrying the absolute epoch."""
+
+    def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
+                 max_ventilation_queue_size=None, randomize_item_order=False,
+                 random_seed=None):
+        if iterations is not None and (not isinstance(iterations, int) or iterations < 1):
+            raise ValueError('iterations must be a positive integer or None, got {!r}'
+                             .format(iterations))
+        self._ventilate_fn = ventilate_fn
+        self._items_to_ventilate = list(items_to_ventilate)
+        self._iterations = iterations
+        self._iterations_remaining = iterations
+        self._max_ventilation_queue_size = (max_ventilation_queue_size
+                                            or len(self._items_to_ventilate) or 1)
+        self._randomize_item_order = randomize_item_order
+        self._random_state = np.random.RandomState(random_seed)
+        self._epoch = 0
+        self._in_flight = 0
+        self._current_item_to_ventilate = 0
+        self._stop_requested = threading.Event()
+        self._completed = threading.Event()
+        self._lock = threading.Lock()
+        self._item_processed = threading.Condition(self._lock)
+        self._thread = None
+        #: exception raised by ventilate_fn, surfaced to the consumer via pools
+        self.error = None
+        if not self._items_to_ventilate:
+            self._completed.set()
+
+    def start(self):
+        if self._thread is not None:
+            raise RuntimeError('Ventilator already started')
+        self._thread = threading.Thread(target=self._ventilate, daemon=True,
+                                        name='petastorm-tpu-torch-ventilator')
+        self._thread.start()
+
+    def _ventilate(self):
+        if self._randomize_item_order:
+            self._random_state.shuffle(self._items_to_ventilate)
+        while not self._stop_requested.is_set():
+            if self._completed.is_set():
+                return
+            item = self._items_to_ventilate[self._current_item_to_ventilate]
+            with self._item_processed:
+                while (self._in_flight >= self._max_ventilation_queue_size
+                       and not self._stop_requested.is_set()):
+                    self._item_processed.wait(timeout=0.1)
+                if self._stop_requested.is_set():
+                    return
+                self._in_flight += 1
+            self._current_item_to_ventilate += 1
+            try:
+                self._ventilate_fn(epoch_index=self._epoch, **item)
+            except Exception as exc:  # noqa: BLE001 - surfaced to the consumer
+                self.error = exc
+                self._completed.set()
+                return
+            if self._current_item_to_ventilate >= len(self._items_to_ventilate):
+                self._current_item_to_ventilate = 0
+                self._epoch += 1
+                if self._iterations_remaining is not None:
+                    self._iterations_remaining -= 1
+                    if self._iterations_remaining <= 0:
+                        self._completed.set()
+                        return
+                if self._randomize_item_order:
+                    self._random_state.shuffle(self._items_to_ventilate)
+
+    def processed_item(self):
+        """Consumer feedback: one ventilated item finished."""
+        with self._item_processed:
+            if self._in_flight > 0:
+                self._in_flight -= 1
+            self._item_processed.notify()
+
+    def completed(self):
+        """True once every epoch was dispatched and every item acknowledged."""
+        with self._lock:
+            if self.error is not None:
+                return True
+            return self._completed.is_set() and self._in_flight == 0
+
+    def reset(self):
+        """Restart ventilation for another ``iterations`` epochs after the
+        previous ones fully completed; the RNG stream continues."""
+        if not self.completed():
+            raise RuntimeError('Cannot reset a ventilator that has not completed all '
+                               'items (in-flight work remains)')
+        self._join_thread()
+        self._completed.clear()
+        self._stop_requested.clear()
+        self._current_item_to_ventilate = 0
+        self._iterations_remaining = self._iterations
+        self._thread = None
+        self.start()
+
+    def stop(self):
+        self._stop_requested.set()
+        with self._item_processed:
+            self._item_processed.notify_all()
+        self._join_thread()
+
+    def _join_thread(self):
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join(timeout=10)
