@@ -349,28 +349,28 @@ class CompressedNdarrayCodec(FieldCodec):
     """Stores a numpy tensor as a one-member deflate zip (``np.savez_compressed``
     layout: member ``arr.npy``).
 
-    :param compresslevel: write-side only. None (default) encodes through
-        ``np.savez_compressed`` exactly like ``petastorm_tpu``; an int picks the
-        zlib level. Level 0 emits an all-stored deflate stream, the form the
+    :param stored: write-side only. False (default) encodes through
+        ``np.savez_compressed`` exactly like ``petastorm_tpu``. True writes the
+        member at zlib level 0, an all-stored deflate stream: the form the
         device decode tail inflates on the card (zlib's default level turns
         even random float payloads into Huffman blocks, which inflate on the
-        host). Every level decodes with the same reader, so the level is not
-        part of the stored schema."""
+        host). Both forms decode with the same reader, so the flag is not part
+        of the stored schema."""
 
     codec_name = 'compressed_ndarray'
 
-    def __init__(self, compresslevel=None):
-        self._compresslevel = compresslevel
+    def __init__(self, stored=False):
+        self._stored = stored
 
     def encode(self, unischema_field, value):
         _check_value(unischema_field, value)
         memfile = BytesIO()
-        if self._compresslevel is None:
-            np.savez_compressed(memfile, arr=value)
-        else:
+        if self._stored:
             with zipfile.ZipFile(memfile, 'w', zipfile.ZIP_DEFLATED,
-                                 compresslevel=self._compresslevel) as archive:
+                                 compresslevel=0) as archive:
                 archive.writestr('arr.npy', _ndarray_to_npy_bytes(value))
+        else:
+            np.savez_compressed(memfile, arr=value)
         return memfile.getvalue()
 
     def decode(self, unischema_field, value):

@@ -58,7 +58,8 @@ stored_copy_kernel(const uint8_t* __restrict__ src, const int32_t* __restrict__ 
 
 // Launches the copy on `stream` and returns cudaGetLastError() (0 on success).
 // `src`, `segs` and `out` are device pointers; the segment table must hold
-// in-bounds rows (the Python wrapper's caller plans and checks it on the host).
+// in-bounds rows (the Python wrapper, stored_inflate, checks every row on the
+// host before it uploads the table).
 extern "C" int stored_copy(const void* src, const void* segs, int m, void* out,
                            void* stream) {
   if (m <= 0) return static_cast<int>(cudaSuccess);

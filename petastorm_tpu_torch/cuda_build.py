@@ -5,8 +5,8 @@ Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``
 (seconds per source, against minutes for an extension that includes
 PyTorch's headers). Libraries land in ``petastorm_tpu_torch/_build/``, named
 by a digest of their source, so an edited source rebuilds and an unchanged
-one is reused. :func:`build` starts one ``nvcc`` per missing library, all at
-once, and raises with the compiler's output if any fails; nothing falls back.
+one is reused. :func:`load` compiles a missing library on first use and
+raises with the compiler's output if ``nvcc`` fails; nothing falls back.
 """
 
 import ctypes
@@ -27,12 +27,10 @@ KERNELS = {
 }
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-shared', '-Xcompiler', '-fPIC')
 
 _lock = threading.Lock()
 _loaded = {}
-#: ptxas resource report (registers, shared memory, spills) per built library
-build_logs = {}
 
 
 def _source_path(name):
@@ -57,39 +55,15 @@ def _nvcc():
                        'the CUDA kernels of petastorm_tpu_torch cannot be built')
 
 
-def build(names=None):
-    """Compile every missing library among ``names`` (default: all kernels), one
-    ``nvcc`` process per source, all started together. Returns the library
-    paths by name."""
-    names = list(KERNELS if names is None else names)
-    with _lock:
-        return _build_locked(names)
-
-
-def _build_locked(names):
-    paths = {name: library_path(name) for name in names}
-    todo = [name for name in names if not os.path.exists(paths[name])]
-    if not todo:
-        return paths
+def _compile(name, path):
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name in todo:
-        tmp = '{}.{}.tmp'.format(paths[name], os.getpid())
-        cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, _source_path(name)]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True))
-    failures = []
-    for name, (tmp, proc) in procs.items():
-        output, _ = proc.communicate()
-        build_logs[name] = output
-        if proc.returncode != 0:
-            failures.append('{} (exit {}):\n{}'.format(name, proc.returncode, output))
-            continue
-        os.replace(tmp, paths[name])
-    if failures:
-        raise RuntimeError('nvcc failed for ' + '\n'.join(failures))
-    return paths
+    tmp = '{}.{}.tmp'.format(path, os.getpid())
+    result = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, _source_path(name)],
+                            capture_output=True, text=True)
+    if result.returncode != 0:
+        raise RuntimeError('nvcc failed for {} (exit {}):\n{}{}'.format(
+            name, result.returncode, result.stdout, result.stderr))
+    os.replace(tmp, path)
 
 
 def load(name):
@@ -98,7 +72,9 @@ def load(name):
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            path = _build_locked([name])[name]
+            path = library_path(name)
+            if not os.path.exists(path):
+                _compile(name, path)
             fn = getattr(ctypes.CDLL(path), name)
             fn.argtypes = KERNELS[name][1]
             fn.restype = ctypes.c_int

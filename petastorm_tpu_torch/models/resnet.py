@@ -17,6 +17,11 @@ Matching flax, not torch defaults:
   batch variance is the biased ``E[x^2] - E[x]^2``, and the running variance
   stores that biased value (torch's ``BatchNorm2d`` stores the unbiased one).
 - The last batch norm of each block starts with scale zero.
+
+Like every entry point of the port, the model lives on CUDA unless the caller
+passes ``device='cpu'``; without a card a CUDA request raises. Weights are
+drawn on the CPU from torch's default generator, then moved, so a seed gives
+the same model on either device.
 """
 
 import math
@@ -24,6 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from petastorm_tpu_torch.parallel.loader import resolve_device
 
 
 def _same_pad(x, kernel, stride, value=0.0):
@@ -126,11 +133,13 @@ class BottleneckBlock(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet with bottleneck blocks. ``forward`` takes NHWC images and returns
-    float32 logits; ``train()``/``eval()`` select batch or running statistics."""
+    float32 logits; ``train()``/``eval()`` select batch or running statistics.
+    Parameters live on ``device`` (CUDA unless ``'cpu'`` is passed)."""
 
     def __init__(self, stage_sizes, num_classes=1000, num_filters=64,
-                 dtype=torch.bfloat16, in_channels=3):
+                 dtype=torch.bfloat16, in_channels=3, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.dtype = dtype
         self.conv_init = Conv(in_channels, num_filters, 7, 2, padding=3, dtype=dtype)
         self.bn_init = BatchNorm(num_filters)
@@ -149,6 +158,7 @@ class ResNet(nn.Module):
                               a=-2 * math.sqrt(1.0 / fan_in) / .87962566103423978,
                               b=2 * math.sqrt(1.0 / fan_in) / .87962566103423978)
         nn.init.zeros_(self.head.bias)
+        self.to(device)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)

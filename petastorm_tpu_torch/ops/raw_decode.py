@@ -181,14 +181,14 @@ def check_stored_plan(segments: np.ndarray, src_len: int, out_len: int) -> None:
                          'output ({} bytes)'.format(src_len, out_len))
 
 
-def stored_inflate_plain(packed_src: torch.Tensor, segments: torch.Tensor,
+def stored_inflate_plain(packed_src: torch.Tensor, segments: Any,
                          out_len: int) -> torch.Tensor:
     """Plain PyTorch version of K1 on any device: expand the segment table into
     per-byte source and destination indices and ``index_put`` the bytes into
-    a zeroed output."""
+    a zeroed output. Trusts the table: :func:`stored_inflate` checks it."""
     device = packed_src.device
     out = torch.zeros(out_len, dtype=torch.uint8, device=device)
-    segs = segments.to(device=device, dtype=torch.int64)
+    segs = torch.as_tensor(segments).to(device=device, dtype=torch.int64)
     if not len(segs) or out_len == 0:
         return out
     lengths = segs[:, 2]
@@ -201,13 +201,16 @@ def stored_inflate_plain(packed_src: torch.Tensor, segments: torch.Tensor,
     return out
 
 
-def stored_inflate(packed_src: torch.Tensor, segments: torch.Tensor,
+def stored_inflate(packed_src: torch.Tensor, segments: np.ndarray,
                    out_len: int) -> torch.Tensor:
     """Inflate a stored-block-only deflate batch on the source's device.
 
     :param packed_src: uint8 ``(s,)`` tensor, the concatenated raw frames.
-    :param segments: int32 ``(m, 3)`` table from :func:`plan_stored_batch`,
-        on the same device (its rows checked with :func:`check_stored_plan`).
+    :param segments: the host int32 ``(m, 3)`` numpy table from
+        :func:`plan_stored_batch`. Every row is checked with
+        :func:`check_stored_plan` against ``s`` and ``out_len`` before anything
+        runs (K1 trusts the rows it is given), then the table is uploaded to
+        the source's device on the current stream.
     :param out_len: total inflated length.
     :returns: uint8 ``(out_len,)`` tensor of the inflated payloads.
 
@@ -215,30 +218,31 @@ def stored_inflate(packed_src: torch.Tensor, segments: torch.Tensor,
     launch in ``stored_inflate.launches``; a build or launch failure raises.
     On a CPU tensor it runs :func:`stored_inflate_plain`. Any other device
     raises."""
-    if packed_src.device.type == 'cpu':
-        return stored_inflate_plain(packed_src, segments, out_len)
-    if packed_src.device.type != 'cuda':
-        raise ValueError('stored_inflate runs on cuda or cpu tensors, got {}'
-                         .format(packed_src.device))
+    device = packed_src.device
+    if device.type not in ('cuda', 'cpu'):
+        raise ValueError('stored_inflate runs on cuda or cpu tensors, got {}'.format(device))
     if packed_src.dtype != torch.uint8 or packed_src.dim() != 1:
         raise ValueError('packed_src must be a 1-D uint8 tensor')
-    if (segments.dtype != torch.int32 or segments.dim() != 2
-            or segments.shape[1] != 3):
-        raise ValueError('segments must be an (m, 3) int32 tensor')
-    if segments.device != packed_src.device:
-        raise ValueError('segments and packed_src must share a device')
-    if not (packed_src.is_contiguous() and segments.is_contiguous()):
-        raise ValueError('stored_inflate needs contiguous tensors')
-    out = torch.zeros(out_len, dtype=torch.uint8, device=packed_src.device)
+    if not isinstance(segments, np.ndarray) or segments.dtype != np.int32:
+        raise ValueError('segments must be the host int32 numpy table of plan_stored_batch')
+    check_stored_plan(segments, int(packed_src.numel()), out_len)
+    if device.type == 'cpu':
+        return stored_inflate_plain(packed_src, segments, out_len)
+    if not packed_src.is_contiguous():
+        raise ValueError('stored_inflate needs a contiguous packed_src')
+    out = torch.zeros(out_len, dtype=torch.uint8, device=device)
     m = int(segments.shape[0])
     if m == 0 or out_len == 0:
         return out
+    # a pinned copy lets the upload run on the stream; the caching host
+    # allocator keeps it alive until the copy has completed
+    segs = torch.from_numpy(np.ascontiguousarray(segments)).pin_memory().to(
+        device, non_blocking=True)
     from petastorm_tpu_torch import cuda_build
     kernel = cuda_build.load('stored_copy')
-    with torch.cuda.device(packed_src.device):
-        stream = torch.cuda.current_stream(packed_src.device).cuda_stream
-        status = kernel(packed_src.data_ptr(), segments.data_ptr(), m, out.data_ptr(),
-                        stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = kernel(packed_src.data_ptr(), segs.data_ptr(), m, out.data_ptr(), stream)
     if status != 0:
         raise RuntimeError('stored_copy kernel launch failed: cudaError {}'.format(status))
     stored_inflate.launches += 1

@@ -55,9 +55,6 @@ from petastorm_tpu_torch.decode_engine import (RAW_ENC_DEFLATE, RAW_ENC_NPY,
                                                stack_if_uniform)
 from petastorm_tpu_torch.ops import raw_decode
 
-#: suffix of the loader-private stored-deflate segment-table column
-_SEGS_SUFFIX = '__segs'
-
 _TORCH_DTYPES_BY_NAME = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
                          'float16': torch.float16}
 
@@ -321,8 +318,9 @@ class DeviceDecodeStage:
                 if stored is not None:
                     src, segs, n, blob_len, (header_len, dtype_str, row_shape) = stored
                     upload[plan.name] = src
-                    upload[plan.name + _SEGS_SUFFIX] = segs
-                    recipe.append(('stored', plan.name, n, blob_len, header_len,
+                    # the host table rides in the recipe: stored_inflate checks
+                    # its rows on the host, then uploads it
+                    recipe.append(('stored', plan.name, segs, n, blob_len, header_len,
                                    dtype_str, row_shape))
                 else:
                     matrix = self._inflate_on_host(frames, enc)
@@ -354,8 +352,6 @@ class DeviceDecodeStage:
         except (zlib.error, ValueError):
             return None
         src = np.concatenate([np.asarray(f, dtype=np.uint8) for f in frames])
-        out_len = n * frame_lengths[0]
-        raw_decode.check_stored_plan(segs, len(src), out_len)
         return src, segs, n, frame_lengths[0], npy_meta
 
     @staticmethod
@@ -376,18 +372,15 @@ class DeviceDecodeStage:
                recipe: Tuple[Any, ...]) -> Dict[str, torch.Tensor]:
         """Consumer half: run the recipe over the uploaded tensors, on their
         device and the current stream, and return the final batch."""
-        out = {name: col for name, col in device_columns.items()
-               if not name.endswith(_SEGS_SUFFIX)}
+        out = dict(device_columns)
         counter = self._rng_counter
         if self._needs_rng:
             self._rng_counter += 1
         for entry in recipe:
             kind, name = entry[0], entry[1]
             if kind == 'stored':
-                _, _, n, blob_len, header_len, dtype_str, row_shape = entry
-                flat = raw_decode.stored_inflate(device_columns[name],
-                                                 device_columns[name + _SEGS_SUFFIX],
-                                                 n * blob_len)
+                _, _, segs, n, blob_len, header_len, dtype_str, row_shape = entry
+                flat = raw_decode.stored_inflate(device_columns[name], segs, n * blob_len)
                 out[name] = raw_decode.unpack_npy_rows(flat.view(n, blob_len),
                                                        header_len, dtype_str, row_shape)
                 self.stored_batches += 1

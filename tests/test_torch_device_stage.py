@@ -1,14 +1,93 @@
 """The port's device decode tail, run on the CPU through the kernels' plain
 versions, against petastorm_tpu's JaxDataLoader on its device path
 (PETASTORM_TPU_DEVICE_DECODE_FORCE=1): npy and stored-deflate fields bit-exact,
-DCT images within +-1, and the stored-inflate path taken on both sides."""
+DCT images within +-1, and the stored-inflate path taken on both sides.
+
+The store writer and loader runners here are shared with test_torch_loader and
+test_torch_slice. Stores are written through the port's codecs with a
+``CompressedNdarrayCodec(stored=True)`` field, so its cells are all-stored
+deflate frames (the form the stored-inflate kernel takes); both packages read
+them."""
 
 import numpy as np
 import pytest
 
-from _torch_port_stores import jax_batches, port_batches, write_device_decode_store
+from petastorm_tpu_torch.codecs import (CompressedNdarrayCodec, DctImageCodec,
+                                        NdarrayCodec, ScalarCodec)
+from petastorm_tpu_torch.etl.dataset_metadata import write_rows
+from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 DEVICE_FIELDS = ['img', 'vec', 'mat']
+
+
+def device_decode_schema(hw=(16, 24), vec_len=17):
+    return Unischema('TorchPortDecode', [
+        UnischemaField('idx', np.int64, (), ScalarCodec(), False),
+        UnischemaField('label', np.int32, (), ScalarCodec(), False),
+        UnischemaField('img', np.uint8, tuple(hw) + (3,), DctImageCodec(quality=80), False),
+        UnischemaField('vec', np.float32, (vec_len,),
+                       CompressedNdarrayCodec(stored=True), False),
+        UnischemaField('mat', np.int16, (4, 5), NdarrayCodec(), False),
+    ])
+
+
+def write_device_decode_store(path, rows=24, hw=(16, 24), vec_len=17, files=2, seed=0,
+                              smooth_images=False):
+    """A store with a DCT image, a level-0 compressed vector, an npy matrix and
+    two scalars; returns its ``file://`` URL."""
+    url = 'file://' + str(path)
+    rng = np.random.RandomState(seed)
+    data = []
+    for i in range(rows):
+        if smooth_images:
+            coarse = rng.randint(0, 255, (hw[0] // 8, hw[1] // 8, 3)).astype(np.float32)
+            img = np.kron(coarse, np.ones((8, 8, 1), np.float32))
+            img = np.clip(img + rng.randn(*img.shape) * 4.0, 0, 255).astype(np.uint8)
+        else:
+            img = rng.randint(0, 255, tuple(hw) + (3,), dtype=np.uint8)
+        data.append({'idx': i, 'label': int(rng.randint(10)), 'img': img,
+                     'vec': rng.randn(vec_len).astype(np.float32),
+                     'mat': rng.randint(-5, 5, (4, 5)).astype(np.int16)})
+    write_rows(url, device_decode_schema(hw, vec_len), data, rowgroup_size_mb=1,
+               n_files=files)
+    return url
+
+
+def to_numpy(batch):
+    """A batch dict of tensors or arrays (torch or JAX) -> dict of numpy arrays."""
+    import torch
+    out = {}
+    for name, value in batch.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu()
+            # numpy has no bfloat16: widen exactly to float32
+            value = (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+        out[name] = np.asarray(value)
+    return out
+
+
+def port_batches(url, reader_kwargs=None, **loader_kwargs):
+    """Every batch of a port ``TorchDataLoader`` on the CPU, as numpy, plus its stats."""
+    from petastorm_tpu_torch import TorchDataLoader, make_reader
+    kwargs = dict(reader_pool_type='dummy', shuffle_row_groups=False)
+    kwargs.update(reader_kwargs or {})
+    loader_kwargs.setdefault('device', 'cpu')
+    with make_reader(url, **kwargs) as reader:
+        loader = TorchDataLoader(reader, **loader_kwargs)
+        batches = [to_numpy(b) for b in loader]
+        return batches, loader.stats.as_dict()
+
+
+def jax_batches(url, reader_kwargs=None, **loader_kwargs):
+    """Every batch of a ``petastorm_tpu`` ``JaxDataLoader``, as numpy, plus the loader."""
+    from petastorm_tpu import make_reader
+    from petastorm_tpu.parallel.loader import JaxDataLoader
+    kwargs = dict(reader_pool_type='dummy', shuffle_row_groups=False)
+    kwargs.update(reader_kwargs or {})
+    with make_reader(url, **kwargs) as reader:
+        loader = JaxDataLoader(reader, **loader_kwargs)
+        batches = [{k: np.asarray(v) for k, v in b.items()} for b in loader]
+        return batches, loader
 
 
 @pytest.fixture(scope='module')

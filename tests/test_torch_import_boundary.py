@@ -85,7 +85,7 @@ _BLOCKED_RUN = textwrap.dedent('''
     schema = Unischema('Blocked', [
         UnischemaField('label', np.int64, (), ScalarCodec(), False),
         UnischemaField('img', np.uint8, (16, 16, 3), DctImageCodec(), False),
-        UnischemaField('vec', np.float32, (8,), CompressedNdarrayCodec(compresslevel=0),
+        UnischemaField('vec', np.float32, (8,), CompressedNdarrayCodec(stored=True),
                        False)])
     rng = np.random.RandomState(0)
     write_rows(url, schema, [{'label': i, 'img': rng.randint(0, 255, (16, 16, 3),

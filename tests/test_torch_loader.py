@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_stores import jax_batches, port_batches, write_device_decode_store
+from test_torch_device_stage import jax_batches, port_batches, write_device_decode_store
 
 NUMERIC = ['idx', 'label', 'mat']
 

@@ -46,8 +46,7 @@ def test_plain_stored_inflate_bit_exact_against_pallas():
     packed = np.frombuffer(b''.join(frames), dtype=np.uint8)
     out_len = sum(lengths)
     want = np.asarray(jax_raw.stored_inflate(packed, segs, out_len))
-    got = raw_decode.stored_inflate(torch.from_numpy(packed.copy()),
-                                    torch.from_numpy(segs), out_len)
+    got = raw_decode.stored_inflate(torch.from_numpy(packed.copy()), segs, out_len)
     assert got.dtype == torch.uint8 and got.shape == (out_len,)
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.numpy().tobytes() == b''.join(payloads)
@@ -56,14 +55,14 @@ def test_plain_stored_inflate_bit_exact_against_pallas():
 
 def test_stored_inflate_plain_zero_fills_uncovered_output():
     src = torch.arange(10, dtype=torch.uint8)
-    segs = torch.tensor([[2, 5, 3]], dtype=torch.int32)
+    segs = np.array([[2, 5, 3]], dtype=np.int32)
     out = raw_decode.stored_inflate(src, segs, 10)
     assert out.tolist() == [0, 0, 0, 0, 0, 2, 3, 4, 0, 0]
 
 
 def test_stored_inflate_refuses_other_devices():
     src = torch.empty(8, dtype=torch.uint8, device='meta')
-    segs = torch.empty((1, 3), dtype=torch.int32, device='meta')
+    segs = np.zeros((1, 3), dtype=np.int32)
     with pytest.raises(ValueError, match='cuda or cpu'):
         raw_decode.stored_inflate(src, segs, 8)
 
@@ -77,6 +76,26 @@ def test_check_stored_plan_rejects_out_of_bounds_rows():
         raw_decode.check_stored_plan(segs, 8, 7)
     with pytest.raises(ValueError, match='negative'):
         raw_decode.check_stored_plan(np.array([[0, -1, 1]], dtype=np.int32), 8, 8)
+
+
+@pytest.mark.parametrize('row,match', [
+    ([4, 0, 5], 'reaches past'),       # source range ends past the 8 bytes
+    ([0, 6, 4], 'reaches past'),       # output range ends past the 8 bytes
+    ([-1, 0, 1], 'negative'),
+])
+def test_stored_inflate_refuses_a_table_out_of_bounds(row, match):
+    """The wrapper checks every row before anything runs: K1 trusts its table."""
+    src = torch.arange(8, dtype=torch.uint8)
+    with pytest.raises(ValueError, match=match):
+        raw_decode.stored_inflate(src, np.array([row], dtype=np.int32), 8)
+
+
+def test_stored_inflate_takes_only_the_host_int32_table():
+    src = torch.arange(8, dtype=torch.uint8)
+    for segs in (torch.tensor([[0, 0, 8]], dtype=torch.int32),
+                 np.array([[0, 0, 8]], dtype=np.int64)):
+        with pytest.raises(ValueError, match='host int32 numpy table'):
+            raw_decode.stored_inflate(src, segs, 8)
 
 
 @pytest.mark.parametrize('dtype_str,shape', [
@@ -132,8 +151,8 @@ def test_stored_inflate_kernel_matches_plain_on_card():
     _, frames = _stored_frames(FRAME_SIZES + (8320,) * 16)
     segs, lengths = raw_decode.plan_stored_batch(frames)
     packed = torch.from_numpy(np.frombuffer(b''.join(frames), dtype=np.uint8).copy())
-    src, seg_t = packed.cuda(), torch.from_numpy(segs).cuda()
-    got = raw_decode.stored_inflate(src, seg_t, sum(lengths))
-    want = raw_decode.stored_inflate_plain(src, seg_t, sum(lengths))
+    src = packed.cuda()
+    got = raw_decode.stored_inflate(src, segs, sum(lengths))
+    want = raw_decode.stored_inflate_plain(src, segs, sum(lengths))
     torch.cuda.synchronize()
     assert torch.equal(got, want)

@@ -46,7 +46,7 @@ def _flax_model_and_variables(size, seed=0):
 
 
 def _port_model(variables):
-    model = ResNet(dtype=torch.float32, **CONFIG)
+    model = ResNet(dtype=torch.float32, device='cpu', **CONFIG)
     missing, unexpected = model.load_state_dict(resnet_state_dict_from_flax(variables),
                                                 strict=True)
     assert not missing and not unexpected
@@ -123,8 +123,18 @@ def test_same_padding_is_asymmetric_like_xla():
 
 def test_resnet50_shapes_and_zero_scale_init():
     from petastorm_tpu_torch.models.resnet import ResNet50
-    model = ResNet50(num_classes=12, num_filters=8)
+    model = ResNet50(num_classes=12, num_filters=8, device='cpu')
     assert len(model.blocks) == 16
     assert all(not block.bn3.weight.detach().any() for block in model.blocks)
     out = model.eval()(torch.zeros(1, 64, 64, 3))
     assert out.shape == (1, 12) and out.dtype == torch.float32
+
+
+def test_model_defaults_to_cuda_and_never_falls_back_to_cpu(monkeypatch):
+    """Without device='cpu' the model asks for the card; with none it raises."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ResNet(**CONFIG)
+    model = ResNet(device='cpu', **CONFIG)
+    assert {p.device.type for p in model.parameters()} == {'cpu'}
+    assert {b.device.type for b in model.buffers()} == {'cpu'}

@@ -6,7 +6,7 @@ per-step losses agree within 1e-3 relative (the decoded images may differ by
 
 import numpy as np
 
-from _torch_port_stores import write_device_decode_store
+from test_torch_device_stage import write_device_decode_store
 
 CONFIG = dict(stage_sizes=[1, 1], num_filters=8, num_classes=10)
 MEAN_STD = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
@@ -59,7 +59,7 @@ def _port_losses(url, initial):
     from petastorm_tpu_torch import DeviceTransform, TorchDataLoader, make_reader
     from petastorm_tpu_torch.convert import resnet_state_dict_from_flax
     from petastorm_tpu_torch.models.resnet import ResNet
-    model = ResNet(dtype=torch.float32, **CONFIG)
+    model = ResNet(dtype=torch.float32, device='cpu', **CONFIG)
     model.load_state_dict(resnet_state_dict_from_flax(initial))
     model.train()
     optimizer = torch.optim.SGD(model.parameters(), lr=LR)

@@ -96,7 +96,7 @@ def test_level0_container_decodes_in_both_packages():
     from petastorm_tpu_torch.ops.raw_decode import parse_stored_deflate_layout
     value = np.random.RandomState(1).randn(2048).astype(np.float32)
     port_field = unischema.UnischemaField('e', np.float32, (2048,),
-                                          codecs.CompressedNdarrayCodec(compresslevel=0))
+                                          codecs.CompressedNdarrayCodec(stored=True))
     blob = port_field.codec.encode(port_field, value)
     jax_field = jax_unischema.UnischemaField('e', np.float32, (2048,),
                                              jax_codecs.CompressedNdarrayCodec())
