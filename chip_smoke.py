@@ -1,16 +1,29 @@
 #!/usr/bin/env python3
 """Chip smoke of petastorm_tpu_torch on one NVIDIA card (Hopper, sm_90a).
 
-Builds the port's CUDA kernels from ``petastorm_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card, then drives the main
-path once at full width: an ImageNet-shaped store (256x256x3 DCT images,
-int64 labels, a float32 (2048,) embedding in level-0 deflate containers) ->
-``make_reader(device_decode_fields=...)`` on a thread pool ->
-``TorchDataLoader`` with on-card stored inflate, DCT decode, random crop,
-flip and normalize -> ResNet-50 (bfloat16, random weights from ``--seed``)
-for one epoch of SGD steps. It checks shapes, dtypes, the embedding byte for
-byte, the decoded images against the host decode, a finite loss, and that the
-stored-inflate kernel launched on every batch of the main-path run.
+Builds the port's CUDA kernels from ``petastorm_tpu_torch/csrc`` (one nvcc per
+source, all started together), holds each kernel against its plain PyTorch
+version on the card, then drives the port's two paths at full width:
+
+- the ImageNet device-decode path: an ImageNet-shaped store (256x256x3 DCT
+  images, int64 labels, a float32 (2048,) embedding in level-0 deflate
+  containers) -> ``make_reader(device_decode_fields=...)`` on a thread pool ->
+  ``TorchDataLoader`` with on-card stored inflate (K1), DCT decode, random
+  crop, flip and normalize -> ResNet-50 (bfloat16, random weights from
+  ``--seed``) for one epoch of SGD steps;
+- the long-context LM path: a store of 64 rows of 8192 int32 tokens ->
+  ``make_reader`` -> ``TorchDataLoader(batch_size=2)`` -> ``TransformerLM``
+  (embed 512, 4 heads, 4 layers, bfloat16) with the flash-attention kernels
+  (K2 forward, K3 dQ, K4 dK/dV), Adam, one warm-up and 8 timed steps; then
+  its packed variant: ragged documents packed into 8192-token bins, the
+  segmented kernels and the packed loss, 4 steps.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after, and fails unless every kernel of the path launched on it. The flash
+kernels are compared with their plain versions in four modes (causal,
+non-causal, segmented with padding, head_dim 64 with a ragged T), and the LM
+path's first-batch loss and gradient norm with the kernels against the same
+model run with the plain versions.
 
 Run from the repository root with no arguments::
 
@@ -24,6 +37,8 @@ and last ``{"ok": true, "device": {...}}``. The full record is also written to
 """
 
 import argparse
+import importlib
+import itertools
 import json
 import os
 import shutil
@@ -31,6 +46,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -40,13 +56,23 @@ import pyarrow.fs as pafs
 import torch
 import torch.nn.functional as F
 
-from petastorm_tpu_torch import DeviceTransform, TorchDataLoader, cuda_build, make_reader
+from petastorm_tpu_torch import (DeviceTransform, TorchDataLoader, TransformerLM, cuda_build,
+                                 make_reader)
+from petastorm_tpu_torch.benchmark.lm_data import (ragged_documents, write_packed_store,
+                                                   write_token_store)
+from petastorm_tpu_torch.benchmark.mfu import mfu, transformer_train_flops_per_step
 from petastorm_tpu_torch.codecs import (CompressedNdarrayCodec, DctImageCodec, ScalarCodec,
                                         _npz_raw_member)
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
 from petastorm_tpu_torch.models.resnet import ResNet50
+from petastorm_tpu_torch.models.transformer import next_token_loss
 from petastorm_tpu_torch.ops import raw_decode
+from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_loss,
+                                             segment_causal_attention)
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+# the module, not the function the ops package exports under the same name
+flash = importlib.import_module('petastorm_tpu_torch.ops.flash_attention')
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), the bound of byte-bound kernels
 HBM_BYTES_PER_S = 3.35e12
@@ -214,7 +240,7 @@ def phase_main_path(url, args):
     losses = []
     step_s = []
     torch.cuda.reset_peak_memory_stats()
-    raw_decode.stored_inflate.launches = 0
+    reset_counts()
     with make_reader(url, reader_pool_type='thread', workers_count=args.workers,
                      seed=args.seed, device_decode_fields=['image', 'embedding']) as reader:
         loader = TorchDataLoader(reader, batch_size=args.batch,
@@ -239,8 +265,9 @@ def phase_main_path(url, args):
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - step_start)
         wall_s = time.perf_counter() - start
-        launches = raw_decode.stored_inflate.launches
+        counts = read_counts()
         stats = loader.stats.as_dict()
+    launches = counts['stored_copy']
     steps = len(losses)
     losses = [float(x) for x in losses]
     check(steps >= args.min_steps, 'only {} steps ran'.format(steps))
@@ -254,7 +281,7 @@ def phase_main_path(url, args):
             'step_ms_median': statistics.median(step_s) * 1e3,
             'step_ms': [s * 1e3 for s in step_s],
             'peak_memory_bytes': torch.cuda.max_memory_allocated(),
-            'losses': losses, 'k1_launches': launches}, delivered
+            'losses': losses, 'k1_launches': launches, 'counts': counts}, delivered
 
 
 def check_delivered(delivered, seed):
@@ -293,6 +320,401 @@ def phase_image_check(url, blobs, args):
     return {'images_checked': checked, 'max_abs_err': worst}
 
 
+# ------------------------------------------------------- flash attention kernels
+
+#: the device the flash and LM phases run on (a CPU rehearsal of their
+#: control flow may set 'cpu'; the kernels then run their plain versions)
+DEVICE = 'cuda'
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the bound of the
+#: compute-bound flash kernels
+PEAK_BF16_FLOPS = 989e12
+#: matrix products each flash kernel does per attending (q, k) pair
+FLASH_PRODUCTS = {'fwd': 2, 'dq': 3, 'dkv': 4}
+LM = dict(vocab=256, embed=512, heads=4, layers=4, max_len=8192)
+LM_ROWS = 64
+LM_BATCH = 2
+LM_STEPS = 8
+PACKED_STEPS = 4
+#: the LM path's first-batch loss and gradient norm, kernels against plain
+#: versions: relative tolerances. Both runs round the same bf16 model; they
+#: differ only where the kernels' fp32 sums, taken in another order, round an
+#: attention output to the neighbouring bf16 value.
+LM_LOSS_RTOL = 1e-3
+LM_GRAD_NORM_RTOL = 1e-2
+
+
+def flash_tolerance(want, dtype):
+    """Allowed max |kernel - plain| for one output: the kernel and its plain
+    version compute in fp32 on the same inputs and differ by summation order,
+    then round to ``dtype``; in bfloat16 that is within one ulp (2^-7 of the
+    value), so two ulps of the tensor's largest value are allowed; float32
+    outputs get 1e-4 of it, and lse (float32 in both) 1e-4 of its largest."""
+    scale = max(float(want.abs().max()), 1.0)
+    if dtype == torch.bfloat16 and want.dtype == torch.bfloat16:
+        return 2.0 ** -6 * scale
+    return 1e-4 * scale
+
+
+def attending_pairs(bh, t, causal, segments, heads):
+    """(q, k) pairs that attend, summed over the B * H rows: the work the
+    kernels' data needs."""
+    if segments is None:
+        return bh * (t * (t + 1) // 2 if causal else t * t)
+    total = 0
+    for row in segments.cpu().numpy():
+        _, counts = np.unique(row[row > 0], return_counts=True)
+        total += int((counts * (counts + 1) // 2).sum()) if causal else int((counts ** 2).sum())
+    return total * heads
+
+
+def flash_bounds(bh, t, d, causal, segments, heads, elem):
+    """{kernel: (bound_ms, bound_by)} at this shape: the larger of the FLOPs of
+    the attending pairs at the bf16 peak and the bytes (each input read once,
+    each output written once) at the memory rate."""
+    pairs = attending_pairs(bh, t, causal, segments, heads)
+    matrix = bh * t * d * elem
+    rows = bh * t * 4
+    seg_bytes = 0 if segments is None else segments.numel() * 4
+    moved = {'fwd': 4 * matrix + rows + seg_bytes,
+             'dq': 5 * matrix + 2 * rows + seg_bytes,
+             'dkv': 6 * matrix + 2 * rows + seg_bytes}
+    out = {}
+    for name, products in FLASH_PRODUCTS.items():
+        flop_ms = products * 2 * d * pairs / PEAK_BF16_FLOPS * 1e3
+        byte_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = ((flop_ms, 'operations') if flop_ms >= byte_ms else (byte_ms, 'bytes'))
+    return out
+
+
+def short_segments(b, t, seed):
+    """[B, T] int32 segments of many short documents (1-40 tokens) with
+    padding runs inside and at the end of each row."""
+    rng = np.random.RandomState(seed)
+    seg = np.zeros((b, t), dtype=np.int32)
+    for row in range(b):
+        pos, ident = 0, 1
+        while pos < t - 16:
+            n = int(rng.randint(1, 41))
+            if rng.rand() < 0.15:
+                pos += n           # a padding run
+                continue
+            seg[row, pos:pos + n] = ident
+            ident += 1
+            pos += n
+    return torch.from_numpy(seg).to(DEVICE)
+
+
+def packed_segments(b, t, seed):
+    """[B, T] int32 segments of the packed path: documents of 256-4096 tokens
+    packed into T-token bins."""
+    docs = ragged_documents(48, 256, 4096, 256, seed)
+    return torch.from_numpy(pack_sequences(docs, t)['segments'][:b]).to(DEVICE)
+
+
+def flash_case(name, b, t, h, d, causal, dtype, segments, seed):
+    """Each of K2, K3 and K4 against its plain version on the same inputs;
+    returns the case's errors and tolerances."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b * h, t, d, generator=gen).to(DEVICE, dtype)
+                   for _ in range(4))
+    o, lse = flash.flash_forward(q, k, v, causal, segments, h)
+    o_ref, lse_ref = flash.flash_forward_plain(q, k, v, causal, segments, h)
+    delta = (do.float() * o_ref.float()).sum(dim=-1)
+    dq = flash.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, segments, h)
+    dq_ref = flash.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal, segments, h)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, segments, h)
+    dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal,
+                                               segments, h)
+    torch.cuda.synchronize()
+    result = {'shape': [b * h, t, d], 'causal': causal, 'dtype': str(dtype),
+              'segmented': segments is not None}
+    for kernel, pairs in (('fwd', ((o, o_ref, 'o'), (lse, lse_ref, 'lse'))),
+                          ('dq', ((dq, dq_ref, 'dq'),)),
+                          ('dkv', ((dk, dk_ref, 'dk'), (dv, dv_ref, 'dv')))):
+        for got, want, label in pairs:
+            check(bool(torch.isfinite(got.float()).all()),
+                  'flash {} {}: non-finite {}'.format(name, kernel, label))
+            err = float((got.float() - want.float()).abs().max())
+            tol = flash_tolerance(want, dtype)
+            result[label] = {'max_abs_err': err, 'tol': tol}
+            check(err <= tol, 'flash {} {}: {} differs from the plain version by {} > {}'
+                  .format(name, kernel, label, err, tol))
+    return result
+
+
+def phase_flash(seed):
+    """K2-K4 against their plain versions in four modes, at a small shape and
+    (causal, segmented-causal) the LM path's shape; then times at the LM
+    path's shape."""
+    heads = LM['heads']
+    d = LM['embed'] // heads
+    t_main = LM['max_len']
+    bf16 = torch.bfloat16
+    cases = {
+        'causal': (2, 320, 2, 128, True, bf16, None),
+        'causal_f32': (2, 320, 2, 128, True, torch.float32, None),
+        'noncausal': (2, 320, 2, 128, False, bf16, None),
+        'segmented_causal': (2, 320, 2, 128, True, bf16, short_segments(2, 320, seed)),
+        'd64_ragged_t': (2, 200, 4, 64, True, bf16, None),
+        'd64_ragged_t_noncausal': (1, 77, 2, 64, False, bf16, None),
+        'causal_main': (LM_BATCH, t_main, heads, d, True, bf16, None),
+        'segmented_causal_main': (LM_BATCH, t_main, heads, d, True, bf16,
+                                  packed_segments(LM_BATCH, t_main, seed)),
+    }
+    result = {'cases': {}}
+    for index, (name, args) in enumerate(cases.items()):
+        result['cases'][name] = flash_case(name, *args, seed=seed + index)
+    # times at the LM path's shape, causal, bf16
+    bh = LM_BATCH * heads
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, t_main, d, generator=gen).to(DEVICE, bf16)
+                   for _ in range(4))
+    o, lse = flash.flash_forward_plain(q, k, v, True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    timing = {
+        'fwd': (lambda: flash.flash_forward(q, k, v, True),
+                lambda: flash.flash_forward_plain(q, k, v, True)),
+        'dq': (lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, True),
+               lambda: flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, True)),
+        'dkv': (lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                lambda: flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True)),
+    }
+    bounds = flash_bounds(bh, t_main, d, True, None, heads, 2)
+    # the yardstick: one PyTorch call computing the same function,
+    # scaled_dot_product_attention in [B, H, T, D]; never called by the port
+    qs, ks, vs = (x.view(LM_BATCH, heads, t_main, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
+                       reps=20)
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    grad = do.view(LM_BATCH, heads, t_main, d)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), grad, retain_graph=True),
+                       reps=20)
+    library = {'fwd': sdpa_fwd, 'dq': sdpa_bwd, 'dkv': sdpa_bwd}
+    result['timing'] = {}
+    for name, (kernel_fn, plain_fn) in timing.items():
+        result['timing'][name] = {
+            'ms': cuda_ms(kernel_fn, reps=10, warmup=2),
+            'plain_ms': cuda_ms(plain_fn, reps=10, warmup=2),
+            'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
+            'library_ms': library[name]}
+    result['timing_shape'] = [bh, t_main, d]
+    return result
+
+
+def flash_errors(flash_result, labels):
+    return max(case[label]['max_abs_err'] for case in flash_result['cases'].values()
+               for label in labels)
+
+
+# ------------------------------------------------------------- the LM path
+
+def reset_counts():
+    """Set every kernel's launch count, and the dense-fallback count, to 0."""
+    raw_decode.stored_inflate.launches = 0
+    for name in flash.flash_attention.launches:
+        flash.flash_attention.launches[name] = 0
+    flash.dense_fallbacks = 0
+
+
+def read_counts():
+    """Every kernel's launch count and the dense-fallback count."""
+    return {'stored_copy': raw_decode.stored_inflate.launches,
+            **flash.flash_attention.launches, 'dense_fallbacks': flash.dense_fallbacks}
+
+
+def causal_flash(q, k, v):
+    return flash.flash_attention(q, k, v, causal=True)
+
+
+def causal_plain(q, k, v):
+    return flash.flash_attention(q, k, v, causal=True, plain=True)
+
+
+def loss_and_grad_norm(model, loss_fn):
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in model.parameters()))
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), float(norm)
+
+
+def first_batch_parity(model, loss_with):
+    """The first batch's loss and gradient norm with the kernels and with the
+    plain versions, outside any counted run."""
+    kernel_loss, kernel_norm = loss_and_grad_norm(model, lambda: loss_with(True))
+    plain_loss, plain_norm = loss_and_grad_norm(model, lambda: loss_with(False))
+    torch.cuda.synchronize()
+    result = {'loss': kernel_loss, 'plain_loss': plain_loss, 'grad_norm': kernel_norm,
+              'plain_grad_norm': plain_norm,
+              'loss_rel_err': abs(kernel_loss - plain_loss) / abs(plain_loss),
+              'grad_norm_rel_err': abs(kernel_norm - plain_norm) / abs(plain_norm),
+              'loss_rtol': LM_LOSS_RTOL, 'grad_norm_rtol': LM_GRAD_NORM_RTOL}
+    check(np.isfinite([kernel_loss, plain_loss, kernel_norm, plain_norm]).all(),
+          'non-finite first-batch loss or gradient norm {}'.format(result))
+    check(result['loss_rel_err'] <= LM_LOSS_RTOL
+          and result['grad_norm_rel_err'] <= LM_GRAD_NORM_RTOL,
+          'first-batch loss/gradient norm with the kernels differ from the plain '
+          'versions: {}'.format(result))
+    return result
+
+
+def train_lm(batches, optimizer, steps, step_loss):
+    """``steps`` Adam steps on ``batches`` with ``step_loss(batch)``; returns
+    per-step losses and times (the first step is the warm-up)."""
+    losses, step_s = [], []
+    batches = iter(batches)
+    for _ in range(steps):
+        batch = next(batches)
+        start = time.perf_counter()
+        optimizer.zero_grad(set_to_none=True)
+        loss = step_loss(batch)
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.detach())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - start)
+    return [float(x) for x in losses], step_s
+
+
+def lm_metrics(losses, step_s, stats, tokens_per_step, flops_per_step):
+    timed = step_s[1:]
+    wall = sum(timed)
+    tflops, util = mfu(flops_per_step, statistics.median(timed))
+    return {'steps_run': len(losses), 'timed_steps': len(timed), 'losses': losses,
+            'step_ms': [x * 1e3 for x in step_s],
+            'step_ms_median': statistics.median(timed) * 1e3,
+            'tokens_per_s': tokens_per_step * len(timed) / wall,
+            'model_tflops_per_s': tflops, 'mfu': util,
+            'flops_per_step': flops_per_step,
+            'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+            'input_stall_fraction': stats['input_stall_fraction']}
+
+
+def phase_lm(tmp, seed):
+    """The long-context LM path: token store -> reader -> loader ->
+    TransformerLM with the flash kernels, one warm-up and LM_STEPS timed Adam
+    steps."""
+    path = os.path.join(tmp, 'tokens')
+    write_token_store('file://' + path, LM_ROWS, LM['max_len'], n_files=2)
+    torch.manual_seed(seed)
+    model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, device=DEVICE, **LM)
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+    flops = transformer_train_flops_per_step(LM_BATCH, LM['max_len'], LM['vocab'],
+                                             LM['embed'], LM['layers'])
+    with make_reader('file://' + path, workers_count=2, seed=seed) as reader:
+        loader = TorchDataLoader(reader, batch_size=LM_BATCH, shuffling_queue_capacity=16,
+                                 seed=3, drop_last=True, device=DEVICE)
+        batches = iter(loader)
+        first = next(batches)
+        check(tuple(first['tokens'].shape) == (LM_BATCH, LM['max_len'])
+              and first['tokens'].dtype == torch.int32
+              and first['tokens'].device.type == torch.device(DEVICE).type,
+              'token batch shape/dtype/device')
+        tokens = first['tokens']
+        parity = first_batch_parity(model, lambda kernels: next_token_loss(
+            model(tokens, attention_fn=causal_flash if kernels else causal_plain), tokens))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s = train_lm(
+            itertools.chain([first], batches), optimizer, LM_STEPS + 1,
+            lambda batch: next_token_loss(model(batch['tokens']), batch['tokens']))
+        counts = read_counts()
+        stats = loader.stats.as_dict()
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    fallbacks = counts['dense_fallbacks']
+    result = lm_metrics(losses, step_s, stats, LM_BATCH * LM['max_len'], flops)
+    result.update(first_batch=parity, launches=launches, dense_fallbacks=fallbacks,
+                  counts=counts)
+    expected = LM['layers'] * result['steps_run']
+    check(all(n == expected for n in launches.values()),
+          'flash kernels launched {} times, expected {} each (layers x steps)'
+          .format(launches, expected))
+    check(fallbacks == 0, '{} attention calls took the dense path'.format(fallbacks))
+    check(all(np.isfinite(losses)), 'non-finite LM loss {}'.format(losses))
+    return result
+
+
+def phase_packed(tmp, seed):
+    """The packed LM path: ragged documents packed into 8192-token bins ->
+    reader -> loader -> TransformerLM with the segmented flash kernels,
+    positions and the packed loss, PACKED_STEPS Adam steps."""
+    path = os.path.join(tmp, 'packed')
+    docs = ragged_documents(48, 256, 4096, LM['vocab'], seed)
+    packed = write_packed_store('file://' + path, docs, LM['max_len'])
+    torch.manual_seed(seed)
+    model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, **LM)
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+
+    def packed_loss(batch, kernels=True):
+        segments = batch['tokens_segments']
+        attention = segment_causal_attention(segments, use_flash=True)
+        if not kernels:
+            def attention(q, k, v):
+                return flash.flash_attention_segmented(q, k, v, segments, True, plain=True)
+        logits = model(batch['tokens'], positions=batch['tokens_positions'],
+                       attention_fn=attention)
+        return packed_next_token_loss(logits, batch['tokens'], segments)
+
+    with make_reader('file://' + path, workers_count=2, seed=seed) as reader:
+        loader = TorchDataLoader(reader, batch_size=LM_BATCH, drop_last=True, device=DEVICE)
+        batches = iter(loader)
+        first = next(batches)
+        check(all(tuple(first[name].shape) == (LM_BATCH, LM['max_len'])
+                  for name in ('tokens', 'tokens_segments', 'tokens_positions')),
+              'packed batch shapes')
+        parity = first_batch_parity(model, lambda kernels: packed_loss(first, kernels))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s = train_lm(itertools.chain([first], batches), optimizer,
+                                  PACKED_STEPS, packed_loss)
+        counts = read_counts()
+        stats = loader.stats.as_dict()
+    flops = transformer_train_flops_per_step(LM_BATCH, LM['max_len'], LM['vocab'],
+                                             LM['embed'], LM['layers'])
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    fallbacks = counts['dense_fallbacks']
+    result = lm_metrics(losses, step_s, stats, LM_BATCH * LM['max_len'], flops)
+    result.update(first_batch=parity, launches=launches, dense_fallbacks=fallbacks,
+                  counts=counts, bins=int(len(packed['tokens'])), documents=len(docs),
+                  fill=float((packed['segments'] > 0).mean()))
+    expected = LM['layers'] * PACKED_STEPS
+    check(all(n == expected for n in launches.values()),
+          'segmented flash kernels launched {} times, expected {} each'
+          .format(launches, expected))
+    check(fallbacks == 0, '{} packed attention calls took the dense path'.format(fallbacks))
+    check(all(np.isfinite(losses)), 'non-finite packed loss {}'.format(losses))
+    return result
+
+
+def build_kernels():
+    """Build every kernel source at once (one nvcc per source, each in its
+    own thread); returns the build time and the compiler's reports."""
+    errors = []
+
+    def build(name):
+        try:
+            cuda_build.build(name)
+        except Exception as exc:  # noqa: BLE001 - re-raised below with every failure
+            errors.append('{}: {}'.format(name, exc))
+
+    start = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(name,)) for name in cuda_build.KERNELS]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    check(not errors, 'kernel build failed:\n' + '\n'.join(errors))
+    return time.perf_counter() - start, dict(cuda_build.build_log)
+
+
+def ptxas_summary(log_text):
+    """The compiler's per-kernel register and spill lines, shortened."""
+    return [line.strip() for line in log_text.splitlines()
+            if 'registers' in line or 'spill' in line or 'Compiling entry' in line]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--rows', type=int, default=1024)
@@ -314,13 +736,14 @@ def main(argv=None):
     log('phase 1 card: {} | torch {} cuda {}'.format(card, torch.__version__,
                                                      torch.version.cuda))
     record = {'card': card, 'device': device_name}
+    run_start = time.perf_counter()
 
-    start = time.perf_counter()
-    for name in cuda_build.KERNELS:
-        cuda_build.load(name)
-    record['build_s'] = time.perf_counter() - start
-    log('phase 2 build: {} in {:.3f} s'.format(', '.join(cuda_build.KERNELS),
-                                               record['build_s']))
+    record['build_s'], build_logs = build_kernels()
+    record['ptxas'] = {name: ptxas_summary(text) for name, text in build_logs.items()}
+    log('phase 2 build: {} in {:.3f} s (parallel nvcc)'.format(', '.join(cuda_build.KERNELS),
+                                                                record['build_s']))
+    for name, lines in record['ptxas'].items():
+        log('  ptxas {}: {}'.format(name, ' | '.join(l for l in lines if 'registers' in l)))
 
     k1 = phase_k1(args.batch, args.seed)
     record['k1'] = k1
@@ -328,6 +751,14 @@ def main(argv=None):
         'plain_ms={:.5f} bound_ms={:.5f} launches_per_step=1 [{}]'.format(
             k1['edge'], k1['main']['ms'], k1['main']['plain_ms'], k1['main']['bound_ms'],
             card))
+
+    flash_result = phase_flash(args.seed)
+    record['flash'] = flash_result
+    log('phase 4 K2-K4 flash vs plain: {} cases within tolerance; at [{}] causal bf16: {} '
+        '[{}]'.format(len(flash_result['cases']), flash_result['timing_shape'],
+                      {name: {key: round(value, 5) for key, value in row.items()
+                              if key.endswith('ms')}
+                       for name, row in flash_result['timing'].items()}, card))
 
     tmp = tempfile.mkdtemp(prefix='petastorm_tpu_torch_smoke_')
     try:
@@ -341,7 +772,7 @@ def main(argv=None):
         main_path['distinct_rows'] = check_delivered(delivered, args.seed)
         check(main_path['distinct_rows'] == main_path['rows'], 'rows repeated or lost')
         record['main_path'] = main_path
-        log('phase 4 main path: {} steps of ResNet-50 at batch {}: rows/s={:.2f} '
+        log('phase 5 ImageNet path: {} steps of ResNet-50 at batch {}: rows/s={:.2f} '
             'input_stall_fraction={:.4f} step_ms(median)={:.2f} peak_memory={:.3f} GiB '
             'loss {:.4f}->{:.4f}, K1 launches {} on {} batches, store written in {:.1f} s '
             '[{}]'.format(main_path['steps'], args.batch, main_path['rows_per_s'],
@@ -350,11 +781,27 @@ def main(argv=None):
                           main_path['losses'][-1], main_path['k1_launches'],
                           main_path['steps'], record['store_write_s'], card))
         record['image_check'] = phase_image_check(url, blobs, args)
-        log('phase 5 images: {}'.format(record['image_check']))
+        log('phase 6 images: {}'.format(record['image_check']))
+
+        for phase, name, fn in ((7, 'lm', phase_lm), (8, 'packed', phase_packed)):
+            result = fn(tmp, args.seed)
+            record[name] = result
+            log('phase {} {} path: {} steps (1 warm-up) of TransformerLM [{}x{}] bf16: '
+                'tokens/s={:.1f} step_ms(median)={:.2f} model TFLOP/s={:.3f} MFU={:.5f} '
+                'peak_memory={:.3f} GiB input_stall_fraction={:.4f} losses {:.4f}->{:.4f} '
+                'launches {} dense_fallbacks {} first batch {} [{}]'.format(
+                    phase, name, result['steps_run'], LM_BATCH, LM['max_len'],
+                    result['tokens_per_s'], result['step_ms_median'],
+                    result['model_tflops_per_s'], result['mfu'],
+                    result['peak_memory_bytes'] / 2 ** 30, result['input_stall_fraction'],
+                    result['losses'][0], result['losses'][-1], result['launches'],
+                    result['dense_fallbacks'],
+                    {key: round(value, 6) for key, value in result['first_batch'].items()},
+                    card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    kernels = {'kernels': [{
+    kernels = [{
         'name': 'stored_copy', 'route': 'cuda',
         'source': 'petastorm_tpu_torch/csrc/stored_copy.cu',
         'replaces': 'petastorm_tpu/ops/raw_decode.py:165',
@@ -363,12 +810,31 @@ def main(argv=None):
         'ms': k1['main']['ms'], 'plain_ms': k1['main']['plain_ms'],
         'bound_ms': k1['main']['bound_ms'], 'bound_by': 'bytes',
         # no single PyTorch call gathers bytes by a (src, dst, len) segment table
-        'library_ms': None}]}
+        'library_ms': None}]
+    for name, counter, replaces, labels in (
+            ('flash_fwd', 'fwd', 'petastorm_tpu/ops/flash_attention.py:44', ('o', 'lse')),
+            ('flash_bwd_dq', 'dq', 'petastorm_tpu/ops/flash_attention.py:194', ('dq',)),
+            ('flash_bwd_dkv', 'dkv', 'petastorm_tpu/ops/flash_attention.py:237',
+             ('dk', 'dv'))):
+        timing = flash_result['timing'][counter]
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'petastorm_tpu_torch/csrc/flash_attention.cu', 'replaces': replaces,
+            'launches': record['lm']['launches'][counter],
+            'max_abs_err': flash_errors(flash_result, labels),
+            'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
+            'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],
+            # F.scaled_dot_product_attention: its forward for K2, its backward
+            # (dQ, dK and dV together) for K3 and K4
+            'library_ms': timing['library_ms']})
+    kernels = {'kernels': kernels}
     record.update(kernels)
+    record['run_s'] = time.perf_counter() - run_start
     if args.out:
         os.makedirs(os.path.dirname(args.out) or '.', exist_ok=True)
         with open(args.out, 'w') as f:
             json.dump(record, f, indent=1)
+    log('run: {:.1f} s after the card check'.format(record['run_s']))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': device_name,

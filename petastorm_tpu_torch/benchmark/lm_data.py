@@ -1,0 +1,64 @@
+"""Token stores for the long-context LM path, written through the port's
+codecs (both packages read them):
+
+- :func:`write_token_store`: fixed-length rows of a rolled 16-token pattern
+  (learnable, compressible), the content of ``bench.py``'s token store;
+- :func:`write_packed_store`: ragged documents packed at write time by
+  :func:`~petastorm_tpu_torch.ops.packing.pack_sequences` into bins with
+  ``tokens``, ``tokens_segments`` and ``tokens_positions`` columns.
+"""
+
+import numpy as np
+
+from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+from petastorm_tpu_torch.etl.dataset_metadata import write_rows
+from petastorm_tpu_torch.ops.packing import pack_sequences
+from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+
+def token_rows(rows, seq_len):
+    """Row ``i`` is a 16-token pattern (drawn from seed 0) tiled to
+    ``seq_len`` and rolled by ``i``."""
+    base = np.random.RandomState(0).randint(0, 255, size=16, dtype=np.int32)
+    tiled = np.tile(base, seq_len // 16 + 1)[:seq_len]
+    return [np.roll(tiled, i).astype(np.int32) for i in range(rows)]
+
+
+def write_token_store(url, rows, seq_len, n_files=2, rowgroup_size_mb=32):
+    """A store of ``rows`` rows ``{'doc_id': int64, 'tokens': int32 (seq_len,)}``
+    in ``n_files`` files; returns the token rows."""
+    schema = Unischema('Tokens', [
+        UnischemaField('doc_id', np.int64, (), ScalarCodec(), False),
+        UnischemaField('tokens', np.int32, (seq_len,), NdarrayCodec(), False),
+    ])
+    tokens = token_rows(rows, seq_len)
+    write_rows(url, schema, [{'doc_id': i, 'tokens': t} for i, t in enumerate(tokens)],
+               rowgroup_size_mb=rowgroup_size_mb, n_files=n_files)
+    return tokens
+
+
+def ragged_documents(count, min_len, max_len, vocab, seed):
+    """``count`` documents with lengths uniform in ``[min_len, max_len]`` and
+    tokens uniform in ``[0, vocab)``, drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(min_len, max_len + 1, size=count)
+    return [rng.randint(0, vocab, size=n).astype(np.int32) for n in lengths]
+
+
+def write_packed_store(url, documents, seq_len, n_files=1, rowgroup_size_mb=32):
+    """Pack ``documents`` into ``seq_len`` bins and store one row per bin with
+    int32 ``(seq_len,)`` fields ``tokens``, ``tokens_segments`` and
+    ``tokens_positions`` (plus an int64 ``bin_id``); returns the packed arrays."""
+    packed = pack_sequences(documents, seq_len)
+    schema = Unischema('PackedTokens', [
+        UnischemaField('bin_id', np.int64, (), ScalarCodec(), False),
+        UnischemaField('tokens', np.int32, (seq_len,), NdarrayCodec(), False),
+        UnischemaField('tokens_segments', np.int32, (seq_len,), NdarrayCodec(), False),
+        UnischemaField('tokens_positions', np.int32, (seq_len,), NdarrayCodec(), False),
+    ])
+    rows = [{'bin_id': i, 'tokens': packed['tokens'][i],
+             'tokens_segments': packed['segments'][i],
+             'tokens_positions': packed['positions'][i]}
+            for i in range(len(packed['tokens']))]
+    write_rows(url, schema, rows, rowgroup_size_mb=rowgroup_size_mb, n_files=n_files)
+    return packed

@@ -52,3 +52,48 @@ def resnet_state_dict_from_flax(variables):
     dense = params['Dense_0']
     put('head', {'weight': np.asarray(dense['kernel']).T, 'bias': np.asarray(dense['bias'])})
     return out
+
+
+#: flax submodule name -> port submodule name inside one transformer block
+_TRANSFORMER_BLOCK_LAYERS = (('LayerNorm_0', 'norm_attn'), ('Dense_0', 'qkv'),
+                             ('Dense_1', 'proj'), ('LayerNorm_1', 'norm_mlp'),
+                             ('Dense_2', 'mlp_up'), ('Dense_3', 'mlp_down'))
+
+
+def _dense(params):
+    out = {'weight': np.asarray(params['kernel']).T}
+    if 'bias' in params:
+        out['bias'] = np.asarray(params['bias'])
+    return out
+
+
+def _layer_norm(params):
+    return {'weight': np.asarray(params['scale']), 'bias': np.asarray(params['bias'])}
+
+
+def transformer_state_dict_from_flax(variables):
+    """``petastorm_tpu.models.transformer.TransformerLM`` variables
+    (``{'params': ...}`` with numpy leaves) -> a ``state_dict`` for
+    :class:`petastorm_tpu_torch.models.transformer.TransformerLM` of the same
+    configuration: token and position tables as they are, dense kernels
+    ``(in, out)`` -> ``(out, in)``, layer-norm scale/bias as weight/bias."""
+    params = variables['params']
+    out = {}
+
+    def put(prefix, tensors):
+        for name, value in tensors.items():
+            out['{}.{}'.format(prefix, name)] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+
+    put('tok_embed', {'weight': params['Embed_0']['embedding']})
+    put('pos_embed', {'weight': params['Embed_1']['embedding']})
+    index = 0
+    while 'Block_{}'.format(index) in params:
+        block = params['Block_{}'.format(index)]
+        for flax_name, port_name in _TRANSFORMER_BLOCK_LAYERS:
+            convert = _layer_norm if flax_name.startswith('LayerNorm') else _dense
+            put('blocks.{}.{}'.format(index, port_name), convert(block[flax_name]))
+        index += 1
+    put('norm', _layer_norm(params['LayerNorm_0']))
+    put('head', _dense(params['Dense_0']))
+    return out

@@ -3,10 +3,13 @@
 Each kernel source has a plain C interface and is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``
 (seconds per source, against minutes for an extension that includes
-PyTorch's headers). Libraries land in ``petastorm_tpu_torch/_build/``, named
-by a digest of their source, so an edited source rebuilds and an unchanged
-one is reused. :func:`load` compiles a missing library on first use and
-raises with the compiler's output if ``nvcc`` fails; nothing falls back.
+PyTorch's headers). A source may export several entry points (the three
+flash-attention kernels share one). Libraries land in
+``petastorm_tpu_torch/_build/``, named by a digest of their source, so an
+edited source rebuilds and an unchanged one is reused. :func:`load` compiles
+a missing library on first use, one ``nvcc`` call per source, and raises
+with the compiler's output if ``nvcc`` fails; nothing falls back. Loads of
+different libraries may run in parallel threads; each library builds once.
 """
 
 import ctypes
@@ -19,18 +22,32 @@ import threading
 _PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PACKAGE_DIR, '_build')
 
-#: kernel library name -> (source under csrc/, C signature as ctypes argtypes)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: library name -> (source under csrc/, {exported C function: ctypes argtypes})
 KERNELS = {
-    'stored_copy': ('stored_copy.cu',
-                    (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_void_p, ctypes.c_void_p)),
+    'stored_copy': ('stored_copy.cu', {
+        'stored_copy': (_P, _P, _I, _P, _P),
+    }),
+    'flash_attention': ('flash_attention.cu', {
+        # q, k, v, seg, o, lse, bh, t, d, heads, causal, dtype, stream
+        'flash_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # q, k, v, do, lse, delta, seg, dq, bh, t, d, heads, causal, dtype, stream
+        'flash_bwd_dq': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # q, k, v, do, lse, delta, seg, dk, dv, bh, t, d, heads, causal, dtype, stream
+        'flash_bwd_dkv': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    }),
 }
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
-_lock = threading.Lock()
+_locks = {name: threading.Lock() for name in KERNELS}
 _loaded = {}
+#: the compiler's register and shared-memory report (``-Xptxas -v``) of each
+#: library built by this process
+build_log = {}
 
 
 def _source_path(name):
@@ -38,7 +55,7 @@ def _source_path(name):
 
 
 def library_path(name):
-    """Where the library of kernel ``name`` is built: keyed by its source."""
+    """Where the library of kernel source ``name`` is built: keyed by its source."""
     with open(_source_path(name), 'rb') as f:
         digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(name, digest[:16]))
@@ -58,25 +75,39 @@ def _nvcc():
 def _compile(name, path):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = '{}.{}.tmp'.format(path, os.getpid())
-    result = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, _source_path(name)],
-                            capture_output=True, text=True)
+    result = subprocess.run([_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp,
+                             _source_path(name)], capture_output=True, text=True)
     if result.returncode != 0:
         raise RuntimeError('nvcc failed for {} (exit {}):\n{}{}'.format(
             name, result.returncode, result.stdout, result.stderr))
     os.replace(tmp, path)
+    return result.stdout + result.stderr
 
 
-def load(name):
-    """The ``ctypes`` function of kernel ``name`` (built on first use), with its
-    argument types declared and an ``int`` (``cudaError_t``) result."""
-    with _lock:
-        fn = _loaded.get(name)
+def _built(name):
+    path = library_path(name)
+    if not os.path.exists(path):
+        build_log[name] = _compile(name, path)
+    return path
+
+
+def build(name):
+    """Build the library of kernel source ``name`` unless it exists; return
+    its path."""
+    with _locks[name]:
+        return _built(name)
+
+
+def load(name, symbol=None):
+    """The ``ctypes`` function ``symbol`` (default: ``name``) of kernel source
+    ``name``, built on first use, with its argument types declared and an
+    ``int`` (``cudaError_t``) result."""
+    symbol = symbol or name
+    with _locks[name]:
+        fn = _loaded.get((name, symbol))
         if fn is None:
-            path = library_path(name)
-            if not os.path.exists(path):
-                _compile(name, path)
-            fn = getattr(ctypes.CDLL(path), name)
-            fn.argtypes = KERNELS[name][1]
+            fn = getattr(ctypes.CDLL(_built(name)), symbol)
+            fn.argtypes = KERNELS[name][1][symbol]
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
+            _loaded[(name, symbol)] = fn
         return fn
