@@ -2,7 +2,7 @@
 """Chip smoke of petastorm_tpu_torch on one NVIDIA card (Hopper, sm_90a).
 
 Builds the port's CUDA kernels from ``petastorm_tpu_torch/csrc`` (one nvcc per
-source, all started together), holds each kernel against its plain PyTorch
+source), holds each kernel against its plain PyTorch
 version on the card, then drives the port's two paths at full width:
 
 - the ImageNet device-decode path: an ImageNet-shaped store (256x256x3 DCT
@@ -23,7 +23,7 @@ after, and fails unless every kernel of the path launched on it. The flash
 kernels are compared with their plain versions in four modes (causal,
 non-causal, segmented with padding, head_dim 64 with a ragged T), and the LM
 path's first-batch loss and gradient norm with the kernels against the same
-model run with the plain versions.
+model run with plain dense attention.
 
 Run from the repository root with no arguments::
 
@@ -46,7 +46,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 import zlib
 
@@ -69,6 +68,7 @@ from petastorm_tpu_torch.models.transformer import next_token_loss
 from petastorm_tpu_torch.ops import raw_decode
 from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_loss,
                                              segment_causal_attention)
+from petastorm_tpu_torch.ops.ring_attention import dense_attention
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 # the module, not the function the ops package exports under the same name
@@ -322,9 +322,6 @@ def phase_image_check(url, blobs, args):
 
 # ------------------------------------------------------- flash attention kernels
 
-#: the device the flash and LM phases run on (a CPU rehearsal of their
-#: control flow may set 'cpu'; the kernels then run their plain versions)
-DEVICE = 'cuda'
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the bound of the
 #: compute-bound flash kernels
 PEAK_BF16_FLOPS = 989e12
@@ -336,23 +333,38 @@ LM_BATCH = 2
 LM_STEPS = 8
 PACKED_STEPS = 4
 #: the LM path's first-batch loss and gradient norm, kernels against plain
-#: versions: relative tolerances. Both runs round the same bf16 model; they
-#: differ only where the kernels' fp32 sums, taken in another order, round an
-#: attention output to the neighbouring bf16 value.
-LM_LOSS_RTOL = 1e-3
-LM_GRAD_NORM_RTOL = 1e-2
+#: dense attention: relative tolerances, about four times the largest errors
+#: measured on an H100 (loss 1.1e-5, gradient norm 2.8e-5). Both runs
+#: compute attention in fp32 and round the same bf16 model; they differ by
+#: summation order, and where that rounds an attention output or gradient to
+#: the neighbouring bf16 value.
+LM_LOSS_RTOL = 5e-5
+LM_GRAD_NORM_RTOL = 1e-4
+#: a flash output against its plain version, by the output's dtype (lse is
+#: float32): (rtol, atol) of the element-wise bound |got - want| <= rtol *
+#: |want| + atol * max|want|, and the limit of ||got - want|| / ||want||.
+#: Both sides compute in fp32 on the same inputs and differ by summation
+#: order before the final rounding, so a bfloat16 element may land on the
+#: neighbouring bf16 value (at most 2^-7 of it away); atol covers the fp32
+#: difference where the value itself is near 0. On an H100 the correct
+#: kernels use at most 0.97 of an element's bf16 allowance (an element on
+#: the neighbouring value) and 0.29 of its float32 one, with norm errors up
+#: to 4.5e-5 (bf16) and 1.3e-7 (float32); a kernel that skips one 64-row
+#: tile of a long row exceeds an element's allowance 1100-2000 times.
+FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -16, 2.0 ** -12),
+             torch.float32: (2.0 ** -18, 2.0 ** -22, 2.0 ** -21)}
 
 
-def flash_tolerance(want, dtype):
-    """Allowed max |kernel - plain| for one output: the kernel and its plain
-    version compute in fp32 on the same inputs and differ by summation order,
-    then round to ``dtype``; in bfloat16 that is within one ulp (2^-7 of the
-    value), so two ulps of the tensor's largest value are allowed; float32
-    outputs get 1e-4 of it, and lse (float32 in both) 1e-4 of its largest."""
-    scale = max(float(want.abs().max()), 1.0)
-    if dtype == torch.bfloat16 and want.dtype == torch.bfloat16:
-        return 2.0 ** -6 * scale
-    return 1e-4 * scale
+def flash_compare(got, want):
+    """(max |got - want|, the largest share of its element's allowance, the
+    relative norm error) of one flash output against its plain version."""
+    rtol, atol, _ = FLASH_TOL[want.dtype]
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    allowed = rtol * want.abs() + atol * float(want.abs().max())
+    share = float((err / allowed.clamp_min(1e-30)).max())
+    norm = float(want.norm())
+    return float(err.max()), share, float(err.norm()) / norm if norm else float(err.norm())
 
 
 def attending_pairs(bh, t, causal, segments, heads):
@@ -401,21 +413,21 @@ def short_segments(b, t, seed):
             seg[row, pos:pos + n] = ident
             ident += 1
             pos += n
-    return torch.from_numpy(seg).to(DEVICE)
+    return torch.from_numpy(seg).to('cuda')
 
 
 def packed_segments(b, t, seed):
     """[B, T] int32 segments of the packed path: documents of 256-4096 tokens
     packed into T-token bins."""
     docs = ragged_documents(48, 256, 4096, 256, seed)
-    return torch.from_numpy(pack_sequences(docs, t)['segments'][:b]).to(DEVICE)
+    return torch.from_numpy(pack_sequences(docs, t)['segments'][:b]).to('cuda')
 
 
-def flash_case(name, b, t, h, d, causal, dtype, segments, seed):
-    """Each of K2, K3 and K4 against its plain version on the same inputs;
-    returns the case's errors and tolerances."""
+def flash_outputs(b, t, h, d, causal, dtype, segments, seed):
+    """K2, K3 and K4 and their plain versions on the same inputs: a list of
+    (kernel, output, got, want)."""
     gen = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(b * h, t, d, generator=gen).to(DEVICE, dtype)
+    q, k, v, do = (torch.randn(b * h, t, d, generator=gen).to('cuda', dtype)
                    for _ in range(4))
     o, lse = flash.flash_forward(q, k, v, causal, segments, h)
     o_ref, lse_ref = flash.flash_forward_plain(q, k, v, causal, segments, h)
@@ -426,31 +438,18 @@ def flash_case(name, b, t, h, d, causal, dtype, segments, seed):
     dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal,
                                                segments, h)
     torch.cuda.synchronize()
-    result = {'shape': [b * h, t, d], 'causal': causal, 'dtype': str(dtype),
-              'segmented': segments is not None}
-    for kernel, pairs in (('fwd', ((o, o_ref, 'o'), (lse, lse_ref, 'lse'))),
-                          ('dq', ((dq, dq_ref, 'dq'),)),
-                          ('dkv', ((dk, dk_ref, 'dk'), (dv, dv_ref, 'dv')))):
-        for got, want, label in pairs:
-            check(bool(torch.isfinite(got.float()).all()),
-                  'flash {} {}: non-finite {}'.format(name, kernel, label))
-            err = float((got.float() - want.float()).abs().max())
-            tol = flash_tolerance(want, dtype)
-            result[label] = {'max_abs_err': err, 'tol': tol}
-            check(err <= tol, 'flash {} {}: {} differs from the plain version by {} > {}'
-                  .format(name, kernel, label, err, tol))
-    return result
+    return [('fwd', 'o', o, o_ref), ('fwd', 'lse', lse, lse_ref), ('dq', 'dq', dq, dq_ref),
+            ('dkv', 'dk', dk, dk_ref), ('dkv', 'dv', dv, dv_ref)]
 
 
-def phase_flash(seed):
-    """K2-K4 against their plain versions in four modes, at a small shape and
-    (causal, segmented-causal) the LM path's shape; then times at the LM
-    path's shape."""
+def flash_cases(seed):
+    """name -> (B, T, H, D, causal, dtype, segments): four modes at a small
+    shape, causal and segmented-causal also at the LM path's shape."""
     heads = LM['heads']
     d = LM['embed'] // heads
     t_main = LM['max_len']
     bf16 = torch.bfloat16
-    cases = {
+    return {
         'causal': (2, 320, 2, 128, True, bf16, None),
         'causal_f32': (2, 320, 2, 128, True, torch.float32, None),
         'noncausal': (2, 320, 2, 128, False, bf16, None),
@@ -461,13 +460,39 @@ def phase_flash(seed):
         'segmented_causal_main': (LM_BATCH, t_main, heads, d, True, bf16,
                                   packed_segments(LM_BATCH, t_main, seed)),
     }
+
+
+def flash_case(name, b, t, h, d, causal, dtype, segments, seed):
+    """Each of K2, K3 and K4 against its plain version on the same inputs,
+    element by element and in norm (``FLASH_TOL``); returns the case's
+    errors."""
+    result = {'shape': [b * h, t, d], 'causal': causal, 'dtype': str(dtype),
+              'segmented': segments is not None}
+    for kernel, label, got, want in flash_outputs(b, t, h, d, causal, dtype, segments, seed):
+        check(bool(torch.isfinite(got.float()).all()),
+              'flash {} {}: non-finite {}'.format(name, kernel, label))
+        err, share, norm_err = flash_compare(got, want)
+        result[label] = {'max_abs_err': err, 'tol_share': share, 'rel_norm_err': norm_err}
+        check(share <= 1 and norm_err <= FLASH_TOL[want.dtype][2],
+              'flash {} {}: {} differs from the plain version: {} (tolerance {})'.format(
+                  name, kernel, label, result[label], FLASH_TOL[want.dtype]))
+    return result
+
+
+def phase_flash(seed):
+    """K2-K4 against their plain versions in four modes, at a small shape and
+    (causal, segmented-causal) the LM path's shape; then times at the LM
+    path's shape."""
     result = {'cases': {}}
-    for index, (name, args) in enumerate(cases.items()):
+    for index, (name, args) in enumerate(flash_cases(seed).items()):
         result['cases'][name] = flash_case(name, *args, seed=seed + index)
     # times at the LM path's shape, causal, bf16
+    heads = LM['heads']
+    d = LM['embed'] // heads
+    t_main = LM['max_len']
     bh = LM_BATCH * heads
     gen = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(bh, t_main, d, generator=gen).to(DEVICE, bf16)
+    q, k, v, do = (torch.randn(bh, t_main, d, generator=gen).to('cuda', torch.bfloat16)
                    for _ in range(4))
     o, lse = flash.flash_forward_plain(q, k, v, True)
     delta = (do.float() * o.float()).sum(dim=-1)
@@ -527,8 +552,8 @@ def causal_flash(q, k, v):
     return flash.flash_attention(q, k, v, causal=True)
 
 
-def causal_plain(q, k, v):
-    return flash.flash_attention(q, k, v, causal=True, plain=True)
+def causal_dense(q, k, v):
+    return dense_attention(q, k, v, causal=True)
 
 
 def loss_and_grad_norm(model, loss_fn):
@@ -541,8 +566,8 @@ def loss_and_grad_norm(model, loss_fn):
 
 
 def first_batch_parity(model, loss_with):
-    """The first batch's loss and gradient norm with the kernels and with the
-    plain versions, outside any counted run."""
+    """The first batch's loss and gradient norm with the kernels and with
+    plain dense attention, outside any counted run."""
     kernel_loss, kernel_norm = loss_and_grad_norm(model, lambda: loss_with(True))
     plain_loss, plain_norm = loss_and_grad_norm(model, lambda: loss_with(False))
     torch.cuda.synchronize()
@@ -555,17 +580,22 @@ def first_batch_parity(model, loss_with):
           'non-finite first-batch loss or gradient norm {}'.format(result))
     check(result['loss_rel_err'] <= LM_LOSS_RTOL
           and result['grad_norm_rel_err'] <= LM_GRAD_NORM_RTOL,
-          'first-batch loss/gradient norm with the kernels differ from the plain '
-          'versions: {}'.format(result))
+          'first-batch loss/gradient norm with the kernels differ from dense '
+          'attention: {}'.format(result))
     return result
 
 
 def train_lm(batches, optimizer, steps, step_loss):
-    """``steps`` Adam steps on ``batches`` with ``step_loss(batch)``; returns
-    per-step losses and times (the first step is the warm-up)."""
+    """``steps`` Adam steps on ``batches`` with ``step_loss(batch)``, the first
+    a warm-up; returns per-step losses and times (a step's time starts after
+    its batch arrived), and the wall time of the steps after the warm-up,
+    their batch fetches included."""
     losses, step_s = [], []
     batches = iter(batches)
-    for _ in range(steps):
+    window_start = None
+    for index in range(steps):
+        if index == 1:
+            window_start = time.perf_counter()
         batch = next(batches)
         start = time.perf_counter()
         optimizer.zero_grad(set_to_none=True)
@@ -575,17 +605,19 @@ def train_lm(batches, optimizer, steps, step_loss):
         losses.append(loss.detach())
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - start)
-    return [float(x) for x in losses], step_s
+    return [float(x) for x in losses], step_s, time.perf_counter() - window_start
 
 
-def lm_metrics(losses, step_s, stats, tokens_per_step, flops_per_step):
+def lm_metrics(losses, step_s, window_s, stats, tokens_per_step, flops_per_step):
+    """tokens/s over the timed window (input included); step median, model
+    TFLOP/s and MFU from the steps' own times."""
     timed = step_s[1:]
-    wall = sum(timed)
     tflops, util = mfu(flops_per_step, statistics.median(timed))
     return {'steps_run': len(losses), 'timed_steps': len(timed), 'losses': losses,
             'step_ms': [x * 1e3 for x in step_s],
             'step_ms_median': statistics.median(timed) * 1e3,
-            'tokens_per_s': tokens_per_step * len(timed) / wall,
+            'window_s': window_s,
+            'tokens_per_s': tokens_per_step * len(timed) / window_s,
             'model_tflops_per_s': tflops, 'mfu': util,
             'flops_per_step': flops_per_step,
             'peak_memory_bytes': torch.cuda.max_memory_allocated(),
@@ -599,32 +631,32 @@ def phase_lm(tmp, seed):
     path = os.path.join(tmp, 'tokens')
     write_token_store('file://' + path, LM_ROWS, LM['max_len'], n_files=2)
     torch.manual_seed(seed)
-    model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, device=DEVICE, **LM)
+    model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
     optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
     flops = transformer_train_flops_per_step(LM_BATCH, LM['max_len'], LM['vocab'],
                                              LM['embed'], LM['layers'])
     with make_reader('file://' + path, workers_count=2, seed=seed) as reader:
         loader = TorchDataLoader(reader, batch_size=LM_BATCH, shuffling_queue_capacity=16,
-                                 seed=3, drop_last=True, device=DEVICE)
+                                 seed=3, drop_last=True)
         batches = iter(loader)
         first = next(batches)
         check(tuple(first['tokens'].shape) == (LM_BATCH, LM['max_len'])
               and first['tokens'].dtype == torch.int32
-              and first['tokens'].device.type == torch.device(DEVICE).type,
+              and first['tokens'].device.type == 'cuda',
               'token batch shape/dtype/device')
         tokens = first['tokens']
         parity = first_batch_parity(model, lambda kernels: next_token_loss(
-            model(tokens, attention_fn=causal_flash if kernels else causal_plain), tokens))
+            model(tokens, attention_fn=causal_flash if kernels else causal_dense), tokens))
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        losses, step_s = train_lm(
+        losses, step_s, window_s = train_lm(
             itertools.chain([first], batches), optimizer, LM_STEPS + 1,
             lambda batch: next_token_loss(model(batch['tokens']), batch['tokens']))
         counts = read_counts()
         stats = loader.stats.as_dict()
     launches = {name: counts[name] for name in FLASH_PRODUCTS}
     fallbacks = counts['dense_fallbacks']
-    result = lm_metrics(losses, step_s, stats, LM_BATCH * LM['max_len'], flops)
+    result = lm_metrics(losses, step_s, window_s, stats, LM_BATCH * LM['max_len'], flops)
     result.update(first_batch=parity, launches=launches, dense_fallbacks=fallbacks,
                   counts=counts)
     expected = LM['layers'] * result['steps_run']
@@ -644,21 +676,18 @@ def phase_packed(tmp, seed):
     docs = ragged_documents(48, 256, 4096, LM['vocab'], seed)
     packed = write_packed_store('file://' + path, docs, LM['max_len'])
     torch.manual_seed(seed)
-    model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, **LM)
+    model = TransformerLM(dtype=torch.bfloat16, **LM)
     optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
 
     def packed_loss(batch, kernels=True):
         segments = batch['tokens_segments']
-        attention = segment_causal_attention(segments, use_flash=True)
-        if not kernels:
-            def attention(q, k, v):
-                return flash.flash_attention_segmented(q, k, v, segments, True, plain=True)
+        attention = segment_causal_attention(segments, use_flash=kernels)
         logits = model(batch['tokens'], positions=batch['tokens_positions'],
                        attention_fn=attention)
         return packed_next_token_loss(logits, batch['tokens'], segments)
 
     with make_reader('file://' + path, workers_count=2, seed=seed) as reader:
-        loader = TorchDataLoader(reader, batch_size=LM_BATCH, drop_last=True, device=DEVICE)
+        loader = TorchDataLoader(reader, batch_size=LM_BATCH, drop_last=True)
         batches = iter(loader)
         first = next(batches)
         check(all(tuple(first[name].shape) == (LM_BATCH, LM['max_len'])
@@ -667,15 +696,15 @@ def phase_packed(tmp, seed):
         parity = first_batch_parity(model, lambda kernels: packed_loss(first, kernels))
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        losses, step_s = train_lm(itertools.chain([first], batches), optimizer,
-                                  PACKED_STEPS, packed_loss)
+        losses, step_s, window_s = train_lm(itertools.chain([first], batches), optimizer,
+                                            PACKED_STEPS, packed_loss)
         counts = read_counts()
         stats = loader.stats.as_dict()
     flops = transformer_train_flops_per_step(LM_BATCH, LM['max_len'], LM['vocab'],
                                              LM['embed'], LM['layers'])
     launches = {name: counts[name] for name in FLASH_PRODUCTS}
     fallbacks = counts['dense_fallbacks']
-    result = lm_metrics(losses, step_s, stats, LM_BATCH * LM['max_len'], flops)
+    result = lm_metrics(losses, step_s, window_s, stats, LM_BATCH * LM['max_len'], flops)
     result.update(first_batch=parity, launches=launches, dense_fallbacks=fallbacks,
                   counts=counts, bins=int(len(packed['tokens'])), documents=len(docs),
                   fill=float((packed['segments'] > 0).mean()))
@@ -689,30 +718,13 @@ def phase_packed(tmp, seed):
 
 
 def build_kernels():
-    """Build every kernel source at once (one nvcc per source, each in its
-    own thread); returns the build time and the compiler's reports."""
-    errors = []
-
-    def build(name):
-        try:
-            cuda_build.build(name)
-        except Exception as exc:  # noqa: BLE001 - re-raised below with every failure
-            errors.append('{}: {}'.format(name, exc))
-
+    """Build and load every entry point of every kernel source (one nvcc call
+    per source); returns the seconds it took."""
     start = time.perf_counter()
-    threads = [threading.Thread(target=build, args=(name,)) for name in cuda_build.KERNELS]
-    for thread in threads:
-        thread.start()
-    for thread in threads:
-        thread.join()
-    check(not errors, 'kernel build failed:\n' + '\n'.join(errors))
-    return time.perf_counter() - start, dict(cuda_build.build_log)
-
-
-def ptxas_summary(log_text):
-    """The compiler's per-kernel register and spill lines, shortened."""
-    return [line.strip() for line in log_text.splitlines()
-            if 'registers' in line or 'spill' in line or 'Compiling entry' in line]
+    for name, (_, symbols) in cuda_build.KERNELS.items():
+        for symbol in symbols:
+            cuda_build.load(name, symbol)
+    return time.perf_counter() - start
 
 
 def main(argv=None):
@@ -738,12 +750,9 @@ def main(argv=None):
     record = {'card': card, 'device': device_name}
     run_start = time.perf_counter()
 
-    record['build_s'], build_logs = build_kernels()
-    record['ptxas'] = {name: ptxas_summary(text) for name, text in build_logs.items()}
-    log('phase 2 build: {} in {:.3f} s (parallel nvcc)'.format(', '.join(cuda_build.KERNELS),
-                                                                record['build_s']))
-    for name, lines in record['ptxas'].items():
-        log('  ptxas {}: {}'.format(name, ' | '.join(l for l in lines if 'registers' in l)))
+    record['build_s'] = build_kernels()
+    log('phase 2 build: {} in {:.3f} s'.format(', '.join(cuda_build.KERNELS),
+                                               record['build_s']))
 
     k1 = phase_k1(args.batch, args.seed)
     record['k1'] = k1

@@ -8,8 +8,7 @@ flash-attention kernels share one). Libraries land in
 ``petastorm_tpu_torch/_build/``, named by a digest of their source, so an
 edited source rebuilds and an unchanged one is reused. :func:`load` compiles
 a missing library on first use, one ``nvcc`` call per source, and raises
-with the compiler's output if ``nvcc`` fails; nothing falls back. Loads of
-different libraries may run in parallel threads; each library builds once.
+with the compiler's output if ``nvcc`` fails; nothing falls back.
 """
 
 import ctypes
@@ -43,11 +42,8 @@ KERNELS = {
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
-_locks = {name: threading.Lock() for name in KERNELS}
+_lock = threading.Lock()
 _loaded = {}
-#: the compiler's register and shared-memory report (``-Xptxas -v``) of each
-#: library built by this process
-build_log = {}
 
 
 def _source_path(name):
@@ -75,27 +71,12 @@ def _nvcc():
 def _compile(name, path):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = '{}.{}.tmp'.format(path, os.getpid())
-    result = subprocess.run([_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp,
-                             _source_path(name)], capture_output=True, text=True)
+    result = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, _source_path(name)],
+                            capture_output=True, text=True)
     if result.returncode != 0:
         raise RuntimeError('nvcc failed for {} (exit {}):\n{}{}'.format(
             name, result.returncode, result.stdout, result.stderr))
     os.replace(tmp, path)
-    return result.stdout + result.stderr
-
-
-def _built(name):
-    path = library_path(name)
-    if not os.path.exists(path):
-        build_log[name] = _compile(name, path)
-    return path
-
-
-def build(name):
-    """Build the library of kernel source ``name`` unless it exists; return
-    its path."""
-    with _locks[name]:
-        return _built(name)
 
 
 def load(name, symbol=None):
@@ -103,10 +84,13 @@ def load(name, symbol=None):
     ``name``, built on first use, with its argument types declared and an
     ``int`` (``cudaError_t``) result."""
     symbol = symbol or name
-    with _locks[name]:
+    with _lock:
         fn = _loaded.get((name, symbol))
         if fn is None:
-            fn = getattr(ctypes.CDLL(_built(name)), symbol)
+            path = library_path(name)
+            if not os.path.exists(path):
+                _compile(name, path)
+            fn = getattr(ctypes.CDLL(path), symbol)
             fn.argtypes = KERNELS[name][1][symbol]
             fn.restype = ctypes.c_int
             _loaded[(name, symbol)] = fn

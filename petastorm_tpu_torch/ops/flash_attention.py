@@ -28,8 +28,7 @@ for CUDA tensors and counts the launch in ``flash_attention.launches``
 (``{'fwd': n, 'dq': n, 'dkv': n}``). For CPU tensors it runs the plain
 PyTorch version beside it (:func:`flash_forward_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`), which the CPU tests
-and ``chip_smoke.py``'s comparisons use; ``plain=True`` runs them on any
-device, and nothing on the main path sets it.
+and ``chip_smoke.py``'s comparisons also call directly.
 """
 
 import torch
@@ -249,10 +248,6 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, segments=None, heads=1)
     return dk, dv
 
 
-_KERNELS = (flash_forward, flash_bwd_dq, flash_bwd_dkv)
-_PLAIN = (flash_forward_plain, flash_bwd_dq_plain, flash_bwd_dkv_plain)
-
-
 # ----------------------------------------------------------------- autograd
 
 def _to_bh(x):
@@ -266,18 +261,16 @@ def _from_bh(x, b, h):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward through K2, backward through K3 and K4 (or all three plain
-    versions), on [B, T, H, D] inputs."""
+    """Forward through K2, backward through K3 and K4, on [B, T, H, D]
+    inputs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segments, causal, plain):
+    def forward(ctx, q, k, v, segments, causal):
         b, _, h, _ = q.shape
-        forward = (_PLAIN if plain else _KERNELS)[0]
         q_bh, k_bh, v_bh = _to_bh(q), _to_bh(k), _to_bh(v)
-        o_bh, lse = forward(q_bh, k_bh, v_bh, causal, segments, h)
+        o_bh, lse = flash_forward(q_bh, k_bh, v_bh, causal, segments, h)
         ctx.save_for_backward(q_bh, k_bh, v_bh, o_bh, lse, segments)
         ctx.causal = causal
-        ctx.plain = plain
         ctx.dims = (b, h)
         return _from_bh(o_bh, b, h)
 
@@ -285,13 +278,12 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, grad):
         q_bh, k_bh, v_bh, o_bh, lse, segments = ctx.saved_tensors
         b, h = ctx.dims
-        _, dq_fn, dkv_fn = _PLAIN if ctx.plain else _KERNELS
         do = _to_bh(grad.to(o_bh.dtype))
         # the softmax jacobian's diagonal term, O(T * D): no score matrix
         delta = (do.float() * o_bh.float()).sum(dim=-1)
-        dq = dq_fn(q_bh, k_bh, v_bh, do, lse, delta, ctx.causal, segments, h)
-        dk, dv = dkv_fn(q_bh, k_bh, v_bh, do, lse, delta, ctx.causal, segments, h)
-        return _from_bh(dq, b, h), _from_bh(dk, b, h), _from_bh(dv, b, h), None, None, None
+        dq = flash_bwd_dq(q_bh, k_bh, v_bh, do, lse, delta, ctx.causal, segments, h)
+        dk, dv = flash_bwd_dkv(q_bh, k_bh, v_bh, do, lse, delta, ctx.causal, segments, h)
+        return _from_bh(dq, b, h), _from_bh(dk, b, h), _from_bh(dv, b, h), None, None
 
 
 def _use_kernels(q, k, v):
@@ -308,18 +300,17 @@ def _count_fallback():
     dense_fallbacks += 1
 
 
-def flash_attention(q, k, v, causal=False, block_q='auto', block_k='auto', plain=False):
+def flash_attention(q, k, v, causal=False, block_q='auto', block_k='auto'):
     """Exact attention over ``[B, T, H, D]`` inputs (the layout of
     :func:`~petastorm_tpu_torch.ops.ring_attention.dense_attention`), forward
     through K2 and backward through K3/K4, with O(T * tile) memory in both.
     Shapes the kernels do not take run the dense path (counted in
     ``dense_fallbacks``). ``block_q``/``block_k`` are ignored (the kernels
-    pick their tiles); ``plain=True`` runs the plain versions instead of the
-    kernels, for comparisons."""
+    pick their tiles)."""
     if not _use_kernels(q, k, v):
         _count_fallback()
         return dense_attention(q, k, v, causal=causal)
-    return _FlashAttention.apply(q, k, v, None, bool(causal), bool(plain))
+    return _FlashAttention.apply(q, k, v, None, bool(causal))
 
 
 #: launches of K2 ('fwd'), K3 ('dq') and K4 ('dkv') since the counts were
@@ -328,7 +319,7 @@ flash_attention.launches = {'fwd': 0, 'dq': 0, 'dkv': 0}
 
 
 def flash_attention_segmented(q, k, v, segments, causal=False, block_q='auto',
-                              block_k='auto', plain=False):
+                              block_k='auto'):
     """Flash attention confined to packed-sequence segments: ``[B, T, H, D]``
     inputs plus ``segments [B, T]`` int32 (0 = padding, documents numbered
     from 1; padding rows emit zeros), through the same kernels with the
@@ -342,4 +333,4 @@ def flash_attention_segmented(q, k, v, segments, causal=False, block_q='auto',
         _count_fallback()
         return masked_dense_attention(q, k, v, segment_mask(segments, segments, causal=causal))
     segments = segments.to(device=q.device, dtype=torch.int32).contiguous()
-    return _FlashAttention.apply(q, k, v, segments, bool(causal), bool(plain))
+    return _FlashAttention.apply(q, k, v, segments, bool(causal))
