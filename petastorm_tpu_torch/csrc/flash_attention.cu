@@ -20,9 +20,14 @@
 // tensor cores' 989 TFLOP/s bf16 the least times are ~0.14, 0.21 and 0.28 ms,
 // far above the ~0.01 ms the bytes need at 3.35 TB/s.
 //
-// Design, simple and right first: fp32 SIMT arithmetic (no tensor cores yet),
-// so these kernels can reach at most the 67 TFLOP/s of the FP32 pipes; a
-// wgmma/TMA redesign is later work. The TPU kernels carry the online-softmax
+// bfloat16 inputs take the tensor-core kernels of flash_attention_sm90.cuh
+// for K2 and K4 (wgmma with TMA-fed shared-memory rings; see that file).
+// The kernels below serve float32 inputs for all three, and K3 for both
+// dtypes.
+//
+// Design of the kernels below, simple and right first: fp32 SIMT arithmetic
+// (no tensor cores), so they can reach at most the 67 TFLOP/s of the FP32
+// pipes. The TPU kernels carry the online-softmax
 // state across a sequential grid axis in VMEM scratch; here that axis is a
 // loop inside one CTA:
 //   - K2 and K3: one CTA per (bh, 64-row q tile), looping over 64-row k tiles;
@@ -36,11 +41,13 @@
 // reductions are 4 shuffles. Causal tiles wholly above the diagonal are never
 // visited, and CTAs are numbered so the most loaded causal tiles start first.
 // T need not be a multiple of 64: the ragged tail is loaded as zeros and
-// masked. Head dims 64 and 128, float32 or bfloat16 inputs.
+// masked. Head dims 64 and 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -514,44 +521,52 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // pointers to contiguous arrays: q, k, v, dout, o, dq, dk, dv [bh, t, d] of
 // `dtype` (0 = float32, 1 = bfloat16); lse and delta [bh, t] float32; seg
 // null or [bh / heads, t] int32. d must be 64 or 128; anything else returns
-// cudaErrorInvalidValue without launching. The Python wrappers check shapes,
-// types and devices before they call.
+// cudaErrorInvalidValue without launching. bfloat16 K2 and K4 also return
+// cudaErrorInvalidValue when a TMA tensor map cannot be made (an input not
+// 16-byte aligned). The Python wrappers check shapes, types and devices
+// before they call.
 
-#define FLASH_DISPATCH(CALL)                                        \
+#define FLASH_DISPATCH(F32, BF16)                                      \
+  if (bh <= 0 || t <= 0) return static_cast<int>(cudaSuccess);          \
   if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue); \
-  if (dtype == 0) return d == 64 ? CALL(float, 64) : CALL(float, 128);      \
-  if (dtype == 1) return d == 64 ? CALL(__nv_bfloat16, 64) : CALL(__nv_bfloat16, 128); \
+  if (dtype == 0) return d == 64 ? F32(64) : F32(128);                   \
+  if (dtype == 1) return d == 64 ? BF16(64) : BF16(128);                 \
   return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* seg, void* o,
                          void* lse, int bh, int t, int d, int heads, int causal, int dtype,
                          void* stream) {
-  if (bh <= 0 || t <= 0) return static_cast<int>(cudaSuccess);
-#define CALL(T, D) \
-  launch_fwd<T, D>(q, k, v, seg, o, lse, bh, t, heads, causal, static_cast<cudaStream_t>(stream))
-  FLASH_DISPATCH(CALL)
-#undef CALL
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define F32(D) launch_fwd<float, D>(q, k, v, seg, o, lse, bh, t, heads, causal, s)
+#define BF16(D) sm90::launch_fwd<D>(q, k, v, seg, o, lse, bh, t, heads, causal, s)
+  FLASH_DISPATCH(F32, BF16)
+#undef F32
+#undef BF16
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, const void* seg, void* dq, int bh,
                             int t, int d, int heads, int causal, int dtype, void* stream) {
-  if (bh <= 0 || t <= 0) return static_cast<int>(cudaSuccess);
-#define CALL(T, D)                                                                  \
-  launch_dq<T, D>(q, k, v, dout, lse, delta, seg, dq, bh, t, heads, causal, \
-                  static_cast<cudaStream_t>(stream))
-  FLASH_DISPATCH(CALL)
-#undef CALL
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DQ(T, D) launch_dq<T, D>(q, k, v, dout, lse, delta, seg, dq, bh, t, heads, causal, s)
+#define F32(D) DQ(float, D)
+#define BF16(D) DQ(__nv_bfloat16, D)
+  FLASH_DISPATCH(F32, BF16)
+#undef DQ
+#undef F32
+#undef BF16
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, const void* seg, void* dk,
                              void* dv, int bh, int t, int d, int heads, int causal, int dtype,
                              void* stream) {
-  if (bh <= 0 || t <= 0) return static_cast<int>(cudaSuccess);
-#define CALL(T, D)                                                                      \
-  launch_dkv<T, D>(q, k, v, dout, lse, delta, seg, dk, dv, bh, t, heads, causal, \
-                   static_cast<cudaStream_t>(stream))
-  FLASH_DISPATCH(CALL)
-#undef CALL
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define F32(D) \
+  launch_dkv<float, D>(q, k, v, dout, lse, delta, seg, dk, dv, bh, t, heads, causal, s)
+#define BF16(D) \
+  sm90::launch_dkv<D>(q, k, v, dout, lse, delta, seg, dk, dv, bh, t, heads, causal, s)
+  FLASH_DISPATCH(F32, BF16)
+#undef F32
+#undef BF16
 }

@@ -5,13 +5,17 @@ Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``
 (seconds per source, against minutes for an extension that includes
 PyTorch's headers). A source may export several entry points (the three
 flash-attention kernels share one). Libraries land in
-``petastorm_tpu_torch/_build/``, named by a digest of their source, so an
-edited source rebuilds and an unchanged one is reused. :func:`load` compiles
+``petastorm_tpu_torch/_build/``, named by a digest of their source and the
+headers beside it (``csrc/*.cuh``), so an edited source or header rebuilds
+and an unchanged one is reused. :func:`load` compiles
 a missing library on first use, one ``nvcc`` call per source, and raises
-with the compiler's output if ``nvcc`` fails; nothing falls back.
+with the compiler's output if ``nvcc`` fails; nothing falls back. The
+compiler's report (``-Xptxas -v``: registers, shared memory and spills of
+each kernel) is kept beside the library as ``<library>.log``.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -40,9 +44,10 @@ KERNELS = {
 }
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-_lock = threading.Lock()
+#: one lock per kernel source, so different sources may build at once
+_locks = {name: threading.Lock() for name in KERNELS}
 _loaded = {}
 
 
@@ -51,10 +56,14 @@ def _source_path(name):
 
 
 def library_path(name):
-    """Where the library of kernel source ``name`` is built: keyed by its source."""
-    with open(_source_path(name), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(name, digest[:16]))
+    """Where the library of kernel source ``name`` is built: keyed by its
+    source, the headers it may include and the flags."""
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(_PACKAGE_DIR, 'csrc', '*.cuh')))
+    for path in [_source_path(name)] + headers:
+        with open(path, 'rb') as f:
+            digest.update(os.path.basename(path).encode() + b'\0' + f.read())
+    return os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(name, digest.hexdigest()[:16]))
 
 
 def _nvcc():
@@ -76,15 +85,18 @@ def _compile(name, path):
     if result.returncode != 0:
         raise RuntimeError('nvcc failed for {} (exit {}):\n{}{}'.format(
             name, result.returncode, result.stdout, result.stderr))
+    with open(path + '.log', 'w') as f:
+        f.write(result.stdout + result.stderr)
     os.replace(tmp, path)
 
 
 def load(name, symbol=None):
     """The ``ctypes`` function ``symbol`` (default: ``name``) of kernel source
     ``name``, built on first use, with its argument types declared and an
-    ``int`` (``cudaError_t``) result."""
+    ``int`` (``cudaError_t``) result. Loads of different sources may run in
+    parallel threads (one ``nvcc`` each)."""
     symbol = symbol or name
-    with _lock:
+    with _locks[name]:
         fn = _loaded.get((name, symbol))
         if fn is None:
             path = library_path(name)

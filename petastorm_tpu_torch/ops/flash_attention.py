@@ -4,7 +4,7 @@ kernels, the counterpart of ``petastorm_tpu.ops.flash_attention``.
 :func:`flash_attention` and :func:`flash_attention_segmented` take the JAX
 package's ``[B, T, H, D]`` layout and are ``torch.autograd.Function``\\ s whose
 forward launches K2 and whose backward launches K3 (dQ) and K4 (dK/dV), all
-in ``csrc/flash_attention.cu``:
+exported by ``csrc/flash_attention.cu``:
 
 - K2 replaces ``_flash_kernel`` (``petastorm_tpu/ops/flash_attention.py:44``),
   K3 ``_flash_bwd_dq_kernel`` (``:194``) and K4 ``_flash_bwd_dkv_kernel``
@@ -18,6 +18,11 @@ in ``csrc/flash_attention.cu``:
   compatibility, and the kernels pick their own 64 x 64 tiles. Other shapes
   take the dense path as in the reference, and each such call adds one to
   the module's ``dense_fallbacks``.
+- bfloat16 K2 and K4 run on the tensor cores (``csrc/flash_attention_sm90.cuh``:
+  wgmma fed by TMA), rounding P (and dS in K4) to bf16 before the second
+  product; float32 inputs, and K3 for both dtypes, run fp32 SIMT kernels.
+  :func:`flash_compare` holds a kernel's output against its plain version
+  with an allowance derived from that rounding (:func:`flash_reference`).
 - Segments (``[B, T]`` int32, 0 = padding, documents numbered from 1) are
   shared by the H heads of each batch row; a row with no valid key gets
   ``o = 0`` and ``lse = 0``.
@@ -40,7 +45,7 @@ _NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 #: input dtype -> the kernels' dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernels' grid holds B * H in its y dimension
+#: the fp32 SIMT kernels' grid holds B * H in its y dimension
 _MAX_BH = 65535
 #: query/key rows per step of the plain versions
 _PLAIN_BLOCK = 1024
@@ -146,6 +151,89 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False, segments=None, he
         ds = p * (dp - delta[:, q0:, None])
         dk[:, k0:k1] = (torch.matmul(ds.transpose(1, 2), q[:, q0:].float()) * scale).to(k.dtype)
     return dk, dv
+
+
+def flash_dk_abs_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
+    """``scale * |dS|^T |Q|`` in float32: K4's dK taken over absolute values,
+    the size of the sum whose terms the kernel rounds to bf16."""
+    bh, t, d = q.shape
+    scale = d ** -0.5
+    seg = _bh_segments(segments, heads)
+    out = torch.empty(bh, t, d, dtype=torch.float32, device=q.device)
+    for k0 in range(0, t, _PLAIN_BLOCK):
+        k1 = min(t, k0 + _PLAIN_BLOCK)
+        q0 = k0 if causal else 0
+        p = _replay(q[:, q0:], k[:, k0:k1], lse[:, q0:],
+                    _mask(q0, t, k0, k1, causal, seg, q.device), scale)
+        dp = torch.matmul(do[:, q0:].float(), v[:, k0:k1].float().transpose(1, 2))
+        ds = (p * (dp - delta[:, q0:, None])).abs()
+        out[:, k0:k1] = torch.matmul(ds.transpose(1, 2), q[:, q0:].float().abs()) * scale
+    return out
+
+
+# ----------------------------------------------------------------- the kernels' check
+
+#: a kernel output against its plain version, by the output's dtype (lse is
+#: float32): (rtol, atol, norm limit) of the element-wise bound |got - want|
+#: <= rtol * |want| + atol * max|want| (+ the rounding term below) and of
+#: ||got - want|| / ||want||. Both sides compute in fp32 and differ by
+#: summation order before the final rounding, so a bf16 element may land on
+#: the neighbouring bf16 value (at most 2^-7 of it away); atol covers the fp32
+#: difference where the value itself is near 0.
+FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -16, 2.0 ** -12),
+             torch.float32: (2.0 ** -18, 2.0 ** -22, 2.0 ** -21)}
+#: the bf16 tensor-core kernels round each term P (K2, K4) or dS (K4) of the
+#: second product to bf16, a relative error of at most 2^-9 a term; a bf16
+#: output of them may also differ by 2^-8 of the same sum over absolute
+#: values (P |V| / l for o, P^T |dO| for dv, scale |dS|^T |Q| for dk)
+ROUNDING = 2.0 ** -8
+#: ||got - want|| / ||want|| of those outputs (o, dk, dv in bf16): about four
+#: times the largest measured on an H100 (2.7e-3: rounding P and dS moves an
+#: output by ~1e-3 of its norm, and its own bf16 rounding by about as much)
+ROUNDED_NORM_LIMIT = 1.1e-2
+
+
+def flash_reference(q, k, v, do, causal=False, segments=None, heads=1):
+    """What K2-K4 are held against on inputs ``q, k, v, do``: ``(want,
+    bound, lse, delta)``. ``want`` maps each output ('o', 'lse', 'dq', 'dk',
+    'dv') to its plain version, the backward's from the plain forward's lse
+    and ``delta = rowsum(dO * O)`` (also returned, to feed the kernels);
+    ``bound`` maps the outputs that the bf16 kernels round (o, dk, dv; none
+    for float32 inputs) to the sum over absolute values that bounds it."""
+    o, lse = flash_forward_plain(q, k, v, causal, segments, heads)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, segments, heads)
+    want = {'o': o, 'lse': lse, 'dq': flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                                         segments, heads),
+            'dk': dk, 'dv': dv}
+    bound = {}
+    if q.dtype == torch.bfloat16:
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        bound['o'] = flash_forward_plain(qf, kf, vf.abs(), causal, segments, heads)[0]
+        bound['dv'] = flash_bwd_dkv_plain(qf, kf, vf, dof.abs(), lse, delta, causal,
+                                          segments, heads)[1]
+        bound['dk'] = flash_dk_abs_plain(qf, kf, vf, dof, lse, delta, causal, segments, heads)
+    return want, bound, lse, delta
+
+
+def flash_compare(got, want, bound=None):
+    """One kernel output against its plain version: ``{'max_abs_err',
+    'tol_share' (the largest share of an element's allowance used),
+    'rel_norm_err', 'ok'}``. With ``bound`` (from :func:`flash_reference`)
+    each element's allowance adds ``ROUNDING * bound`` and the norm limit is
+    ``ROUNDED_NORM_LIMIT``; otherwise ``FLASH_TOL`` alone."""
+    rtol, atol, norm_limit = FLASH_TOL[want.dtype]
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    allowed = rtol * want.abs() + atol * float(want.abs().max())
+    if bound is not None:
+        allowed = allowed + ROUNDING * bound.double()
+        norm_limit = ROUNDED_NORM_LIMIT
+    share = float((err / allowed.clamp_min(1e-30)).max())
+    norm = float(want.norm())
+    norm_err = float(err.norm()) / norm if norm else float(err.norm())
+    return {'max_abs_err': float(err.max()), 'tol_share': share, 'rel_norm_err': norm_err,
+            'ok': share <= 1 and norm_err <= norm_limit}
 
 
 # ----------------------------------------------------------------- kernel wrappers

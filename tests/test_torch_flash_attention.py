@@ -219,3 +219,19 @@ def test_every_kernel_entry_point_is_exported_by_its_source():
             match = re.search(r'extern "C" int {}\(([^)]*)\)'.format(symbol), text)
             assert match, (source, symbol)
             assert len(match.group(1).split(',')) == len(argtypes), (source, symbol)
+
+
+def test_library_key_covers_the_included_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` header gives its source's library a new path,
+    so a library built from the old header is never reused."""
+    import os
+    import shutil
+    from petastorm_tpu_torch import cuda_build
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(os.path.join(os.path.dirname(cuda_build.__file__), 'csrc'), csrc)
+    monkeypatch.setattr(cuda_build, '_PACKAGE_DIR', str(tmp_path))
+    before = cuda_build.library_path('flash_attention')
+    assert cuda_build.library_path('flash_attention') == before
+    header = csrc / 'flash_attention_sm90.cuh'
+    header.write_text(header.read_text() + '\n')
+    assert cuda_build.library_path('flash_attention') != before
