@@ -14,7 +14,7 @@ version on the card, then drives the port's two paths at full width:
 - the long-context LM path: a store of 64 rows of 8192 int32 tokens ->
   ``make_reader`` -> ``TorchDataLoader(batch_size=2)`` -> ``TransformerLM``
   (embed 512, 4 heads, 4 layers, bfloat16) with the flash-attention kernels
-  (K2 forward and K4 dK/dV on the bf16 tensor cores, K3 dQ), Adam, one
+  (K2 forward, K3 dQ and K4 dK/dV, on the bf16 tensor cores), Adam, one
   warm-up and 8 timed steps; then its packed variant: ragged documents
   packed into 8192-token bins, the segmented kernels and the packed loss, 4
   steps.
@@ -593,6 +593,10 @@ def adam_step(optimizer, step_loss, batch):
     return loss.detach()
 
 
+#: the tensor-core flash kernels the build must report, one per head_dim
+BF16_FLASH_KERNELS = ['sm90::{}<{}>'.format(kernel, d)
+                      for kernel in ('flash_fwd_kernel', 'flash_bwd_dq_kernel',
+                                     'flash_bwd_dkv_kernel') for d in (64, 128)]
 #: kernel-name fragments of the flash kernels in a profiler trace
 FLASH_KERNEL_NAMES = {'fwd': 'flash_fwd_kernel', 'dq': 'flash_bwd_dq_kernel',
                       'dkv': 'flash_bwd_dkv_kernel'}
@@ -762,16 +766,15 @@ def build_kernels():
 
 
 def short_kernel_name(mangled):
-    """'sm90::flash_fwd_kernel<128>', 'flash_fwd_kernel<bf16, 64>' or
-    'stored_copy_kernel' from a mangled kernel name."""
-    match = re.search(r'\d([a-z][a-z_]*_kernel)(I(f|13__nv_bfloat16)?Li(\d+)E)?', mangled)
+    """'sm90::flash_fwd_kernel<128>' (bf16), 'flash_fwd_kernel<64>' (float32)
+    or 'stored_copy_kernel' from a mangled kernel name."""
+    match = re.search(r'\d([a-z][a-z_]*_kernel)(ILi(\d+)E)?', mangled)
     if not match:
         return mangled.strip()
     prefix = 'sm90::' if '4sm90' in mangled else ''
     if not match.group(2):
         return prefix + match.group(1)
-    dtype = {'f': 'f32, ', '13__nv_bfloat16': 'bf16, ', None: ''}[match.group(3)]
-    return '{}{}<{}{}>'.format(prefix, match.group(1), dtype, match.group(4))
+    return '{}{}<{}>'.format(prefix, match.group(1), match.group(3))
 
 
 def ptxas_report(name):
@@ -822,6 +825,9 @@ def main(argv=None):
     record['ptxas'] = {name: ptxas_report(name) for name in cuda_build.KERNELS}
     sm90 = {kernel: '{registers} ({spill_bytes})'.format(**info)
             for kernel, info in record['ptxas']['flash_attention'].items() if 'sm90' in kernel}
+    check(sorted(sm90) == sorted(BF16_FLASH_KERNELS),
+          'the bf16 flash kernels in the ptxas report are {}, expected {}'.format(
+              sorted(sm90), sorted(BF16_FLASH_KERNELS)))
     log('phase 2 build: {} in {:.3f} s; registers (spill bytes) of the bf16 flash '
         'kernels: {}'.format(', '.join(cuda_build.KERNELS), record['build_s'], sm90))
 
@@ -900,7 +906,7 @@ def main(argv=None):
         timing = flash_result['timing'][counter]
         kernels.append({
             'name': name, 'route': 'cuda',
-            'source': 'petastorm_tpu_torch/csrc/flash_attention.cu', 'replaces': replaces,
+            'source': 'petastorm_tpu_torch/csrc/flash_attention_sm90.cuh', 'replaces': replaces,
             'launches': record['lm']['launches'][counter],
             'max_abs_err': flash_errors(flash_result, labels),
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],

@@ -21,9 +21,8 @@
 // far above the ~0.01 ms the bytes need at 3.35 TB/s.
 //
 // bfloat16 inputs take the tensor-core kernels of flash_attention_sm90.cuh
-// for K2 and K4 (wgmma with TMA-fed shared-memory rings; see that file).
-// The kernels below serve float32 inputs for all three, and K3 for both
-// dtypes.
+// for all three (wgmma with TMA-fed shared-memory rings; see that file).
+// The kernels below serve float32 inputs.
 //
 // Design of the kernels below, simple and right first: fp32 SIMT arithmetic
 // (no tensor cores), so they can reach at most the 67 TFLOP/s of the FP32
@@ -43,7 +42,6 @@
 // T need not be a multiple of 64: the ragged tail is loaded as zeros and
 // masked. Head dims 64 and 128.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,30 +56,18 @@ constexpr int kRows = kTile / kLanes;  // tile rows per thread
 constexpr int kPStride = kTile + 1;    // row stride of a score tile in smem
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int D>
 __host__ __device__ constexpr int tile_floats() { return kTile * (D + 1); }
 
 // rows [row0, row0 + 64) of a [t, D] matrix -> smem (stride D + 1) as fp32,
 // zeros past row t
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int t) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int t) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D;
     const int c = e % D;
     const int row = row0 + r;
-    dst[r * (D + 1) + c] = row < t ? to_float(src[static_cast<int64_t>(row) * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = row < t ? src[static_cast<int64_t>(row) * D + c] : 0.f;
   }
 }
 
@@ -190,11 +176,11 @@ __device__ __forceinline__ bool attends(int qi, int kj, int t, int causal, bool 
 
 // ------------------------------------------------------------------ K2
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ seg, T* __restrict__ o, float* __restrict__ lse,
-                 int t, int heads, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ seg,
+                 float* __restrict__ o, float* __restrict__ lse, int t, int heads, int causal) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* kv = qs + tile_floats<D>();  // K, then V, of the current k tile
@@ -212,7 +198,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   const float scale = rsqrtf(static_cast<float>(D));
 
-  load_tile<T, D>(qs, q + base, q0, t);
+  load_tile<D>(qs, q + base, q0, t);
   if (segmented) load_rows<int>(qseg, seg_row, q0, t, 0);
 
   float m[kRows], l[kRows], acc[kRows][D / kLanes];
@@ -227,7 +213,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int k_end = causal ? min(t, q0 + kTile) : t;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile's readers of kv, ps and kseg are done
-    load_tile<T, D>(kv, k + base, k0, t);
+    load_tile<D>(kv, k + base, k0, t);
     if (segmented) load_rows<int>(kseg, seg_row, k0, t, 0);
     __syncthreads();
     float s[kRows][kRows];
@@ -259,7 +245,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < D / kLanes; ++j) acc[i][j] *= corr;
     }
     __syncthreads();  // ps complete; everyone is done reading K
-    load_tile<T, D>(kv, v + base, k0, t);
+    load_tile<D>(kv, v + base, k0, t);
     __syncthreads();
     acc_tile<D>(acc, ps, kv, ty, tx);
   }
@@ -272,7 +258,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float inv = nonempty ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int j = 0; j < D / kLanes; ++j) {
-      o[base + static_cast<int64_t>(row) * D + tx + kLanes * j] = from_float<T>(acc[i][j] * inv);
+      o[base + static_cast<int64_t>(row) * D + tx + kLanes * j] = acc[i][j] * inv;
     }
     if (tx == 0) lse[static_cast<int64_t>(bh) * t + row] = nonempty ? m[i] + logf(l[i]) : 0.f;
   }
@@ -280,12 +266,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // ------------------------------------------------------------------ K3
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse,
                     const float* __restrict__ delta, const int* __restrict__ seg,
-                    T* __restrict__ dq, int t, int heads, int causal) {
+                    float* __restrict__ dq, int t, int heads, int causal) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + tile_floats<D>();
@@ -308,8 +295,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   const float scale = rsqrtf(static_cast<float>(D));
 
-  load_tile<T, D>(qs, q + base, q0, t);
-  load_tile<T, D>(dos, dout + base, q0, t);
+  load_tile<D>(qs, q + base, q0, t);
+  load_tile<D>(dos, dout + base, q0, t);
   load_rows<float>(lse_s, lse + row_base, q0, t, 0.f);
   load_rows<float>(delta_s, delta + row_base, q0, t, 0.f);
   if (segmented) load_rows<int>(qseg, seg_row, q0, t, 0);
@@ -323,8 +310,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int k_end = causal ? min(t, q0 + kTile) : t;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();
-    load_tile<T, D>(ks, k + base, k0, t);
-    load_tile<T, D>(vs, v + base, k0, t);
+    load_tile<D>(ks, k + base, k0, t);
+    load_tile<D>(vs, v + base, k0, t);
     if (segmented) load_rows<int>(kseg, seg_row, k0, t, 0);
     __syncthreads();
     float s[kRows][kRows], dp[kRows][kRows];
@@ -351,19 +338,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (row >= t) continue;
 #pragma unroll
     for (int j = 0; j < D / kLanes; ++j) {
-      dq[base + static_cast<int64_t>(row) * D + tx + kLanes * j] = from_float<T>(acc[i][j] * scale);
+      dq[base + static_cast<int64_t>(row) * D + tx + kLanes * j] = acc[i][j] * scale;
     }
   }
 }
 
 // ------------------------------------------------------------------ K4
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse,
                      const float* __restrict__ delta, const int* __restrict__ seg,
-                     T* __restrict__ dk, T* __restrict__ dv, int t, int heads, int causal) {
+                     float* __restrict__ dk, float* __restrict__ dv, int t, int heads, int causal) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + tile_floats<D>();
@@ -388,8 +376,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   const float scale = rsqrtf(static_cast<float>(D));
 
-  load_tile<T, D>(ks, k + base, k0, t);
-  load_tile<T, D>(vs, v + base, k0, t);
+  load_tile<D>(ks, k + base, k0, t);
+  load_tile<D>(vs, v + base, k0, t);
   if (segmented) load_rows<int>(kseg, seg_row, k0, t, 0);
 
   float acc_dk[kRows][D / kLanes], acc_dv[kRows][D / kLanes];
@@ -404,8 +392,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   // q tiles wholly above the diagonal (every q < k0) contribute nothing
   for (int q0 = causal ? k0 : 0; q0 < nq * kTile; q0 += kTile) {
     __syncthreads();
-    load_tile<T, D>(qs, q + base, q0, t);
-    load_tile<T, D>(dos, dout + base, q0, t);
+    load_tile<D>(qs, q + base, q0, t);
+    load_tile<D>(dos, dout + base, q0, t);
     load_rows<float>(lse_s, lse + row_base, q0, t, 0.f);
     load_rows<float>(delta_s, delta + row_base, q0, t, 0.f);
     if (segmented) load_rows<int>(qseg, seg_row, q0, t, 0);
@@ -437,8 +425,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
     for (int j = 0; j < D / kLanes; ++j) {
       const int64_t at = base + static_cast<int64_t>(row) * D + tx + kLanes * j;
-      dk[at] = from_float<T>(acc_dk[i][j] * scale);
-      dv[at] = from_float<T>(acc_dv[i][j]);
+      dk[at] = acc_dk[i][j] * scale;
+      dv[at] = acc_dv[i][j];
     }
   }
 }
@@ -468,49 +456,49 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-template <typename T, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
                int bh, int t, int heads, int causal, cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
-  const int status = prepare(flash_fwd_kernel<T, D>, smem);
+  const int status = prepare(flash_fwd_kernel<D>, smem);
   if (status != 0) return status;
   const dim3 grid((t + kTile - 1) / kTile, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(seg), static_cast<T*>(o), static_cast<float*>(lse), t, heads,
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(seg), static_cast<float*>(o), static_cast<float*>(lse), t, heads,
       causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* seg, void* dq, int bh, int t, int heads, int causal,
               cudaStream_t stream) {
   const size_t smem = dq_smem<D>();
-  const int status = prepare(flash_bwd_dq_kernel<T, D>, smem);
+  const int status = prepare(flash_bwd_dq_kernel<D>, smem);
   if (status != 0) return status;
   const dim3 grid((t + kTile - 1) / kTile, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<T*>(dq), t,
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dq), t,
       heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const void* seg, void* dk, void* dv, int bh, int t, int heads,
                int causal, cudaStream_t stream) {
   const size_t smem = dkv_smem<D>();
-  const int status = prepare(flash_bwd_dkv_kernel<T, D>, smem);
+  const int status = prepare(flash_bwd_dkv_kernel<D>, smem);
   if (status != 0) return status;
   const dim3 grid((t + kTile - 1) / kTile, bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<T*>(dk),
-      static_cast<T*>(dv), t, heads, causal);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dk),
+      static_cast<float*>(dv), t, heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,7 +509,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // pointers to contiguous arrays: q, k, v, dout, o, dq, dk, dv [bh, t, d] of
 // `dtype` (0 = float32, 1 = bfloat16); lse and delta [bh, t] float32; seg
 // null or [bh / heads, t] int32. d must be 64 or 128; anything else returns
-// cudaErrorInvalidValue without launching. bfloat16 K2 and K4 also return
+// cudaErrorInvalidValue without launching. The bfloat16 kernels also return
 // cudaErrorInvalidValue when a TMA tensor map cannot be made (an input not
 // 16-byte aligned). The Python wrappers check shapes, types and devices
 // before they call.
@@ -537,7 +525,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
                          void* lse, int bh, int t, int d, int heads, int causal, int dtype,
                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define F32(D) launch_fwd<float, D>(q, k, v, seg, o, lse, bh, t, heads, causal, s)
+#define F32(D) launch_fwd<D>(q, k, v, seg, o, lse, bh, t, heads, causal, s)
 #define BF16(D) sm90::launch_fwd<D>(q, k, v, seg, o, lse, bh, t, heads, causal, s)
   FLASH_DISPATCH(F32, BF16)
 #undef F32
@@ -548,11 +536,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, const void* seg, void* dq, int bh,
                             int t, int d, int heads, int causal, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(T, D) launch_dq<T, D>(q, k, v, dout, lse, delta, seg, dq, bh, t, heads, causal, s)
-#define F32(D) DQ(float, D)
-#define BF16(D) DQ(__nv_bfloat16, D)
+#define F32(D) launch_dq<D>(q, k, v, dout, lse, delta, seg, dq, bh, t, heads, causal, s)
+#define BF16(D) sm90::launch_dq<D>(q, k, v, dout, lse, delta, seg, dq, bh, t, heads, causal, s)
   FLASH_DISPATCH(F32, BF16)
-#undef DQ
 #undef F32
 #undef BF16
 }
@@ -563,7 +549,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define F32(D) \
-  launch_dkv<float, D>(q, k, v, dout, lse, delta, seg, dk, dv, bh, t, heads, causal, s)
+  launch_dkv<D>(q, k, v, dout, lse, delta, seg, dk, dv, bh, t, heads, causal, s)
 #define BF16(D) \
   sm90::launch_dkv<D>(q, k, v, dout, lse, delta, seg, dk, dv, bh, t, heads, causal, s)
   FLASH_DISPATCH(F32, BF16)

@@ -1,17 +1,18 @@
-// Flash attention on Hopper's bf16 tensor cores: the forward kernel (K2) and
-// the dK/dV kernel (K4) for bfloat16 inputs, included by flash_attention.cu,
-// whose entry points take these kernels for bfloat16 and keep the fp32 SIMT
-// kernels for float32 (and K3, dQ, for both).
+// Flash attention on Hopper's bf16 tensor cores: the forward kernel (K2), the
+// dQ kernel (K3) and the dK/dV kernel (K4) for bfloat16 inputs, included by
+// flash_attention.cu, whose entry points take these kernels for bfloat16 and
+// keep the fp32 SIMT kernels for float32.
 //
 // Replaces, for bfloat16, the Pallas kernels of petastorm_tpu/ops/flash_attention.py:
 //   K2 _flash_kernel via _flash_forward          (o, lse = attention(q, k, v))
+//   K3 _flash_bwd_dq_kernel via _flash_backward  (dq)
 //   K4 _flash_bwd_dkv_kernel via _flash_backward (dk, dv)
 // with the conventions of flash_attention.cu (scale 1/sqrt(D), causal k <= q,
 // packed segments, o = 0 and lse = 0 on a row with no valid key).
 //
 // Bound on this card: the tensor cores. At the LM path's shape (BH 8, T 8192,
-// D 128, causal) K2 does 1.4e11 FLOP and K4 2.7e11 over ~34 MB, so 0.14 and
-// 0.28 ms at 989 TFLOP/s against ~0.01 ms for the bytes.
+// D 128, causal) K2 does 1.4e11 FLOP, K3 2.1e11 and K4 2.7e11 over ~34 MB,
+// so 0.14, 0.21 and 0.28 ms at 989 TFLOP/s against ~0.01 ms for the bytes.
 //
 // Design (wgmma + TMA, one CTA per SM):
 //   - 384 threads: two consumer warpgroups (warps 0-7) and a producer
@@ -35,6 +36,13 @@
 //     MN-major B operand (the transpose bit). Causal tiles above the diagonal
 //     are never visited, and the CTAs with the longest walks are numbered
 //     first.
+//   - K3: a CTA owns 128 query rows (64 per consumer warpgroup), Q and dO
+//     resident in shared memory and each row's lse, delta and segment id in
+//     registers, and walks 64-key tiles of K and V (a ring of four stages).
+//     S = Q K^T and dP = dO V^T run as wgmma; P = exp(S scale - lse) and
+//     dS = P (dP - delta) in registers; dQ += dS K takes dS as the bf16
+//     register A operand against the MN-major K tile. The walk and its order
+//     are K2's; one CTA owns each query tile, so no atomics.
 //   - K4: a CTA owns 128 keys (64 per consumer warpgroup, so the dK and dV
 //     fp32 accumulators fit in registers), K and V resident in shared memory,
 //     and walks 64-row tiles of Q and dO with their lse, delta and segment
@@ -42,9 +50,9 @@
 //     lse) and dS^T = P^T (dP^T - delta) in registers; dV += P^T dO and
 //     dK += dS^T Q take P^T and dS^T as bf16 register A operands against the
 //     MN-major Q and dO tiles. One CTA owns each key tile, so no atomics.
-// Numerics: P (K2, K4) and dS (K4) are rounded to bf16 before the second
-// product, as in every tensor-core flash kernel; sums stay fp32 (the softmax
-// denominator is summed from the unrounded P).
+// Numerics: P (K2, K4) and dS (K3, K4) are rounded to bf16 before the
+// second product, as in every tensor-core flash kernel; sums stay fp32 (the
+// softmax denominator is summed from the unrounded P).
 
 #pragma once
 
@@ -486,6 +494,213 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ------------------------------------------------------------------ K3
+
+template <int D>
+struct DqLayout {
+  static constexpr int kM = 128;  // query rows per CTA
+  static constexpr int kN = 64;   // keys per streamed tile
+  static constexpr int kStages = 4;
+  static constexpr int kChunks = D / 64;
+  static constexpr int kQBytes = kM * D * 2;
+  static constexpr int kKVBytes = kN * D * 2;
+  static constexpr int q = 0;
+  static constexpr int dout = q + kQBytes;
+  static constexpr int k = dout + kQBytes;
+  static constexpr int v = k + kStages * kKVBytes;
+  static constexpr int kseg = v + kStages * kKVBytes;
+  static constexpr int bars = kseg + kStages * kN * 4;
+  static constexpr int bytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const int* __restrict__ seg,
+                    __nv_bfloat16* __restrict__ dq, int t, int heads, int causal) {
+  using L = DqLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full_qdo = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = full_qdo + 1;  // a stage's K, V and key segment ids
+  uint64_t* empty = full + L::kStages;
+  int* kseg = reinterpret_cast<int*>(smem + L::kseg);
+
+  const int bh = blockIdx.x;
+  const int nq = (t + L::kM - 1) / L::kM;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * L::kM;  // longest rows first
+  const bool segmented = seg != nullptr;
+  const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
+  const int k_end = causal ? min(t, q0 + L::kM) : t;
+  const int n_tiles = (k_end + L::kN - 1) / L::kN;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_qdo, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    set_max_regs_dec<kProducerRegs>();
+    if (warp > kConsumerWarps) return;
+    if (lane == 0) {
+      mbar_expect_tx(full_qdo, 2 * L::kQBytes);
+      for (int c = 0; c < L::kChunks; ++c) {
+        tma_load(smem + L::q + c * L::kM * kRowBytes, &q_map, full_qdo, 64 * c, q0, bh);
+        tma_load(smem + L::dout + c * L::kM * kRowBytes, &do_map, full_qdo, 64 * c, q0, bh);
+      }
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % L::kStages;
+      const int k0 = j * L::kN;
+      if (j >= L::kStages) mbar_wait(empty + s, (j / L::kStages - 1) & 1);
+      if (segmented) {
+        for (int i = lane; i < L::kN; i += 32)
+          kseg[s * L::kN + i] = k0 + i < t ? seg_row[k0 + i] : 0;
+        __threadfence_block();
+        __syncwarp();
+      }
+      if (lane == 0) {
+        uint8_t* ks = smem + L::k + s * L::kKVBytes;
+        uint8_t* vs = smem + L::v + s * L::kKVBytes;
+        mbar_expect_tx(full + s, 2 * L::kKVBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load(ks + c * L::kN * kRowBytes, &k_map, full + s, 64 * c, k0, bh);
+          tma_load(vs + c * L::kN * kRowBytes, &v_map, full + s, 64 * c, k0, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns query rows q0 + 64 wg .. + 63; this thread
+  // rows `row` and `row` + 8 of them, with their lse (log2 domain), delta and
+  // segment id in registers
+  set_max_regs_inc<kConsumerRegs>();
+  const int wg = warp / 4;
+  const int row = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int64_t row_base = static_cast<int64_t>(bh) * t;
+  float lse2[2], dlt[2];
+  int qseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row + 8 * i < t;
+    lse2[i] = in ? lse[row_base + row + 8 * i] * kLog2e : 0.f;
+    dlt[i] = in ? delta[row_base + row + 8 * i] : 0.f;
+    qseg[i] = in && segmented ? seg_row[row + 8 * i] : 0;
+  }
+  constexpr float scale = softmax_scale<D>();
+  constexpr float scale_log2 = scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  const uint32_t q_base = smem_u32(smem + L::q) + 64 * wg * kRowBytes;
+  const uint32_t do_base = smem_u32(smem + L::dout) + 64 * wg * kRowBytes;
+  // rows past t hold zeros and lse 0, so their P must be masked too
+  const bool rows_ragged = q0 + 64 * wg + 64 > t;
+  mbar_wait(full_qdo, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % L::kStages;
+    const uint32_t parity = (j / L::kStages) & 1;
+    const int k0 = j * L::kN;
+    const uint32_t k_base = smem_u32(smem + L::k + s * L::kKVBytes);
+    const uint32_t v_base = smem_u32(smem + L::v + s * L::kKVBytes);
+
+    // S = Q K^T and dP = dO V^T
+    float sc[L::kN / 2], dp[L::kN / 2];
+#pragma unroll
+    for (int e = 0; e < L::kN / 2; ++e) {
+      sc[e] = 0.f;
+      dp[e] = 0.f;
+    }
+    mbar_wait(full + s, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<L::kN>(sc, smem_desc(q_base + (kk / 4) * L::kM * kRowBytes + off, 16, 1024),
+                      smem_desc(k_base + (kk / 4) * L::kN * kRowBytes + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<L::kN>(dp, smem_desc(do_base + (kk / 4) * L::kM * kRowBytes + off, 16, 1024),
+                      smem_desc(v_base + (kk / 4) * L::kN * kRowBytes + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P = exp(S scale - lse), masked to 0, and dS = P (dP - delta), each pair
+    // of elements packed to bf16 as soon as it is made
+    const bool need_mask = segmented || rows_ragged || k0 + L::kN > t ||
+                           (causal && k0 + L::kN - 1 > q0 + 64 * wg);
+    uint32_t da[L::kN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < L::kN / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float ds[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 8 * kk + 2 * r + h;
+          const int c = acc_col(e, lane);  // key k0 + c
+          const int i = acc_half(e);       // query row `row` + 8 i
+          float p = exp2_approx(sc[e] * scale_log2 - lse2[i]);
+          if (need_mask) {
+            const int qr = row + 8 * i;
+            bool ok = qr < t && k0 + c < t && (!causal || k0 + c <= qr);
+            if (segmented) {
+              const int ks = kseg[s * L::kN + c];
+              ok = ok && ks == qseg[i] && ks > 0;
+            }
+            p = ok ? p : 0.f;
+          }
+          ds[h] = p * (dp[e] - dlt[i]);
+        }
+        da[kk][r] = pack_bf16(ds[0], ds[1]);
+      }
+    }
+
+    // dQ += dS K, dS in registers as bf16, K the MN-major B operand
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::kN / 16; ++kk) {
+      wgmma_rs<D>(acc, da[kk], smem_desc(k_base + kk * 16 * kRowBytes, L::kN * kRowBytes, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    if (r >= t) continue;
+    __nv_bfloat16* out = dq + (row_base + r) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = 8 * n + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(out + c) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ K4
 
 template <int D>
@@ -756,6 +971,26 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* seg, voi
   flash_fwd_kernel<D><<<grid, kThreads, L::bytes, stream>>>(
       q_map, k_map, v_map, static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), t, heads, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* seg, void* dq, int bh, int t, int heads, int causal,
+              cudaStream_t stream) {
+  using L = DqLayout<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if (!tile_map(&q_map, q, bh, t, D, L::kM) || !tile_map(&k_map, k, bh, t, D, L::kN) ||
+      !tile_map(&v_map, v, bh, t, D, L::kN) || !tile_map(&do_map, dout, bh, t, D, L::kM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int status = static_cast<int>(cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes));
+  if (status != 0) return status;
+  const dim3 grid(bh, (t + L::kM - 1) / L::kM);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, L::bytes, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(seg),
+      static_cast<__nv_bfloat16*>(dq), t, heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,12 +15,13 @@ exported by ``csrc/flash_attention.cu``:
   float32 or bfloat16, with equal q/k/v shapes. The reference's tile rule
   (``T % block == 0`` and ``head_dim % 128 == 0``) is a TPU lane rule and does
   not carry over; ``block_q``/``block_k`` stay in the signatures for call
-  compatibility, and the kernels pick their own 64 x 64 tiles. Other shapes
+  compatibility, and the kernels pick their own tiles. Other shapes
   take the dense path as in the reference, and each such call adds one to
   the module's ``dense_fallbacks``.
-- bfloat16 K2 and K4 run on the tensor cores (``csrc/flash_attention_sm90.cuh``:
-  wgmma fed by TMA), rounding P (and dS in K4) to bf16 before the second
-  product; float32 inputs, and K3 for both dtypes, run fp32 SIMT kernels.
+- bfloat16 K2, K3 and K4 run on the tensor cores
+  (``csrc/flash_attention_sm90.cuh``: wgmma fed by TMA), rounding P (K2, K4)
+  and dS (K3, K4) to bf16 before the second product; float32 inputs run fp32
+  SIMT kernels.
   :func:`flash_compare` holds a kernel's output against its plain version
   with an allowance derived from that rounding (:func:`flash_reference`).
 - Segments (``[B, T]`` int32, 0 = padding, documents numbered from 1) are
@@ -153,6 +154,24 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False, segments=None, he
     return dk, dv
 
 
+def flash_dq_abs_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
+    """``scale * |dS| |K|`` in float32: K3's dQ taken over absolute values,
+    the size of the sum whose terms the kernel rounds to bf16."""
+    bh, t, d = q.shape
+    scale = d ** -0.5
+    seg = _bh_segments(segments, heads)
+    out = torch.empty(bh, t, d, dtype=torch.float32, device=q.device)
+    for q0 in range(0, t, _PLAIN_BLOCK):
+        q1 = min(t, q0 + _PLAIN_BLOCK)
+        k1 = q1 if causal else t
+        p = _replay(q[:, q0:q1], k[:, :k1], lse[:, q0:q1],
+                    _mask(q0, q1, 0, k1, causal, seg, q.device), scale)
+        dp = torch.matmul(do[:, q0:q1].float(), v[:, :k1].float().transpose(1, 2))
+        ds = (p * (dp - delta[:, q0:q1, None])).abs()
+        out[:, q0:q1] = torch.matmul(ds, k[:, :k1].float().abs()) * scale
+    return out
+
+
 def flash_dk_abs_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
     """``scale * |dS|^T |Q|`` in float32: K4's dK taken over absolute values,
     the size of the sum whose terms the kernel rounds to bf16."""
@@ -182,12 +201,13 @@ def flash_dk_abs_plain(q, k, v, do, lse, delta, causal=False, segments=None, hea
 #: difference where the value itself is near 0.
 FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -16, 2.0 ** -12),
              torch.float32: (2.0 ** -18, 2.0 ** -22, 2.0 ** -21)}
-#: the bf16 tensor-core kernels round each term P (K2, K4) or dS (K4) of the
-#: second product to bf16, a relative error of at most 2^-9 a term; a bf16
-#: output of them may also differ by 2^-8 of the same sum over absolute
-#: values (P |V| / l for o, P^T |dO| for dv, scale |dS|^T |Q| for dk)
+#: the bf16 tensor-core kernels round each term P (K2, K4) or dS (K3, K4) of
+#: the second product to bf16, a relative error of at most 2^-9 a term; a
+#: bf16 output of them may also differ by 2^-8 of the same sum over absolute
+#: values (P |V| / l for o, scale |dS| |K| for dq, P^T |dO| for dv,
+#: scale |dS|^T |Q| for dk)
 ROUNDING = 2.0 ** -8
-#: ||got - want|| / ||want|| of those outputs (o, dk, dv in bf16): about four
+#: ||got - want|| / ||want|| of those outputs (o, dq, dk, dv in bf16): about four
 #: times the largest measured on an H100 (2.7e-3: rounding P and dS moves an
 #: output by ~1e-3 of its norm, and its own bf16 rounding by about as much)
 ROUNDED_NORM_LIMIT = 1.1e-2
@@ -198,8 +218,9 @@ def flash_reference(q, k, v, do, causal=False, segments=None, heads=1):
     bound, lse, delta)``. ``want`` maps each output ('o', 'lse', 'dq', 'dk',
     'dv') to its plain version, the backward's from the plain forward's lse
     and ``delta = rowsum(dO * O)`` (also returned, to feed the kernels);
-    ``bound`` maps the outputs that the bf16 kernels round (o, dk, dv; none
-    for float32 inputs) to the sum over absolute values that bounds it."""
+    ``bound`` maps the outputs that the bf16 kernels round (o, dq, dk, dv;
+    none for float32 inputs) to the sum over absolute values that bounds
+    it."""
     o, lse = flash_forward_plain(q, k, v, causal, segments, heads)
     delta = (do.float() * o.float()).sum(dim=-1)
     dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, segments, heads)
@@ -212,6 +233,7 @@ def flash_reference(q, k, v, do, causal=False, segments=None, heads=1):
         bound['o'] = flash_forward_plain(qf, kf, vf.abs(), causal, segments, heads)[0]
         bound['dv'] = flash_bwd_dkv_plain(qf, kf, vf, dof.abs(), lse, delta, causal,
                                           segments, heads)[1]
+        bound['dq'] = flash_dq_abs_plain(qf, kf, vf, dof, lse, delta, causal, segments, heads)
         bound['dk'] = flash_dk_abs_plain(qf, kf, vf, dof, lse, delta, causal, segments, heads)
     return want, bound, lse, delta
 

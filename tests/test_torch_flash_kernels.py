@@ -1,4 +1,4 @@
-"""Kernels K2-K4 (csrc/flash_attention.cu, with the tensor-core K2 and K4 of
+"""Kernels K2-K4 (csrc/flash_attention.cu, with the tensor-core K2-K4 of
 csrc/flash_attention_sm90.cuh for bfloat16) against their plain versions on
 a CUDA card. The file imports nothing of JAX, so on the machine with the card
 it runs alone:
@@ -10,8 +10,8 @@ Without a card every test skips. Each output is checked by
 rtol * |want| + atol * max|want| (bf16: 2^-7 and 2^-16, one bf16 step of the
 value, as both sides compute in fp32 and may round to neighbouring values;
 float32 and lse: 2^-18 and 2^-22), plus, for the bf16 outputs whose P or dS
-the tensor-core kernels round to bf16 (o, dk, dv), 2^-8 of the same sum over
-absolute values; and in relative norm."""
+the tensor-core kernels round to bf16 (o, dq, dk, dv), 2^-8 of the same sum
+over absolute values; and in relative norm."""
 
 import importlib
 
@@ -24,8 +24,9 @@ BF16 = torch.bfloat16
 #: name -> (B, T, H, head_dim, causal, segments, dtype); segments None,
 #: 'padded' (documents with padding runs inside and at the end of rows) or
 #: 'empty_row' (the same, with the last batch row all padding: rows with no
-#: valid key). K2 takes 128 query rows and 128-key tiles, K4 128 keys and
-#: 64-row query tiles: T = 1, 65, 100, 129 sit at their edges.
+#: valid key). K2 takes 128 query rows and 128-key tiles, K3 128 query rows
+#: and 64-key tiles, K4 128 keys and 64-row query tiles: T = 1, 65, 100, 129
+#: sit at their edges, and T = 8192 is the LM path's length.
 CASES = {
     'causal': (2, 320, 2, 128, True, None, BF16),
     'noncausal': (2, 320, 2, 128, False, None, BF16),
@@ -40,6 +41,9 @@ CASES = {
     't129_d64_segmented': (2, 129, 2, 64, True, 'padded', BF16),
     'segmented_empty_row': (2, 300, 2, 128, True, 'empty_row', BF16),
     'd64_segmented_empty_row_noncausal': (2, 257, 2, 64, False, 'empty_row', BF16),
+    't8192_causal': (1, 8192, 2, 128, True, None, BF16),
+    't8192_d64_noncausal': (1, 8192, 2, 64, False, None, BF16),
+    't8192_segmented_empty_row': (2, 8192, 1, 128, True, 'empty_row', BF16),
     'float32_simt': (2, 200, 2, 128, True, 'padded', torch.float32),
 }
 
@@ -90,6 +94,7 @@ def test_kernels_match_plain_versions(card, case):
         # rows with no valid key: o = 0 and lse = 0, and no gradient
         assert not o[-h:].float().abs().any() and not lse_got[-h:].abs().any()
         assert not dk[-h:].float().abs().any() and not dv[-h:].float().abs().any()
+        assert not dq[-h:].float().abs().any()
 
 
 @pytest.mark.cuda

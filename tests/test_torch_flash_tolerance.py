@@ -1,12 +1,12 @@
-"""The check that holds the bf16 tensor-core kernels (K2 and K4 of
+"""The check that holds the bf16 tensor-core kernels (K2, K3 and K4 of
 csrc/flash_attention_sm90.cuh) against their plain versions, exercised on the
 CPU: ``flash_compare`` with the allowance of ``flash_reference``.
 
-The kernels round each term P (forward and dK/dV) and dS (dK) to bf16 before
-the second product. Here that is emulated with plain torch on the same
-inputs (made from a numpy seed, in bf16): the emulation must pass the check,
-and the same emulation with one 64-key tile left out of the long rows that
-see it must fail it, for each of o, dk and dv."""
+The kernels round each term P (forward and dK/dV) and dS (dQ and dK) to bf16
+before the second product. Here that is emulated with plain torch on the
+same inputs (made from a numpy seed, in bf16): the emulation must pass the
+check, and the same emulation with one 64-key tile left out of the long rows
+that see it must fail it, for each of o, dq, dk and dv."""
 
 import importlib
 
@@ -62,8 +62,8 @@ def _attends(t, causal, segments, heads, drop):
 
 
 def _emulated(q, k, v, do, lse, delta, causal, segments, heads, drop=None):
-    """o, dk and dv with the tensor-core kernels' numerics: fp32 scores, fp32
-    softmax sums, P (and dS) rounded to bf16 before the second product. The
+    """o, dq, dk and dv with the tensor-core kernels' numerics: fp32 scores,
+    fp32 softmax sums, P (and dS) rounded to bf16 before the second product. The
     backward replays P from the plain forward's lse, as the kernels are fed."""
     bf16 = torch.bfloat16
     t, d = q.shape[1], q.shape[2]
@@ -78,8 +78,9 @@ def _emulated(q, k, v, do, lse, delta, causal, segments, heads, drop=None):
     dp = torch.matmul(do.float(), v.float().transpose(1, 2))
     ds = p * (dp - delta[..., None])
     dv = torch.matmul(p.to(bf16).float().transpose(1, 2), do.float())
+    dq = torch.matmul(ds.to(bf16).float(), k.float()) * scale
     dk = torch.matmul(ds.to(bf16).float().transpose(1, 2), q.float()) * scale
-    return {'o': o.to(bf16), 'dk': dk.to(bf16), 'dv': dv.to(bf16)}
+    return {'o': o.to(bf16), 'dq': dq.to(bf16), 'dk': dk.to(bf16), 'dv': dv.to(bf16)}
 
 
 def _run(case, drop):
@@ -101,6 +102,17 @@ def test_a_dropped_key_tile_fails_the_check(case):
     for name, result in _run(case, DROP).items():
         assert not result['ok'], (name, result)
         assert result['tol_share'] > 2, (name, result)
+
+
+def test_bf16_dq_gets_a_rounding_allowance_and_float32_none():
+    rng = np.random.RandomState(7)
+    inputs = [rng.randn(2, 64, 64).astype(np.float32) for _ in range(4)]
+    _, bound, _, _ = flash.flash_reference(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in inputs), True)
+    assert sorted(bound) == ['dk', 'dq', 'dv', 'o']
+    assert bound['dq'].dtype == torch.float32 and bound['dq'].shape == (2, 64, 64)
+    _, bound, _, _ = flash.flash_reference(*(torch.from_numpy(x) for x in inputs), True)
+    assert 'dq' not in bound
 
 
 def test_float32_outputs_get_no_rounding_allowance():
