@@ -20,13 +20,18 @@ version on the card, then drives the port's two paths at full width:
   steps.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after, and fails unless every kernel of the path launched on it. The flash
+after, and fails unless every kernel of the path launched on it. K1 is held
+bit for bit against its plain version on outputs whose memory held 0xAB
+(an edge batch, source offsets 0-15 with gaps between rows, the main path's
+batch and a 64 MiB batch of multi-block frames). The flash
 kernels are compared with their plain versions in four modes (causal,
 non-causal, segmented with padding, head_dim 64 with a ragged T) by
 ``flash_compare`` of ``ops/flash_attention.py``, and the LM path's
 first-batch loss and gradient norm with the kernels against the same model
 run with plain dense attention. Kernel times are the mean of back-to-back
-calls between one pair of CUDA events (``cuda_ms``).
+calls between one pair of CUDA events (``cuda_ms``); K1's own device time
+is taken with its launches queued behind a spin of the card, so the host's
+issue of each launch stays out of it (``device_ms``).
 
 Run from the repository root with no arguments::
 
@@ -67,6 +72,7 @@ from petastorm_tpu_torch.benchmark.lm_data import (ragged_documents, write_packe
 from petastorm_tpu_torch.benchmark.mfu import mfu, transformer_train_flops_per_step
 from petastorm_tpu_torch.codecs import (CompressedNdarrayCodec, DctImageCodec, ScalarCodec,
                                         _npz_raw_member)
+from petastorm_tpu_torch.decode_engine import RAW_ENC_DEFLATE
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
 from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.transformer import next_token_loss
@@ -74,6 +80,7 @@ from petastorm_tpu_torch.ops import raw_decode
 from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_loss,
                                              segment_causal_attention)
 from petastorm_tpu_torch.ops.ring_attention import dense_attention
+from petastorm_tpu_torch.parallel.device_stage import DeviceDecodeStage
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 # the module, not the function the ops package exports under the same name
@@ -180,49 +187,217 @@ def write_imagenet_store(url, path, rows, unique_images, hw, seed):
 
 # ---------------------------------------------------------------- the phases
 
-def stored_batch(frames):
-    """(source on the card, host segment table, inflated length) of a batch:
-    ``stored_inflate`` checks the host table and uploads it itself."""
-    segs, lengths = raw_decode.plan_stored_batch(frames)
-    src = np.concatenate([np.frombuffer(bytes(f), dtype=np.uint8) for f in frames])
-    return torch.from_numpy(src).to('cuda'), segs, sum(lengths)
+#: the large K1 shape: 128 containers of a float32 (131072,) field, 64 MiB
+#: inflated (more than the H100's 50 MB L2), each frame several stored blocks
+K1_LARGE_LEN = 131072
+#: bytes between the rows of the spread-out tables of the offset sweep
+K1_GAP = 5
+
+
+def stored_frames(length, batch, seed, values=None):
+    """``batch`` level-0 containers of a float32 ``(length,)`` field, as the
+    reader ships them: the raw-deflate member of each."""
+    codec = CompressedNdarrayCodec(stored=True)
+    field = UnischemaField('embedding', np.float32, (length,), codec)
+    rng = np.random.RandomState(seed)
+    return [np.frombuffer(_npz_raw_member(codec.encode(field, values(i) if values else
+                                                       rng.randn(length).astype(np.float32)))[1],
+                          dtype=np.uint8) for i in range(batch)]
+
+
+def stored_plan(frames):
+    """(source on the card, host table, the table on the card, inflated
+    length, host milliseconds of the planning) of a batch as the decode
+    tail plans it on the loader's producer thread: the table skips each
+    frame's npy header and writes the payloads as a dense matrix. The time
+    is the median of 20 plans on the host's clock."""
+    enc = np.full(len(frames), RAW_ENC_DEFLATE, dtype=np.uint8)
+    planned = DeviceDecodeStage._plan_stored(frames, enc)
+    check(planned is not None, 'the decode tail did not plan the batch for K1')
+    plan_s = []
+    for _ in range(20):
+        start = time.perf_counter()
+        DeviceDecodeStage._plan_stored(frames, enc)
+        plan_s.append(time.perf_counter() - start)
+    src, segs, n, row_bytes, _, _ = planned
+    return (torch.from_numpy(src).to('cuda'), segs, torch.from_numpy(segs).to('cuda'),
+            n * row_bytes, statistics.median(plan_s) * 1e3)
+
+
+def fill_allocator(nbytes):
+    """Leave ``nbytes`` of 0xAB in the caching allocator's free block that
+    the next allocation of that size takes; returns its address."""
+    filler = torch.full((nbytes,), 0xAB, dtype=torch.uint8, device='cuda')
+    address = filler.data_ptr()
+    del filler
+    return address
+
+
+def k1_check(name, src, segs, out_len, device_segments=None):
+    """K1 (through its wrapper) against its plain version, bit for bit, on an
+    output whose memory held 0xAB: gaps must come out 0, not left over. With
+    the table on the card the wrapper allocates nothing before the output,
+    which must then take the 0xAB block; when the wrapper uploads the table
+    itself, the upload may take that block first."""
+    address = fill_allocator(out_len)
+    got = raw_decode.stored_inflate(src, segs, out_len, device_segments=device_segments)
+    want = raw_decode.stored_inflate_plain(src, segs, out_len)
+    torch.cuda.synchronize()
+    reused = got.data_ptr() == address
+    check(reused or device_segments is None,
+          'K1 {}: the output did not reuse the 0xAB block'.format(name))
+    err = int((got.int() - want.int()).abs().max()) if out_len else 0
+    check(got.shape == want.shape and err == 0 and torch.equal(got, want),
+          'K1 differs from its plain version on the {} batch'.format(name))
+    return {'src_bytes': int(src.numel()), 'segments': int(segs.shape[0]),
+            'out_bytes': out_len, 'max_abs_err': err, 'over_0xab': reused}
+
+
+def spread(segs, offset, gap):
+    """The table with its sources moved ``offset`` bytes on and ``gap`` bytes
+    left before each row's destination (and after the last)."""
+    moved = segs.astype(np.int64)
+    moved[:, 0] += offset
+    moved[:, 1] += gap * np.arange(1, len(segs) + 1)
+    return moved.astype(np.int32)
+
+
+def device_ms(launch, reps, runs=3):
+    """Device milliseconds per call of ``launch``: ``reps`` calls between one
+    pair of CUDA events, queued behind a spin of the card
+    (``torch.cuda._sleep``) that outlasts the host's issue of all of them,
+    so the card runs them back to back with no wait on the host; the median
+    of ``runs``. A run whose issue outlasted its spin is dropped and the spin
+    doubled."""
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 10 ** 7
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    ms_per_cycle = start.elapsed_time(end) / cycles
+    spin_ms = 2.0
+    times = []
+    for _ in range(runs + 6):
+        torch.cuda._sleep(int(spin_ms / ms_per_cycle))
+        start.record()
+        issue_t = time.perf_counter()
+        for _ in range(reps):
+            launch()
+        issue_ms = (time.perf_counter() - issue_t) * 1e3
+        end.record()
+        end.synchronize()
+        if issue_ms < spin_ms:
+            times.append(start.elapsed_time(end) / reps)
+            if len(times) == runs:
+                return statistics.median(times)
+        else:
+            spin_ms *= 2
+    raise RuntimeError('check failed: the host issued {} launches in {:.3f} ms, longer than '
+                       'the {:.3f} ms spin ahead of them'.format(reps, issue_ms, spin_ms / 2))
+
+
+def k1_kernel_ms(src, segs, device_segments, out_len, reps):
+    """Device time of K1 alone (the C entry point, no wrapper), with the
+    source and the table resident on the card; checks the last launch's
+    output against the wrapper's."""
+    kernel = cuda_build.load('stored_copy')
+    out = torch.empty(out_len, dtype=torch.uint8, device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (src.data_ptr(), device_segments.data_ptr(), int(device_segments.shape[0]),
+            out.data_ptr(), out_len, stream)
+
+    def launch():
+        status = kernel(*args)
+        if status:
+            raise RuntimeError('stored_copy launch failed: cudaError {}'.format(status))
+
+    ms = device_ms(launch, reps)
+    want = raw_decode.stored_inflate(src, segs, out_len, device_segments=device_segments)
+    check(torch.equal(out, want), 'K1 timed launches wrote another output')
+    return ms
+
+
+def k1_bound_ms(src, segs, out_len):
+    moved = src.numel() + segs.nbytes + out_len
+    return moved / HBM_BYTES_PER_S * 1e3, int(moved)
 
 
 def phase_k1(batch, seed):
-    """K1 against its plain version, bit for bit: an edge-case batch (a
-    70000-byte frame spanning several stored blocks, 0- and 1-byte frames) and
-    a batch of the main path's shape (``batch`` level-0 containers of a float32
-    (2048,) embedding), then timings at the main path's shape. ``ms`` times the
-    wrapper as the main path calls it: the host check of the table, its upload
-    and the launch."""
-    codec = CompressedNdarrayCodec(stored=True)
-    field = UnischemaField('embedding', np.float32, (EMBED_LEN,), codec)
-    main_frames = [bytes(_npz_raw_member(codec.encode(field, embedding_of(i, seed)))[1])
-                   for i in range(batch)]
+    """K1 against its plain version, bit for bit, on outputs whose memory held
+    0xAB: an edge-case batch (a 70000-byte frame spanning several stored
+    blocks, 0- and 1-byte frames) with the table uploaded by the wrapper,
+    the main path's batch (``batch`` containers of a float32 (2048,)
+    embedding) and the large one (``batch`` of a float32 (131072,) field)
+    with the table on the card as the decode tail has it, and the edge batch
+    at source offsets 0-15 with gaps between its rows. Then times: at the
+    main shape K1's device time (``kernel_ms``), the wrapper as ``finish``
+    calls it (``wrapper_ms``), the plain version, and one strided ``copy_``
+    that computes the same output for this one-block-per-frame layout
+    (``library_ms``); at the large shape K1's device time and a
+    device-to-device ``copy_`` of the output's byte count; at both, the
+    host time of the decode tail's planning of the batch."""
+    main_frames = stored_frames(EMBED_LEN, batch, seed, lambda i: embedding_of(i, seed))
     rng = np.random.RandomState(seed)
     edge_frames = list(main_frames[:3])
     for size in (70000, 0, 1, 1024):
         comp = zlib.compressobj(0, zlib.DEFLATED, -15)
-        edge_frames.append(comp.compress(rng.randint(0, 256, size, dtype=np.uint8)
-                                         .tobytes()) + comp.flush())
+        edge_frames.append(np.frombuffer(comp.compress(rng.randint(
+            0, 256, size, dtype=np.uint8).tobytes()) + comp.flush(), dtype=np.uint8))
     result = {}
-    for name, frames in (('edge', edge_frames), ('main', main_frames)):
-        src, segs, out_len = stored_batch(frames)
-        got = raw_decode.stored_inflate(src, segs, out_len)
-        want = raw_decode.stored_inflate_plain(src, segs, out_len)
-        torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max()) if out_len else 0
-        check(got.shape == want.shape and err == 0 and torch.equal(got, want),
-              'K1 differs from its plain version on the {} batch'.format(name))
-        result[name] = {'frames': len(frames), 'src_bytes': int(src.numel()),
-                        'segments': int(segs.shape[0]), 'out_bytes': out_len,
-                        'max_abs_err': err}
-    src, segs, out_len = stored_batch(main_frames)
-    moved = src.numel() + segs.nbytes + out_len
+    edge_segs, edge_lengths = raw_decode.plan_stored_batch(edge_frames)
+    edge_src = np.concatenate(edge_frames)
+    result['edge'] = k1_check('edge', torch.from_numpy(edge_src).to('cuda'), edge_segs,
+                              sum(edge_lengths))
+    sweep = []
+    for offset in range(16):
+        src = np.concatenate([np.full(offset, 0xAB, dtype=np.uint8), edge_src])
+        segs = spread(edge_segs, offset, K1_GAP)
+        out_len = sum(edge_lengths) + K1_GAP * (len(segs) + 1)
+        sweep.append(k1_check('offset {}'.format(offset), torch.from_numpy(src).to('cuda'),
+                              segs, out_len, torch.from_numpy(segs).to('cuda')))
+    result['offset_sweep'] = {'offsets': 16, 'gap': K1_GAP,
+                              'max_abs_err': max(case['max_abs_err'] for case in sweep)}
+
+    src, segs, dev_segs, out_len, plan_ms = stored_plan(main_frames)
+    result['main'] = k1_check('main', src, segs, out_len, dev_segs)
+    result['main']['host_plan_ms'] = plan_ms
+    # the strided copy of one call: frame i's payload starts at i * frame_len
+    # + the first row's source offset (its one block header and npy header)
+    frame_len = main_frames[0].size
+    check(all(f.size == frame_len for f in main_frames) and len(segs) == batch,
+          'the main batch is not one stored block per frame')
+    row_bytes = out_len // batch
+    strided = src.as_strided((batch, row_bytes), (frame_len, 1), int(segs[0, 0]))
+    library_out = torch.empty(batch, row_bytes, dtype=torch.uint8, device='cuda')
+    library_out.copy_(strided)
+    check(torch.equal(library_out.view(-1), raw_decode.stored_inflate_plain(src, segs, out_len)),
+          'the strided copy differs from the plain version')
+    bound_ms, moved = k1_bound_ms(src, segs, out_len)
     result['main'].update(
-        ms=cuda_ms(lambda: raw_decode.stored_inflate(src, segs, out_len)),
+        kernel_ms=k1_kernel_ms(src, segs, dev_segs, out_len, reps=100),
+        wrapper_ms=cuda_ms(lambda: raw_decode.stored_inflate(src, segs, out_len,
+                                                             device_segments=dev_segs)),
         plain_ms=cuda_ms(lambda: raw_decode.stored_inflate_plain(src, segs, out_len)),
-        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by='bytes', bytes_moved=int(moved))
+        library_ms=cuda_ms(lambda: library_out.copy_(strided)),
+        bound_ms=bound_ms, bound_by='bytes', bytes_moved=moved)
+    del library_out, strided
+
+    src, segs, dev_segs, out_len, plan_ms = stored_plan(
+        stored_frames(K1_LARGE_LEN, batch, seed + 1))
+    result['large'] = k1_check('large', src, segs, out_len, dev_segs)
+    result['large']['host_plan_ms'] = plan_ms
+    bound_ms, moved = k1_bound_ms(src, segs, out_len)
+    copy_out = torch.empty(out_len, dtype=torch.uint8, device='cuda')
+    result['large'].update(
+        kernel_ms=k1_kernel_ms(src, segs, dev_segs, out_len, reps=20),
+        memcpy_ms=cuda_ms(lambda: copy_out.copy_(src[:out_len])),
+        bound_ms=bound_ms, bound_by='bytes', bytes_moved=moved)
+    result['large']['bound_share'] = bound_ms / result['large']['kernel_ms']
     return result
 
 
@@ -833,10 +1008,16 @@ def main(argv=None):
 
     k1 = phase_k1(args.batch, args.seed)
     record['k1'] = k1
-    log('phase 3 K1 stored_copy bit-exact: edge {} | main-shape kernel_ms={:.5f} '
-        'plain_ms={:.5f} bound_ms={:.5f} launches_per_step=1 [{}]'.format(
-            k1['edge'], k1['main']['ms'], k1['main']['plain_ms'], k1['main']['bound_ms'],
-            card))
+    main, large = k1['main'], k1['large']
+    log('phase 3 K1 stored_copy bit-exact (edge, offsets 0-15 with gaps, main, large; '
+        'outputs over 0xAB): main [{} rows, {} B] kernel_ms={:.5f} wrapper_ms={:.5f} '
+        'library_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} host_plan_ms={:.4f} | large '
+        '[{} rows, {} B] kernel_ms={:.5f} memcpy_ms={:.5f} bound_ms={:.5f} ({:.1%} of '
+        'bound) host_plan_ms={:.4f} [{}]'.format(
+            main['segments'], main['out_bytes'], main['kernel_ms'], main['wrapper_ms'],
+            main['library_ms'], main['plain_ms'], main['bound_ms'], main['host_plan_ms'],
+            large['segments'], large['out_bytes'], large['kernel_ms'], large['memcpy_ms'],
+            large['bound_ms'], large['bound_share'], large['host_plan_ms'], card))
 
     flash_result = phase_flash(args.seed)
     record['flash'] = flash_result
@@ -893,11 +1074,16 @@ def main(argv=None):
         'source': 'petastorm_tpu_torch/csrc/stored_copy.cu',
         'replaces': 'petastorm_tpu/ops/raw_decode.py:165',
         'launches': record['main_path']['k1_launches'],
-        'max_abs_err': max(k1['edge']['max_abs_err'], k1['main']['max_abs_err']),
-        'ms': k1['main']['ms'], 'plain_ms': k1['main']['plain_ms'],
+        'max_abs_err': max(k1[case]['max_abs_err']
+                           for case in ('edge', 'offset_sweep', 'main', 'large')),
+        'ms': k1['main']['kernel_ms'], 'wrapper_ms': k1['main']['wrapper_ms'],
+        'plain_ms': k1['main']['plain_ms'],
         'bound_ms': k1['main']['bound_ms'], 'bound_by': 'bytes',
-        # no single PyTorch call gathers bytes by a (src, dst, len) segment table
-        'library_ms': None}]
+        # one strided copy_ computes the main batch's output (one stored block
+        # a frame); it gathers no general segment table
+        'library_ms': k1['main']['library_ms'],
+        'large_kernel_ms': k1['large']['kernel_ms'], 'large_bound_ms': k1['large']['bound_ms'],
+        'large_memcpy_ms': k1['large']['memcpy_ms']}]
     for name, counter, replaces, labels in (
             ('flash_fwd', 'fwd', 'petastorm_tpu/ops/flash_attention.py:44', ('o', 'lse')),
             ('flash_bwd_dq', 'dq', 'petastorm_tpu/ops/flash_attention.py:194', ('dq',)),

@@ -31,7 +31,8 @@ _I = ctypes.c_int
 #: library name -> (source under csrc/, {exported C function: ctypes argtypes})
 KERNELS = {
     'stored_copy': ('stored_copy.cu', {
-        'stored_copy': (_P, _P, _I, _P, _P),
+        # src, segs, m, out, out_len, stream
+        'stored_copy': (_P, _P, _I, _P, ctypes.c_longlong, _P),
     }),
     'flash_attention': ('flash_attention.cu', {
         # q, k, v, seg, o, lse, bh, t, d, heads, causal, dtype, stream

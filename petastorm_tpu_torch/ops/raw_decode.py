@@ -14,20 +14,24 @@ the loader uploads packed or compressed bytes and finishes decode on the card:
   :func:`plan_stored_batch`, :func:`stored_inflate`): a raw-deflate stream whose
   blocks are all *stored* (BTYPE=00, what zlib level 0 emits) is a list of
   framed byte ranges. The host parses the 5-byte block headers into a segment
-  table (both functions are byte-for-byte copies of ``petastorm_tpu``'s) and
+  table of one ``(src_offset, dst_offset, length)`` row per stored block, and
   kernel K1 performs the gather-copy on the card. Huffman-coded streams return
-  None from the parser and inflate on the host.
+  None from the parser and inflate on the host. The planner may skip each
+  frame's leading inflated bytes (the ``.npy`` header), so the table writes
+  the payloads straight into a dense ``(n, row_bytes)`` matrix and the unpack
+  that follows is a :func:`bitcast_rows` view.
 
 Kernel K1 (``csrc/stored_copy.cu``) replaces the Pallas kernel
 ``_stored_copy_kernel`` of ``petastorm_tpu/ops/raw_decode.py``. The TPU kernel
-walks the segment table as a sequential grid with a fixed 1024-byte window and
-a read-modify-write of each window, because a Pallas block needs a fixed VMEM
-window and only the grid's order makes overlapping window writes safe. On
-Hopper neither constraint exists: the destination ranges of the rows never
-overlap, so K1 gives each row its own thread block, copies exactly ``length``
-bytes with no window and no read-modify-write, and imposes no order between
-blocks. The table keeps its 1024-byte chunking only because the planner is
-shared with the JAX package.
+walks a table of rows of at most 1024 bytes as a sequential grid, with a
+read-modify-write of a fixed 1024-byte VMEM window and a zero-fill by its
+first step. The port's planner keeps one row per stored block (up to 65535
+bytes), and K1 tiles the output instead of the table: each thread owns 16-byte
+output words, finds the row that covers each word by a binary search over the
+sorted destination offsets, and writes every output byte exactly once, zero
+where no row writes. The port's planner therefore differs from the JAX
+package's (rows are whole blocks, and the header skip), while both tables map
+the same source bytes to the same inflated bytes.
 
 :func:`stored_inflate_plain` is the plain PyTorch version of K1: the CPU tests
 and the CPU path use it (the wrapper takes it only for tensors on the CPU),
@@ -37,14 +41,10 @@ CUDA path calls it.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-#: bytes per segment-table row at most (the planner's chunking, shared with
-#: the JAX package; a stored block may span up to 65535 bytes)
-STORED_COPY_WINDOW = 1024
 
 _TORCH_DTYPES = {
     np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
@@ -102,25 +102,25 @@ def parse_stored_deflate_layout(frame: Any) -> Optional[List[Tuple[int, int]]]:
 
     Stored blocks are byte-aligned (the 3 header bits are followed by a pad to
     the next byte boundary, then LEN/NLEN and LEN literal bytes), so an
-    all-stored stream is fully described by byte offsets. Malformed streams
-    (truncation, LEN/NLEN mismatch) also return None; the caller keeps the
-    host zlib path, which raises its own precise error."""
-    buf = bytes(memoryview(frame))
+    all-stored stream is fully described by byte offsets. The block headers
+    are read through a memoryview of the frame, which is never copied.
+    Malformed streams (truncation, LEN/NLEN mismatch) also return None; the
+    caller keeps the host zlib path, which raises its own precise error."""
+    buf = memoryview(frame).cast('B')
+    size = len(buf)
     pos = 0
     segments: List[Tuple[int, int]] = []
     while True:
-        if pos >= len(buf):
+        if pos >= size:
             return None  # truncated before a final block
         header = buf[pos]
         if (header >> 1) & 0x3 != 0:
             return None  # Huffman-coded block: host inflate territory
-        if pos + 5 > len(buf):
+        if pos + 5 > size:
             return None
-        length = int.from_bytes(buf[pos + 1:pos + 3], 'little')
-        nlen = int.from_bytes(buf[pos + 3:pos + 5], 'little')
-        if length ^ 0xFFFF != nlen:
-            return None
-        if pos + 5 + length > len(buf):
+        length = buf[pos + 1] | buf[pos + 2] << 8
+        nlen = buf[pos + 3] | buf[pos + 4] << 8
+        if length ^ 0xFFFF != nlen or pos + 5 + length > size:
             return None
         if length:
             segments.append((pos + 5, length))
@@ -129,54 +129,68 @@ def parse_stored_deflate_layout(frame: Any) -> Optional[List[Tuple[int, int]]]:
             return segments
 
 
-def plan_stored_batch(
-        frames: List[Any]) -> Optional[Tuple[np.ndarray, List[int]]]:
+def plan_stored_batch(frames: List[Any], skip: Optional[Sequence[int]] = None
+                      ) -> Optional[Tuple[np.ndarray, List[int]]]:
     """Build the device copy plan for a batch of raw-deflate frames that are
-    ALL stored-block-only: returns ``(segments, frame_lengths)`` where
-    ``segments`` is an ``(m, 3)`` int32 table of ``(src_offset, dst_offset,
-    length)`` chunks (each at most :data:`STORED_COPY_WINDOW` bytes) with
-    ``src_offset`` indexing the CONCATENATION of the frames and ``dst_offset``
-    the concatenation of their inflated payloads, and ``frame_lengths`` the
-    per-frame inflated sizes (callers needing a dense ``(n, len)`` view must
-    check they are uniform — a total divisible by ``n`` does not imply that).
-    Returns None when any frame contains a non-stored block — callers inflate
-    on the host."""
-    rows: List[Tuple[int, int, int]] = []
+    ALL stored-block-only.
+
+    :param frames: the raw-deflate streams (buffers; read, never copied).
+    :param skip: optional per-frame count of leading inflated bytes to leave
+        out (the ``.npy`` header): a stored block inside the skip yields no
+        row, and one that spans its end is clipped.
+    :returns: ``(segments, frame_lengths)``, where ``segments`` is an
+        ``(m, 3)`` int32 table of ``(src_offset, dst_offset, length)``, one
+        row per stored block (up to 65535 bytes), sorted by ``dst_offset``
+        with no two destination ranges overlapping; ``src_offset`` indexes the
+        CONCATENATION of the frames and ``dst_offset`` the concatenation of
+        their inflated payloads after the skip. ``frame_lengths`` holds the
+        bytes each frame writes (its inflated size less its skip). Callers
+        needing a dense ``(n, len)`` view must check they are uniform: a
+        total divisible by ``n`` does not imply that. None when any frame
+        contains a non-stored block: callers inflate on the host."""
+    rows: List[int] = []
     frame_lengths: List[int] = []
     src_base = 0
     dst_base = 0
-    for frame in frames:
+    for index, frame in enumerate(frames):
         layout = parse_stored_deflate_layout(frame)
         if layout is None:
             return None
+        todo = int(skip[index]) if skip is not None else 0
         frame_len = 0
         for src_off, length in layout:
-            start = 0
-            while start < length:
-                chunk = min(STORED_COPY_WINDOW, length - start)
-                rows.append((src_base + src_off + start, dst_base + start, chunk))
-                start += chunk
-            dst_base += length
-            frame_len += length
+            if todo >= length:
+                todo -= length
+                continue
+            rows += (src_base + src_off + todo, dst_base + frame_len, length - todo)
+            frame_len += length - todo
+            todo = 0
         frame_lengths.append(frame_len)
-        src_base += len(frame)
-    if not rows:
-        return np.zeros((0, 3), dtype=np.int32), frame_lengths
-    return np.asarray(rows, dtype=np.int32), frame_lengths
+        dst_base += frame_len
+        src_base += memoryview(frame).nbytes
+    return np.array(rows, dtype=np.int32).reshape(-1, 3), frame_lengths
 
 
 def check_stored_plan(segments: np.ndarray, src_len: int, out_len: int) -> None:
-    """Raise unless every row of the host segment table lies inside a source of
-    ``src_len`` bytes and an output of ``out_len`` bytes: the bounds the
-    kernel trusts."""
+    """Raise unless the host segment table is one K1 may take: every row lies
+    inside a source of ``src_len`` bytes and an output of ``out_len`` bytes,
+    and the rows are sorted by destination offset with no two destination
+    ranges overlapping (K1 finds the row of an output byte by a binary
+    search over the destination offsets)."""
     if segments.ndim != 2 or segments.shape[1] != 3:
         raise ValueError('segment table must be (m, 3), got {}'.format(segments.shape))
     if not len(segments):
         return
-    src_off, dst_off, length = (segments[:, i].astype(np.int64) for i in range(3))
-    if (src_off < 0).any() or (dst_off < 0).any() or (length < 0).any():
+    # few numpy calls: the check runs on every batch
+    if segments.min() < 0:
         raise ValueError('segment table holds negative offsets or lengths')
-    if (src_off + length).max() > src_len or (dst_off + length).max() > out_len:
+    src_off, dst_off, length = segments.astype(np.int64).T
+    dst_end = dst_off + length
+    if (dst_end[:-1] > dst_off[1:]).any():
+        raise ValueError('segment table rows are not sorted by destination offset '
+                         'or their destination ranges overlap')
+    # sorted and disjoint, so the last row ends last in the output
+    if (src_off + length).max() > src_len or dst_end[-1] > out_len:
         raise ValueError('segment table reaches past the source ({} bytes) or the '
                          'output ({} bytes)'.format(src_len, out_len))
 
@@ -201,23 +215,28 @@ def stored_inflate_plain(packed_src: torch.Tensor, segments: Any,
     return out
 
 
-def stored_inflate(packed_src: torch.Tensor, segments: np.ndarray,
-                   out_len: int) -> torch.Tensor:
+def stored_inflate(packed_src: torch.Tensor, segments: np.ndarray, out_len: int,
+                   device_segments: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inflate a stored-block-only deflate batch on the source's device.
 
     :param packed_src: uint8 ``(s,)`` tensor, the concatenated raw frames.
     :param segments: the host int32 ``(m, 3)`` numpy table from
-        :func:`plan_stored_batch`. Every row is checked with
-        :func:`check_stored_plan` against ``s`` and ``out_len`` before anything
-        runs (K1 trusts the rows it is given), then the table is uploaded to
-        the source's device on the current stream.
+        :func:`plan_stored_batch`. It is checked with :func:`check_stored_plan`
+        against ``s`` and ``out_len`` before anything runs: K1 trusts the
+        rows it is given.
     :param out_len: total inflated length.
-    :returns: uint8 ``(out_len,)`` tensor of the inflated payloads.
+    :param device_segments: optional copy of ``segments`` already on the
+        source's device (the loader uploads it with the batch), int32
+        ``(m, 3)`` and contiguous. Without it the table is uploaded here, on
+        the current stream, from pinned memory.
+    :returns: uint8 ``(out_len,)`` tensor of the inflated payloads, zero
+        where no row writes.
 
-    On a CUDA tensor this launches K1 on the current stream, counting each
-    launch in ``stored_inflate.launches``; a build or launch failure raises.
-    On a CPU tensor it runs :func:`stored_inflate_plain`. Any other device
-    raises."""
+    On a CUDA tensor this launches K1 once on the current stream, which
+    writes every output byte, so the output needs no zero-fill; each launch
+    is counted in ``stored_inflate.launches``, and a build or launch failure
+    raises. On a CPU tensor it runs :func:`stored_inflate_plain`. Any other
+    device raises."""
     device = packed_src.device
     if device.type not in ('cuda', 'cpu'):
         raise ValueError('stored_inflate runs on cuda or cpu tensors, got {}'.format(device))
@@ -226,23 +245,39 @@ def stored_inflate(packed_src: torch.Tensor, segments: np.ndarray,
     if not isinstance(segments, np.ndarray) or segments.dtype != np.int32:
         raise ValueError('segments must be the host int32 numpy table of plan_stored_batch')
     check_stored_plan(segments, int(packed_src.numel()), out_len)
+    if device_segments is not None and (
+            device_segments.device != device or device_segments.dtype != torch.int32
+            or tuple(device_segments.shape) != segments.shape
+            or not device_segments.is_contiguous()):
+        raise ValueError('device_segments must be a contiguous int32 {} tensor on {}'
+                         .format(segments.shape, device))
     if device.type == 'cpu':
         return stored_inflate_plain(packed_src, segments, out_len)
     if not packed_src.is_contiguous():
         raise ValueError('stored_inflate needs a contiguous packed_src')
-    out = torch.zeros(out_len, dtype=torch.uint8, device=device)
-    m = int(segments.shape[0])
-    if m == 0 or out_len == 0:
+    out = torch.empty(out_len, dtype=torch.uint8, device=device)
+    if out_len == 0:
         return out
-    # a pinned copy lets the upload run on the stream; the caching host
-    # allocator keeps it alive until the copy has completed
-    segs = torch.from_numpy(np.ascontiguousarray(segments)).pin_memory().to(
-        device, non_blocking=True)
+    m = int(segments.shape[0])
+    segs = device_segments
+    if segs is None and m:
+        # a pinned copy lets the upload run on the stream; the caching host
+        # allocator keeps it alive until the copy has completed
+        segs = torch.from_numpy(np.ascontiguousarray(segments)).pin_memory().to(
+            device, non_blocking=True)
     from petastorm_tpu_torch import cuda_build
     kernel = cuda_build.load('stored_copy')
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = kernel(packed_src.data_ptr(), segs.data_ptr(), m, out.data_ptr(), stream)
+    # the current stream's handle, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    args = (packed_src.data_ptr(), segs.data_ptr() if m else None, m, out.data_ptr(), out_len,
+            stream)
+    # the launch goes to the current device: switch to the tensors' device
+    # only when it is another (the guard costs microseconds on every batch)
+    if device.index == torch.cuda.current_device():
+        status = kernel(*args)
+    else:
+        with torch.cuda.device(device):
+            status = kernel(*args)
     if status != 0:
         raise RuntimeError('stored_copy kernel launch failed: cudaError {}'.format(status))
     stored_inflate.launches += 1

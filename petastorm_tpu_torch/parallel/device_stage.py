@@ -8,8 +8,10 @@ undecoded and this stage finishes the job. DCT coefficient blocks run through
 ``.npy`` payloads become typed tensors through
 :func:`~petastorm_tpu_torch.ops.raw_decode.bitcast_rows`, and stored-block
 deflate frames inflate through kernel K1
-(:func:`~petastorm_tpu_torch.ops.raw_decode.stored_inflate`). Huffman-coded
-frames inflate on the loader's producer thread.
+(:func:`~petastorm_tpu_torch.ops.raw_decode.stored_inflate`), whose segment
+table skips each frame's ``.npy`` header and rides in the batch's one upload
+as the loader-private ``<field>__segs`` column, as in the JAX stage.
+Huffman-coded frames inflate on the loader's producer thread.
 
 The path follows the tensors' device. On the card every step runs as CUDA
 work; on the CPU the same steps run the kernels' plain versions, which is how
@@ -54,6 +56,9 @@ from petastorm_tpu_torch.decode_engine import (RAW_ENC_DEFLATE, RAW_ENC_NPY,
                                                RAW_ENC_SUFFIX, RAW_HW_SUFFIX,
                                                stack_if_uniform)
 from petastorm_tpu_torch.ops import raw_decode
+
+#: suffix of the loader-private stored-deflate segment-table column
+_SEGS_SUFFIX = '__segs'
 
 _TORCH_DTYPES_BY_NAME = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
                          'float16': torch.float16}
@@ -316,12 +321,13 @@ class DeviceDecodeStage:
                 enc = np.asarray(upload.pop(plan.name + RAW_ENC_SUFFIX))
                 stored = self._plan_stored(frames, enc)
                 if stored is not None:
-                    src, segs, n, blob_len, (header_len, dtype_str, row_shape) = stored
+                    src, segs, n, row_bytes, dtype_str, row_shape = stored
                     upload[plan.name] = src
-                    # the host table rides in the recipe: stored_inflate checks
-                    # its rows on the host, then uploads it
-                    recipe.append(('stored', plan.name, segs, n, blob_len, header_len,
-                                   dtype_str, row_shape))
+                    # the table rides in the batch's one upload; the host copy
+                    # rides in the recipe, for stored_inflate to check its rows
+                    upload[plan.name + _SEGS_SUFFIX] = segs
+                    recipe.append(('stored', plan.name, segs, n, row_bytes, dtype_str,
+                                   row_shape))
                 else:
                     matrix = self._inflate_on_host(frames, enc)
                     upload[plan.name] = matrix
@@ -331,28 +337,32 @@ class DeviceDecodeStage:
 
     @staticmethod
     def _plan_stored(frames: List[Any], enc: np.ndarray) -> Optional[Tuple[Any, ...]]:
-        """``(src, segs, n, blob_len, npy_meta)`` when every frame is a
-        stored-block deflate stream of one inflated length whose npy header
-        parses from its first bytes; None sends the batch to host inflate."""
+        """``(src, segs, n, row_bytes, dtype_str, row_shape)`` when every frame
+        is a stored-block deflate stream whose npy header parses from frame
+        0's first bytes and whose payload after that header is ``row_bytes``
+        long, the size of one row; ``segs`` skips each frame's header, so it
+        writes row ``i`` to bytes ``i * row_bytes`` of a dense ``(n,
+        row_bytes)`` matrix. None sends the batch to host inflate."""
         n = len(frames)
         if not n or not (enc == RAW_ENC_DEFLATE).all():
-            return None
-        views = [memoryview(f) for f in frames]
-        plan = raw_decode.plan_stored_batch(views)
-        if plan is None:
-            return None
-        segs, frame_lengths = plan
-        if len(set(frame_lengths)) != 1 or not frame_lengths[0]:
             return None
         try:
             # the npy header lives in the first ~128 inflated bytes: a bounded
             # inflate of the prefix, not of the payload the kernel exists for
-            prefix = zlib.decompressobj(-15).decompress(views[0], 512)
-            npy_meta = _npy_meta(np.frombuffer(prefix, dtype=np.uint8))
+            prefix = zlib.decompressobj(-15).decompress(frames[0], 512)
+            header_len, dtype_str, row_shape = _npy_meta(np.frombuffer(prefix, dtype=np.uint8))
         except (zlib.error, ValueError):
             return None
-        src = np.concatenate([np.asarray(f, dtype=np.uint8) for f in frames])
-        return src, segs, n, frame_lengths[0], npy_meta
+        plan = raw_decode.plan_stored_batch(frames, skip=[header_len] * n)
+        if plan is None:
+            return None
+        segs, frame_lengths = plan
+        row_bytes = int(np.prod(row_shape, dtype=np.int64)) * np.dtype(dtype_str).itemsize
+        if set(frame_lengths) != {row_bytes} or not row_bytes:
+            return None
+        # the frames are the uint8 arrays of the ship-raw kernel
+        src = np.concatenate(frames)
+        return src, segs, n, row_bytes, dtype_str, row_shape
 
     @staticmethod
     def _inflate_on_host(frames: List[Any], enc: np.ndarray) -> np.ndarray:
@@ -379,10 +389,12 @@ class DeviceDecodeStage:
         for entry in recipe:
             kind, name = entry[0], entry[1]
             if kind == 'stored':
-                _, _, segs, n, blob_len, header_len, dtype_str, row_shape = entry
-                flat = raw_decode.stored_inflate(device_columns[name], segs, n * blob_len)
-                out[name] = raw_decode.unpack_npy_rows(flat.view(n, blob_len),
-                                                       header_len, dtype_str, row_shape)
+                _, _, segs, n, row_bytes, dtype_str, row_shape = entry
+                flat = raw_decode.stored_inflate(
+                    device_columns[name], segs, n * row_bytes,
+                    device_segments=out.pop(name + _SEGS_SUFFIX))
+                out[name] = raw_decode.bitcast_rows(flat.view(n, row_bytes), dtype_str,
+                                                    row_shape)
                 self.stored_batches += 1
             elif kind == 'npy':
                 _, _, header_len, dtype_str, row_shape = entry

@@ -179,3 +179,45 @@ def test_stage_rejects_bad_configurations(store):
                             device_transforms={'img': DeviceTransform()})
     with pytest.raises(ValueError, match='requires crop'):
         DeviceTransform(random_flip=True)
+
+
+def test_multi_block_stored_field_matches_jax_stage(tmp_path, monkeypatch):
+    """A float32 (131072,) stored field, each frame several stored blocks
+    whose sources drift in alignment: the port's stage (the header-skipping
+    table, the plain K1 and a bitcast view) equals the JAX stage's device
+    path, and the loader-private segment table never reaches the batch."""
+    monkeypatch.setenv('PETASTORM_TPU_DEVICE_DECODE_FORCE', '1')
+    from petastorm_tpu_torch.codecs import _npz_raw_member
+    from petastorm_tpu_torch.ops import raw_decode
+    codec = CompressedNdarrayCodec(stored=True)
+    schema = Unischema('Wide', [UnischemaField('idx', np.int64, (), ScalarCodec(), False),
+                                UnischemaField('v', np.float32, (131072,), codec, False)])
+    rng = np.random.RandomState(5)
+    rows = [{'idx': i, 'v': rng.randn(131072).astype(np.float32)} for i in range(4)]
+    frame = _npz_raw_member(codec.encode(schema.fields['v'], rows[0]['v']))[1]
+    assert len(raw_decode.parse_stored_deflate_layout(frame)) > 2
+    url = 'file://' + str(tmp_path / 'wide')
+    write_rows(url, schema, rows, rowgroup_size_mb=64)
+    from petastorm_tpu_torch.parallel import loader as loader_module
+    uploaded = []
+    upload = loader_module.upload_columns
+
+    def spy(columns, device):
+        uploaded.append(sorted(columns))
+        return upload(columns, device)
+
+    monkeypatch.setattr(loader_module, 'upload_columns', spy)
+    reader_kwargs = {'device_decode_fields': ['v']}
+    ours, stats = port_batches(url, reader_kwargs, batch_size=2)
+    theirs, jax_loader = jax_batches(url, reader_kwargs, batch_size=2)
+    assert stats['device_stored_batches'] == 2
+    # the table rode in the batch's one upload, as in the JAX stage
+    assert uploaded == [['idx', 'v', 'v__segs']] * 2
+    assert all(entry[0] == 'stored' for recipe in jax_loader._device_stage._programs
+               for entry in recipe)
+    assert len(ours) == len(theirs) == 2
+    for got, want in zip(ours, theirs):
+        assert sorted(got) == sorted(want) == ['idx', 'v']
+        assert got['v'].dtype == want['v'].dtype == np.float32
+        np.testing.assert_array_equal(got['v'], want['v'])
+        np.testing.assert_array_equal(got['v'], np.stack([rows[i]['v'] for i in got['idx']]))

@@ -1,7 +1,9 @@
 """Parity of the port's raw-payload decode (petastorm_tpu_torch.ops.raw_decode)
-with petastorm_tpu.ops.raw_decode: the stored-deflate planner, the plain
-version of kernel K1 against the Pallas stored_inflate (interpret mode on the
-CPU), and the npy bitcast unpack."""
+with petastorm_tpu.ops.raw_decode: the stored-deflate planner (one row per
+stored block, with an optional per-frame header skip, against the JAX
+package's 1024-byte chunks), the plain version of kernel K1 against the
+Pallas stored_inflate (interpret mode on the CPU), and the npy bitcast
+unpack."""
 
 import zlib
 
@@ -25,13 +27,25 @@ def _stored_frames(sizes, seed=0):
     return payloads, frames
 
 
+def _byte_map(segs):
+    """A segment table expanded to its per-byte ``(src, dst)`` pairs, in
+    destination order."""
+    pairs = [(src + i, dst + i) for src, dst, length in segs.tolist() for i in range(length)]
+    return np.array(sorted(pairs, key=lambda pair: pair[1]), dtype=np.int64).reshape(-1, 2)
+
+
 def test_plan_stored_batch_identical_to_jax():
+    """The port's table (one row per stored block) maps the same source bytes
+    to the same destination bytes as the JAX package's 1024-byte chunks."""
     _, frames = _stored_frames(FRAME_SIZES)
     segs, lengths = raw_decode.plan_stored_batch(frames)
     jax_segs, jax_lengths = jax_raw.plan_stored_batch(frames)
     assert segs.dtype == jax_segs.dtype == np.int32
-    np.testing.assert_array_equal(segs, jax_segs)
+    np.testing.assert_array_equal(_byte_map(segs), _byte_map(jax_segs))
     assert lengths == jax_lengths == list(FRAME_SIZES)
+    # one row per stored block: the 70000-byte frame is two blocks
+    assert len(segs) == 5 and (segs[:, 2] <= 65535).all()
+    assert (np.diff(segs[:, 1]) > 0).all()
     huffman = zlib.compressobj(6, zlib.DEFLATED, -15)
     mixed = frames + [huffman.compress(b'a' * 1000) + huffman.flush()]
     assert raw_decode.plan_stored_batch(mixed) is None
@@ -39,13 +53,17 @@ def test_plan_stored_batch_identical_to_jax():
 
 
 def test_plain_stored_inflate_bit_exact_against_pallas():
-    """The plain K1 equals the Pallas kernel (interpret mode) byte for byte on
-    frames of 3000, 70000 (several stored blocks), 1, 0 and 1024 bytes."""
+    """The plain K1 on the port's table equals the Pallas kernel (interpret
+    mode) on the JAX package's table byte for byte, on frames of 3000, 70000
+    (several stored blocks), 1, 0 and 1024 bytes. Each package's kernel takes
+    its own planner's table: the Pallas kernel's 1024-byte window cannot take
+    the port's whole-block rows."""
     payloads, frames = _stored_frames(FRAME_SIZES)
     segs, lengths = raw_decode.plan_stored_batch(frames)
+    jax_segs, _ = jax_raw.plan_stored_batch(frames)
     packed = np.frombuffer(b''.join(frames), dtype=np.uint8)
     out_len = sum(lengths)
-    want = np.asarray(jax_raw.stored_inflate(packed, segs, out_len))
+    want = np.asarray(jax_raw.stored_inflate(packed, jax_segs, out_len))
     got = raw_decode.stored_inflate(torch.from_numpy(packed.copy()), segs, out_len)
     assert got.dtype == torch.uint8 and got.shape == (out_len,)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -58,6 +76,73 @@ def test_stored_inflate_plain_zero_fills_uncovered_output():
     segs = np.array([[2, 5, 3]], dtype=np.int32)
     out = raw_decode.stored_inflate(src, segs, 10)
     assert out.tolist() == [0, 0, 0, 0, 0, 2, 3, 4, 0, 0]
+
+
+def test_header_skipping_plan_matches_jax_with_headers_sliced_off():
+    """With a per-frame skip the table writes each frame's bytes after its
+    first ``skip`` straight to a dense matrix: equal to JAX's stored_inflate
+    output with each frame's leading bytes sliced off. The skips cut inside a
+    block, at a block's edge (65531, where the 70000-byte frame's first block
+    ends) and past a whole block."""
+    sizes = (3000, 70000, 70000, 200)
+    skips = [128, 65531, 65600, 0]
+    payloads, frames = _stored_frames(sizes, seed=3)
+    segs, lengths = raw_decode.plan_stored_batch(frames, skip=skips)
+    assert lengths == [size - skip for size, skip in zip(sizes, skips)]
+    packed = np.frombuffer(b''.join(frames), dtype=np.uint8)
+    jax_segs, jax_lengths = jax_raw.plan_stored_batch(frames)
+    full = np.asarray(jax_raw.stored_inflate(packed, jax_segs, sum(jax_lengths)))
+    starts = np.cumsum([0] + jax_lengths[:-1])
+    want = np.concatenate([full[start + skip:start + size]
+                           for start, skip, size in zip(starts, skips, sizes)])
+    got = raw_decode.stored_inflate(torch.from_numpy(packed.copy()), segs, sum(lengths))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.numpy().tobytes() == b''.join(p[s:] for p, s in zip(payloads, skips))
+
+
+@pytest.mark.parametrize('offset', range(16))
+def test_plain_stored_inflate_at_every_source_offset(offset):
+    """The source starts at each offset 0-15 from an aligned base (the
+    alignments K1 realigns in registers): the plain version still reads the
+    right bytes, and writes 0 in the gaps a spread-out table leaves."""
+    payloads, frames = _stored_frames((3000, 70000, 1, 17), seed=offset)
+    segs, lengths = raw_decode.plan_stored_batch(frames)
+    src = np.concatenate([np.full(offset, 0xAB, np.uint8),
+                          np.frombuffer(b''.join(frames), dtype=np.uint8)])
+    gap = 5
+    spread = segs + np.array([offset, 0, 0], dtype=np.int32)
+    spread[:, 1] += gap * np.arange(1, len(segs) + 1, dtype=np.int32)
+    out_len = sum(lengths) + gap * (len(segs) + 1)
+    got = raw_decode.stored_inflate(torch.from_numpy(src), spread, out_len).numpy()
+    want = np.zeros(out_len, np.uint8)
+    for (_, dst, length), (src_off, _, _) in zip(spread.tolist(), segs.tolist()):
+        want[dst:dst + length] = np.frombuffer(b''.join(frames), np.uint8)[src_off:
+                                                                          src_off + length]
+    np.testing.assert_array_equal(got, want)
+    assert got[:gap].tolist() == [0] * gap and got[-gap:].tolist() == [0] * gap
+
+
+def test_check_stored_plan_rejects_unsorted_or_overlapping_rows():
+    raw_decode.check_stored_plan(np.array([[0, 0, 4], [4, 6, 2]], dtype=np.int32), 8, 8)
+    for rows in ([[0, 4, 4], [4, 0, 4]], [[0, 0, 5], [4, 4, 4]]):
+        with pytest.raises(ValueError, match='not sorted'):
+            raw_decode.check_stored_plan(np.array(rows, dtype=np.int32), 8, 8)
+
+
+def test_stored_inflate_checks_the_device_table():
+    """A device copy of the table must match the host table's shape and be a
+    contiguous int32 tensor on the source's device; the host table is still
+    checked row by row."""
+    src = torch.arange(8, dtype=torch.uint8)
+    segs = np.array([[0, 0, 8]], dtype=np.int32)
+    out = raw_decode.stored_inflate(src, segs, 8, device_segments=torch.from_numpy(segs))
+    assert out.tolist() == list(range(8))
+    for bad in (torch.zeros((2, 3), dtype=torch.int32), torch.zeros((1, 3), dtype=torch.int64),
+                torch.zeros((1, 6), dtype=torch.int32)[:, ::2]):
+        with pytest.raises(ValueError, match='device_segments'):
+            raw_decode.stored_inflate(src, segs, 8, device_segments=bad)
+    with pytest.raises(ValueError, match='reaches past'):
+        raw_decode.stored_inflate(src, segs, 7, device_segments=torch.from_numpy(segs))
 
 
 def test_stored_inflate_refuses_other_devices():
