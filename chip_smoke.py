@@ -70,9 +70,8 @@ from petastorm_tpu_torch import (DeviceTransform, TorchDataLoader, TransformerLM
 from petastorm_tpu_torch.benchmark.lm_data import (ragged_documents, write_packed_store,
                                                    write_token_store)
 from petastorm_tpu_torch.benchmark.mfu import mfu, transformer_train_flops_per_step
-from petastorm_tpu_torch.codecs import (CompressedNdarrayCodec, DctImageCodec, ScalarCodec,
-                                        _npz_raw_member)
-from petastorm_tpu_torch.decode_engine import RAW_ENC_DEFLATE
+from petastorm_tpu_torch.benchmark.stored_plan import plan_ms, stored_frames
+from petastorm_tpu_torch.codecs import CompressedNdarrayCodec, DctImageCodec, ScalarCodec
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
 from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.transformer import next_token_loss
@@ -80,7 +79,6 @@ from petastorm_tpu_torch.ops import raw_decode
 from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_loss,
                                              segment_causal_attention)
 from petastorm_tpu_torch.ops.ring_attention import dense_attention
-from petastorm_tpu_torch.parallel.device_stage import DeviceDecodeStage
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 # the module, not the function the ops package exports under the same name
@@ -194,34 +192,17 @@ K1_LARGE_LEN = 131072
 K1_GAP = 5
 
 
-def stored_frames(length, batch, seed, values=None):
-    """``batch`` level-0 containers of a float32 ``(length,)`` field, as the
-    reader ships them: the raw-deflate member of each."""
-    codec = CompressedNdarrayCodec(stored=True)
-    field = UnischemaField('embedding', np.float32, (length,), codec)
-    rng = np.random.RandomState(seed)
-    return [np.frombuffer(_npz_raw_member(codec.encode(field, values(i) if values else
-                                                       rng.randn(length).astype(np.float32)))[1],
-                          dtype=np.uint8) for i in range(batch)]
-
-
 def stored_plan(frames):
     """(source on the card, host table, the table on the card, inflated
     length, host milliseconds of the planning) of a batch as the decode
     tail plans it on the loader's producer thread: the table skips each
     frame's npy header and writes the payloads as a dense matrix. The time
     is the median of 20 plans on the host's clock."""
-    enc = np.full(len(frames), RAW_ENC_DEFLATE, dtype=np.uint8)
-    planned = DeviceDecodeStage._plan_stored(frames, enc)
+    planned, plan_time_ms = plan_ms(frames)
     check(planned is not None, 'the decode tail did not plan the batch for K1')
-    plan_s = []
-    for _ in range(20):
-        start = time.perf_counter()
-        DeviceDecodeStage._plan_stored(frames, enc)
-        plan_s.append(time.perf_counter() - start)
     src, segs, n, row_bytes, _, _ = planned
     return (torch.from_numpy(src).to('cuda'), segs, torch.from_numpy(segs).to('cuda'),
-            n * row_bytes, statistics.median(plan_s) * 1e3)
+            n * row_bytes, plan_time_ms)
 
 
 def fill_allocator(nbytes):
@@ -322,19 +303,22 @@ def k1_kernel_ms(src, segs, device_segments, out_len, reps):
     return ms
 
 
-def k1_bound_ms(src, segs, out_len):
-    moved = src.numel() + segs.nbytes + out_len
-    return moved / HBM_BYTES_PER_S * 1e3, int(moved)
+def k1_bound_ms(segs, out_len):
+    """The least time of K1's work: the table and the payload bytes its rows
+    name, read once (block and npy headers no row covers are never read),
+    and every output byte written once."""
+    moved = int(segs[:, 2].astype(np.int64).sum()) + segs.nbytes + out_len
+    return moved / HBM_BYTES_PER_S * 1e3, moved
 
 
 def phase_k1(batch, seed):
     """K1 against its plain version, bit for bit, on outputs whose memory held
     0xAB: an edge-case batch (a 70000-byte frame spanning several stored
-    blocks, 0- and 1-byte frames) with the table uploaded by the wrapper,
-    the main path's batch (``batch`` containers of a float32 (2048,)
-    embedding) and the large one (``batch`` of a float32 (131072,) field)
-    with the table on the card as the decode tail has it, and the edge batch
-    at source offsets 0-15 with gaps between its rows. Then times: at the
+    blocks, 0- and 1-byte frames) with its table on the card and again
+    uploaded by the wrapper, the main path's batch (``batch`` containers of
+    a float32 (2048,) embedding) and the large one (``batch`` of a float32
+    (131072,) field) with the table on the card as the decode tail has it,
+    and the edge batch at source offsets 0-15 with gaps between its rows. Then times: at the
     main shape K1's device time (``kernel_ms``), the wrapper as ``finish``
     calls it (``wrapper_ms``), the plain version, and one strided ``copy_``
     that computes the same output for this one-block-per-frame layout
@@ -351,15 +335,19 @@ def phase_k1(batch, seed):
     result = {}
     edge_segs, edge_lengths = raw_decode.plan_stored_batch(edge_frames)
     edge_src = np.concatenate(edge_frames)
-    result['edge'] = k1_check('edge', torch.from_numpy(edge_src).to('cuda'), edge_segs,
-                              sum(edge_lengths))
+    edge_src = torch.from_numpy(edge_src).to('cuda')
+    result['edge'] = k1_check('edge', edge_src, edge_segs, sum(edge_lengths),
+                              torch.from_numpy(edge_segs).to('cuda'))
+    result['edge_host_table'] = k1_check('edge, table uploaded by the wrapper', edge_src,
+                                         edge_segs, sum(edge_lengths))
     sweep = []
     for offset in range(16):
-        src = np.concatenate([np.full(offset, 0xAB, dtype=np.uint8), edge_src])
+        src = torch.cat([torch.full((offset,), 0xAB, dtype=torch.uint8, device='cuda'),
+                         edge_src])
         segs = spread(edge_segs, offset, K1_GAP)
         out_len = sum(edge_lengths) + K1_GAP * (len(segs) + 1)
-        sweep.append(k1_check('offset {}'.format(offset), torch.from_numpy(src).to('cuda'),
-                              segs, out_len, torch.from_numpy(segs).to('cuda')))
+        sweep.append(k1_check('offset {}'.format(offset), src, segs, out_len,
+                              torch.from_numpy(segs).to('cuda')))
     result['offset_sweep'] = {'offsets': 16, 'gap': K1_GAP,
                               'max_abs_err': max(case['max_abs_err'] for case in sweep)}
 
@@ -377,7 +365,7 @@ def phase_k1(batch, seed):
     library_out.copy_(strided)
     check(torch.equal(library_out.view(-1), raw_decode.stored_inflate_plain(src, segs, out_len)),
           'the strided copy differs from the plain version')
-    bound_ms, moved = k1_bound_ms(src, segs, out_len)
+    bound_ms, moved = k1_bound_ms(segs, out_len)
     result['main'].update(
         kernel_ms=k1_kernel_ms(src, segs, dev_segs, out_len, reps=100),
         wrapper_ms=cuda_ms(lambda: raw_decode.stored_inflate(src, segs, out_len,
@@ -391,7 +379,7 @@ def phase_k1(batch, seed):
         stored_frames(K1_LARGE_LEN, batch, seed + 1))
     result['large'] = k1_check('large', src, segs, out_len, dev_segs)
     result['large']['host_plan_ms'] = plan_ms
-    bound_ms, moved = k1_bound_ms(src, segs, out_len)
+    bound_ms, moved = k1_bound_ms(segs, out_len)
     copy_out = torch.empty(out_len, dtype=torch.uint8, device='cuda')
     result['large'].update(
         kernel_ms=k1_kernel_ms(src, segs, dev_segs, out_len, reps=20),
@@ -1009,7 +997,8 @@ def main(argv=None):
     k1 = phase_k1(args.batch, args.seed)
     record['k1'] = k1
     main, large = k1['main'], k1['large']
-    log('phase 3 K1 stored_copy bit-exact (edge, offsets 0-15 with gaps, main, large; '
+    log('phase 3 K1 stored_copy bit-exact (edge with the table on the card and uploaded, '
+        'offsets 0-15 with gaps, main, large; '
         'outputs over 0xAB): main [{} rows, {} B] kernel_ms={:.5f} wrapper_ms={:.5f} '
         'library_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} host_plan_ms={:.4f} | large '
         '[{} rows, {} B] kernel_ms={:.5f} memcpy_ms={:.5f} bound_ms={:.5f} ({:.1%} of '
@@ -1075,7 +1064,8 @@ def main(argv=None):
         'replaces': 'petastorm_tpu/ops/raw_decode.py:165',
         'launches': record['main_path']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
-                           for case in ('edge', 'offset_sweep', 'main', 'large')),
+                           for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
+                                        'large')),
         'ms': k1['main']['kernel_ms'], 'wrapper_ms': k1['main']['wrapper_ms'],
         'plain_ms': k1['main']['plain_ms'],
         'bound_ms': k1['main']['bound_ms'], 'bound_by': 'bytes',

@@ -267,17 +267,10 @@ def stored_inflate(packed_src: torch.Tensor, segments: np.ndarray, out_len: int,
             device, non_blocking=True)
     from petastorm_tpu_torch import cuda_build
     kernel = cuda_build.load('stored_copy')
-    # the current stream's handle, without building a torch.cuda.Stream
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    args = (packed_src.data_ptr(), segs.data_ptr() if m else None, m, out.data_ptr(), out_len,
-            stream)
     # the launch goes to the current device: switch to the tensors' device
-    # only when it is another (the guard costs microseconds on every batch)
-    if device.index == torch.cuda.current_device():
-        status = kernel(*args)
-    else:
-        with torch.cuda.device(device):
-            status = kernel(*args)
+    with torch.cuda.device(device):
+        status = kernel(packed_src.data_ptr(), segs.data_ptr() if m else None, m,
+                        out.data_ptr(), out_len, torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError('stored_copy kernel launch failed: cudaError {}'.format(status))
     stored_inflate.launches += 1

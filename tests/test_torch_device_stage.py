@@ -221,3 +221,23 @@ def test_multi_block_stored_field_matches_jax_stage(tmp_path, monkeypatch):
         assert got['v'].dtype == want['v'].dtype == np.float32
         np.testing.assert_array_equal(got['v'], want['v'])
         np.testing.assert_array_equal(got['v'], np.stack([rows[i]['v'] for i in got['idx']]))
+
+
+@pytest.mark.parametrize('length', [2048, 20000])
+def test_stored_plan_benchmark_plans_a_dense_matrix(length):
+    """The planner-time script's batch plans as the decode tail plans it:
+    one table row per stored block, each frame's npy header skipped, and
+    the plain K1 on that table gives the rows' float32 values."""
+    import torch
+    from petastorm_tpu_torch.benchmark.stored_plan import plan_ms, stored_frames
+    from petastorm_tpu_torch.ops import raw_decode
+    values = np.random.RandomState(3).randn(4, length).astype(np.float32)
+    frames = stored_frames(length, 4, seed=0, values=lambda i: values[i])
+    plan, ms = plan_ms(frames, runs=2)
+    assert ms > 0
+    src, segs, n, row_bytes, dtype_str, row_shape = plan
+    assert (n, row_bytes, row_shape) == (4, 4 * length, (length,))
+    assert len(segs) == sum(len(raw_decode.parse_stored_deflate_layout(f)) for f in frames)
+    out = raw_decode.stored_inflate(torch.from_numpy(src), segs, n * row_bytes)
+    np.testing.assert_array_equal(out.numpy().view(np.dtype(dtype_str)).reshape(n, length),
+                                  values)
