@@ -15,12 +15,22 @@ version on the card, then drives the port's two paths at full width:
   ``make_reader`` -> ``TorchDataLoader(batch_size=2)`` -> ``TransformerLM``
   (embed 512, 4 heads, 4 layers, bfloat16) with the flash-attention kernels
   (K2 forward, K3 dQ and K4 dK/dV, on the bf16 tensor cores), Adam, one
-  warm-up and 8 timed steps; then its packed variant: ragged documents
-  packed into 8192-token bins, the segmented kernels and the packed loss, 4
-  steps.
+  warm-up and 8 timed steps; the same path through
+  ``TorchDataLoader.scan_stream``, each chunk of 8 Adam steps one CUDA graph
+  replay (phase 7b); then its packed variant: ragged documents packed into
+  8192-token bins, the segmented kernels and the packed loss, 4 steps;
+- ``bench.py``'s headline MNIST configuration: a store of 50,000 rows (a
+  (28, 28) uint8 image and int64 labels) -> ``make_reader`` (4 threads) ->
+  ``InMemTorchLoader(batch_size=2048)`` -> ``MnistCNN`` (bfloat16) with
+  SGD through ``scan_epochs``, one CUDA graph replay an epoch, the epoch's
+  permutation from J4 (phase 9); then the same store and model through
+  ``TorchDataLoader.scan_stream`` in chunks of 8 batches (phase 10).
 
 Each path runs with the launch counts set to 0 just before it and read just
-after, and fails unless every kernel of the path launched on it. K1 is held
+after, and fails unless every kernel of the path launched on it (a graph
+replay counts the launches its capture recorded). Each graph phase holds
+the graph's first epoch or chunk of losses against an eager run of the same
+batches from the same weights. K1 is held
 bit for bit against its plain version on outputs whose memory held 0xAB
 (an edge batch, source offsets 0-15 with gaps between rows, the main path's
 batch and a 64 MiB batch of multi-block frames). The flash
@@ -46,6 +56,7 @@ and last ``{"ok": true, "device": {...}}``. The full record is also written to
 
 import argparse
 import concurrent.futures
+import copy
 import importlib
 import itertools
 import json
@@ -65,17 +76,20 @@ import pyarrow.fs as pafs
 import torch
 import torch.nn.functional as F
 
-from petastorm_tpu_torch import (DeviceTransform, TorchDataLoader, TransformerLM, cuda_build,
-                                 make_reader)
+from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, TorchDataLoader,
+                                 TransformerLM, cuda_build, make_reader)
 from petastorm_tpu_torch.benchmark.lm_data import (ragged_documents, write_packed_store,
                                                    write_token_store)
 from petastorm_tpu_torch.benchmark.mfu import mfu, transformer_train_flops_per_step
+from petastorm_tpu_torch.benchmark.mnist_data import write_mnist_store
 from petastorm_tpu_torch.benchmark.stored_plan import plan_ms, stored_frames
 from petastorm_tpu_torch.codecs import CompressedNdarrayCodec, DctImageCodec, ScalarCodec
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
 from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.transformer import next_token_loss
 from petastorm_tpu_torch.ops import raw_decode
+from petastorm_tpu_torch.ops.image import normalize_image
+from petastorm_tpu_torch.ops.index_shuffle import epoch_round_keys, random_index_shuffle
 from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_loss,
                                              segment_causal_attention)
 from petastorm_tpu_torch.ops.ring_attention import dense_attention
@@ -779,15 +793,19 @@ def device_breakdown(step):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     device_ms = dict.fromkeys(list(FLASH_KERNEL_NAMES) + ['other'], 0.0)
+    by_kernel = {}
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
             continue
         group = next((name for name, key in FLASH_KERNEL_NAMES.items() if key in event.key),
                      'other')
         device_ms[group] += event.self_device_time_total / 1e3
+        by_kernel[event.key[:80]] = by_kernel.get(event.key[:80], 0.0) + (
+            event.self_device_time_total / 1e3)
     busy_ms = sum(device_ms.values())
+    top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
     return {'wall_ms': wall_ms, 'device_ms': device_ms, 'device_busy_ms': busy_ms,
-            'idle_share': 1 - busy_ms / wall_ms}
+            'idle_share': 1 - busy_ms / wall_ms, 'top_kernels_ms': dict(top)}
 
 
 def lm_metrics(losses, step_s, window_s, stats, tokens_per_step, flops_per_step):
@@ -903,12 +921,340 @@ def phase_packed(tmp, seed):
     check(all(np.isfinite(losses)), 'non-finite packed loss {}'.format(losses))
     return result
 
+# ------------------------------------------------- whole programs on CUDA graphs
+
+#: the MNIST in-memory configuration of bench.py (bench.py:782-842)
+MNIST_ROWS = 50000
+MNIST_BATCH = 2048
+MNIST_EPOCHS = 7
+MNIST_FLOOR_RUNS = 3
+MNIST_CHUNK = 8
+#: graph against eager losses of the same batches from the same weights,
+#: relative: one bf16 unit (2^-8). The same kernels run on the same inputs,
+#: so the two should agree to the bit; a convolution algorithm that cuDNN
+#: picks otherwise on the capture stream may round a bf16 activation to its
+#: neighbour.
+MNIST_LOSS_RTOL = 2 ** -8
+LM_GRAPH_CHUNK = 8
+#: the device the graph phases' eager references upload to
+CARD = 'cuda'
+
+
+def mnist_step(model, optimizer):
+    """bench.py's MNIST train step (bench.py:693-705): normalize to bf16,
+    softmax cross-entropy with integer labels, SGD."""
+    def step(batch):
+        images = normalize_image(batch['image'][..., None], mean=[0.1307], std=[0.3081],
+                                 dtype=torch.bfloat16)
+        loss = F.cross_entropy(model(images), batch['digit'])
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+    return step
+
+
+def mnist_model(seed):
+    """(model, SGD, its eager twin from the same weights, the twin's SGD)."""
+    torch.manual_seed(seed)
+    model = MnistCNN()
+    twin = copy.deepcopy(model)
+    return (model, torch.optim.SGD(model.parameters(), lr=0.01), twin,
+            torch.optim.SGD(twin.parameters(), lr=0.01))
+
+
+def loss_agreement(graph, eager, rtol):
+    """Step-by-step relative error of the graph's losses against the eager
+    run's; fails beyond ``rtol``."""
+    graph = np.asarray([float(x) for x in graph], dtype=np.float64)
+    eager = np.asarray([float(x) for x in eager], dtype=np.float64)
+    check(graph.shape == eager.shape and graph.size > 0, 'graph ran {} steps, eager {}'.format(
+        graph.size, eager.size))
+    check(np.isfinite(graph).all() and np.isfinite(eager).all(), 'non-finite losses')
+    err = float(np.max(np.abs(graph - eager) / np.abs(eager)))
+    result = {'steps': int(graph.size), 'max_rel_err': err, 'rtol': rtol,
+              'graph': graph.tolist(), 'eager': eager.tolist()}
+    check(err <= rtol, 'graph losses differ from the eager run of the same batches: {}'
+          .format(result))
+    return result
+
+
+def check_permutation(index, n):
+    check(index is not None and index.numel() == n and bool(torch.equal(
+        torch.sort(index).values, torch.arange(n, device=index.device))),
+        'an epoch\'s index vector is not a permutation of [0, {})'.format(n))
+
+
+def timed(fn):
+    """(result, seconds): ``fn()`` on the host clock; ``fn`` ends in a readback."""
+    start = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - start
+
+
+def phase_mnist_inmem(tmp, seed):
+    """bench.py's headline on the card: make_reader -> InMemTorchLoader ->
+    MnistCNN (bf16) with scan_epochs: a warm-up epoch (fill, upload, capture),
+    the sequential floor (median of MNIST_FLOOR_RUNS), then MNIST_EPOCHS
+    shuffled epochs, each timed to a host readback of its last loss."""
+    url = 'file://' + os.path.join(tmp, 'mnist')
+    start = time.perf_counter()
+    write_mnist_store(url, MNIST_ROWS, n_files=4, rowgroup_size_mb=8, seed=seed)
+    store_write_s = time.perf_counter() - start
+    model, optimizer, twin, twin_opt = mnist_model(seed)
+    step = mnist_step(model, optimizer)
+    state = (model, optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    fill_start = time.perf_counter()
+    reader = make_reader(url, workers_count=4, shuffle_row_groups=True, seed=42, num_epochs=1)
+    loader = InMemTorchLoader(reader, batch_size=MNIST_BATCH, num_epochs=None, shuffle=True,
+                              seed=7)
+    fill_s = time.perf_counter() - fill_start
+    batches = len(loader)
+    rows = batches * MNIST_BATCH
+    (first,) = loader.scan_epochs(step, state=state)
+    first = first.tolist()
+    fill_epoch_s = time.perf_counter() - fill_start
+    check_permutation(loader._index, loader.num_rows)
+    (program,) = loader._scan_cache.programs()
+    # the eager twin on the same batches (the iterator's epoch 0 is scan's)
+    twin_step = mnist_step(twin, twin_opt)
+    eager = [twin_step(batch) for batch, _ in zip(loader, range(batches))]
+    agreement = loss_agreement(first, eager, MNIST_LOSS_RTOL)
+
+    def epoch(shuffle=None):
+        return float(loader.scan_epochs(step, shuffle=shuffle, state=state)[0][-1])
+
+    epoch(shuffle=False)   # the sequential program's capture
+    floor = [timed(lambda: epoch(shuffle=False))[1] for _ in range(MNIST_FLOOR_RUNS)]
+    floor_s = statistics.median(floor)
+    epochs = []
+    for _ in range(MNIST_EPOCHS):
+        last, elapsed = timed(epoch)
+        check_permutation(loader._index, loader.num_rows)
+        check(np.isfinite(last), 'non-finite loss {}'.format(last))
+        epochs.append({'s': elapsed, 'rows_per_s': rows / elapsed,
+                       'input_overhead': max(0.0, 1.0 - floor_s / elapsed), 'last_loss': last})
+    eager_rows_per_s = rows / timed(lambda: float(torch.stack(
+        [twin_step(batch) for batch, _ in zip(loader, range(batches))])[-1]))[1]
+    keys = epoch_round_keys(7, 1000)
+    positions = torch.arange(loader.num_rows, device=loader.device)
+    j4_ms = cuda_ms(lambda: random_index_shuffle(positions, keys, loader.num_rows), reps=10)
+    j4 = device_breakdown(lambda: random_index_shuffle(positions, keys, loader.num_rows))
+    graph_epoch = device_breakdown(epoch)
+    eager_epoch = device_breakdown(lambda: float(torch.stack(
+        [twin_step(batch) for batch, _ in zip(loader, range(batches))])[-1]))
+    sequential = loader._scan_cache.programs()[1]
+    return {'rows': rows, 'batches_per_epoch': batches, 'store_write_s': store_write_s,
+            'fill_s': fill_s, 'fill_epoch_s': fill_epoch_s, 'capture_s': program.capture_s,
+            'floor_capture_s': sequential.capture_s,
+            'floor_s': floor, 'floor_median_s': floor_s, 'epochs': epochs,
+            'rows_per_s': statistics.median(e['rows_per_s'] for e in epochs),
+            'input_overhead': statistics.median(e['input_overhead'] for e in epochs),
+            'eager_rows_per_s': eager_rows_per_s, 'j4_ms': j4_ms,
+            'j4_device_ms': j4['device_busy_ms'], 'graph_epoch': graph_epoch,
+            'eager_epoch': eager_epoch, 'first_epoch': agreement,
+            'replays': {'shuffled': program.replays, 'sequential': sequential.replays},
+            'peak_memory_bytes': torch.cuda.max_memory_allocated()}
+
+
+def first_chunk_batches(make, batches, batch_size, seed):
+    """The first chunk as scan_stream builds it: ``batches`` batches of a
+    fresh loader from ``make()`` in stream order, shuffled within the chunk
+    by the numpy permutation of ``seed`` (None: not shuffled), on the card."""
+    with make() as reader:
+        loader = TorchDataLoader(reader, batch_size=batch_size)
+        taken = [{name: t.cpu().numpy() for name, t in b.items()}
+                 for b, _ in zip(loader, range(batches))]
+    columns = {name: np.concatenate([b[name] for b in taken]) for name in taken[0]}
+    if seed is not None:
+        perm = np.random.RandomState(seed % 2 ** 31).permutation(batches * batch_size)
+        columns = {name: col[perm] for name, col in columns.items()}
+    return [{name: torch.from_numpy(col[i * batch_size:(i + 1) * batch_size]).to(CARD)
+             for name, col in columns.items()} for i in range(batches)]
+
+
+def phase_mnist_stream(tmp, seed):
+    """The same store and model through TorchDataLoader.scan_stream
+    (bench.py:1419-1455): chunks of MNIST_CHUNK batches, seed=epoch. First a
+    pass in stream order that is deterministic (an in-line reader), whose
+    first chunk is held against the eager twin; then epochs 0-7 on a thread
+    pool of 4, the first a warm-up."""
+    url = 'file://' + os.path.join(tmp, 'mnist')   # phase 9's store
+    model, optimizer, twin, twin_opt = mnist_model(seed + 1)
+    step = mnist_step(model, optimizer)
+
+    def inline_reader():
+        return make_reader(url, reader_pool_type='dummy', shuffle_row_groups=True, seed=42)
+
+    with inline_reader() as reader:
+        check_loader = TorchDataLoader(reader, batch_size=MNIST_BATCH)
+        chunks = check_loader.scan_stream(step, chunk_batches=MNIST_CHUNK, seed=0,
+                                          state=(model, optimizer))
+    twin_step = mnist_step(twin, twin_opt)
+    eager = [twin_step(batch) for batch in first_chunk_batches(
+        inline_reader, MNIST_CHUNK, MNIST_BATCH, 0)]
+    agreement = loss_agreement(chunks[0].tolist(), eager, MNIST_LOSS_RTOL)
+    epochs = []
+    with make_reader(url, workers_count=4, shuffle_row_groups=True, seed=42,
+                     num_epochs=1) as reader:
+        loader = TorchDataLoader(reader, batch_size=MNIST_BATCH)
+        for epoch in range(MNIST_EPOCHS + 1):
+            def one_pass():
+                aux = loader.scan_stream(step, chunk_batches=MNIST_CHUNK, seed=epoch,
+                                         state=(model, optimizer))
+                float(aux[-1][-1])
+                return sum(int(a.shape[0]) for a in aux) * MNIST_BATCH
+            rows, elapsed = timed(one_pass)
+            epochs.append({'s': elapsed, 'rows': rows, 'rows_per_s': rows / elapsed})
+        programs = [entry[0] for entry in loader._scan_stream_programs.programs()]
+    return {'chunk_batches': MNIST_CHUNK, 'epochs': epochs,
+            'rows_per_s': statistics.median(e['rows_per_s'] for e in epochs[1:]),
+            'capture_s': [p.capture_s for p in programs],
+            'replays': [p.replays for p in programs], 'first_chunk': agreement}
+
+
+def phase_lm_graph(tmp, seed):
+    """Phase 7's store, model and Adam (capturable) through
+    TorchDataLoader.scan_stream in chunks of LM_GRAPH_CHUNK steps: the first
+    chunk of an in-line reader's pass held against the eager twin within
+    phase 7's first-batch loss limit, then a pass on a thread pool of 2 for
+    the capture and one timed pass, counted: K2-K4 launch LM['layers'] times
+    a step in every replay."""
+    path = 'file://' + os.path.join(tmp, 'tokens')   # phase 7's store
+    torch.manual_seed(seed)
+    model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
+    twin = copy.deepcopy(model)
+
+    def lm_step(model):
+        optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                                     eps=1e-8, capturable=True)
+
+        def step(batch):
+            return adam_step(optimizer, lambda b: next_token_loss(model(b['tokens']),
+                                                                  b['tokens']), batch)
+        return step, optimizer
+
+    step, optimizer = lm_step(model)
+
+    def inline_reader():
+        return make_reader(path, reader_pool_type='dummy', seed=seed)
+
+    with inline_reader() as reader:
+        chunks = TorchDataLoader(reader, batch_size=LM_BATCH).scan_stream(
+            step, chunk_batches=LM_GRAPH_CHUNK, state=(model, optimizer))
+    twin_step, _ = lm_step(twin)
+    eager = [twin_step(batch) for batch in first_chunk_batches(
+        inline_reader, LM_GRAPH_CHUNK, LM_BATCH, None)]
+    agreement = loss_agreement(chunks[0].tolist(), eager, LM_LOSS_RTOL)
+    torch.cuda.reset_peak_memory_stats()
+    with make_reader(path, workers_count=2, seed=seed) as reader:
+        loader = TorchDataLoader(reader, batch_size=LM_BATCH)
+        loader.scan_stream(step, chunk_batches=LM_GRAPH_CHUNK, state=(model, optimizer))
+        reset_counts()
+
+        def one_pass():
+            aux = loader.scan_stream(step, chunk_batches=LM_GRAPH_CHUNK,
+                                     state=(model, optimizer))
+            losses = torch.cat(aux).tolist()
+            return losses
+        losses, wall_s = timed(one_pass)
+        counts = read_counts()
+        ((program, _, _),) = loader._scan_stream_programs.programs()
+        # replays of the last chunk, outside the counted pass: the graph alone
+        replay_ms = cuda_ms(program.run, reps=2, runs=3, warmup=1)
+        breakdown = device_breakdown(program.run)
+    steps = len(losses)
+    per_replay = {name: program.launches[name] for name in FLASH_PRODUCTS}
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    check(all(n == LM['layers'] * LM_GRAPH_CHUNK for n in per_replay.values()),
+          'a replay launches {}, expected {} each (layers x steps)'.format(
+              per_replay, LM['layers'] * LM_GRAPH_CHUNK))
+    check(all(n == LM['layers'] * steps for n in launches.values()),
+          'flash kernels launched {} times over {} graph steps, expected {} each'.format(
+              launches, steps, LM['layers'] * steps))
+    check(counts['dense_fallbacks'] == 0, 'attention took the dense path')
+    check(all(np.isfinite(losses)), 'non-finite LM loss {}'.format(losses))
+    tflops, util = mfu(transformer_train_flops_per_step(
+        LM_BATCH, LM['max_len'], LM['vocab'], LM['embed'], LM['layers']), wall_s / steps)
+    return {'chunk_batches': LM_GRAPH_CHUNK, 'steps': steps, 'wall_s': wall_s,
+            'tokens_per_s': steps * LM_BATCH * LM['max_len'] / wall_s,
+            'step_ms': wall_s / steps * 1e3, 'model_tflops_per_s': tflops, 'mfu': util,
+            'replay_ms': replay_ms, 'replay_step_ms': replay_ms / LM_GRAPH_CHUNK,
+            'replay_tokens_per_s': LM_GRAPH_CHUNK * LM_BATCH * LM['max_len'] / replay_ms * 1e3,
+            'launches': launches, 'launches_per_replay': per_replay,
+            'capture_s': program.capture_s, 'first_chunk': agreement,
+            'losses': losses, 'breakdown': breakdown,
+            'peak_memory_bytes': torch.cuda.max_memory_allocated()}
+
 
 def breakdown_line(breakdown):
     return 'wall {:.2f} ms, device {:.2f} ms ({}), idle share {:.4f}'.format(
         breakdown['wall_ms'], breakdown['device_busy_ms'],
         ', '.join('{} {:.2f}'.format(name, ms) for name, ms in breakdown['device_ms'].items()),
         breakdown['idle_share'])
+
+
+def lm_line(phase, name, result, card):
+    return ('phase {} {} path: {} steps (1 warm-up) of TransformerLM [{}x{}] bf16: '
+            'tokens/s={:.1f} step_ms(median)={:.2f} model TFLOP/s={:.3f} MFU={:.5f} '
+            'peak_memory={:.3f} GiB input_stall_fraction={:.4f} losses {:.4f}->{:.4f} '
+            'launches {} dense_fallbacks {} first batch {}; one profiled step: {} '
+            '[{}]'.format(
+                phase, name, result['steps_run'], LM_BATCH, LM['max_len'],
+                result['tokens_per_s'], result['step_ms_median'],
+                result['model_tflops_per_s'], result['mfu'],
+                result['peak_memory_bytes'] / 2 ** 30, result['input_stall_fraction'],
+                result['losses'][0], result['losses'][-1], result['launches'],
+                result['dense_fallbacks'],
+                {key: round(value, 6) for key, value in result['first_batch'].items()},
+                breakdown_line(result['breakdown']), card))
+
+
+def lm_graph_line(result, eager, card):
+    return ('phase 7b lm path through scan_stream (CUDA graph of {} Adam steps, '
+            'capturable): one pass of {} steps: tokens/s={:.1f} step_ms={:.3f} (the '
+            'pass\'s wall over its steps, the reader\'s restart included) model '
+            'TFLOP/s={:.3f} MFU={:.5f}; a replay alone {:.3f} ms = {:.3f} ms a step, '
+            'tokens/s={:.1f}; capture {:.3f} s; beside phase 7 eager: tokens/s={:.1f} '
+            'step_ms(median)={:.2f}; launches {} ({} a replay); first chunk graph vs '
+            'eager max rel err {:.3e} (limit {:.1e}); one profiled replay: {} '
+            'peak_memory={:.3f} GiB [{}]'.format(
+                result['chunk_batches'], result['steps'], result['tokens_per_s'],
+                result['step_ms'], result['model_tflops_per_s'], result['mfu'],
+                result['replay_ms'], result['replay_step_ms'], result['replay_tokens_per_s'],
+                result['capture_s'], eager['tokens_per_s'], eager['step_ms_median'],
+                result['launches'], result['launches_per_replay'],
+                result['first_chunk']['max_rel_err'], result['first_chunk']['rtol'],
+                breakdown_line(result['breakdown']), result['peak_memory_bytes'] / 2 ** 30,
+                card))
+
+
+def mnist_inmem_line(result, card):
+    return ('phase 9 MNIST in-memory (InMemTorchLoader.scan_epochs, {} rows, batch {}, '
+            'MnistCNN bf16, one CUDA graph replay an epoch): rows/s={:.1f} (median of {} '
+            'epochs) input_overhead={:.4f} (sequential floor {:.5f} s) fill_epoch_s={:.3f} '
+            '(fill {:.3f} s, capture {:.3f} s) J4 at n={}: {:.4f} ms ({:.4f} ms of device '
+            'time) eager loop rows/s={:.1f}; graph epoch {}; eager epoch {}; first epoch '
+            'graph vs eager max rel err {:.3e} (limit {:.1e}) peak_memory={:.3f} GiB, '
+            'store written in {:.1f} s [{}]'.format(
+                result['rows'], MNIST_BATCH, result['rows_per_s'], len(result['epochs']),
+                result['input_overhead'], result['floor_median_s'], result['fill_epoch_s'],
+                result['fill_s'], result['capture_s'], MNIST_ROWS, result['j4_ms'],
+                result['j4_device_ms'], result['eager_rows_per_s'],
+                breakdown_line(result['graph_epoch']), breakdown_line(result['eager_epoch']),
+                result['first_epoch']['max_rel_err'], result['first_epoch']['rtol'],
+                result['peak_memory_bytes'] / 2 ** 30, result['store_write_s'], card))
+
+
+def mnist_stream_line(result, card):
+    return ('phase 10 MNIST through TorchDataLoader.scan_stream (chunks of {} batches, '
+            'one CUDA graph replay a chunk): rows/s={:.1f} (median of epochs 1-{}), '
+            'epoch 0 {:.3f} s with capture {}; first chunk graph vs eager max rel err '
+            '{:.3e} (limit {:.1e}) [{}]'.format(
+                result['chunk_batches'], result['rows_per_s'], MNIST_EPOCHS,
+                result['epochs'][0]['s'], result['capture_s'],
+                result['first_chunk']['max_rel_err'], result['first_chunk']['rtol'], card))
 
 
 def build_kernels():
@@ -959,6 +1305,37 @@ def ptxas_report(name):
                 report[kernel]['registers'] = int(line.split('Used ')[1].split()[0])
                 kernel = None
     return report
+
+
+def phase_imagenet(tmp, args, record, card):
+    """Phases 5 and 6: the ImageNet device-decode path and its image check."""
+    path = os.path.join(tmp, 'imagenet')
+    url = 'file://' + path
+    start = time.perf_counter()
+    blobs = write_imagenet_store(url, path, args.rows, args.unique_images,
+                                 args.image, args.seed)
+    record['store_write_s'] = time.perf_counter() - start
+    main_path, delivered = phase_main_path(url, args)
+    main_path['distinct_rows'] = check_delivered(delivered, args.seed)
+    check(main_path['distinct_rows'] == main_path['rows'], 'rows repeated or lost')
+    record['main_path'] = main_path
+    log('phase 5 ImageNet path: {} steps of ResNet-50 at batch {}: rows/s={:.2f} '
+        'input_stall_fraction={:.4f} step_ms(median)={:.2f} peak_memory={:.3f} GiB '
+        'loss {:.4f}->{:.4f}, K1 launches {} on {} batches, store written in {:.1f} s '
+        '[{}]'.format(main_path['steps'], args.batch, main_path['rows_per_s'],
+                      main_path['input_stall_fraction'], main_path['step_ms_median'],
+                      main_path['peak_memory_bytes'] / 2 ** 30, main_path['losses'][0],
+                      main_path['losses'][-1], main_path['k1_launches'],
+                      main_path['steps'], record['store_write_s'], card))
+    record['image_check'] = phase_image_check(url, blobs, args)
+    log('phase 6 images: {}'.format(record['image_check']))
+
+
+def write_record(record, out):
+    if out:
+        os.makedirs(os.path.dirname(out) or '.', exist_ok=True)
+        with open(out, 'w') as f:
+            json.dump(record, f, indent=1)
 
 
 def main(argv=None):
@@ -1018,46 +1395,21 @@ def main(argv=None):
 
     tmp = tempfile.mkdtemp(prefix='petastorm_tpu_torch_smoke_')
     try:
-        path = os.path.join(tmp, 'imagenet')
-        url = 'file://' + path
-        start = time.perf_counter()
-        blobs = write_imagenet_store(url, path, args.rows, args.unique_images,
-                                     args.image, args.seed)
-        record['store_write_s'] = time.perf_counter() - start
-        main_path, delivered = phase_main_path(url, args)
-        main_path['distinct_rows'] = check_delivered(delivered, args.seed)
-        check(main_path['distinct_rows'] == main_path['rows'], 'rows repeated or lost')
-        record['main_path'] = main_path
-        log('phase 5 ImageNet path: {} steps of ResNet-50 at batch {}: rows/s={:.2f} '
-            'input_stall_fraction={:.4f} step_ms(median)={:.2f} peak_memory={:.3f} GiB '
-            'loss {:.4f}->{:.4f}, K1 launches {} on {} batches, store written in {:.1f} s '
-            '[{}]'.format(main_path['steps'], args.batch, main_path['rows_per_s'],
-                          main_path['input_stall_fraction'], main_path['step_ms_median'],
-                          main_path['peak_memory_bytes'] / 2 ** 30, main_path['losses'][0],
-                          main_path['losses'][-1], main_path['k1_launches'],
-                          main_path['steps'], record['store_write_s'], card))
-        record['image_check'] = phase_image_check(url, blobs, args)
-        log('phase 6 images: {}'.format(record['image_check']))
-
-        for phase, name, fn in ((7, 'lm', phase_lm), (8, 'packed', phase_packed)):
-            result = fn(tmp, args.seed)
-            record[name] = result
-            log('phase {} {} path: {} steps (1 warm-up) of TransformerLM [{}x{}] bf16: '
-                'tokens/s={:.1f} step_ms(median)={:.2f} model TFLOP/s={:.3f} MFU={:.5f} '
-                'peak_memory={:.3f} GiB input_stall_fraction={:.4f} losses {:.4f}->{:.4f} '
-                'launches {} dense_fallbacks {} first batch {}; one profiled step: {} '
-                '[{}]'.format(
-                    phase, name, result['steps_run'], LM_BATCH, LM['max_len'],
-                    result['tokens_per_s'], result['step_ms_median'],
-                    result['model_tflops_per_s'], result['mfu'],
-                    result['peak_memory_bytes'] / 2 ** 30, result['input_stall_fraction'],
-                    result['losses'][0], result['losses'][-1], result['launches'],
-                    result['dense_fallbacks'],
-                    {key: round(value, 6) for key, value in result['first_batch'].items()},
-                    breakdown_line(result['breakdown']), card))
+        phase_imagenet(tmp, args, record, card)
+        record['lm'] = phase_lm(tmp, args.seed)
+        log(lm_line(7, 'lm', record['lm'], card))
+        record['lm_graph'] = phase_lm_graph(tmp, args.seed)
+        log(lm_graph_line(record['lm_graph'], record['lm'], card))
+        record['packed'] = phase_packed(tmp, args.seed)
+        log(lm_line(8, 'packed', record['packed'], card))
+        record['mnist_inmem'] = phase_mnist_inmem(tmp, args.seed)
+        log(mnist_inmem_line(record['mnist_inmem'], card))
+        record['mnist_stream'] = phase_mnist_stream(tmp, args.seed)
+        log(mnist_stream_line(record['mnist_stream'], card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    record['run_s'] = time.perf_counter() - run_start
     kernels = [{
         'name': 'stored_copy', 'route': 'cuda',
         'source': 'petastorm_tpu_torch/csrc/stored_copy.cu',
@@ -1092,11 +1444,7 @@ def main(argv=None):
             'library_ms': timing['library_ms']})
     kernels = {'kernels': kernels}
     record.update(kernels)
-    record['run_s'] = time.perf_counter() - run_start
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or '.', exist_ok=True)
-        with open(args.out, 'w') as f:
-            json.dump(record, f, indent=1)
+    write_record(record, args.out)
     log('run: {:.1f} s after the card check'.format(record['run_s']))
     print(json.dumps(kernels))
     print(card)

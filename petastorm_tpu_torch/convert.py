@@ -97,3 +97,27 @@ def transformer_state_dict_from_flax(variables):
     put('norm', _layer_norm(params['LayerNorm_0']))
     put('head', _dense(params['Dense_0']))
     return out
+
+
+#: flax submodule name -> port submodule name of MnistCNN
+_MNIST_LAYERS = (('Conv_0', 'conv1'), ('Conv_1', 'conv2'), ('Dense_0', 'fc1'),
+                 ('Dense_1', 'fc2'))
+
+
+def mnist_state_dict_from_flax(variables):
+    """``petastorm_tpu.models.mnist.MnistCNN`` variables (``{'params': ...}``
+    with numpy leaves) -> a ``state_dict`` for
+    :class:`petastorm_tpu_torch.models.mnist.MnistCNN`: conv kernels HWIO ->
+    OIHW, dense kernels ``(in, out)`` -> ``(out, in)``, biases as they are.
+    ``Dense_0``'s rows stay in flax's ``(h, w, c)`` order: the port's model
+    flattens its activations in that order."""
+    params = variables['params']
+    out = {}
+    for flax_name, port_name in _MNIST_LAYERS:
+        layer = params[flax_name]
+        weight = _conv(layer) if flax_name.startswith('Conv') else _dense(layer)
+        weight['bias'] = np.asarray(layer['bias'])
+        for name, value in weight.items():
+            out['{}.{}'.format(port_name, name)] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+    return out

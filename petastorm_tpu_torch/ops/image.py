@@ -8,14 +8,26 @@ Randomness comes from an explicit ``torch.Generator``. It does not reproduce
 explicitly, so a test can hand both packages the same draws.
 """
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=16)
+def _channel_constants(mean, std, device):
+    # made once per (mean, std, device): a tensor made from host data inside
+    # a CUDA graph capture would copy from the host, which a capture refuses
+    return (torch.tensor(mean, dtype=torch.float32, device=device),
+            torch.tensor(std, dtype=torch.float32, device=device))
 
 
 def normalize_image(images, mean, std, dtype=torch.bfloat16):
     """uint8 [B, H, W, C] -> ``(x / 255 - mean) / std`` as ``dtype``, computed in
-    float32; ``mean``/``std`` are per-channel sequences."""
-    mean = torch.as_tensor(mean, dtype=torch.float32, device=images.device)
-    std = torch.as_tensor(std, dtype=torch.float32, device=images.device)
+    float32; ``mean``/``std`` are per-channel sequences. Their constants are
+    made on the device once, so a call can be captured into a CUDA graph
+    after a first eager call."""
+    mean, std = _channel_constants(tuple(float(m) for m in mean),
+                                   tuple(float(s) for s in std), images.device)
     x = images.to(torch.float32) / 255.0
     return ((x - mean) / std).to(dtype)
 

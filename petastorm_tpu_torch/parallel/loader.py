@@ -19,8 +19,11 @@ for one device.
 - ``stats.input_stall_fraction`` is the share of the consumer's time spent
   blocked waiting for the next batch.
 
+:meth:`TorchDataLoader.scan_stream` runs the stream through whole-chunk
+programs instead (one CUDA graph replay per chunk of batches on the card).
+
 Left for later slices, and absent from the signature: meshes and partition
-specs (one device here), ``scan_stream``, checkpoint ``state_dict``/resume,
+specs (one device here), checkpoint ``state_dict``/resume,
 telemetry/SLO/incident/history hooks, lineage stamping and autotuning knobs
 beyond ``set_prefetch``/``set_device_buffer_depth``.
 """
@@ -34,10 +37,13 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch.ops.raw_decode import torch_dtype
+from petastorm_tpu_torch.parallel.graphs import ProgramCache, StepProgram, program_state
 from petastorm_tpu_torch.parallel.shuffling_buffer import (NoopShufflingBuffer,
                                                            RandomShufflingBuffer)
 
 _END = object()
+#: scan_stream keeps this many (step_fn, chunk-shape) programs per loader
+_SCAN_STREAM_CACHE_MAX = 8
 #: byte alignment of each field inside the packed upload buffer (the widest
 #: element any ``view(dtype)`` needs, with room for 16-byte vector loads)
 _UPLOAD_ALIGN = 16
@@ -146,6 +152,10 @@ class TorchDataLoader(object):
         self._stop_event = threading.Event()
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == 'cuda' else None)
+        self._scan_stream_programs = ProgramCache(
+            _SCAN_STREAM_CACHE_MAX,
+            'scan_stream built more than {limit} distinct (step_fn, chunk-shape) programs; '
+            'pass a stable step_fn object to reuse them')
         self._device_buffer_depth = max(1, int(device_buffer_depth))
         if getattr(reader, 'device_decode_fields', None):
             from petastorm_tpu_torch.parallel.device_stage import DeviceDecodeStage
@@ -312,6 +322,127 @@ class TorchDataLoader(object):
             except queue.Full:
                 pass
 
+    # ------------------------------------------------------------ whole-chunk programs
+
+    def scan_stream(self, step_fn, chunk_batches=32, seed=None, state=None):
+        """Stream the reader through whole-chunk programs: accumulate
+        ``chunk_batches`` batches of host rows, upload them as ONE pinned copy
+        into the program's static chunk buffer, and run every train step of the
+        chunk as ONE replay of a CUDA graph (eagerly on ``device='cpu'``).
+        The counterpart of ``JaxDataLoader.scan_stream``, whose chunk is one
+        ``lax.scan`` dispatch.
+
+        Rows are shuffled within each chunk by
+        ``np.random.RandomState((seed + chunk_index) % 2**31).permutation``,
+        the JAX package's order. The trailing smaller chunk runs through a
+        program of its own (one more capture); the final sub-batch-size
+        remainder is dropped (static shapes). Programs are cached per
+        ``(step_fn, batches in the chunk)``: pass a stable ``step_fn`` object.
+
+        :param step_fn: ``step_fn(batch) -> aux``: one train step over a dict of
+            ``(batch_size, ...)`` tensors, mutating the model and optimizer in
+            place (see :mod:`~petastorm_tpu_torch.parallel.graphs` for what a
+            captured step may do).
+        :param chunk_batches: batches per chunk.
+        :param seed: within-chunk shuffle seed; None keeps the stream order.
+        :param state: the modules and optimizers ``step_fn`` mutates (required
+            on the card, where the capture's warm-up is undone on them).
+        :return: the per-chunk ``aux`` stacked over the chunk's steps, in
+            stream order.
+        """
+        if self._shuffling_queue_capacity:
+            raise ValueError('scan_stream has its own in-chunk shuffle; construct '
+                             'the loader with shuffling_queue_capacity=0')
+        if chunk_batches < 1:
+            raise ValueError('chunk_batches must be >= 1')
+        if not self._drop_last:
+            raise ValueError('scan_stream always drops the sub-batch-size remainder '
+                             '(static shapes); construct the loader with '
+                             'drop_last=True to make that explicit, or use __iter__ '
+                             'to see every row')
+        if reader_may_be_infinite(self.reader):
+            raise ValueError('scan_stream runs to stream end and cannot consume an '
+                             'infinite reader (num_epochs=None); give the reader a '
+                             'finite num_epochs and call scan_stream per pass')
+        if self._device_stage is not None and not self._device_stage.host_mode:
+            raise ValueError('scan_stream does not support device_decode_fields decoded '
+                             'on the device (raw payloads cannot pack into a chunk) or '
+                             'device_transforms (the chunk path has no augment stage: '
+                             'silently training un-augmented would be worse than '
+                             'refusing); use __iter__')
+        if self._in_iter:
+            raise RuntimeError('scan_stream cannot run while __iter__ is active: '
+                               'both would consume the same reader')
+        state = program_state(state, self.device)
+        if self._producer is not None and self._producer.is_alive():
+            # an abandoned __iter__ left its producer prefetching from the
+            # reader: stop and join it, as a fresh __iter__ would
+            self._stop_event.set()
+            self._drain_queue()
+            self._producer.join(timeout=30)
+            if self._producer.is_alive():
+                raise RuntimeError('Previous producer thread did not stop')
+        if getattr(self.reader, 'last_row_consumed', False):
+            # a fully consumed reader resets for the next pass, as in __iter__
+            self.reader.reset()
+        batch_size = self.batch_size
+
+        def run_chunk(columns, n_batches, chunk_index):
+            usable = n_batches * batch_size
+            if seed is not None:
+                perm = np.random.RandomState((seed + chunk_index) % (2 ** 31)).permutation(usable)
+                columns = {name: col[:usable][perm] for name, col in columns.items()}
+            else:
+                columns = {name: col[:usable] for name, col in columns.items()}
+            chunk = {name: np.ascontiguousarray(
+                         col.reshape((n_batches, batch_size) + col.shape[1:]))
+                     for name, col in columns.items()}
+            key = (step_fn, n_batches)
+            program, buffer, layout = self._scan_stream_programs.get(
+                key, lambda: self._chunk_program(step_fn, chunk, n_batches, state))
+            if layout != _layout_key(chunk):
+                raise ValueError('the stream\'s columns changed between chunks: {} then {}'
+                                 .format(layout, _layout_key(chunk)))
+            upload_columns(chunk, self.device, out=buffer)
+            self.stats.add(batches=n_batches, rows=usable)
+            try:
+                return program.run()
+            except ValueError:
+                self._scan_stream_programs.discard(key)   # a step that cannot be captured
+                raise
+
+        pending = []
+        pending_rows = 0
+        chunk_rows = chunk_batches * batch_size
+        chunk_index = 0
+        aux_chunks = []
+        for columns in self._reader_chunks():
+            pending.append(columns)
+            pending_rows += _num_rows(columns)
+            while pending_rows >= chunk_rows:
+                merged = _concat_column_chunks(pending)
+                head = {name: col[:chunk_rows] for name, col in merged.items()}
+                tail = {name: col[chunk_rows:] for name, col in merged.items()}
+                aux_chunks.append(run_chunk(head, chunk_batches, chunk_index))
+                chunk_index += 1
+                pending = [tail]
+                pending_rows -= chunk_rows
+        if pending_rows >= batch_size:
+            aux_chunks.append(run_chunk(_concat_column_chunks(pending),
+                                        pending_rows // batch_size, chunk_index))
+        return aux_chunks
+
+    def _chunk_program(self, step_fn, chunk, n_batches, state):
+        """A program over a static chunk buffer laid out as ``chunk``'s packed
+        upload; returns ``(program, buffer, layout)``."""
+        layout, nbytes = packed_layout(chunk)
+        buffer = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=self.device)
+        views = {name: buffer[start:start + col.nbytes].view(torch_dtype(col.dtype))
+                 .view(col.shape) for name, start, col in layout}
+        program = StepProgram(step_fn, lambda i: {name: view[i] for name, view in views.items()},
+                              n_batches, state, self.device)
+        return program, buffer, _layout_key(chunk)
+
     # ------------------------------------------------------------ runtime knobs
 
     def set_prefetch(self, depth):
@@ -365,11 +496,9 @@ class TorchDataLoader(object):
         self.join()
 
 
-def upload_columns(columns, device):
-    """Numeric host columns -> tensors on ``device`` through ONE packed uint8
-    buffer: pinned and copied asynchronously on the current stream for CUDA,
-    used in place on the CPU. Each field is a ``view(dtype)`` slice of the
-    device buffer, aligned to 16 bytes."""
+def packed_layout(columns):
+    """``([(name, start, column)], total_bytes)``: where each numeric host
+    column lies in the packed upload buffer, aligned to 16 bytes."""
     layout = []
     offset = 0
     for name in sorted(columns):
@@ -377,14 +506,47 @@ def upload_columns(columns, device):
         offset = -(-offset // _UPLOAD_ALIGN) * _UPLOAD_ALIGN
         layout.append((name, offset, col))
         offset += col.nbytes
-    host = torch.empty(max(offset, 1), dtype=torch.uint8,
+    return layout, offset
+
+
+def upload_columns(columns, device, out=None):
+    """Numeric host columns -> tensors on ``device`` through ONE packed uint8
+    buffer: pinned and copied asynchronously on the current stream for CUDA,
+    used in place on the CPU. Each field is a ``view(dtype)`` slice of the
+    device buffer, aligned to 16 bytes. With ``out`` (a uint8 tensor on
+    ``device`` of the packed size, e.g. a CUDA graph's static input) the copy
+    goes into it."""
+    layout, nbytes = packed_layout(columns)
+    host = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                        pin_memory=device.type == 'cuda')
     host_np = host.numpy()
     for _, start, col in layout:
         host_np[start:start + col.nbytes] = col.reshape(-1).view(np.uint8)
-    buf = host.to(device, non_blocking=True) if device.type == 'cuda' else host
+    if out is not None:
+        if (out.shape != host.shape or out.dtype != torch.uint8
+                or out.device.type != device.type):
+            raise ValueError('out must be a uint8 tensor of {} bytes on {}, got {} {} on {}'
+                             .format(host.numel(), device, tuple(out.shape), out.dtype,
+                                     out.device))
+        buf = out.copy_(host, non_blocking=True)
+    elif device.type == 'cuda':
+        buf = host.to(device, non_blocking=True)
+    else:
+        buf = host
     return {name: buf[start:start + col.nbytes].view(torch_dtype(col.dtype))
             .view(col.shape) for name, start, col in layout}
+
+
+def reader_may_be_infinite(reader):
+    """Conservative infinite-stream detection: ``num_epochs is None`` on the reader or,
+    for wrapper readers exposing ``_readers``/``readers``, on any wrapped reader;
+    unknown shapes count as infinite (callers should then demand an explicit cap)."""
+    if hasattr(reader, 'num_epochs'):
+        return reader.num_epochs is None
+    inner = getattr(reader, 'readers', None) or getattr(reader, '_readers', None)
+    if inner:
+        return any(reader_may_be_infinite(r) for r in inner)
+    return True
 
 
 def iter_reader_chunks(reader):
@@ -423,6 +585,18 @@ def sanitize_columns(columns, pad_ragged, passthrough=frozenset()):
         else:
             out[name] = np.ascontiguousarray(col)
     return out
+
+
+def _layout_key(columns):
+    return [(name, col.dtype.str, col.shape) for name, col in sorted(columns.items())]
+
+
+def _concat_column_chunks(chunks):
+    """Concatenate sanitized column dicts along the row axis (one dict passes
+    through without a copy)."""
+    if len(chunks) == 1:
+        return chunks[0]
+    return {name: np.concatenate([c[name] for c in chunks]) for name in chunks[0]}
 
 
 def _num_rows(columns):
