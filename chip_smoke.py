@@ -27,8 +27,10 @@ version on the card, then drives the port's two paths at full width:
   ``TorchDataLoader.scan_stream`` in chunks of 8 batches (phase 10).
 
 Each path runs with the launch counts set to 0 just before it and read just
-after, and fails unless every kernel of the path launched on it (a graph
-replay counts the launches its capture recorded). Each graph phase holds
+after, and fails unless every kernel of the path launched on it. The
+wrappers count only launches made outside a CUDA graph, so the LM graph
+phase (7b) counts its kernels in profiler traces instead: K2-K4 must each
+run once a layer and step in every replay. Each graph phase holds
 the graph's first epoch or chunk of losses against an eager run of the same
 batches from the same weights. K1 is held
 bit for bit against its plain version on outputs whose memory held 0xAB
@@ -782,8 +784,10 @@ FLASH_KERNEL_NAMES = {'fwd': 'flash_fwd_kernel', 'dq': 'flash_bwd_dq_kernel',
 def device_breakdown(step):
     """One more step under ``torch.profiler``, outside the counted run: its
     wall time, the card's device time summed over its kernels, split into
-    each flash kernel and everything else, and the idle share (1 - device
-    time / wall time; the profiler's own cost makes it an upper bound)."""
+    each flash kernel and everything else, the number of times each flash
+    kernel ran on the card (``calls``: the trace's own events, so a CUDA
+    graph replay's kernels count too), and the idle share (1 - device time /
+    wall time; the profiler's own cost makes it an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -793,6 +797,7 @@ def device_breakdown(step):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     device_ms = dict.fromkeys(list(FLASH_KERNEL_NAMES) + ['other'], 0.0)
+    calls = dict.fromkeys(FLASH_KERNEL_NAMES, 0)
     by_kernel = {}
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
@@ -800,12 +805,15 @@ def device_breakdown(step):
         group = next((name for name, key in FLASH_KERNEL_NAMES.items() if key in event.key),
                      'other')
         device_ms[group] += event.self_device_time_total / 1e3
+        if group in calls:
+            calls[group] += event.count
         by_kernel[event.key[:80]] = by_kernel.get(event.key[:80], 0.0) + (
             event.self_device_time_total / 1e3)
     busy_ms = sum(device_ms.values())
     top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
     return {'wall_ms': wall_ms, 'device_ms': device_ms, 'device_busy_ms': busy_ms,
-            'idle_share': 1 - busy_ms / wall_ms, 'top_kernels_ms': dict(top)}
+            'idle_share': 1 - busy_ms / wall_ms, 'top_kernels_ms': dict(top),
+            'calls': calls}
 
 
 def lm_metrics(losses, step_s, window_s, stats, tokens_per_step, flops_per_step):
@@ -1119,8 +1127,10 @@ def phase_lm_graph(tmp, seed):
     TorchDataLoader.scan_stream in chunks of LM_GRAPH_CHUNK steps: the first
     chunk of an in-line reader's pass held against the eager twin within
     phase 7's first-batch loss limit, then a pass on a thread pool of 2 for
-    the capture and one timed pass, counted: K2-K4 launch LM['layers'] times
-    a step in every replay."""
+    the capture and one timed pass, counted: no step may launch a kernel
+    outside the graph. The graph's kernels are counted in profiler traces,
+    of one replay and of one more whole pass: K2-K4 must each run
+    LM['layers'] times a step in every replay."""
     path = 'file://' + os.path.join(tmp, 'tokens')   # phase 7's store
     torch.manual_seed(seed)
     model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
@@ -1164,16 +1174,22 @@ def phase_lm_graph(tmp, seed):
         # replays of the last chunk, outside the counted pass: the graph alone
         replay_ms = cuda_ms(program.run, reps=2, runs=3, warmup=1)
         breakdown = device_breakdown(program.run)
+        replays_before = program.replays
+        traced_pass = device_breakdown(one_pass)
+        pass_replays = program.replays - replays_before
     steps = len(losses)
-    per_replay = {name: program.launches[name] for name in FLASH_PRODUCTS}
-    launches = {name: counts[name] for name in FLASH_PRODUCTS}
-    check(all(n == LM['layers'] * LM_GRAPH_CHUNK for n in per_replay.values()),
-          'a replay launches {}, expected {} each (layers x steps)'.format(
-              per_replay, LM['layers'] * LM_GRAPH_CHUNK))
-    check(all(n == LM['layers'] * steps for n in launches.values()),
-          'flash kernels launched {} times over {} graph steps, expected {} each'.format(
-              launches, steps, LM['layers'] * steps))
+    eager_launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    check(all(n == 0 for n in eager_launches.values()),
+          'a graph pass launched flash kernels outside the graph: {}'.format(eager_launches))
     check(counts['dense_fallbacks'] == 0, 'attention took the dense path')
+    per_replay = LM['layers'] * LM_GRAPH_CHUNK
+    check(all(n == per_replay for n in breakdown['calls'].values()),
+          'a profiled replay ran the flash kernels {} times, expected {} each (layers x '
+          'steps)'.format(breakdown['calls'], per_replay))
+    check(pass_replays * LM_GRAPH_CHUNK == steps
+          and all(n == per_replay * pass_replays for n in traced_pass['calls'].values()),
+          'a profiled pass of {} replays ran the flash kernels {} times, expected {} each'
+          .format(pass_replays, traced_pass['calls'], per_replay * pass_replays))
     check(all(np.isfinite(losses)), 'non-finite LM loss {}'.format(losses))
     tflops, util = mfu(transformer_train_flops_per_step(
         LM_BATCH, LM['max_len'], LM['vocab'], LM['embed'], LM['layers']), wall_s / steps)
@@ -1182,9 +1198,10 @@ def phase_lm_graph(tmp, seed):
             'step_ms': wall_s / steps * 1e3, 'model_tflops_per_s': tflops, 'mfu': util,
             'replay_ms': replay_ms, 'replay_step_ms': replay_ms / LM_GRAPH_CHUNK,
             'replay_tokens_per_s': LM_GRAPH_CHUNK * LM_BATCH * LM['max_len'] / replay_ms * 1e3,
-            'launches': launches, 'launches_per_replay': per_replay,
+            'eager_launches': eager_launches, 'traced_calls': traced_pass['calls'],
+            'traced_replays': pass_replays, 'traced_calls_per_replay': breakdown['calls'],
             'capture_s': program.capture_s, 'first_chunk': agreement,
-            'losses': losses, 'breakdown': breakdown,
+            'losses': losses, 'breakdown': breakdown, 'traced_pass': traced_pass,
             'peak_memory_bytes': torch.cuda.max_memory_allocated()}
 
 
@@ -1217,16 +1234,19 @@ def lm_graph_line(result, eager, card):
             'pass\'s wall over its steps, the reader\'s restart included) model '
             'TFLOP/s={:.3f} MFU={:.5f}; a replay alone {:.3f} ms = {:.3f} ms a step, '
             'tokens/s={:.1f}; capture {:.3f} s; beside phase 7 eager: tokens/s={:.1f} '
-            'step_ms(median)={:.2f}; launches {} ({} a replay); first chunk graph vs '
-            'eager max rel err {:.3e} (limit {:.1e}); one profiled replay: {} '
-            'peak_memory={:.3f} GiB [{}]'.format(
+            'step_ms(median)={:.2f}; launches outside the graph {}; flash kernels in the '
+            'traces: {} in one replay, {} in a pass of {} replays; first chunk graph vs '
+            'eager max rel err {:.3e} (limit {:.1e}); one profiled replay: {}; one '
+            'profiled pass: {}; peak_memory={:.3f} GiB [{}]'.format(
                 result['chunk_batches'], result['steps'], result['tokens_per_s'],
                 result['step_ms'], result['model_tflops_per_s'], result['mfu'],
                 result['replay_ms'], result['replay_step_ms'], result['replay_tokens_per_s'],
                 result['capture_s'], eager['tokens_per_s'], eager['step_ms_median'],
-                result['launches'], result['launches_per_replay'],
+                result['eager_launches'], result['traced_calls_per_replay'],
+                result['traced_calls'], result['traced_replays'],
                 result['first_chunk']['max_rel_err'], result['first_chunk']['rtol'],
-                breakdown_line(result['breakdown']), result['peak_memory_bytes'] / 2 ** 30,
+                breakdown_line(result['breakdown']), breakdown_line(result['traced_pass']),
+                result['peak_memory_bytes'] / 2 ** 30,
                 card))
 
 

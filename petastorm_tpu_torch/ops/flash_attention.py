@@ -31,7 +31,9 @@ exported by ``csrc/flash_attention.cu``:
 Each kernel wrapper (:func:`flash_forward`, :func:`flash_bwd_dq`,
 :func:`flash_bwd_dkv`) checks its inputs, launches on the current CUDA stream
 for CUDA tensors and counts the launch in ``flash_attention.launches``
-(``{'fwd': n, 'dq': n, 'dkv': n}``). For CPU tensors it runs the plain
+(``{'fwd': n, 'dq': n, 'dkv': n}``). A call inside a CUDA graph capture only
+records the launch and is not counted, and a replay runs the kernels without
+calling the wrappers: a graph's launches show in a profiler trace. For CPU tensors it runs the plain
 PyTorch version beside it (:func:`flash_forward_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`), which the CPU tests
 and ``chip_smoke.py``'s comparisons also call directly.
@@ -311,7 +313,8 @@ def _run(symbol, counter, tensors, ints):
         status = kernel(*pointers, *ints, stream)
     if status != 0:
         raise RuntimeError('{} kernel launch failed: cudaError {}'.format(symbol, status))
-    flash_attention.launches[counter] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        flash_attention.launches[counter] += 1   # a captured call only records the launch
 
 
 def flash_forward(q, k, v, causal=False, segments=None, heads=1):

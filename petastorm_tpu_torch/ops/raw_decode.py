@@ -234,7 +234,8 @@ def stored_inflate(packed_src: torch.Tensor, segments: np.ndarray, out_len: int,
 
     On a CUDA tensor this launches K1 once on the current stream, which
     writes every output byte, so the output needs no zero-fill; each launch
-    is counted in ``stored_inflate.launches``, and a build or launch failure
+    made outside a CUDA graph capture is counted in
+    ``stored_inflate.launches``, and a build or launch failure
     raises. On a CPU tensor it runs :func:`stored_inflate_plain`. Any other
     device raises."""
     device = packed_src.device
@@ -273,7 +274,8 @@ def stored_inflate(packed_src: torch.Tensor, segments: np.ndarray, out_len: int,
                         out.data_ptr(), out_len, torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError('stored_copy kernel launch failed: cudaError {}'.format(status))
-    stored_inflate.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        stored_inflate.launches += 1   # a captured call only records the launch
     return out
 
 

@@ -35,10 +35,10 @@ Capture, as PyTorch's whole-network recipe does it:
   makes the capture fail; :class:`StepProgram` raises ``ValueError`` naming
   the cause.
 
-Kernel launch counts: the port's kernel wrappers count a launch when they
-are called, and a capture calls them without launching anything. So the
-capture's counts are taken back out, kept as :attr:`StepProgram.launches`,
-and added again on every replay, which does launch them.
+The port's kernel wrappers count only the launches they make outside a
+capture: a captured call records its launch, and a replay runs the graph's
+kernels without calling any wrapper. What a replay runs shows in a profiler
+trace (``chip_smoke.py`` phase 7b counts it there).
 """
 
 import time
@@ -48,29 +48,6 @@ import torch
 
 #: eager calls of the first step before a capture
 WARMUP_STEPS = 3
-
-
-def _launch_counters():
-    from petastorm_tpu_torch.ops.flash_attention import flash_attention
-    from petastorm_tpu_torch.ops.raw_decode import stored_inflate
-    return stored_inflate, flash_attention
-
-
-def read_launch_counts():
-    """Every kernel wrapper's launch count, by kernel source entry."""
-    stored_inflate, flash_attention = _launch_counters()
-    return {'stored_copy': stored_inflate.launches, **flash_attention.launches}
-
-
-def _add_launch_counts(delta):
-    stored_inflate, flash_attention = _launch_counters()
-    stored_inflate.launches += delta['stored_copy']
-    for name in flash_attention.launches:
-        flash_attention.launches[name] += delta[name]
-
-
-def _diff(after, before):
-    return {name: after[name] - before[name] for name in after}
 
 
 def _flatten(aux):
@@ -169,8 +146,6 @@ class StepProgram(object):
         self.replays = 0
         #: seconds of the warm-up and capture (host clock, synchronised)
         self.capture_s = None
-        #: kernel launches of one replay
-        self.launches = None
 
     def run(self):
         """Run every step once; returns the steps' ``aux`` stacked over the
@@ -181,7 +156,6 @@ class StepProgram(object):
             self._capture()
         self._graph.replay()
         self.replays += 1
-        _add_launch_counts(self.launches)
         return self._rebuild([output.clone() for output in self._outputs])
 
     def _warm_up(self):
@@ -214,7 +188,6 @@ class StepProgram(object):
 
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.current_stream(self.device)
-        counts = read_launch_counts()
         first_error = []
         try:
             with torch.cuda.graph(graph):
@@ -229,7 +202,6 @@ class StepProgram(object):
             # caller's back, and drop gradients that point into the graph's pool
             torch.cuda.set_stream(stream)
             _drop_grads(self._state)
-            _add_launch_counts(_diff(counts, read_launch_counts()))
             cause = first_error[0] if first_error else exc
             raise ValueError(
                 'step_fn could not be captured into a CUDA graph ({}: {}). A step that '
@@ -237,8 +209,6 @@ class StepProgram(object):
                 'tensor), has data-dependent shapes (boolean indexing, nonzero) or makes '
                 'tensors from host data cannot run inside one; Adam needs '
                 'capturable=True.'.format(type(cause).__name__, cause)) from cause
-        self.launches = _diff(read_launch_counts(), counts)
-        _add_launch_counts({name: -n for name, n in self.launches.items()})
         self._outputs, self._rebuild = leaves
         self._graph = graph
         torch.cuda.synchronize(self.device)
