@@ -24,10 +24,23 @@ version on the card, then drives the port's two paths at full width:
   ``InMemTorchLoader(batch_size=2048)`` -> ``MnistCNN`` (bfloat16) with
   SGD through ``scan_epochs``, one CUDA graph replay an epoch, the epoch's
   permutation from J4 (phase 9); then the same store and model through
-  ``TorchDataLoader.scan_stream`` in chunks of 8 batches (phase 10).
+  ``TorchDataLoader.scan_stream`` in chunks of 8 batches (phase 10);
+- resumable packed-LM training from plain Parquet (phase 11): a native
+  Parquet store (``doc_id`` int64, ``tokens`` ``list<int32>``, 16 rowgroups
+  of ragged documents that first-fit packs into exactly two full 8192-token
+  bins) -> ``make_torch_loader`` (``make_batch_reader`` with
+  ``make_packing_transform``, batch 2, so every step is one work item) -> the
+  phase 7-8 LM with the segmented kernels, Adam: 16 steps uninterrupted, then
+  from the same weights 8 steps, ``TrainingCheckpointer.save`` with the
+  loader, everything dropped, a new model and optimizer restored and a new
+  loader built with ``resume_state=``, and the last 8 steps. The resumed
+  batches must equal the uninterrupted run's last 8 bit for bit with none
+  after them, the losses must agree within ``RESUME_LOSS_RTOL``, and K2-K4
+  must each launch layers x steps times in each half with no dense fallback.
 
-Each path runs with the launch counts set to 0 just before it and read just
-after, and fails unless every kernel of the path launched on it. The
+Each path (and each half of phase 11) runs with the launch counts set to 0
+just before it and read just after, and fails unless every kernel of the
+path launched on it. The
 wrappers count only launches made outside a CUDA graph, so the LM graph
 phase (7b) counts its kernels in profiler traces instead: K2-K4 must each
 run once a layer and step in every replay. Each graph phase holds
@@ -79,8 +92,10 @@ import torch
 import torch.nn.functional as F
 
 from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, TorchDataLoader,
-                                 TransformerLM, cuda_build, make_reader)
-from petastorm_tpu_torch.benchmark.lm_data import (ragged_documents, write_packed_store,
+                                 TrainingCheckpointer, TransformerLM, cuda_build,
+                                 make_packing_transform, make_reader, make_torch_loader)
+from petastorm_tpu_torch.benchmark.lm_data import (full_bin_rowgroups, ragged_documents,
+                                                   write_packed_store, write_ragged_store,
                                                    write_token_store)
 from petastorm_tpu_torch.benchmark.mfu import mfu, transformer_train_flops_per_step
 from petastorm_tpu_torch.benchmark.mnist_data import write_mnist_store
@@ -929,6 +944,230 @@ def phase_packed(tmp, seed):
     check(all(np.isfinite(losses)), 'non-finite packed loss {}'.format(losses))
     return result
 
+# ----------------------------------------- resumable packed LM from plain Parquet
+
+#: phase 11: rowgroups of the ragged store, each two full bins (one batch)
+RESUME_ROWGROUPS = 16
+#: steps of the uninterrupted run (the whole epoch), and where the other stops
+RESUME_STEPS = 16
+RESUME_SPLIT = 8
+#: resumed against uninterrupted losses, relative: one bf16 unit (2^-8). The
+#: same kernels run on the same batches from the same weights and optimizer
+#: state, so they should agree to the bit; torch's embedding and gather
+#: backwards add with atomics on the card, and a different order of those
+#: float32 sums can move an Adam update by a rounding and round a bf16
+#: activation to its neighbour a step later.
+RESUME_LOSS_RTOL = 2 ** -8
+
+
+def resume_loader(url, seed, resume_state=None):
+    """Phase 11's read path. One worker thread: a pool of two hands its
+    results over in the order they finish, and the check needs the same
+    batch order in both runs."""
+    return make_torch_loader(url, batch_size=LM_BATCH, batched=True,
+                             transform_spec=make_packing_transform('tokens', LM['max_len']),
+                             seed=seed, shuffle_row_groups=True, num_epochs=1,
+                             workers_count=1, resume_state=resume_state,
+                             loader_kwargs={'shuffling_queue_capacity': 0})
+
+
+def resume_model(seed):
+    torch.manual_seed(seed)
+    model = TransformerLM(dtype=torch.bfloat16, **LM)
+    return model, torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+
+
+def packed_step_loss(model):
+    def step_loss(batch):
+        segments = batch['tokens_segments']
+        logits = model(batch['tokens'], positions=batch['tokens_positions'],
+                       attention_fn=segment_causal_attention(segments, use_flash=True))
+        return packed_next_token_loss(logits, batch['tokens'], segments)
+    return step_loss
+
+
+def state_digest(model, optimizer):
+    """Per-tensor float64 sums of the parameters and Adam moments, on the card."""
+    tensors = list(model.parameters()) + [value for state in optimizer.state.values()
+                                          for value in state.values()
+                                          if torch.is_tensor(value) and value.is_cuda]
+    return torch.stack([t.double().sum() for t in tensors]).cpu()
+
+
+def resume_run(model, optimizer, batches, steps):
+    """``steps`` Adam steps counted from 0; per step its loss, its time (from
+    the batch's arrival to the synchronize after the update) and a host copy
+    of its batch; and the wall time of the steps after the first, their
+    fetches included."""
+    step_loss = packed_step_loss(model)
+    losses, step_s, host = [], [], []
+    window_start = None
+    reset_counts()
+    for index in range(steps):
+        if index == 1:
+            window_start = time.perf_counter()
+        batch = next(batches)
+        start = time.perf_counter()
+        losses.append(adam_step(optimizer, step_loss, batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - start)
+        host.append({name: value.cpu().numpy() for name, value in batch.items()})
+    window_s = time.perf_counter() - window_start if window_start else None
+    counts = read_counts()
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    check(all(n == LM['layers'] * steps for n in launches.values()),
+          'segmented flash kernels launched {} times in a run of {} steps, expected {} each'
+          .format(launches, steps, LM['layers'] * steps))
+    check(counts['dense_fallbacks'] == 0,
+          '{} attention calls took the dense path'.format(counts['dense_fallbacks']))
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), 'non-finite loss {}'.format(losses))
+    for batch in host:
+        check(all(batch[name].shape == (LM_BATCH, LM['max_len'])
+                  and batch[name].dtype == np.int32
+                  for name in ('tokens', 'tokens_segments', 'tokens_positions'))
+              and (batch['tokens_segments'] > 0).all(),
+              'a packed batch is not two full int32 bins')
+    fill = float(np.mean([(batch['tokens_segments'] > 0).mean() for batch in host]))
+    return {'losses': losses, 'step_s': step_s, 'window_s': window_s, 'batches': host,
+            'fill': fill, 'launches': launches, 'dense_fallbacks': counts['dense_fallbacks']}
+
+
+def check_exhausted(batches, what):
+    try:
+        next(batches)
+    except StopIteration:
+        return
+    raise RuntimeError('check failed: {} gave a batch after the epoch'.format(what))
+
+
+def same_batches(got, want):
+    return len(got) == len(want) and all(
+        sorted(g) == sorted(w) and all(np.array_equal(g[name], w[name]) for name in w)
+        for g, w in zip(got, want))
+
+
+def max_rel_err(got, want):
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def phase_resume(tmp, seed):
+    """Phase 11: the packed LM read through ``make_torch_loader`` from a plain
+    Parquet store, interrupted after RESUME_SPLIT steps, checkpointed with the
+    loader's position, restored into a new model, optimizer and loader, and
+    held against the uninterrupted run."""
+    url = 'file://' + os.path.join(tmp, 'ragged')
+    phase_start = start = time.perf_counter()
+    write_ragged_store(url, full_bin_rowgroups(RESUME_ROWGROUPS, LM_BATCH, LM['max_len'], 256,
+                                               4096, LM['vocab'], seed), n_files=2)
+    store_write_s = time.perf_counter() - start
+
+    model, optimizer = resume_model(seed)
+    with resume_loader(url, seed) as loader:
+        batches = iter(loader)
+        whole = resume_run(model, optimizer, batches, RESUME_STEPS)
+        check_exhausted(batches, 'the uninterrupted run')
+        whole_stats = loader.stats.as_dict()
+    del model, optimizer
+
+    model, optimizer = resume_model(seed)
+    ckpt_dir = os.path.join(tmp, 'checkpoints')
+    ckpt = TrainingCheckpointer(ckpt_dir)
+    loader = resume_loader(url, seed)
+    first = resume_run(model, optimizer, iter(loader), RESUME_SPLIT)
+    saved_digest = state_digest(model, optimizer)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    check(ckpt.save(RESUME_SPLIT, {'model': model.state_dict(),
+                                   'optimizer': optimizer.state_dict()}, loader=loader),
+          'the checkpointer did not write the step')
+    save_ms = (time.perf_counter() - start) * 1e3
+    step_dir = os.path.join(ckpt_dir, str(RESUME_SPLIT))
+    save_bytes = {name: os.path.getsize(os.path.join(step_dir, name))
+                  for name in sorted(os.listdir(step_dir))}
+    loader.stop()
+    loader.join()
+    del model, optimizer, loader
+    torch.cuda.empty_cache()
+
+    model, optimizer = resume_model(seed + 1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, loader_state = ckpt.restore({'model': model.state_dict(),
+                                        'optimizer': optimizer.state_dict()})
+    model.load_state_dict(state['model'])
+    optimizer.load_state_dict(state['optimizer'])
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - start) * 1e3
+    del state
+    check(torch.equal(state_digest(model, optimizer), saved_digest),
+          'the restored model and optimizer differ from the saved ones')
+    delivered = loader_state['reader']['consumed_by_epoch']
+    check(len(delivered.get('0', [])) == RESUME_SPLIT,
+          'the saved position names {} delivered items, expected {}'.format(
+              delivered, RESUME_SPLIT))
+    start = time.perf_counter()
+    with resume_loader(url, seed, resume_state=loader_state['reader']) as loader:
+        batches = iter(loader)
+        head = next(batches)
+        first_batch_s = time.perf_counter() - start
+        rest = resume_run(model, optimizer, itertools.chain([head], batches),
+                          RESUME_STEPS - RESUME_SPLIT)
+        check_exhausted(batches, 'the resumed run')
+
+    check(same_batches(first['batches'], whole['batches'][:RESUME_SPLIT]),
+          'the interrupted run\'s batches differ from the uninterrupted run\'s first {}'
+          .format(RESUME_SPLIT))
+    check(same_batches(rest['batches'], whole['batches'][RESUME_SPLIT:]),
+          'the resumed batches differ from the uninterrupted run\'s last {}'.format(
+              RESUME_STEPS - RESUME_SPLIT))
+    first_err = max_rel_err(first['losses'], whole['losses'][:RESUME_SPLIT])
+    resumed_err = max_rel_err(rest['losses'], whole['losses'][RESUME_SPLIT:])
+    check(first_err <= RESUME_LOSS_RTOL and resumed_err <= RESUME_LOSS_RTOL,
+          'losses differ from the uninterrupted run by {:.3e} before and {:.3e} after the '
+          'resume (limit {:.1e}): {} + {} vs {}'.format(
+              first_err, resumed_err, RESUME_LOSS_RTOL, first['losses'], rest['losses'],
+              whole['losses']))
+
+    timed = whole['step_s'][1:]
+    tokens_per_step = LM_BATCH * LM['max_len']
+    for run in (whole, first, rest):
+        del run['batches']
+    return {'rowgroups': RESUME_ROWGROUPS, 'steps': RESUME_STEPS, 'split': RESUME_SPLIT,
+            'store_write_s': store_write_s, 'whole': whole, 'first': first, 'resumed': rest,
+            'step_ms_median': statistics.median(timed) * 1e3,
+            'tokens_per_s': tokens_per_step * len(timed) / whole['window_s'],
+            'input_stall_fraction': whole_stats['input_stall_fraction'],
+            'fill': whole['fill'], 'save_ms': save_ms, 'save_bytes': save_bytes,
+            'restore_ms': restore_ms, 'first_batch_s': first_batch_s,
+            'loss_rel_err_first': first_err, 'loss_rel_err_resumed': resumed_err,
+            'loss_rtol': RESUME_LOSS_RTOL, 'phase_s': time.perf_counter() - phase_start}
+
+
+def resume_line(result, packed, card):
+    return ('phase 11 resumable packed LM (make_torch_loader -> make_batch_reader + '
+            'make_packing_transform, {} rowgroups of 2 full bins): {} steps of TransformerLM '
+            '[{}x{}] bf16, segmented kernels: step_ms(median)={:.2f} tokens/s={:.1f} '
+            'input_stall_fraction={:.4f} fill={:.4f}, beside phase 8 (write_packed_store): '
+            'step_ms(median)={:.2f} tokens/s={:.1f} fill={:.4f} [{}]; save at step {}: '
+            '{:.1f} ms, {} bytes ({}) [{}]; restore {:.1f} ms [{}]; resumed reader\'s first '
+            'batch {:.3f} s [{}]; resumed batches equal the uninterrupted run\'s last {} bit '
+            'for bit, none after; losses max rel err {:.3e} before / {:.3e} after the resume '
+            '(limit {:.1e}); launches {} / {} / {} (uninterrupted / first / resumed half), '
+            'dense_fallbacks 0; the phase took {:.1f} s, its store written in {:.2f} s '
+            '[{}]'.format(
+                result['rowgroups'], result['steps'], LM_BATCH, LM['max_len'],
+                result['step_ms_median'], result['tokens_per_s'],
+                result['input_stall_fraction'], result['fill'], packed['step_ms_median'],
+                packed['tokens_per_s'], packed['fill'], card, result['split'],
+                result['save_ms'], sum(result['save_bytes'].values()), result['save_bytes'],
+                card, result['restore_ms'], card, result['first_batch_s'], card,
+                result['steps'] - result['split'], result['loss_rel_err_first'],
+                result['loss_rel_err_resumed'], result['loss_rtol'],
+                result['whole']['launches'], result['first']['launches'],
+                result['resumed']['launches'], result['phase_s'], result['store_write_s'],
+                card))
+
 # ------------------------------------------------- whole programs on CUDA graphs
 
 #: the MNIST in-memory configuration of bench.py (bench.py:782-842)
@@ -1426,6 +1665,8 @@ def main(argv=None):
         log(mnist_inmem_line(record['mnist_inmem'], card))
         record['mnist_stream'] = phase_mnist_stream(tmp, args.seed)
         log(mnist_stream_line(record['mnist_stream'], card))
+        record['resume'] = phase_resume(tmp, args.seed)
+        log(resume_line(record['resume'], record['packed'], card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -5,10 +5,19 @@ codecs (both packages read them):
   (learnable, compressible), the content of ``bench.py``'s token store;
 - :func:`write_packed_store`: ragged documents packed at write time by
   :func:`~petastorm_tpu_torch.ops.packing.pack_sequences` into bins with
-  ``tokens``, ``tokens_segments`` and ``tokens_positions`` columns.
+  ``tokens``, ``tokens_segments`` and ``tokens_positions`` columns;
+- :func:`write_ragged_store`: a plain Parquet store (no Unischema) of ragged
+  documents, ``doc_id`` int64 and ``tokens`` ``list<int32>``, one rowgroup per
+  list of documents, for packing at read time
+  (:func:`~petastorm_tpu_torch.ops.packing.make_packing_transform`);
+  :func:`full_bin_rowgroups` draws rowgroups that pack into full bins.
 """
 
+import os
+
 import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
 from petastorm_tpu_torch.etl.dataset_metadata import write_rows
@@ -62,3 +71,54 @@ def write_packed_store(url, documents, seq_len, n_files=1, rowgroup_size_mb=32):
             for i in range(len(packed['tokens']))]
     write_rows(url, schema, rows, rowgroup_size_mb=rowgroup_size_mb, n_files=n_files)
     return packed
+
+
+def _split_length(total, min_len, max_len, rng):
+    """Lengths in ``[min_len, max_len]`` summing to ``total`` (needs
+    ``max_len >= 2 * min_len`` and ``total >= min_len``)."""
+    lengths = []
+    while total > max_len:
+        n = rng.randint(min_len, min(max_len, total - min_len) + 1)
+        lengths.append(n)
+        total -= n
+    return lengths + [total]
+
+
+def full_bin_rowgroups(rowgroups, bins, seq_len, min_len, max_len, vocab, seed):
+    """``rowgroups`` lists of documents (int32 tokens in ``[0, vocab)``, lengths
+    in ``[min_len, max_len]``, drawn from ``seed``) whose lengths sum to
+    exactly ``bins * seq_len``, ordered bin by bin so that first-fit packing
+    (:func:`~petastorm_tpu_torch.ops.packing.pack_sequences`) fills exactly
+    ``bins`` bins with no padding."""
+    rng = np.random.RandomState(seed)
+    return [[rng.randint(0, vocab, size=n).astype(np.int32)
+             for _ in range(bins) for n in _split_length(seq_len, min_len, max_len, rng)]
+            for _ in range(rowgroups)]
+
+
+def write_ragged_store(url, rowgroups, n_files=1):
+    """A plain Parquet store with one rowgroup per list of documents in
+    ``rowgroups``: ``doc_id`` int64 (numbered across the store) and ``tokens``
+    ``list<int32>``, spread over ``n_files`` files; no Unischema metadata."""
+    if not url.startswith('file://'):
+        raise ValueError('write_ragged_store writes local stores (file://), got {!r}'
+                         .format(url))
+    path = url[len('file://'):]
+    os.makedirs(path, exist_ok=True)
+    schema = pa.schema([pa.field('doc_id', pa.int64(), nullable=False),
+                        pa.field('tokens', pa.list_(pa.int32()), nullable=False)])
+    per_file = -(-len(rowgroups) // n_files)
+    doc_id = 0
+    for file_index in range(n_files):
+        chunk = rowgroups[file_index * per_file:(file_index + 1) * per_file]
+        if not chunk:
+            break
+        with pq.ParquetWriter(os.path.join(path, 'part_{:05d}.parquet'.format(file_index)),
+                              schema) as writer:
+            for docs in chunk:
+                table = pa.table({'doc_id': pa.array(np.arange(doc_id, doc_id + len(docs)),
+                                                     pa.int64()),
+                                  'tokens': pa.array(docs, pa.list_(pa.int32()))},
+                                 schema=schema)
+                writer.write_table(table, row_group_size=len(docs))
+                doc_id += len(docs)

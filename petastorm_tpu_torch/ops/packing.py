@@ -3,9 +3,15 @@ segments, and the attention and loss that keep packed documents apart. The
 counterpart of ``petastorm_tpu.ops.packing``.
 
 - :func:`pack_sequences` (greedy first-fit, deterministic, numpy) is a copy of
-  the JAX package's and gives the same arrays for the same input. The port
-  packs at write time and stores the bins; packing inside reader workers
-  (``make_packing_transform``) waits for ``make_batch_reader``.
+  the JAX package's and gives the same arrays for the same input.
+  :func:`make_packing_transform` runs it inside ``make_batch_reader``'s
+  workers, so packing parallelizes across rowgroups and the loader ships
+  dense ``[n_bins, seq_len]`` columns.
+
+  Defined difference: the port's transform is a ``TransformSpec(batched=True)``
+  whose ``func`` takes and returns a dict of columns, where the JAX package's
+  takes and returns a pandas ``DataFrame``: the card machine has no pandas.
+  The bins are the same.
 - :func:`segment_causal_attention` masks attention to (same segment AND causal
   AND not padding); with ``use_flash=True`` it runs the segmented flash
   kernels. :func:`packed_next_token_loss` masks targets that would cross a
@@ -67,6 +73,36 @@ def pack_sequences(sequences, seq_len, dtype=np.int32):
             positions[b, offset:end] = np.arange(len(seq))
             offset = end
     return {'tokens': tokens, 'segments': segments, 'positions': positions}
+
+
+def make_packing_transform(field, seq_len, dtype=np.int32):
+    """``TransformSpec`` packing a ragged ``field`` inside ``make_batch_reader``
+    workers: each rowgroup batch of variable-length rows becomes ``[n_bins,
+    seq_len]`` columns ``field``, ``<field>_segments`` and
+    ``<field>_positions`` (``dtype``, int32, int32). Bins never mix rowgroups."""
+    from petastorm_tpu_torch.transform import TransformSpec
+
+    seg_field = field + '_segments'
+    pos_field = field + '_positions'
+
+    def func(columns):
+        values = list(columns[field])
+        if values and isinstance(values[0], bytes):
+            raise ValueError(
+                'field {!r} arrived as raw bytes: make_batch_reader on a Unischema '
+                'store emits codec-encoded values. Pack from a native Parquet list '
+                'column, or decode with make_reader upstream.'.format(field))
+        packed = pack_sequences(values, seq_len, dtype=dtype)
+        return {field: packed['tokens'], seg_field: packed['segments'],
+                pos_field: packed['positions']}
+
+    return TransformSpec(
+        func,
+        edit_fields=[(field, dtype, (seq_len,), False),
+                     (seg_field, np.int32, (seq_len,), False),
+                     (pos_field, np.int32, (seq_len,), False)],
+        selected_fields=[field, seg_field, pos_field],
+        batched=True)
 
 
 def segment_mask(q_segments, k_segments, causal=True):

@@ -103,7 +103,7 @@ class InMemTorchLoader(object):
         chunks = []
         rows = 0
         try:
-            for columns, n in iter_reader_chunks(reader):
+            for columns, n, _ in iter_reader_chunks(reader):
                 chunks.append(sanitize_columns(columns, self._pad_ragged))
                 rows += n
                 if rows >= cap:

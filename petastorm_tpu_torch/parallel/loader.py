@@ -22,12 +22,18 @@ for one device.
 :meth:`TorchDataLoader.scan_stream` runs the stream through whole-chunk
 programs instead (one CUDA graph replay per chunk of batches on the card).
 
+:meth:`TorchDataLoader.state_dict` is the JAX loader's delivery-exact read
+position: a work item counts as consumed once every one of its rows was
+yielded to the caller (uploaded or queued batches do not count), and the
+state resumes a reader through ``resume_state=``. :func:`make_torch_loader`
+builds the reader and the loader in one call.
+
 Left for later slices, and absent from the signature: meshes and partition
-specs (one device here), checkpoint ``state_dict``/resume,
-telemetry/SLO/incident/history hooks, lineage stamping and autotuning knobs
-beyond ``set_prefetch``/``set_device_buffer_depth``.
+specs (one device here), telemetry/SLO/incident/history hooks, lineage
+stamping and autotuning knobs beyond ``set_prefetch``/``set_device_buffer_depth``.
 """
 
+import collections
 import queue
 import sys
 import threading
@@ -150,6 +156,16 @@ class TorchDataLoader(object):
         self._queue = None
         self._producer = None
         self._stop_event = threading.Event()
+        # delivery-exact checkpoint accounting: the producer appends
+        # [item_id, rows_pending] per reader chunk (FIFO order is emission
+        # order without a shuffling buffer); the consumer retires rows as it
+        # yields batches and marks an item delivered once all its rows were
+        self._delivery_fifo = collections.deque()
+        self._fifo_lock = threading.Lock()
+        self._delivery_supported = None
+        self._epochs_delivered = 0
+        self._delivered_by_epoch = {}
+        self._scan_stream_used = False
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == 'cuda' else None)
         self._scan_stream_programs = ProgramCache(
@@ -186,6 +202,9 @@ class TorchDataLoader(object):
         self._error = None
         self._stop_event = threading.Event()
         self._queue = queue.Queue(self._prefetch)
+        # pending entries of an abandoned iteration belong to a dead stream:
+        # their items stay undelivered, so a resume serves their rows again
+        self._delivery_fifo.clear()
         self._producer = threading.Thread(target=self._produce,
                                           args=(self._queue, self._stop_event),
                                           daemon=True,
@@ -200,6 +219,7 @@ class TorchDataLoader(object):
                 if item is _END:
                     if self._error is not None:
                         raise self._error
+                    self._mark_delivered(None)   # drop_last / buffer-drain leftovers
                     return
                 batch, rows, done = item
                 self.stats.add(wait_time_s=now - wait_start,
@@ -210,6 +230,7 @@ class TorchDataLoader(object):
                     consumer.wait_event(done)
                     for tensor in batch.values():
                         tensor.record_stream(consumer)
+                self._mark_delivered(rows)
                 yield batch
         finally:
             self._stop_event.set()
@@ -266,8 +287,16 @@ class TorchDataLoader(object):
             self._put(_END, out_queue, stop_event)
 
     def _reader_chunks(self):
-        """Sanitized columnar chunks from the reader."""
-        for columns, num_rows in iter_reader_chunks(self.reader):
+        """Sanitized columnar chunks from the reader, each queued for delivery
+        accounting when the reader names its work item."""
+        for columns, num_rows, item_id in iter_reader_chunks(
+                self.reader, accum_rows=self.batch_size, include_empty=True):
+            if item_id is None:
+                self._delivery_supported = False
+            else:
+                self._delivery_supported = self._delivery_supported is not False
+                with self._fifo_lock:
+                    self._delivery_fifo.append([item_id, num_rows])
             if num_rows:
                 yield self._sanitize(columns)
 
@@ -374,6 +403,7 @@ class TorchDataLoader(object):
             raise RuntimeError('scan_stream cannot run while __iter__ is active: '
                                'both would consume the same reader')
         state = program_state(state, self.device)
+        self._scan_stream_used = True
         if self._producer is not None and self._producer.is_alive():
             # an abandoned __iter__ left its producer prefetching from the
             # reader: stop and join it, as a fresh __iter__ would
@@ -442,6 +472,83 @@ class TorchDataLoader(object):
         program = StepProgram(step_fn, lambda i: {name: view[i] for name, view in views.items()},
                               n_batches, state, self.device)
         return program, buffer, _layout_key(chunk)
+
+    # ---------------------------------------------------------------- checkpoint
+
+    def _mark_delivered(self, n_rows):
+        """Consumer half of the delivery accounting: retire ``n_rows`` from the
+        FIFO (``None``, at stream end: everything pending was dropped by
+        ``drop_last`` or drained out of the buffer and is not served in this
+        run)."""
+        fifo = self._delivery_fifo
+        remaining = n_rows
+        while True:
+            with self._fifo_lock:
+                if not fifo:
+                    break
+                head = fifo[0]
+                if n_rows is None:
+                    take = head[1]
+                else:
+                    if head[1] > 0 and remaining <= 0:
+                        break
+                    take = min(head[1], remaining)
+                head[1] -= take
+                if n_rows is not None:
+                    remaining -= take
+                if head[1] > 0:
+                    break
+                fifo.popleft()
+            self._note_delivered(head[0])
+
+    def _note_delivered(self, item_id):
+        epoch, piece, drop = item_id
+        self._delivered_by_epoch.setdefault(epoch, set()).add((piece, drop))
+        items_per_epoch = getattr(self.reader, 'items_per_epoch', None)
+        if not items_per_epoch:
+            return
+        while (len(self._delivered_by_epoch.get(self._epochs_delivered, ()))
+               >= items_per_epoch):
+            del self._delivered_by_epoch[self._epochs_delivered]
+            self._epochs_delivered += 1
+
+    def state_dict(self):
+        """Delivery-exact resumable read position, the dict of
+        ``JaxDataLoader.state_dict``: a work item counts as consumed only once
+        every one of its rows was yielded by ``__iter__``. Rows in the prefetch
+        queue, on the side stream or in the producer are not counted and are
+        served again on resume (at least once: a partly delivered item is read
+        again whole). Rebuild the reader with the same arguments plus
+        ``resume_state=state`` and wrap it in a new loader to continue.
+
+        Refused for a reader without the columnar path, after ``scan_stream``
+        (it consumes the reader outside this accounting), and while rows wait
+        in a shuffling buffer (emission order is not ingest order: checkpoint
+        after the iterator is exhausted)."""
+        if self._delivery_supported is False:
+            raise ValueError('state_dict requires a Reader with the columnar fast path '
+                             '(iter_columnar)')
+        if self._scan_stream_used:
+            raise ValueError('state_dict is not supported after scan_stream (it '
+                             'consumes the reader outside the delivery accounting); '
+                             'checkpoint with the __iter__ path instead')
+        with self._fifo_lock:
+            pending = any(entry[1] > 0 for entry in self._delivery_fifo)
+        if pending and self._shuffling_queue_capacity:
+            raise ValueError('With a shuffling buffer the loader cannot attribute '
+                             'in-flight rows to work items; checkpoint after the '
+                             'iterator is exhausted (epoch boundary) instead')
+        items_per_epoch = getattr(self.reader, 'items_per_epoch', None)
+        if items_per_epoch is None:
+            raise ValueError('Reader does not support checkpointing')
+        return {
+            'version': 1,
+            'items_per_epoch': items_per_epoch,
+            'epochs_consumed': self._epochs_delivered,
+            'consumed_by_epoch': {
+                epoch - self._epochs_delivered: sorted(ids)
+                for epoch, ids in self._delivered_by_epoch.items()},
+        }
 
     # ------------------------------------------------------------ runtime knobs
 
@@ -549,11 +656,41 @@ def reader_may_be_infinite(reader):
     return True
 
 
-def iter_reader_chunks(reader):
-    """``(columns_dict, num_rows)`` per rowgroup batch of the reader's
-    columnar fast path."""
-    for batch in reader.iter_columnar():
-        yield dict(batch.columns), batch.num_rows
+def iter_reader_chunks(reader, accum_rows=4096, include_empty=False):
+    """``(columns_dict, num_rows, item_id_or_None)`` from any reader: one per
+    work item on the columnar fast path (with its identity, for delivery
+    accounting; ``include_empty`` also yields emptied items), else one per
+    ``accum_rows`` rows of a row iterator."""
+    iter_columnar = getattr(reader, 'iter_columnar', None)
+    if iter_columnar is not None:
+        for batch in iter_columnar(include_empty=include_empty):
+            yield dict(batch.columns), batch.num_rows, batch.item_id
+    else:
+        pending = []
+        for row in reader:
+            pending.append(row._asdict())
+            if len(pending) >= accum_rows:
+                yield _rows_to_columns(pending), len(pending), None
+                pending = []
+        if pending:
+            yield _rows_to_columns(pending), len(pending), None
+
+
+def _rows_to_columns(rows):
+    columns = {}
+    for name in rows[0]:
+        values = [row[name] for row in rows]
+        first = values[0]
+        if isinstance(first, np.ndarray) and first.ndim >= 1:
+            if len({v.shape for v in values}) == 1:
+                columns[name] = np.stack(values)
+            else:
+                columns[name] = values   # ragged: a list until pad_ragged
+        elif isinstance(first, (str, bytes)) or first is None:
+            columns[name] = np.array(values, dtype=object)
+        else:
+            columns[name] = np.asarray(values)
+    return columns
 
 
 def sanitize_columns(columns, pad_ragged, passthrough=frozenset()):
@@ -633,3 +770,33 @@ def _pad_column(col, target_shape, name):
         padded[(i,) + tuple(slice(0, s) for s in value.shape)] = value
         lengths[i] = value.shape[0]
     return padded, lengths
+
+
+def make_torch_loader(dataset_url_or_urls, batch_size, batched=True, loader_kwargs=None,
+                      **reader_kwargs):
+    """Reader and :class:`TorchDataLoader` in one call, the counterpart of
+    ``make_jax_loader`` (one device: no mesh or partition spec).
+    ``batched=True`` reads through ``make_batch_reader`` (native Parquet),
+    ``batched=False`` through ``make_reader`` (codec decode); ``reader_kwargs``
+    go to the reader (``resume_state=`` among them) and ``loader_kwargs`` to the
+    loader, whose ``device`` is CUDA unless ``'cpu'`` is given. Without
+    explicit ``cur_shard``/``shard_count`` the shard comes from
+    :func:`~petastorm_tpu_torch.parallel.mesh.distributed_shard_info`."""
+    from petastorm_tpu_torch.parallel.mesh import distributed_shard_info
+    from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+    loader_kwargs = dict(loader_kwargs or {})
+    # the device is checked before the reader starts its workers
+    loader_kwargs['device'] = resolve_device(loader_kwargs.get('device'))
+    cur_shard, shard_count = distributed_shard_info(
+        reader_kwargs.pop('cur_shard', None), reader_kwargs.pop('shard_count', None))
+    if shard_count is not None:
+        reader_kwargs['cur_shard'] = cur_shard
+        reader_kwargs['shard_count'] = shard_count
+    factory = make_batch_reader if batched else make_reader
+    reader = factory(dataset_url_or_urls, **reader_kwargs)
+    try:
+        return TorchDataLoader(reader, batch_size, **loader_kwargs)
+    except BaseException:
+        reader.stop()
+        reader.join()
+        raise

@@ -2,8 +2,9 @@
 
 A trimmed copy of ``petastorm_tpu.unischema``: the same JSON layout
 (``to_json_dict``/``from_json_dict``), so a schema embedded by either package
-loads in the other. Schema inference from plain Parquet stores and the JAX
-``ShapeDtypeStruct`` render are left out.
+loads in the other, and the same schema inference from plain Parquet stores
+(:meth:`Unischema.from_arrow_schema`, for ``make_batch_reader``). The JAX
+``ShapeDtypeStruct`` render is left out.
 """
 
 import copy
@@ -193,6 +194,10 @@ class Unischema(object):
         """The cached namedtuple class for this schema's field set."""
         return _NamedtupleCache.get(self._name, list(self._fields))
 
+    def make_namedtuple(self, **kwargs):
+        """A row namedtuple of this schema's fields from keyword arguments."""
+        return self.namedtuple(**{k: kwargs[k] for k in self._fields})
+
     def as_arrow_schema(self):
         """Arrow schema of the *encoded* (storage) representation."""
         return pa.schema([pa.field(f.name, f.arrow_type(), nullable=bool(f.nullable))
@@ -212,6 +217,48 @@ class Unischema(object):
             raise ValueError('Unsupported schema version {}'.format(version))
         return cls(schema_dict['name'],
                    [UnischemaField.from_json_dict(f) for f in schema_dict['fields']])
+
+    @classmethod
+    def from_arrow_schema(cls, arrow_schema, omit_unsupported_fields=True, name='inferred'):
+        """Infer a codec-less Unischema from a plain Parquet/Arrow schema: list
+        types become shape ``(None,)``; unsupported types are skipped with a
+        warning (or raise when ``omit_unsupported_fields=False``)."""
+        import warnings
+        fields = []
+        for arrow_field in arrow_schema:
+            try:
+                numpy_dtype, shape = _numpy_from_arrow_type(arrow_field.type)
+            except ValueError as exc:
+                if omit_unsupported_fields:
+                    warnings.warn('Suppressing unsupported field {!r}: {}'
+                                  .format(arrow_field.name, exc))
+                    continue
+                raise
+            fields.append(UnischemaField(arrow_field.name, numpy_dtype, shape,
+                                         codec=None, nullable=arrow_field.nullable))
+        return cls(name, fields)
+
+
+def _numpy_from_arrow_type(arrow_type):
+    """``(numpy_dtype, shape)`` of an Arrow type."""
+    import pyarrow.types as patypes
+    if patypes.is_list(arrow_type) or patypes.is_large_list(arrow_type):
+        inner_dtype, inner_shape = _numpy_from_arrow_type(arrow_type.value_type)
+        if inner_shape != ():
+            raise ValueError('Nested list type {} is not supported'.format(arrow_type))
+        return inner_dtype, (None,)
+    if patypes.is_decimal(arrow_type):
+        return Decimal, ()
+    if patypes.is_string(arrow_type) or patypes.is_large_string(arrow_type):
+        return np.dtype('str_'), ()
+    if patypes.is_binary(arrow_type) or patypes.is_large_binary(arrow_type):
+        return np.dtype('bytes_'), ()
+    if patypes.is_timestamp(arrow_type) or patypes.is_date(arrow_type):
+        return np.dtype('datetime64[ns]'), ()
+    try:
+        return np.dtype(arrow_type.to_pandas_dtype()), ()
+    except (NotImplementedError, pa.ArrowNotImplementedError):
+        raise ValueError('Arrow type {} has no numpy mapping'.format(arrow_type))
 
 
 def dict_to_encoded_row(schema, row_dict):

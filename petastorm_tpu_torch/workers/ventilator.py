@@ -13,12 +13,23 @@ class ConcurrentVentilator(object):
     """Feeds ``items_to_ventilate`` (list of kwargs dicts) from a daemon thread,
     keeping at most ``max_ventilation_queue_size`` items in flight, for
     ``iterations`` epochs (None = forever), shuffling the item order each epoch
-    when ``randomize_item_order``. Every ventilated call gets an
-    ``epoch_index`` keyword carrying the absolute epoch."""
+    when ``randomize_item_order``.
+
+    Resume from a checkpoint: the RNG stream is advanced by
+    ``pre_shuffle_count`` epoch shuffles (the item order of the epoch being
+    resumed is that of the uninterrupted run); items whose ``item_id_fn(item)``
+    is in ``skip_ids_by_iteration[k]`` are skipped in the k-th pass after
+    construction (they were consumed before the checkpoint; results can
+    straddle epochs, hence one set per pass). With ``tag_epoch`` every
+    ventilated call gets an ``epoch_index`` keyword carrying the absolute epoch
+    (``pre_shuffle_count`` + completed passes). ``reset_iterations`` is what
+    :meth:`reset` restores (default ``iterations``; a resumed reader passes its
+    full ``num_epochs``)."""
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
                  max_ventilation_queue_size=None, randomize_item_order=False,
-                 random_seed=None):
+                 random_seed=None, pre_shuffle_count=0, skip_ids_by_iteration=None,
+                 item_id_fn=None, reset_iterations=None, tag_epoch=False):
         if iterations is not None and (not isinstance(iterations, int) or iterations < 1):
             raise ValueError('iterations must be a positive integer or None, got {!r}'
                              .format(iterations))
@@ -26,11 +37,21 @@ class ConcurrentVentilator(object):
         self._items_to_ventilate = list(items_to_ventilate)
         self._iterations = iterations
         self._iterations_remaining = iterations
+        self._reset_iterations = (reset_iterations if reset_iterations is not None
+                                  else iterations)
         self._max_ventilation_queue_size = (max_ventilation_queue_size
                                             or len(self._items_to_ventilate) or 1)
         self._randomize_item_order = randomize_item_order
         self._random_state = np.random.RandomState(random_seed)
-        self._epoch = 0
+        if randomize_item_order:
+            for _ in range(pre_shuffle_count):
+                self._random_state.shuffle(self._items_to_ventilate)
+        self._skip_ids_by_iteration = {int(k): set(v)
+                                       for k, v in (skip_ids_by_iteration or {}).items()}
+        self._item_id_fn = item_id_fn or (lambda item: None)
+        self._tag_epoch = tag_epoch
+        self._pass_offset = 0
+        self._absolute_epoch = pre_shuffle_count
         self._in_flight = 0
         self._current_item_to_ventilate = 0
         self._stop_requested = threading.Event()
@@ -57,23 +78,32 @@ class ConcurrentVentilator(object):
             if self._completed.is_set():
                 return
             item = self._items_to_ventilate[self._current_item_to_ventilate]
-            with self._item_processed:
-                while (self._in_flight >= self._max_ventilation_queue_size
-                       and not self._stop_requested.is_set()):
-                    self._item_processed.wait(timeout=0.1)
-                if self._stop_requested.is_set():
-                    return
-                self._in_flight += 1
+            skip_ids = self._skip_ids_by_iteration.get(self._pass_offset)
+            skip = bool(skip_ids) and self._item_id_fn(item) in skip_ids
+            if not skip:
+                with self._item_processed:
+                    while (self._in_flight >= self._max_ventilation_queue_size
+                           and not self._stop_requested.is_set()):
+                        self._item_processed.wait(timeout=0.1)
+                    if self._stop_requested.is_set():
+                        return
+                    self._in_flight += 1
             self._current_item_to_ventilate += 1
             try:
-                self._ventilate_fn(epoch_index=self._epoch, **item)
+                if not skip:
+                    if self._tag_epoch:
+                        self._ventilate_fn(epoch_index=self._absolute_epoch, **item)
+                    else:
+                        self._ventilate_fn(**item)
             except Exception as exc:  # noqa: BLE001 - surfaced to the consumer
                 self.error = exc
                 self._completed.set()
                 return
             if self._current_item_to_ventilate >= len(self._items_to_ventilate):
                 self._current_item_to_ventilate = 0
-                self._epoch += 1
+                self._skip_ids_by_iteration.pop(self._pass_offset, None)
+                self._pass_offset += 1
+                self._absolute_epoch += 1
                 if self._iterations_remaining is not None:
                     self._iterations_remaining -= 1
                     if self._iterations_remaining <= 0:
@@ -97,8 +127,9 @@ class ConcurrentVentilator(object):
             return self._completed.is_set() and self._in_flight == 0
 
     def reset(self):
-        """Restart ventilation for another ``iterations`` epochs after the
-        previous ones fully completed; the RNG stream continues."""
+        """Restart ventilation for another ``reset_iterations`` epochs after
+        the previous ones fully completed; the RNG stream and the absolute
+        epoch continue."""
         if not self.completed():
             raise RuntimeError('Cannot reset a ventilator that has not completed all '
                                'items (in-flight work remains)')
@@ -106,7 +137,7 @@ class ConcurrentVentilator(object):
         self._completed.clear()
         self._stop_requested.clear()
         self._current_item_to_ventilate = 0
-        self._iterations_remaining = self._iterations
+        self._iterations_remaining = self._reset_iterations
         self._thread = None
         self.start()
 

@@ -1,5 +1,5 @@
-"""petastorm_tpu_torch and chip_smoke.py import neither JAX (jax, flax, optax)
-nor anything of the JAX package (``petastorm_tpu`` or ``petastorm_tpu.*``; the
+"""petastorm_tpu_torch and chip_smoke.py import neither JAX (jax, flax, optax,
+orbax) nor anything of the JAX package (``petastorm_tpu`` or ``petastorm_tpu.*``; the
 port's own name shares that prefix, so matches are on whole module names)."""
 
 import ast
@@ -12,7 +12,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'petastorm_tpu_torch')
-FORBIDDEN_ROOTS = ('jax', 'flax', 'optax', 'petastorm_tpu')
+FORBIDDEN_ROOTS = ('jax', 'flax', 'optax', 'orbax', 'petastorm_tpu')
 
 
 def _forbidden(module):
@@ -46,6 +46,7 @@ def _imports(path):
 def test_forbidden_matches_whole_module_names():
     assert _forbidden('petastorm_tpu') and _forbidden('petastorm_tpu.codecs')
     assert _forbidden('jax.numpy') and _forbidden('flax') and _forbidden('optax')
+    assert _forbidden('orbax.checkpoint')
     assert not _forbidden('petastorm_tpu_torch') and not _forbidden('petastorm_tpu_torch.ops')
     assert not _forbidden('jaxlib_like_name') and not _forbidden('torch')
 
@@ -65,7 +66,7 @@ _BLOCKED_RUN = textwrap.dedent('''
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split('.')[0] in ('jax', 'flax', 'optax', 'petastorm_tpu'):
+            if name.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'petastorm_tpu'):
                 raise ImportError('blocked import of ' + name)
             return None
 
@@ -97,7 +98,7 @@ _BLOCKED_RUN = textwrap.dedent('''
             'img': DeviceTransform(crop=(8, 8), random_flip=True)})
         rows = sum(int(batch['label'].shape[0]) for batch in loader)
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
-                    and m.split('.')[0] in ('jax', 'flax', 'optax', 'petastorm_tpu'))
+                    and m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'petastorm_tpu'))
     print('MODULES', len(names), 'ROWS', rows, 'STORED', loader.stats.device_stored_batches,
           'LEAKED', leaked)
 ''')
