@@ -33,10 +33,14 @@ version on the card, then drives the port's two paths at full width:
   phase 7-8 LM with the segmented kernels, Adam: 16 steps uninterrupted, then
   from the same weights 8 steps, ``TrainingCheckpointer.save`` with the
   loader, everything dropped, a new model and optimizer restored and a new
-  loader built with ``resume_state=``, and the last 8 steps. The resumed
+  loader built with ``resume_state=``, and the last 8 steps. These runs read
+  with one worker thread, so the batch order repeats: the resumed
   batches must equal the uninterrupted run's last 8 bit for bit with none
   after them, the losses must agree within ``RESUME_LOSS_RTOL``, and K2-K4
   must each launch layers x steps times in each half with no dense fallback.
+  Then the same 8 + 8 steps with two worker threads, whose items arrive in
+  the order they finish: the documents trained on before the save and after
+  the resume must be the epoch's, each once.
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -960,14 +964,14 @@ RESUME_SPLIT = 8
 RESUME_LOSS_RTOL = 2 ** -8
 
 
-def resume_loader(url, seed, resume_state=None):
-    """Phase 11's read path. One worker thread: a pool of two hands its
-    results over in the order they finish, and the check needs the same
-    batch order in both runs."""
+def resume_loader(url, seed, workers_count, resume_state=None):
+    """Phase 11's read path. The bit-for-bit check reads with one worker
+    thread: a pool of two hands its results over in the order they finish,
+    so only one worker repeats the batch order from run to run."""
     return make_torch_loader(url, batch_size=LM_BATCH, batched=True,
                              transform_spec=make_packing_transform('tokens', LM['max_len']),
                              seed=seed, shuffle_row_groups=True, num_epochs=1,
-                             workers_count=1, resume_state=resume_state,
+                             workers_count=workers_count, resume_state=resume_state,
                              loader_kwargs={'shuffling_queue_capacity': 0})
 
 
@@ -997,10 +1001,10 @@ def state_digest(model, optimizer):
 def resume_run(model, optimizer, batches, steps):
     """``steps`` Adam steps counted from 0; per step its loss, its time (from
     the batch's arrival to the synchronize after the update) and a host copy
-    of its batch; and the wall time of the steps after the first, their
-    fetches included."""
+    of its batch, made after the last step; and the wall time of the steps
+    after the first, their fetches included."""
     step_loss = packed_step_loss(model)
-    losses, step_s, host = [], [], []
+    losses, step_s, kept = [], [], []
     window_start = None
     reset_counts()
     for index in range(steps):
@@ -1011,8 +1015,10 @@ def resume_run(model, optimizer, batches, steps):
         losses.append(adam_step(optimizer, step_loss, batch))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - start)
-        host.append({name: value.cpu().numpy() for name, value in batch.items()})
+        kept.append(batch)
     window_s = time.perf_counter() - window_start if window_start else None
+    host = [{name: value.cpu().numpy() for name, value in batch.items()} for batch in kept]
+    del kept
     counts = read_counts()
     launches = {name: counts[name] for name in FLASH_PRODUCTS}
     check(all(n == LM['layers'] * steps for n in launches.values()),
@@ -1051,19 +1057,72 @@ def max_rel_err(got, want):
     return max(abs(g - w) / abs(w) for g, w in zip(got, want))
 
 
+def doc_ids(batches, doc_index):
+    """The ``doc_id`` of every document packed into ``batches``, looked up by
+    its tokens (each segment of a bin is one whole document)."""
+    ids = []
+    for batch in batches:
+        for tokens, segments in zip(batch['tokens'], batch['tokens_segments']):
+            ids.extend(doc_index[tokens[segments == s].tobytes()]
+                       for s in np.unique(segments[segments > 0]))
+    return ids
+
+
+def first_docs(batches, doc_index):
+    """Each batch's first document: the order the batches came in."""
+    return [doc_ids([batch], doc_index)[0] for batch in batches]
+
+
+def exactly_once_run(url, seed, doc_index, order):
+    """Phase 11 with two worker threads, so items reach the loader in the
+    order they finish: RESUME_SPLIT steps, the loader's position, a new
+    loader resumed from it and the rest of the epoch. The documents trained
+    on before the save and after the resume must be the epoch's, each once,
+    and the position must name the items delivered before the save."""
+    model, optimizer = resume_model(seed)
+    loader = resume_loader(url, seed, workers_count=2)
+    batches = iter(loader)
+    first = resume_run(model, optimizer, batches, RESUME_SPLIT)
+    state = loader.state_dict()
+    batches.close()
+    loader.stop()
+    loader.join()
+    with resume_loader(url, seed, workers_count=2, resume_state=state) as loader:
+        batches = iter(loader)
+        rest = resume_run(model, optimizer, batches, RESUME_STEPS - RESUME_SPLIT)
+        check_exhausted(batches, 'the two-worker resumed run')
+    before = doc_ids(first['batches'], doc_index)
+    after = doc_ids(rest['batches'], doc_index)
+    check(len(state['consumed_by_epoch'].get(0, [])) == RESUME_SPLIT,
+          'the two-worker position names {} delivered items, expected {}'.format(
+              state['consumed_by_epoch'], RESUME_SPLIT))
+    check(sorted(before + after) == list(range(len(doc_index))),
+          'with two workers the documents before the save ({}) and after the resume ({}) '
+          'are not the epoch\'s {}, each once'.format(len(before), len(after),
+                                                     len(doc_index)))
+    return {'docs_before': len(before), 'docs_after': len(after),
+            'out_of_order': first_docs(first['batches'] + rest['batches'], doc_index) != order,
+            'launches': [first['launches'], rest['launches']]}
+
+
 def phase_resume(tmp, seed):
     """Phase 11: the packed LM read through ``make_torch_loader`` from a plain
     Parquet store, interrupted after RESUME_SPLIT steps, checkpointed with the
     loader's position, restored into a new model, optimizer and loader, and
-    held against the uninterrupted run."""
+    held against the uninterrupted run; then interrupted and resumed with two
+    worker threads and held to the epoch's documents, each once."""
     url = 'file://' + os.path.join(tmp, 'ragged')
     phase_start = start = time.perf_counter()
-    write_ragged_store(url, full_bin_rowgroups(RESUME_ROWGROUPS, LM_BATCH, LM['max_len'], 256,
-                                               4096, LM['vocab'], seed), n_files=2)
+    rowgroups = full_bin_rowgroups(RESUME_ROWGROUPS, LM_BATCH, LM['max_len'], 256, 4096,
+                                   LM['vocab'], seed)
+    write_ragged_store(url, rowgroups, n_files=2)
     store_write_s = time.perf_counter() - start
+    doc_index = {doc.tobytes(): doc_id
+                 for doc_id, doc in enumerate(itertools.chain.from_iterable(rowgroups))}
+    check(len(doc_index) == sum(map(len, rowgroups)), 'two documents of the store are equal')
 
     model, optimizer = resume_model(seed)
-    with resume_loader(url, seed) as loader:
+    with resume_loader(url, seed, workers_count=1) as loader:
         batches = iter(loader)
         whole = resume_run(model, optimizer, batches, RESUME_STEPS)
         check_exhausted(batches, 'the uninterrupted run')
@@ -1073,7 +1132,7 @@ def phase_resume(tmp, seed):
     model, optimizer = resume_model(seed)
     ckpt_dir = os.path.join(tmp, 'checkpoints')
     ckpt = TrainingCheckpointer(ckpt_dir)
-    loader = resume_loader(url, seed)
+    loader = resume_loader(url, seed, workers_count=1)
     first = resume_run(model, optimizer, iter(loader), RESUME_SPLIT)
     saved_digest = state_digest(model, optimizer)
     torch.cuda.synchronize()
@@ -1107,7 +1166,8 @@ def phase_resume(tmp, seed):
           'the saved position names {} delivered items, expected {}'.format(
               delivered, RESUME_SPLIT))
     start = time.perf_counter()
-    with resume_loader(url, seed, resume_state=loader_state['reader']) as loader:
+    with resume_loader(url, seed, workers_count=1,
+                       resume_state=loader_state['reader']) as loader:
         batches = iter(loader)
         head = next(batches)
         first_batch_s = time.perf_counter() - start
@@ -1129,6 +1189,10 @@ def phase_resume(tmp, seed):
               first_err, resumed_err, RESUME_LOSS_RTOL, first['losses'], rest['losses'],
               whole['losses']))
 
+    del model, optimizer
+    two_workers = exactly_once_run(url, seed, doc_index,
+                                   first_docs(whole['batches'], doc_index))
+
     timed = whole['step_s'][1:]
     tokens_per_step = LM_BATCH * LM['max_len']
     for run in (whole, first, rest):
@@ -1141,7 +1205,8 @@ def phase_resume(tmp, seed):
             'fill': whole['fill'], 'save_ms': save_ms, 'save_bytes': save_bytes,
             'restore_ms': restore_ms, 'first_batch_s': first_batch_s,
             'loss_rel_err_first': first_err, 'loss_rel_err_resumed': resumed_err,
-            'loss_rtol': RESUME_LOSS_RTOL, 'phase_s': time.perf_counter() - phase_start}
+            'loss_rtol': RESUME_LOSS_RTOL, 'two_workers': two_workers,
+            'phase_s': time.perf_counter() - phase_start}
 
 
 def resume_line(result, packed, card):
@@ -1154,7 +1219,9 @@ def resume_line(result, packed, card):
             'batch {:.3f} s [{}]; resumed batches equal the uninterrupted run\'s last {} bit '
             'for bit, none after; losses max rel err {:.3e} before / {:.3e} after the resume '
             '(limit {:.1e}); launches {} / {} / {} (uninterrupted / first / resumed half), '
-            'dense_fallbacks 0; the phase took {:.1f} s, its store written in {:.2f} s '
+            'dense_fallbacks 0; two workers: {} documents before the save + {} after the '
+            'resume = the epoch\'s, each once (batch order {} the one-worker run\'s), '
+            'launches {} / {}; the phase took {:.1f} s, its store written in {:.2f} s '
             '[{}]'.format(
                 result['rowgroups'], result['steps'], LM_BATCH, LM['max_len'],
                 result['step_ms_median'], result['tokens_per_s'],
@@ -1165,7 +1232,10 @@ def resume_line(result, packed, card):
                 result['steps'] - result['split'], result['loss_rel_err_first'],
                 result['loss_rel_err_resumed'], result['loss_rtol'],
                 result['whole']['launches'], result['first']['launches'],
-                result['resumed']['launches'], result['phase_s'], result['store_write_s'],
+                result['resumed']['launches'], result['two_workers']['docs_before'],
+                result['two_workers']['docs_after'],
+                'differs from' if result['two_workers']['out_of_order'] else 'equals',
+                *result['two_workers']['launches'], result['phase_s'], result['store_write_s'],
                 card))
 
 # ------------------------------------------------- whole programs on CUDA graphs

@@ -162,7 +162,6 @@ class TorchDataLoader(object):
         # yields batches and marks an item delivered once all its rows were
         self._delivery_fifo = collections.deque()
         self._fifo_lock = threading.Lock()
-        self._delivery_supported = None
         self._epochs_delivered = 0
         self._delivered_by_epoch = {}
         self._scan_stream_used = False
@@ -287,16 +286,12 @@ class TorchDataLoader(object):
             self._put(_END, out_queue, stop_event)
 
     def _reader_chunks(self):
-        """Sanitized columnar chunks from the reader, each queued for delivery
-        accounting when the reader names its work item."""
-        for columns, num_rows, item_id in iter_reader_chunks(
-                self.reader, accum_rows=self.batch_size, include_empty=True):
-            if item_id is None:
-                self._delivery_supported = False
-            else:
-                self._delivery_supported = self._delivery_supported is not False
-                with self._fifo_lock:
-                    self._delivery_fifo.append([item_id, num_rows])
+        """Sanitized columnar chunks from the reader, each work item (emptied
+        ones too) queued for delivery accounting."""
+        for columns, num_rows, item_id in iter_reader_chunks(self.reader,
+                                                             include_empty=True):
+            with self._fifo_lock:
+                self._delivery_fifo.append([item_id, num_rows])
             if num_rows:
                 yield self._sanitize(columns)
 
@@ -446,7 +441,9 @@ class TorchDataLoader(object):
         chunk_rows = chunk_batches * batch_size
         chunk_index = 0
         aux_chunks = []
-        for columns in self._reader_chunks():
+        # read around the delivery FIFO: only __iter__ feeds it
+        chunks = (c for c, n, _ in iter_reader_chunks(self.reader) if n)
+        for columns in map(self._sanitize, chunks):
             pending.append(columns)
             pending_rows += _num_rows(columns)
             while pending_rows >= chunk_rows:
@@ -525,7 +522,7 @@ class TorchDataLoader(object):
         (it consumes the reader outside this accounting), and while rows wait
         in a shuffling buffer (emission order is not ingest order: checkpoint
         after the iterator is exhausted)."""
-        if self._delivery_supported is False:
+        if not hasattr(self.reader, 'iter_columnar'):
             raise ValueError('state_dict requires a Reader with the columnar fast path '
                              '(iter_columnar)')
         if self._scan_stream_used:
@@ -656,41 +653,12 @@ def reader_may_be_infinite(reader):
     return True
 
 
-def iter_reader_chunks(reader, accum_rows=4096, include_empty=False):
-    """``(columns_dict, num_rows, item_id_or_None)`` from any reader: one per
-    work item on the columnar fast path (with its identity, for delivery
-    accounting; ``include_empty`` also yields emptied items), else one per
-    ``accum_rows`` rows of a row iterator."""
-    iter_columnar = getattr(reader, 'iter_columnar', None)
-    if iter_columnar is not None:
-        for batch in iter_columnar(include_empty=include_empty):
-            yield dict(batch.columns), batch.num_rows, batch.item_id
-    else:
-        pending = []
-        for row in reader:
-            pending.append(row._asdict())
-            if len(pending) >= accum_rows:
-                yield _rows_to_columns(pending), len(pending), None
-                pending = []
-        if pending:
-            yield _rows_to_columns(pending), len(pending), None
-
-
-def _rows_to_columns(rows):
-    columns = {}
-    for name in rows[0]:
-        values = [row[name] for row in rows]
-        first = values[0]
-        if isinstance(first, np.ndarray) and first.ndim >= 1:
-            if len({v.shape for v in values}) == 1:
-                columns[name] = np.stack(values)
-            else:
-                columns[name] = values   # ragged: a list until pad_ragged
-        elif isinstance(first, (str, bytes)) or first is None:
-            columns[name] = np.array(values, dtype=object)
-        else:
-            columns[name] = np.asarray(values)
-    return columns
+def iter_reader_chunks(reader, include_empty=False):
+    """``(columns_dict, num_rows, item_id)`` per work item of the reader's
+    columnar fast path, with the item's identity for delivery accounting
+    (``include_empty`` also yields items a transform emptied)."""
+    for batch in reader.iter_columnar(include_empty=include_empty):
+        yield dict(batch.columns), batch.num_rows, batch.item_id
 
 
 def sanitize_columns(columns, pad_ragged, passthrough=frozenset()):

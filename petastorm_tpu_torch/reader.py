@@ -226,8 +226,7 @@ class Reader(object):
             pre_shuffle_count=self._epochs_consumed,
             skip_ids_by_iteration=skip_by_iteration,
             item_id_fn=_item_id,
-            reset_iterations=num_epochs,
-            tag_epoch=True)
+            reset_iterations=num_epochs)
         self._pool = reader_pool
         self._pool.start(RowGroupWorker, setup, self._ventilator)
         results_reader = _BatchResultsReader if is_batched_reader else _RowResultsReader

@@ -81,11 +81,15 @@ class ThreadPool(object):
 
     def get_results(self):
         """Next result payload; raises EmptyResultError once all ventilated work
-        finished and the queue drained; re-raises worker exceptions."""
+        finished and the queue drained, or once the pool was stopped with the
+        queue empty (a stopped ventilator never completes, and a consumer
+        waiting here must still return); re-raises worker exceptions."""
         while True:
             try:
                 result = self._results_queue.get_nowait()
             except queue.Empty:
+                if self._stopped.is_set():
+                    raise EmptyResultError()
                 if self._ventilator is not None and self._ventilator.error is not None:
                     self.stop()
                     raise self._ventilator.error

@@ -13,23 +13,23 @@ class ConcurrentVentilator(object):
     """Feeds ``items_to_ventilate`` (list of kwargs dicts) from a daemon thread,
     keeping at most ``max_ventilation_queue_size`` items in flight, for
     ``iterations`` epochs (None = forever), shuffling the item order each epoch
-    when ``randomize_item_order``.
+    when ``randomize_item_order``. Every ventilated call gets an
+    ``epoch_index`` keyword carrying the absolute epoch (``pre_shuffle_count``
+    + completed passes).
 
     Resume from a checkpoint: the RNG stream is advanced by
     ``pre_shuffle_count`` epoch shuffles (the item order of the epoch being
     resumed is that of the uninterrupted run); items whose ``item_id_fn(item)``
     is in ``skip_ids_by_iteration[k]`` are skipped in the k-th pass after
     construction (they were consumed before the checkpoint; results can
-    straddle epochs, hence one set per pass). With ``tag_epoch`` every
-    ventilated call gets an ``epoch_index`` keyword carrying the absolute epoch
-    (``pre_shuffle_count`` + completed passes). ``reset_iterations`` is what
+    straddle epochs, hence one set per pass). ``reset_iterations`` is what
     :meth:`reset` restores (default ``iterations``; a resumed reader passes its
     full ``num_epochs``)."""
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
                  max_ventilation_queue_size=None, randomize_item_order=False,
                  random_seed=None, pre_shuffle_count=0, skip_ids_by_iteration=None,
-                 item_id_fn=None, reset_iterations=None, tag_epoch=False):
+                 item_id_fn=None, reset_iterations=None):
         if iterations is not None and (not isinstance(iterations, int) or iterations < 1):
             raise ValueError('iterations must be a positive integer or None, got {!r}'
                              .format(iterations))
@@ -49,7 +49,6 @@ class ConcurrentVentilator(object):
         self._skip_ids_by_iteration = {int(k): set(v)
                                        for k, v in (skip_ids_by_iteration or {}).items()}
         self._item_id_fn = item_id_fn or (lambda item: None)
-        self._tag_epoch = tag_epoch
         self._pass_offset = 0
         self._absolute_epoch = pre_shuffle_count
         self._in_flight = 0
@@ -91,10 +90,7 @@ class ConcurrentVentilator(object):
             self._current_item_to_ventilate += 1
             try:
                 if not skip:
-                    if self._tag_epoch:
-                        self._ventilate_fn(epoch_index=self._absolute_epoch, **item)
-                    else:
-                        self._ventilate_fn(**item)
+                    self._ventilate_fn(epoch_index=self._absolute_epoch, **item)
             except Exception as exc:  # noqa: BLE001 - surfaced to the consumer
                 self.error = exc
                 self._completed.set()

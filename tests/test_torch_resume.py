@@ -252,6 +252,63 @@ def test_loader_state_dict_roundtrip(store):
     assert set(first) < set(rest) and sorted(rest) == list(range(ROWS))
 
 
+@pytest.mark.parametrize('batch_size', [ROWGROUP_ROWS, 10])
+def test_loader_resume_with_a_thread_pool(store, batch_size):
+    """Two worker threads hand items over in the order they finish: the
+    loader's position still names exactly the items whose rows were all
+    yielded. Rows before the save and the resumed run's cover the epoch, no
+    wholly delivered item is served again, and with batches aligned to the
+    items every row comes exactly once."""
+    kwargs = dict(reader_pool_type='thread', workers_count=2, shuffle_row_groups=True,
+                  seed=3, num_epochs=1)
+    loader = _loader(make_reader(store, **kwargs), batch_size=batch_size)
+    it = iter(loader)
+    first = [int(i) for _ in range(2) for i in next(it)['id']]
+    state = loader.state_dict()
+    loader.stop()
+    loader.join()
+    with _loader(make_reader(store, resume_state=state, **kwargs),
+                 batch_size=batch_size) as resumed:
+        rest = [int(i) for batch in resumed for i in batch['id']]
+    whole = {i // ROWGROUP_ROWS for i in first
+             if sum(j // ROWGROUP_ROWS == i // ROWGROUP_ROWS for j in first) == ROWGROUP_ROWS}
+    assert len(state['consumed_by_epoch'].get(0, [])) == len(whole)
+    assert set(first) | set(rest) == set(range(ROWS)) and len(set(rest)) == len(rest)
+    assert not {i // ROWGROUP_ROWS for i in rest} & whole
+    if batch_size == ROWGROUP_ROWS:
+        assert len(whole) == 2 and sorted(first + rest) == list(range(ROWS))
+
+
+def test_loader_stop_while_its_producer_waits_on_the_pool(store):
+    """Stopping a loader to checkpoint it while its producer waits on a thread
+    pool's results: the stopped pool ends the wait, so join returns at once
+    (a stopped ventilator never completes, and the wait once ran on until
+    join gave up after 30 s)."""
+    from petastorm_tpu_torch import TransformSpec
+
+    def slow(columns):
+        time.sleep(0.5)
+        return columns
+
+    reader = make_reader(store, reader_pool_type='thread', workers_count=2,
+                         shuffle_row_groups=False, num_epochs=None,
+                         transform_spec=TransformSpec(slow, batched=True))
+    loader = _loader(reader, batch_size=ROWGROUP_ROWS, prefetch=1)
+    batches = iter(loader)
+    next(batches)
+    # the two workers finished their first items together: once the second
+    # batch fills the queue, the producer waits on the pool for the third
+    deadline = time.monotonic() + 30
+    while not loader._queue.full() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    loader.stop()
+    start = time.monotonic()
+    loader.join()
+    assert time.monotonic() - start < 5
+    assert not loader._producer.is_alive()
+    batches.close()
+
+
 def test_loader_state_exact_at_rowgroup_alignment(store):
     kwargs = dict(reader_pool_type='dummy', shuffle_row_groups=False, num_epochs=1)
     loader = _loader(make_reader(store, **kwargs), batch_size=ROWGROUP_ROWS)
@@ -292,6 +349,21 @@ def test_loader_state_dict_refused_after_scan_stream(store):
             loader.state_dict()
 
 
+def test_scan_stream_reads_around_the_delivery_fifo(store):
+    """Only __iter__ feeds the delivery FIFO: a scan_stream pass over a
+    whole epoch leaves it empty, and one __iter__ pass after a reset retires
+    every entry it queued."""
+    reader = make_reader(store, reader_pool_type='dummy', shuffle_row_groups=False,
+                         schema_fields=['id'], num_epochs=1)
+    with _loader(reader, batch_size=10, drop_last=True) as loader:
+        sums = loader.scan_stream(lambda batch: batch['id'].sum(), chunk_batches=2)
+        assert int(sum(int(s.sum()) for s in sums)) == sum(range(ROWS))
+        assert len(loader._delivery_fifo) == 0
+        reader.reset()
+        assert sum(len(b['id']) for b in loader) == ROWS
+        assert len(loader._delivery_fifo) == 0
+
+
 class _RowsOnly(object):
     """A reader without the columnar path (rows only)."""
 
@@ -313,7 +385,6 @@ class _RowsOnly(object):
 def test_loader_state_dict_refused_without_columnar_path(store):
     reader = make_reader(store, reader_pool_type='dummy', schema_fields=['id'])
     with _loader(_RowsOnly(reader), batch_size=10) as loader:
-        assert sum(len(b['id']) for b in loader) == ROWS
         with pytest.raises(ValueError, match='columnar'):
             loader.state_dict()
 
