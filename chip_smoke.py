@@ -40,7 +40,21 @@ version on the card, then drives the port's two paths at full width:
   must each launch layers x steps times in each half with no dense fallback.
   Then the same 8 + 8 steps with two worker threads, whose items arrive in
   the order they finish: the documents trained on before the save and after
-  the resume must be the epoch's, each once.
+  the resume must be the epoch's, each once;
+- the reader's row-space features (phase 12): a store of 16 streams of 32
+  frames of 1024 tokens (one rowgroup a stream, 4 files, a rowgroup index on
+  ``stream_id``) -> ``make_reader`` with an ``NGram`` of 8 frames
+  (``timestamp_overlap=False``) and a rowgroup selector of the 8 even streams
+  -> ``TorchDataLoader(batch_size=2)`` -> phase 7's LM on the windows
+  reshaped to [2, 8192], 1 + 8 Adam steps, then the rest of the epoch; every
+  selected window must arrive once, as 8 consecutive frames of one selected
+  stream with its frames' tokens (12a); then phase 9's store through
+  ``make_reader(predicate=in_pseudorandom_split([0.8, 0.2], 0, 'idx'),
+  cache_type='local-disk')`` -> ``TorchDataLoader`` -> ``MnistCNN``'s eager
+  step: with ``num_epochs=2`` each epoch must read exactly the split's
+  ``idx`` set with one cache hit or miss a rowgroup; then two passes of a
+  ``num_epochs=1`` loader over a new cache must each deliver that set, the
+  first with a miss and the second with a hit for every rowgroup (12b).
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -95,10 +109,12 @@ import pyarrow.fs as pafs
 import torch
 import torch.nn.functional as F
 
-from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, TorchDataLoader,
-                                 TrainingCheckpointer, TransformerLM, cuda_build,
-                                 make_packing_transform, make_reader, make_torch_loader)
-from petastorm_tpu_torch.benchmark.lm_data import (full_bin_rowgroups, ragged_documents,
+from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, NGram,
+                                 TorchDataLoader, TrainingCheckpointer, TransformerLM,
+                                 cuda_build, make_packing_transform, make_reader,
+                                 make_torch_loader)
+from petastorm_tpu_torch.benchmark.lm_data import (FRAME_STREAM_INDEX, full_bin_rowgroups,
+                                                   ragged_documents, write_frame_store,
                                                    write_packed_store, write_ragged_store,
                                                    write_token_store)
 from petastorm_tpu_torch.benchmark.mfu import mfu, transformer_train_flops_per_step
@@ -114,6 +130,8 @@ from petastorm_tpu_torch.ops.index_shuffle import epoch_round_keys, random_index
 from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_loss,
                                              segment_causal_attention)
 from petastorm_tpu_torch.ops.ring_attention import dense_attention
+from petastorm_tpu_torch.predicates import in_pseudorandom_split
+from petastorm_tpu_torch.selectors import SingleIndexSelector
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 # the module, not the function the ops package exports under the same name
@@ -1514,6 +1532,258 @@ def phase_lm_graph(tmp, seed):
             'peak_memory_bytes': torch.cuda.max_memory_allocated()}
 
 
+# ------------------------------------------------- the row-space features (phase 12)
+
+#: phase 12a: the frame store (streams, frames a stream, tokens a frame) and
+#: the selected streams; a window of NGRAM_LEN frames is one LM sequence
+FRAME_STREAMS = 16
+FRAMES_PER_STREAM = 32
+FRAME_LEN = 1024
+NGRAM_LEN = LM['max_len'] // FRAME_LEN
+SELECTED_STREAMS = list(range(0, FRAME_STREAMS, 2))
+#: phase 12b: the train split's fractions and the cache's size cap
+SPLIT = [0.8, 0.2]
+CACHE_LIMIT_BYTES = 1 << 30
+
+
+def check_windows(frame_ids, tokens, frames):
+    """12a's delivery checks: every window (a row of ``frame_ids``) is
+    NGRAM_LEN consecutive frame ids of one selected stream starting at a
+    multiple of NGRAM_LEN, every such window arrives exactly once, and a
+    window's tokens are its frames' tokens in order."""
+    streams = frame_ids // FRAMES_PER_STREAM
+    check(bool((np.diff(frame_ids, axis=1) == 1).all())
+          and bool((streams == streams[:, :1]).all()),
+          'a window is not {} consecutive frames of one stream'.format(NGRAM_LEN))
+    odd = sorted(set(streams[:, 0].tolist()) - set(SELECTED_STREAMS))
+    check(not odd, 'unselected streams {} were delivered'.format(odd))
+    want = sorted(s * FRAMES_PER_STREAM + w * NGRAM_LEN for s in SELECTED_STREAMS
+                  for w in range(FRAMES_PER_STREAM // NGRAM_LEN))
+    check(sorted(frame_ids[:, 0].tolist()) == want,
+          'the windows delivered are not each selected window once: {}'.format(
+              sorted(frame_ids[:, 0].tolist())))
+    check(np.array_equal(tokens, frames.reshape(-1, FRAME_LEN)[frame_ids]),
+          'a window\'s tokens differ from its frames\' tokens')
+    return {'windows': int(len(frame_ids)), 'streams': sorted(set(streams[:, 0].tolist()))}
+
+
+def phase_ngram_lm(tmp, seed):
+    """Phase 12a: a frame store -> make_reader with an NGram of NGRAM_LEN
+    frames (timestamp_overlap=False) and a rowgroup selector of the even
+    streams -> TorchDataLoader -> phase 7's LM on the windows reshaped to
+    [LM_BATCH, max_len], one warm-up and LM_STEPS timed Adam steps, then the
+    rest of the epoch read for the delivery checks."""
+    url = 'file://' + os.path.join(tmp, 'frames')
+    phase_start = start = time.perf_counter()
+    frames = write_frame_store(url, FRAME_STREAMS, FRAMES_PER_STREAM, FRAME_LEN, LM['vocab'],
+                               n_files=4, seed=seed)
+    store_write_s = time.perf_counter() - start
+    torch.manual_seed(seed)
+    model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+    flops = transformer_train_flops_per_step(LM_BATCH, LM['max_len'], LM['vocab'],
+                                             LM['embed'], LM['layers'])
+
+    def step_loss(batch):
+        tokens = batch['tokens'].reshape(LM_BATCH, LM['max_len'])
+        return next_token_loss(model(tokens), tokens)
+
+    ngram = NGram({i: ['tokens', 'frame_id'] for i in range(NGRAM_LEN)}, delta_threshold=1,
+                  timestamp_field='frame_id', timestamp_overlap=False)
+    delivered = []
+
+    def recorded(batches):
+        for batch in batches:
+            delivered.append(batch)
+            yield batch
+
+    selector = SingleIndexSelector(FRAME_STREAM_INDEX, SELECTED_STREAMS)
+    with make_reader(url, schema_fields=ngram, rowgroup_selector=selector, workers_count=2,
+                     shuffle_row_groups=True, seed=7) as reader:
+        loader = TorchDataLoader(reader, batch_size=LM_BATCH)
+        batches = recorded(iter(loader))
+        first = next(batches)
+        check(tuple(first['tokens'].shape) == (LM_BATCH, NGRAM_LEN, FRAME_LEN)
+              and first['tokens'].dtype == torch.int32
+              and first['tokens'].device.type == 'cuda'
+              and tuple(first['frame_id'].shape) == (LM_BATCH, NGRAM_LEN),
+              'window batch {}'.format({k: (tuple(v.shape), v.dtype, v.device.type)
+                                        for k, v in first.items()}))
+        flat = first['tokens'].reshape(LM_BATCH, LM['max_len'])
+        parity = first_batch_parity(model, lambda kernels: next_token_loss(
+            model(flat, attention_fn=causal_flash if kernels else causal_dense), flat))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, window_s = train_lm(itertools.chain([first], batches), optimizer,
+                                            LM_STEPS + 1, step_loss)
+        counts = read_counts()
+        stats = loader.stats.as_dict()
+        for _ in batches:   # the rest of the epoch, for the delivery checks
+            pass
+        breakdown = device_breakdown(lambda: adam_step(optimizer, step_loss, first))
+    frame_ids = torch.cat([b['frame_id'] for b in delivered]).cpu().numpy()
+    tokens = torch.cat([b['tokens'] for b in delivered]).cpu().numpy()
+    delivery = check_windows(frame_ids, tokens, frames)
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    fallbacks = counts['dense_fallbacks']
+    result = lm_metrics(losses, step_s, window_s, stats, LM_BATCH * LM['max_len'], flops)
+    result.update(first_batch=parity, launches=launches, dense_fallbacks=fallbacks,
+                  counts=counts, breakdown=breakdown, delivery=delivery,
+                  store_write_s=store_write_s, phase_s=time.perf_counter() - phase_start)
+    expected = LM['layers'] * result['steps_run']
+    check(all(n == expected for n in launches.values()),
+          'flash kernels launched {} times on the NGram path, expected {} each (layers x '
+          'steps)'.format(launches, expected))
+    check(fallbacks == 0, '{} attention calls took the dense path'.format(fallbacks))
+    check(all(np.isfinite(losses)), 'non-finite LM loss {}'.format(losses))
+    return result
+
+
+def observe_items(reader):
+    """Record each work item's epoch and ``idx`` values as the loader reads
+    them from ``reader`` (the loader's batches do not carry the epoch)."""
+    seen = {}
+    inner = reader.iter_columnar
+
+    def iter_columnar(*args, **kwargs):
+        for batch in inner(*args, **kwargs):
+            if batch.num_rows:
+                seen.setdefault(batch.item_id[0], []).append(np.array(batch.columns['idx']))
+            yield batch
+    reader.iter_columnar = iter_columnar
+    return seen
+
+
+def split_pass(reader, loader, step):
+    """One pass of ``loader`` through MnistCNN's eager step: the ``idx``
+    values it delivered (sorted) and its time, rate, last loss and the
+    cache's hits and misses over the pass."""
+    before = reader.diagnostics
+    start = time.perf_counter()
+    idx, losses = [], []
+    for batch in loader:
+        losses.append(step(batch))
+        idx.append(batch['idx'])
+    last = float(losses[-1])
+    elapsed = time.perf_counter() - start
+    after = reader.diagnostics
+    got = np.sort(torch.cat(idx).cpu().numpy())
+    check(np.isfinite(last), 'non-finite loss {}'.format(last))
+    return got, {'s': elapsed, 'rows': int(len(got)), 'rows_per_s': len(got) / elapsed,
+                 'last_loss': last,
+                 'hits': after['cache_hits'] - before['cache_hits'],
+                 'misses': after['cache_misses'] - before['cache_misses']}
+
+
+def phase_split_cache(tmp, seed):
+    """Phase 12b: phase 9's store through make_reader with a pseudorandom
+    split predicate and the local-disk cache -> TorchDataLoader -> MnistCNN's
+    eager step. First one reader of ``num_epochs=2`` on 4 threads: a
+    rowgroup's second-epoch read may start before its first stored the
+    entry, so its checks do not depend on timing (each epoch reads exactly
+    the split's ``idx`` set, each rowgroup is one hit or miss an epoch, and
+    each misses at least once); its hits and misses by epoch are recorded.
+    Then two passes of one ``num_epochs=1`` loader over a new cache (the
+    reader resets between them): each must deliver the split's set, the
+    first with a miss and the second with a hit for every rowgroup."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist')   # phase 9's store
+    predicate = in_pseudorandom_split(SPLIT, 0, 'idx')
+    want = np.nonzero(predicate.do_include({'idx': np.arange(MNIST_ROWS)}))[0]
+    model, optimizer, _, _ = mnist_model(seed + 2)
+    step = mnist_step(model, optimizer)
+    cache = dict(cache_type='local-disk', cache_size_limit=CACHE_LIMIT_BYTES)
+
+    with make_reader(url, predicate=predicate, num_epochs=2, workers_count=4, seed=42,
+                     cache_location=os.path.join(tmp, 'mnist_cache_epochs'),
+                     **cache) as reader:
+        rowgroups = reader.items_per_epoch
+        seen = observe_items(reader)
+        got, epochs = split_pass(reader, TorchDataLoader(reader, batch_size=MNIST_BATCH,
+                                                         drop_last=False), step)
+        by_epoch = reader.diagnostics['cache_by_epoch']
+    check(np.array_equal(got, np.repeat(want, 2)),
+          'num_epochs=2 delivered {} rows, not the split\'s {} idx values twice each'
+          .format(len(got), len(want)))
+    check(sorted(seen) == [0, 1] and sorted(by_epoch) == [0, 1],
+          'num_epochs=2 read epochs {} and counted {}'.format(sorted(seen), sorted(by_epoch)))
+    for epoch, arrays in sorted(seen.items()):
+        check(np.array_equal(np.sort(np.concatenate(arrays)), want),
+              'epoch {} read not the split\'s idx set each once'.format(epoch))
+        counts = by_epoch[epoch]
+        check(counts['hits'] + counts['misses'] == rowgroups,
+              'epoch {} counted {} hits and {} misses over {} rowgroups'.format(
+                  epoch, counts['hits'], counts['misses'], rowgroups))
+    check(epochs['misses'] >= rowgroups,
+          'only {} misses over {} rowgroups in a new cache'.format(epochs['misses'],
+                                                                  rowgroups))
+    epochs['by_epoch'] = {str(epoch): counts for epoch, counts in by_epoch.items()}
+
+    cache_dir = os.path.join(tmp, 'mnist_cache')
+    passes = []
+    with make_reader(url, predicate=predicate, workers_count=4, seed=42,
+                     cache_location=cache_dir, **cache) as reader:
+        loader = TorchDataLoader(reader, batch_size=MNIST_BATCH, drop_last=False)
+        for _ in range(2):
+            got, one = split_pass(reader, loader, step)
+            passes.append(one)
+            check(np.array_equal(got, want),
+                  'pass {} delivered {} rows, not the split\'s {} idx values each once'
+                  .format(len(passes), len(got), len(want)))
+        cache_stats = reader.diagnostics['cache']
+    fill, hit = passes
+    check(fill['misses'] == rowgroups and fill['hits'] == 0,
+          'the filling pass had {} misses and {} hits, expected {} and 0'.format(
+              fill['misses'], fill['hits'], rowgroups))
+    check(hit['hits'] == rowgroups and hit['misses'] == 0,
+          'the hit pass had {} hits and {} misses, expected {} and 0'.format(
+              hit['hits'], hit['misses'], rowgroups))
+    disk_bytes = sum(os.path.getsize(os.path.join(root, name))
+                     for root, _, names in os.walk(cache_dir) for name in names)
+    return {'rowgroups': rowgroups, 'split_rows': int(len(want)), 'epochs': epochs,
+            'fill': fill, 'hit': hit, 'cache_disk_bytes': disk_bytes,
+            'cache_stats': cache_stats, 'phase_s': time.perf_counter() - phase_start}
+
+
+def ngram_line(result, lm, card):
+    return ('phase 12a NGram windows (8 x {} frames, timestamp_overlap=False, streams {} '
+            'by rowgroup selector) -> TorchDataLoader -> TransformerLM [{}x{}] bf16: {} steps '
+            '(1 warm-up): tokens/s={:.1f} step_ms(median)={:.2f} input_stall_fraction={:.4f} '
+            'losses {:.4f}->{:.4f} launches {} dense_fallbacks {}; {} windows each once from '
+            'streams {}; first batch {}; one profiled step: {}; beside phase 7: '
+            'tokens/s={:.1f} step_ms(median)={:.2f} input_stall_fraction={:.4f}, one '
+            'profiled step: {}; the phase took {:.1f} s, its store written in {:.2f} s '
+            '[{}]'.format(
+                FRAME_LEN, SELECTED_STREAMS, LM_BATCH, LM['max_len'], result['steps_run'],
+                result['tokens_per_s'], result['step_ms_median'],
+                result['input_stall_fraction'], result['losses'][0], result['losses'][-1],
+                result['launches'], result['dense_fallbacks'],
+                result['delivery']['windows'], result['delivery']['streams'],
+                {key: round(value, 6) for key, value in result['first_batch'].items()},
+                breakdown_line(result['breakdown']), lm['tokens_per_s'],
+                lm['step_ms_median'], lm['input_stall_fraction'],
+                breakdown_line(lm['breakdown']), result['phase_s'], result['store_write_s'],
+                card))
+
+
+def split_cache_line(result, card):
+    epochs, fill, hit = result['epochs'], result['fill'], result['hit']
+    by_epoch = '; '.join('epoch {}: {} misses, {} hits'.format(
+        epoch, counts['misses'], counts['hits'])
+        for epoch, counts in sorted(epochs['by_epoch'].items()))
+    return ('phase 12b in_pseudorandom_split({}, 0, idx) through the local-disk cache -> '
+            'TorchDataLoader -> MnistCNN eager: {} of {} rows an epoch, {} rowgroups; '
+            'num_epochs=2 rows/s={:.1f} ({:.3f} s; {}); then two passes: filling pass '
+            'rows/s={:.1f} ({:.3f} s, {} misses, {} hits), hit pass rows/s={:.1f} '
+            '({:.3f} s, {} hits, {} misses); cache {} bytes on disk; the phase took '
+            '{:.1f} s [{}]'.format(
+                SPLIT, result['split_rows'], MNIST_ROWS, result['rowgroups'],
+                epochs['rows_per_s'], epochs['s'], by_epoch,
+                fill['rows_per_s'], fill['s'], fill['misses'], fill['hits'],
+                hit['rows_per_s'], hit['s'], hit['hits'], hit['misses'],
+                result['cache_disk_bytes'], result['phase_s'], card))
+
+
 def breakdown_line(breakdown):
     return 'wall {:.2f} ms, device {:.2f} ms ({}), idle share {:.4f}'.format(
         breakdown['wall_ms'], breakdown['device_busy_ms'],
@@ -1737,6 +2007,10 @@ def main(argv=None):
         log(mnist_stream_line(record['mnist_stream'], card))
         record['resume'] = phase_resume(tmp, args.seed)
         log(resume_line(record['resume'], record['packed'], card))
+        record['ngram_lm'] = phase_ngram_lm(tmp, args.seed)
+        log(ngram_line(record['ngram_lm'], record['lm'], card))
+        record['split_cache'] = phase_split_cache(tmp, args.seed)
+        log(split_cache_line(record['split_cache'], card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1767,6 +2041,7 @@ def main(argv=None):
             'name': name, 'route': 'cuda',
             'source': 'petastorm_tpu_torch/csrc/flash_attention_sm90.cuh', 'replaces': replaces,
             'launches': record['lm']['launches'][counter],
+            'ngram_launches': record['ngram_lm']['launches'][counter],
             'max_abs_err': flash_errors(flash_result, labels),
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
             'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],

@@ -14,10 +14,17 @@ CUDA graphs through ``scan_epochs``) -> models such as :class:`MnistCNN`,
 flash-attention kernels (:func:`flash_attention`). Readers and loaders
 checkpoint their read position (``state_dict``, ``resume_state=``), and
 :class:`TrainingCheckpointer` saves it with the model and optimizer as one
-unit. Entry points run on CUDA unless the caller passes ``device='cpu'``.
+unit. The readers' row-space features are the JAX package's: predicates
+(:mod:`~petastorm_tpu_torch.predicates`), rowgroup indexes and selectors
+(:mod:`~petastorm_tpu_torch.etl.rowgroup_indexing`,
+:mod:`~petastorm_tpu_torch.selectors`), :class:`NGram` windows, the
+local-disk rowgroup cache (:mod:`~petastorm_tpu_torch.cache`) and weighted
+mixing (:class:`WeightedSamplingReader`). Entry points run on CUDA unless the
+caller passes ``device='cpu'``.
 """
 
 from petastorm_tpu_torch.models.mnist import MnistCNN
+from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.models.transformer import TransformerLM
 from petastorm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_segmented
 from petastorm_tpu_torch.ops.packing import make_packing_transform, pack_sequences
@@ -28,9 +35,10 @@ from petastorm_tpu_torch.parallel.loader import TorchDataLoader, make_torch_load
 from petastorm_tpu_torch.reader import Reader, make_batch_reader, make_reader
 from petastorm_tpu_torch.transform import TransformSpec
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from petastorm_tpu_torch.weighted_sampling_reader import WeightedSamplingReader
 
-__all__ = ['DeviceTransform', 'InMemTorchLoader', 'MnistCNN', 'Reader', 'TorchDataLoader',
-           'TrainingCheckpointer', 'TransformSpec', 'TransformerLM', 'Unischema',
-           'UnischemaField', 'flash_attention', 'flash_attention_segmented',
-           'make_batch_reader', 'make_packing_transform', 'make_reader', 'make_torch_loader',
-           'pack_sequences']
+__all__ = ['DeviceTransform', 'InMemTorchLoader', 'MnistCNN', 'NGram', 'Reader',
+           'TorchDataLoader', 'TrainingCheckpointer', 'TransformSpec', 'TransformerLM',
+           'Unischema', 'UnischemaField', 'WeightedSamplingReader', 'flash_attention',
+           'flash_attention_segmented', 'make_batch_reader', 'make_packing_transform',
+           'make_reader', 'make_torch_loader', 'pack_sequences']

@@ -10,7 +10,10 @@ codecs (both packages read them):
   documents, ``doc_id`` int64 and ``tokens`` ``list<int32>``, one rowgroup per
   list of documents, for packing at read time
   (:func:`~petastorm_tpu_torch.ops.packing.make_packing_transform`);
-  :func:`full_bin_rowgroups` draws rowgroups that pack into full bins.
+  :func:`full_bin_rowgroups` draws rowgroups that pack into full bins;
+- :func:`write_frame_store`: streams of fixed-length token frames, one
+  rowgroup a stream, indexed by stream (for NGram windows of consecutive
+  frames read through a rowgroup selector).
 """
 
 import os
@@ -20,7 +23,10 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
-from petastorm_tpu_torch.etl.dataset_metadata import write_rows
+from petastorm_tpu_torch.etl.dataset_metadata import (materialize_dataset,
+                                                      rows_to_arrow_table, write_rows)
+from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldIndexer
+from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
 from petastorm_tpu_torch.ops.packing import pack_sequences
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
@@ -122,3 +128,49 @@ def write_ragged_store(url, rowgroups, n_files=1):
                                  schema=schema)
                 writer.write_table(table, row_group_size=len(docs))
                 doc_id += len(docs)
+
+
+#: the rowgroup index :func:`write_frame_store` builds on ``stream_id``
+FRAME_STREAM_INDEX = 'stream'
+
+def frame_tokens(streams, frames, frame_len, vocab, seed):
+    """``(streams, frames, frame_len)`` int32 tokens uniform in ``[0, vocab)``
+    from ``seed``: frame ``f`` of stream ``s`` is ``[s, f]``."""
+    return np.random.RandomState(seed).randint(0, vocab, size=(streams, frames, frame_len),
+                                               dtype=np.int32)
+
+
+def write_frame_store(url, streams, frames, frame_len, vocab, n_files, seed):
+    """A store of ``streams`` streams of ``frames`` frames, one rowgroup a
+    stream, streams spread in order over ``n_files`` files: ``stream_id``
+    int64 (constant in a rowgroup), ``frame_id`` int64 (``stream * frames +
+    f``: consecutive within a stream, so a frame id names its stream) and
+    ``tokens`` int32 ``(frame_len,)`` (``NdarrayCodec``) from
+    :func:`frame_tokens`. Builds the :data:`FRAME_STREAM_INDEX` rowgroup index
+    on ``stream_id``; returns the tokens."""
+    if not url.startswith('file://'):
+        raise ValueError('write_frame_store writes local stores (file://), got {!r}'
+                         .format(url))
+    schema = Unischema('Frames', [
+        UnischemaField('stream_id', np.int64, (), ScalarCodec(), False),
+        UnischemaField('frame_id', np.int64, (), ScalarCodec(), False),
+        UnischemaField('tokens', np.int32, (frame_len,), NdarrayCodec(), False),
+    ])
+    tokens = frame_tokens(streams, frames, frame_len, vocab, seed)
+    path = url[len('file://'):]
+    os.makedirs(path, exist_ok=True)
+    per_file = -(-streams // n_files)
+    with materialize_dataset(url, schema):
+        for file_index in range(n_files):
+            file_streams = range(file_index * per_file,
+                                 min(streams, (file_index + 1) * per_file))
+            if not file_streams:
+                break
+            with pq.ParquetWriter(os.path.join(path, 'part_{:05d}.parquet'.format(file_index)),
+                                  schema.as_arrow_schema()) as writer:
+                for stream in file_streams:
+                    rows = [{'stream_id': stream, 'frame_id': stream * frames + f,
+                             'tokens': tokens[stream, f]} for f in range(frames)]
+                    writer.write_table(rows_to_arrow_table(schema, rows), row_group_size=frames)
+    build_rowgroup_index(url, [SingleFieldIndexer(FRAME_STREAM_INDEX, 'stream_id')])
+    return tokens

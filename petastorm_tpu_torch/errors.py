@@ -1,5 +1,5 @@
 """Error types of the PyTorch port (the subset of ``petastorm_tpu.errors`` the
-ImageNet device-decode slice raises; names and attributes are the same)."""
+port raises; names and attributes are the same)."""
 
 from __future__ import annotations
 
@@ -31,3 +31,9 @@ class DecodeFieldError(PetastormTpuError):
 class MetadataError(PetastormTpuError):
     """Raised when dataset metadata (schema / rowgroup index) is missing or
     unreadable."""
+
+
+class CacheCorruptionError(PetastormTpuError):
+    """A disk-cache entry failed its integrity check (footer missing, length
+    or CRC mismatch). Never propagates out of the cache: ``get`` deletes the
+    entry and serves the fill function."""

@@ -42,7 +42,12 @@ class InMemTorchLoader(object):
     """Fill once from ``reader``, then iterate seeded shuffled batches on
     ``device`` for ``num_epochs`` (None = infinite).
 
-    :param reader: a reader from :func:`petastorm_tpu_torch.make_reader`.
+    :param reader: a reader from :func:`petastorm_tpu_torch.make_reader` or
+        :func:`~petastorm_tpu_torch.make_batch_reader`, or one without
+        ``iter_columnar`` (read through its batches or rows). An NGram reader
+        fills window-major: one window is one row in memory, each field
+        ``(length, *shape)`` (overlapping windows are materialized: budget
+        ``rows x length``).
     :param batch_size: rows per batch.
     :param num_epochs: epochs to serve from memory (None = infinite);
         independent of the reader's own ``num_epochs``, which only governs the

@@ -53,6 +53,8 @@ _SCAN_STREAM_CACHE_MAX = 8
 #: byte alignment of each field inside the packed upload buffer (the widest
 #: element any ``view(dtype)`` needs, with room for 16-byte vector loads)
 _UPLOAD_ALIGN = 16
+#: rows a chunk of a reader read row by row (one without ``iter_columnar``)
+_ROW_CHUNK = 4096
 
 
 def resolve_device(device):
@@ -113,7 +115,12 @@ class TorchDataLoader(object):
     """Iterates dicts of tensors on ``device`` assembled from a
     :class:`~petastorm_tpu_torch.reader.Reader`.
 
-    :param reader: a reader from :func:`petastorm_tpu_torch.make_reader`.
+    :param reader: a reader from :func:`petastorm_tpu_torch.make_reader` or
+        :func:`~petastorm_tpu_torch.make_batch_reader`. An NGram reader's
+        windows are the batch axis: each field arrives as ``(batch, length,
+        *shape)``. A reader without ``iter_columnar`` (a
+        :class:`~petastorm_tpu_torch.WeightedSamplingReader`) is read through
+        its batches or rows, and then :meth:`state_dict` is refused.
     :param batch_size: rows per emitted batch.
     :param shuffling_queue_capacity: >0 enables a random shuffling buffer of
         that many rows.
@@ -499,6 +506,8 @@ class TorchDataLoader(object):
             self._note_delivered(head[0])
 
     def _note_delivered(self, item_id):
+        if item_id is None:
+            return   # a chunk of a reader without the columnar path
         epoch, piece, drop = item_id
         self._delivered_by_epoch.setdefault(epoch, set()).add((piece, drop))
         items_per_epoch = getattr(self.reader, 'items_per_epoch', None)
@@ -654,11 +663,50 @@ def reader_may_be_infinite(reader):
 
 
 def iter_reader_chunks(reader, include_empty=False):
-    """``(columns_dict, num_rows, item_id)`` per work item of the reader's
-    columnar fast path, with the item's identity for delivery accounting
-    (``include_empty`` also yields items a transform emptied)."""
-    for batch in reader.iter_columnar(include_empty=include_empty):
-        yield dict(batch.columns), batch.num_rows, batch.item_id
+    """``(columns_dict, num_rows, item_id)`` from any reader: per work item of
+    the columnar fast path, with the item's identity for delivery accounting
+    (``include_empty`` also yields items a transform or predicate emptied; an
+    NGram reader's items are window-major, one window a row); else, for a
+    reader without ``iter_columnar`` (such as
+    :class:`~petastorm_tpu_torch.weighted_sampling_reader.WeightedSamplingReader`),
+    one chunk per batched namedtuple or per ``_ROW_CHUNK`` rows, with no
+    identity (None)."""
+    iter_columnar = getattr(reader, 'iter_columnar', None)
+    if iter_columnar is not None:
+        for batch in iter_columnar(include_empty=include_empty):
+            yield dict(batch.columns), batch.num_rows, batch.item_id
+    elif getattr(reader, 'is_batched_reader', False):
+        for batch in reader:
+            columns = batch._asdict()
+            yield columns, _num_rows(columns), None
+    else:
+        pending = []
+        for row in reader:
+            pending.append(row._asdict())
+            if len(pending) >= _ROW_CHUNK:
+                yield _rows_to_columns(pending), len(pending), None
+                pending = []
+        if pending:
+            yield _rows_to_columns(pending), len(pending), None
+
+
+def _rows_to_columns(rows):
+    """Row dicts -> columns: uniform arrays stacked, ragged ones kept as a
+    list (for ``pad_ragged``), strings and None as object arrays."""
+    columns = {}
+    for name in rows[0]:
+        values = [row[name] for row in rows]
+        first = values[0]
+        if isinstance(first, np.ndarray) and first.ndim >= 1:
+            if len({v.shape for v in values}) == 1:
+                columns[name] = np.stack(values)
+            else:
+                columns[name] = values
+        elif isinstance(first, (str, bytes)) or first is None:
+            columns[name] = np.array(values, dtype=object)
+        else:
+            columns[name] = np.asarray(values)
+    return columns
 
 
 def sanitize_columns(columns, pad_ragged, passthrough=frozenset()):

@@ -10,26 +10,41 @@ their codecs and gives one row namedtuple per ``next()``;
 namedtuple of column arrays per rowgroup. The loader takes whole columnar
 batches through :meth:`Reader.iter_columnar`.
 
+The row-space features are the JAX package's, with the same names and
+results: ``predicate=`` (:mod:`~petastorm_tpu_torch.predicates`; the worker
+reads the predicate's columns first and the others only for the rows kept; a
+predicate on partition keys only prunes rowgroups here, before any worker
+runs), ``rowgroup_selector=`` over the indexes of
+:mod:`~petastorm_tpu_torch.etl.rowgroup_indexing`
+(:mod:`~petastorm_tpu_torch.selectors`), ``schema_fields=NGram(...)`` for
+windows of consecutive rows (:mod:`~petastorm_tpu_torch.ngram`; one
+``{offset: namedtuple}`` per ``next()``, window-major arrays from
+:meth:`Reader.iter_columnar`), and the local-disk rowgroup cache
+(``cache_type='local-disk'``, :mod:`~petastorm_tpu_torch.cache`).
+
 Checkpointing is the JAX package's: :meth:`Reader.state_dict` records the
-consumed work items per epoch (and a row cursor on the row path), and
-``resume_state=`` continues from it. The state's keys and values are those of
-``petastorm_tpu``'s, so a state saved by either package resumes a reader of
-the other, apart from the ``lineage`` and ``topology`` blocks, which the port
-never writes (it has neither plane) and refuses to resume.
+consumed work items per epoch (and a row or window cursor on the row and
+NGram paths), and ``resume_state=`` continues from it. The state's keys and
+values are those of ``petastorm_tpu``'s, so a state saved by either package
+resumes a reader of the other, apart from the ``lineage`` and ``topology``
+blocks, which the port never writes (it has neither plane) and refuses to
+resume.
 
 Left for later slices, and absent from the signatures: the process pool,
-predicates, rowgroup selectors, caches, NGram windows, retries/quarantine,
-telemetry and SLOs, lineage, cost scheduling, autotuning, topology
-negotiation, ``shard_seed``, the input service and non-local filesystems.
+retries/quarantine, telemetry and SLOs, lineage, cost scheduling, autotuning,
+topology negotiation, ``shard_seed``, the input service and non-local
+filesystems.
 """
 
 import threading
 import warnings
 
 from petastorm_tpu_torch import decode_engine
+from petastorm_tpu_torch.cache import ArrowIpcDiskCache, LocalDiskCache, NullCache
 from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError
 from petastorm_tpu_torch.etl import dataset_metadata
 from petastorm_tpu_torch.fs_utils import normalize_dataset_url_or_urls
+from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader_worker import ColumnarBatch, RowGroupWorker, WorkerSetup
 from petastorm_tpu_torch.unischema import Unischema
 from petastorm_tpu_torch.workers import EmptyResultError
@@ -50,15 +65,45 @@ def _make_pool(reader_pool_type, workers_count):
                      .format(reader_pool_type))
 
 
+def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
+                cache_extra_settings, cache_format, has_transform):
+    if cache_type in (None, 'null'):
+        return NullCache()
+    if cache_type != 'local-disk':
+        raise ValueError('Unknown cache_type {!r} (expected null/local-disk)'
+                         .format(cache_type))
+    if cache_location is None or cache_size_limit is None:
+        raise ValueError("cache_type='local-disk' needs cache_location and "
+                         'cache_size_limit (bytes)')
+    extra = dict(cache_extra_settings or {})
+    if cache_format == 'arrow-ipc':
+        cache_cls = ArrowIpcDiskCache
+        # a transform may mutate its columns in place, and read-only hits
+        # would fail it on the warm epoch only: hits are then decoded writable
+        # (one copy a column) unless cache_extra_settings says otherwise
+        if has_transform:
+            extra.setdefault('writable_hits', True)
+    elif cache_format == 'pickle':
+        cache_cls = LocalDiskCache
+    else:
+        raise ValueError('Unknown cache_format {!r} (expected arrow-ipc/pickle)'
+                         .format(cache_format))
+    return cache_cls(cache_location, cache_size_limit, cache_row_size_estimate or 0, **extra)
+
+
 def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
                 workers_count=10, seed=None, shuffle_rows=False, shuffle_row_groups=True,
-                shuffle_row_drop_partitions=1, num_epochs=1, cur_shard=None,
-                shard_count=None, transform_spec=None, resume_state=None,
-                field_overrides=None, device_decode_fields=None):
+                shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
+                num_epochs=1, cur_shard=None, shard_count=None, cache_type='null',
+                cache_location=None, cache_size_limit=None, cache_row_size_estimate=None,
+                cache_extra_settings=None, cache_format='arrow-ipc', transform_spec=None,
+                resume_state=None, field_overrides=None, device_decode_fields=None):
     """Reader for stores written with a Unischema (by this package or by
     ``petastorm_tpu``): rows decoded through the codecs.
 
-    :param schema_fields: field names or regex patterns to read (default all).
+    :param schema_fields: field names or regex patterns to read (default all),
+        or an :class:`~petastorm_tpu_torch.ngram.NGram` for windows of
+        consecutive rows (one ``{offset: namedtuple}`` per ``next()``).
     :param reader_pool_type: ``'thread'`` or ``'dummy'`` (in-line, deterministic).
     :param workers_count: threads of the thread pool.
     :param seed: seeds the rowgroup order and the in-rowgroup row shuffle.
@@ -66,9 +111,21 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
     :param shuffle_row_groups: visit rowgroups in a new seeded order each epoch.
     :param shuffle_row_drop_partitions: split each rowgroup into this many
         work items of equal row ranges (each read separately).
+    :param predicate: a :mod:`~petastorm_tpu_torch.predicates` predicate; only
+        the rows it includes are read. Not with an NGram.
+    :param rowgroup_selector: a :mod:`~petastorm_tpu_torch.selectors` selector
+        over the store's rowgroup indexes; only the rowgroups it selects are
+        read.
     :param num_epochs: passes over the data; None = forever.
     :param cur_shard: with ``shard_count``, read only rowgroups ``i`` with
         ``i % shard_count == cur_shard``.
+    :param cache_type: ``'null'`` or ``'local-disk'`` (decoded rowgroups kept
+        under ``cache_location``, at most ``cache_size_limit`` bytes;
+        ``cache_row_size_estimate`` sanity-checks the limit,
+        ``cache_extra_settings`` goes to the cache's constructor).
+    :param cache_format: ``'arrow-ipc'`` (hits memory-mapped, numeric columns
+        read-only unless a ``transform_spec`` is given or
+        ``cache_extra_settings={'writable_hits': True}``) or ``'pickle'``.
     :param transform_spec: a :class:`~petastorm_tpu_torch.transform.TransformSpec`
         applied on the workers (one row dict at a time, or the rowgroup's
         columns with ``batched=True``).
@@ -87,23 +144,31 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
     schema = dataset_metadata.get_schema(handle)
     if field_overrides:
         schema = _apply_field_overrides(schema, field_overrides)
+    cache = _make_cache(cache_type, cache_location, cache_size_limit,
+                        cache_row_size_estimate, cache_extra_settings, cache_format,
+                        transform_spec is not None)
     return Reader(handle, schema, _make_pool(reader_pool_type, workers_count),
                   schema_fields=schema_fields, seed=seed, shuffle_rows=shuffle_rows,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
-                  transform_spec=transform_spec, resume_state=resume_state,
+                  cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   device_decode_fields=device_decode_fields)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
                       workers_count=10, seed=None, shuffle_rows=False,
                       shuffle_row_groups=True, shuffle_row_drop_partitions=1,
-                      num_epochs=1, cur_shard=None, shard_count=None, transform_spec=None,
-                      resume_state=None):
+                      predicate=None, num_epochs=1, cur_shard=None, shard_count=None,
+                      cache_type='null', cache_location=None, cache_size_limit=None,
+                      cache_row_size_estimate=None, cache_extra_settings=None,
+                      cache_format='arrow-ipc', transform_spec=None, resume_state=None):
     """Reader for any Parquet store: native columns (no codec decode; a
     ``list<int32>`` column arrives as a list of int32 arrays), one namedtuple
-    of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s.
+    of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s
+    (no rowgroup selector and no NGram); a ``predicate``'s ``do_include`` gets
+    whole columns and returns a boolean mask.
 
     ``transform_spec.func`` takes a pandas ``DataFrame`` and returns one, or,
     with ``TransformSpec(batched=True)``, takes and returns a dict of columns
@@ -120,13 +185,16 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     except MetadataError:
         pass
     schema = Unischema.from_arrow_schema(handle.arrow_dataset.schema)
+    cache = _make_cache(cache_type, cache_location, cache_size_limit,
+                        cache_row_size_estimate, cache_extra_settings, cache_format,
+                        transform_spec is not None)
     return Reader(handle, schema, _make_pool(reader_pool_type, workers_count),
                   schema_fields=schema_fields, seed=seed, shuffle_rows=shuffle_rows,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                  num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
-                  transform_spec=transform_spec, resume_state=resume_state,
-                  is_batched_reader=True)
+                  predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
+                  shard_count=shard_count, cache=cache, transform_spec=transform_spec,
+                  resume_state=resume_state, is_batched_reader=True)
 
 
 class Reader(object):
@@ -135,24 +203,57 @@ class Reader(object):
 
     def __init__(self, handle, schema, reader_pool, schema_fields=None, seed=None,
                  shuffle_rows=False, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
-                 num_epochs=1, cur_shard=None, shard_count=None, transform_spec=None,
-                 resume_state=None, is_batched_reader=False, device_decode_fields=None):
+                 predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
+                 shard_count=None, cache=None, transform_spec=None, resume_state=None,
+                 is_batched_reader=False, device_decode_fields=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
             raise ValueError('cur_shard must be in [0, shard_count)')
+        ngram = schema_fields if isinstance(schema_fields, NGram) else None
+        if predicate is not None and ngram is not None:
+            raise ValueError('Predicates are not supported together with NGram')
         self.num_epochs = num_epochs
         self.is_batched_reader = is_batched_reader
         self.schema = schema
         self.last_row_consumed = False
         self._stopped = False
-        if schema_fields is not None:
+        self._cache = cache
+        self._cache_hits = 0
+        self._cache_misses = 0
+        self._cache_by_epoch = {}   # absolute epoch -> [hits, misses]
+        if ngram is not None:
+            if is_batched_reader:
+                raise ValueError('NGram is not supported by make_batch_reader')
+            ngram.resolve_regex_field_names(schema)
+            if not ngram.timestamp_overlap and shuffle_row_drop_partitions > 1:
+                raise NotImplementedError('timestamp_overlap=False is not supported with '
+                                          'shuffle_row_drop_partitions > 1')
+            fields_to_read = list(ngram.get_field_names_at_all_timesteps())
+        elif schema_fields is not None:
             fields_to_read = list(schema.create_schema_view(schema_fields).fields)
         else:
             fields_to_read = list(schema.fields)
+        self.ngram = ngram
         partition_names = set(handle.partition_field_names)
 
+        # a predicate's fields are read even when the view leaves them out; one
+        # on partition keys only prunes rowgroups here and no worker runs it
+        worker_predicate = predicate
+        partition_predicate = None
+        if predicate is not None:
+            predicate_fields = set(predicate.get_fields())
+            if predicate_fields and predicate_fields <= partition_names:
+                partition_predicate = predicate
+                worker_predicate = None
+            else:
+                fields_to_read += [f for f in predicate_fields if f not in fields_to_read
+                                   and (f in schema.fields or f in partition_names)]
+
         self.device_decode_fields = frozenset(device_decode_fields or ())
+        if self.device_decode_fields and ngram is not None:
+            raise ValueError('device_decode_fields is not supported with NGram readers '
+                             '(windows need decoded values)')
         if self.device_decode_fields and transform_spec is not None:
             raise ValueError('device_decode_fields and transform_spec are mutually '
                              'exclusive: host transforms need decoded values')
@@ -171,10 +272,21 @@ class Reader(object):
                             transform_spec=transform_spec, batched_output=is_batched_reader,
                             shuffle_rows=shuffle_rows, seed=seed,
                             partition_field_names=partition_names,
-                            device_decode_fields=self.device_decode_fields)
+                            device_decode_fields=self.device_decode_fields, ngram=ngram,
+                            cache=cache, dataset_path_or_paths=handle.path_or_paths,
+                            predicate=worker_predicate)
         self.result_schema = setup.result_schema
 
         row_groups = dataset_metadata.load_row_groups(handle)
+        if rowgroup_selector is not None:
+            # the selected piece indexes refer to the full enumeration (what
+            # build_rowgroup_index scanned): applied before any other filter
+            from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+            selected = rowgroup_selector.select_row_groups(get_row_group_indexes(handle))
+            row_groups = [rg for i, rg in enumerate(row_groups) if i in selected]
+        if partition_predicate is not None:
+            row_groups = [rg for rg in row_groups
+                          if partition_predicate.do_include(dict(rg.partition_keys))]
         if cur_shard is not None:
             row_groups = [rg for i, rg in enumerate(row_groups)
                           if i % shard_count == cur_shard]
@@ -190,6 +302,7 @@ class Reader(object):
                   'fragment_path': rg.fragment_path,
                   'row_group_id': rg.row_group_id,
                   'partition_keys': rg.partition_keys,
+                  'worker_predicate': worker_predicate,
                   'shuffle_row_drop_partition': (drop, shuffle_row_drop_partitions)}
                  for piece_index, rg in enumerate(row_groups)
                  for drop in range(shuffle_row_drop_partitions)]
@@ -229,10 +342,14 @@ class Reader(object):
             reset_iterations=num_epochs)
         self._pool = reader_pool
         self._pool.start(RowGroupWorker, setup, self._ventilator)
-        results_reader = _BatchResultsReader if is_batched_reader else _RowResultsReader
-        self._results_reader = results_reader(self.result_schema,
-                                              on_batch=self._note_item_consumed,
-                                              fast_forward=self._resume_fast_forward)
+        if ngram is not None:
+            self._results_reader = _NGramResultsReader(ngram, on_batch=self._note_item_consumed,
+                                                       fast_forward=self._resume_fast_forward)
+        else:
+            results_reader = _BatchResultsReader if is_batched_reader else _RowResultsReader
+            self._results_reader = results_reader(self.result_schema,
+                                                  on_batch=self._note_item_consumed,
+                                                  fast_forward=self._resume_fast_forward)
 
     # --------------------------------------------------------------- iteration
 
@@ -240,7 +357,8 @@ class Reader(object):
         return self
 
     def __next__(self):
-        """One row namedtuple (batch reader: one namedtuple of column arrays)."""
+        """One row namedtuple (batch reader: one namedtuple of column arrays;
+        NGram reader: one ``{offset: namedtuple}`` window)."""
         if self._stopped:
             raise RuntimeError('Trying to read a sample from a stopped reader')
         try:
@@ -254,8 +372,14 @@ class Reader(object):
         """Iterate the :class:`~petastorm_tpu_torch.reader_worker.ColumnarBatch`
         results straight off the pool (one per work item), skipping the per-row
         namedtuples of ``next()``. Do not interleave with ``next()``.
-        ``include_empty`` also yields zero-row batches (an item a transform
-        emptied): delivery-exact checkpointing must see every item."""
+        ``include_empty`` also yields zero-row batches (an item a transform or
+        predicate emptied, a piece of no window): delivery-exact checkpointing
+        must see every item.
+
+        An NGram reader yields WINDOW-major batches: each column is
+        ``(num_windows, ngram.length, *field_shape)`` and ``num_rows`` counts
+        windows, so the loaders' accounting and a resume count windows as
+        rows."""
         while True:
             if self._stopped:
                 raise RuntimeError('Trying to read from a stopped reader')
@@ -264,6 +388,9 @@ class Reader(object):
             except EmptyResultError:
                 self.last_row_consumed = True
                 return
+            if self.ngram is not None:
+                batch = ColumnarBatch(self.ngram.windows_as_arrays(batch.columns, batch.starts),
+                                      len(batch.starts), item_id=batch.item_id)
             self._note_item_consumed(batch)
             if self._resume_fast_forward and batch.item_id is not None:
                 # honour a row-path checkpoint's cursor: skip the rows already
@@ -291,7 +418,14 @@ class Reader(object):
         if item_id is None:
             return
         epoch, piece, drop = item_id
+        cache_hit = getattr(batch, 'cache_hit', None)
         with self._accounting_lock:
+            if cache_hit is not None:
+                if cache_hit:
+                    self._cache_hits += 1
+                else:
+                    self._cache_misses += 1
+                self._cache_by_epoch.setdefault(epoch, [0, 0])[0 if cache_hit else 1] += 1
             self._consumed_by_epoch.setdefault(epoch, set()).add((piece, drop))
             # epochs close strictly in order; later epochs' items wait in their
             # own sets until the earlier epoch's stragglers are popped
@@ -372,6 +506,24 @@ class Reader(object):
     def items_per_epoch(self):
         """Work items (rowgroups x drop partitions) of this shard per epoch."""
         return self._items_per_epoch
+
+    @property
+    def diagnostics(self):
+        """The rowgroup cache's counters under the JAX package's names:
+        ``cache_hits`` and ``cache_misses`` count consumed work items served
+        from and filled into the cache (NGram pieces count neither),
+        ``cache_by_epoch`` (the port's own) splits them by absolute epoch as
+        ``{epoch: {'hits': n, 'misses': n}}``, and ``cache`` is a copy of the
+        cache's own ``stats`` (absent without a cache)."""
+        with self._accounting_lock:
+            diag = {'cache_hits': self._cache_hits, 'cache_misses': self._cache_misses,
+                    'cache_by_epoch': {epoch: {'hits': hits, 'misses': misses}
+                                       for epoch, (hits, misses)
+                                       in sorted(self._cache_by_epoch.items())}}
+        stats = getattr(self._cache, 'stats', None)
+        if stats is not None:
+            diag['cache'] = dict(stats)
+        return diag
 
     # --------------------------------------------------------------- lifecycle
 
@@ -483,3 +635,54 @@ class _BatchResultsReader(object):
 
     def reset(self):
         pass
+
+
+class _NGramResultsReader(object):
+    """Buffers an :class:`~petastorm_tpu_torch.ngram_worker.NGramWindows`
+    payload and emits one ``{offset: namedtuple}`` per read, gathered from
+    the shared columns. The checkpoint contract is
+    :class:`_RowResultsReader`'s with the window as the row unit: a payload
+    is acknowledged once its last window was emitted, :meth:`cursor` names
+    the next window, ``fast_forward`` replays a resumed payload from it."""
+
+    def __init__(self, ngram, on_batch=None, fast_forward=None):
+        self._ngram = ngram
+        self._on_batch = on_batch
+        self._fast_forward = fast_forward if fast_forward is not None else {}
+        self._plan = None
+        self._plan_columns = None
+        self.reset()
+
+    def read_next(self, pool):
+        while self._payload is None or self._next >= len(self._payload.starts):
+            payload = pool.get_results()
+            item_id = payload.item_id
+            start = self._fast_forward.pop(item_id, 0) if item_id is not None else 0
+            if not len(payload.starts) or start >= len(payload.starts):
+                # nothing (left) to emit: consumed the moment it is popped
+                self._on_batch(payload)
+                self._payload = None
+                continue
+            self._payload = payload
+            self._next = start
+            columns_key = frozenset(payload.columns)
+            if columns_key != self._plan_columns:
+                self._plan = self._ngram.window_plan(columns_key)
+                self._plan_columns = columns_key
+        start = self._payload.starts[self._next]
+        self._next += 1
+        if self._next >= len(self._payload.starts):
+            self._on_batch(self._payload)
+        return self._ngram.window_from_plan(self._payload.columns, start, self._plan)
+
+    def cursor(self):
+        """``(item_id, next_window)`` of the partly emitted payload, or None."""
+        if self._payload is not None and self._next < len(self._payload.starts):
+            item_id = self._payload.item_id
+            if item_id is not None:
+                return item_id, self._next
+        return None
+
+    def reset(self):
+        self._payload = None
+        self._next = 0

@@ -1,47 +1,63 @@
-"""The rowgroup worker: loads one Parquet rowgroup, keeps its
-shuffle-row-drop partition, decodes it through the compiled decode plan,
-applies the seeded in-rowgroup shuffle and the :class:`TransformSpec`, and
-publishes a columnar batch. A trimmed copy of ``petastorm_tpu.reader_worker``:
-predicates, the rowgroup cache, NGram windows, retries/quarantine and the
-telemetry sidecars are left for later slices."""
+"""The rowgroup worker: loads one Parquet rowgroup (in two phases when a
+predicate is given), keeps its shuffle-row-drop partition, decodes it through
+the compiled decode plan, serves and fills the rowgroup cache, applies the
+seeded in-rowgroup shuffle and the :class:`TransformSpec`, and publishes a
+columnar batch; NGram readers publish the piece's windows instead
+(:mod:`~petastorm_tpu_torch.ngram_worker`). A trimmed copy of
+``petastorm_tpu.reader_worker``: retries/quarantine, the object-store ingest
+engine and the telemetry sidecars are left for later slices."""
 
+import hashlib
+import logging
+import pickle
 import re
 
 import numpy as np
+import pyarrow as pa
 import pyarrow.dataset as pads
 
 from petastorm_tpu_torch import decode_engine
+from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.transform import transform_schema
+from petastorm_tpu_torch.workers.serializers import columns_num_rows
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
+
+logger = logging.getLogger(__name__)
 
 
 class ColumnarBatch(object):
     """Decoded columns of (a drop partition of) one rowgroup:
     ``{field_name: ndarray | list}``. ``item_id`` ``(epoch, piece_index,
     drop_partition)`` names the work item that produced it, the unit of the
-    reader's checkpoint accounting (empty batches are published to carry it)."""
+    reader's checkpoint accounting (empty batches are published to carry it).
+    ``cache_hit`` is True when the batch was served from the rowgroup cache,
+    False on a miss that filled it, None when no cache applied."""
 
-    __slots__ = ('columns', 'num_rows', 'item_id')
+    __slots__ = ('columns', 'num_rows', 'item_id', 'cache_hit')
 
-    def __init__(self, columns, num_rows, item_id=None):
+    def __init__(self, columns, num_rows, item_id=None, cache_hit=None):
         self.columns = columns
         self.num_rows = num_rows
         self.item_id = item_id
+        self.cache_hit = cache_hit
 
 
 class WorkerSetup(object):
     """Per-reader configuration shared by every worker. ``batched_output``
     marks the batch reader: it emits stored values without codec decode, and
     its transform ``func`` takes a ``DataFrame`` unless the spec is
-    ``batched``."""
+    ``batched``. ``dataset_token`` is the cache key's identity of the store
+    and the read configuration."""
 
     __slots__ = ('filesystem', 'schema', 'fields_to_read', 'result_schema',
                  'transform_spec', 'batched_output', 'shuffle_rows', 'seed',
-                 'partition_field_names', 'device_decode_fields')
+                 'partition_field_names', 'device_decode_fields', 'ngram', 'cache',
+                 'dataset_token', 'predicate_token')
 
     def __init__(self, filesystem, schema, fields_to_read, transform_spec=None,
                  batched_output=False, shuffle_rows=False, seed=None,
-                 partition_field_names=(), device_decode_fields=()):
+                 partition_field_names=(), device_decode_fields=(), ngram=None,
+                 cache=None, dataset_path_or_paths=None, predicate=None):
         self.filesystem = filesystem
         self.schema = schema
         self.fields_to_read = list(fields_to_read)
@@ -53,6 +69,30 @@ class WorkerSetup(object):
         #: fields whose payloads skip host decode and ship raw to the loader's
         #: device decode tail
         self.device_decode_fields = frozenset(device_decode_fields)
+        self.ngram = ngram
+        self.cache = cache or NullCache()
+        # cached values are the decoded output, so the identity covers the
+        # store, the fields, the decode mode and each field's codec
+        field_specs = [
+            (name, str(field.numpy_dtype), str(field.shape),
+             str(field.codec.to_config()) if field.codec is not None else 'none')
+            for name, field in schema.fields.items() if name in self.fields_to_read]
+        token = '{}|{}|{}|{}|{}'.format(dataset_path_or_paths, sorted(self.fields_to_read),
+                                        not batched_output, transform_spec is not None,
+                                        sorted(field_specs))
+        if self.device_decode_fields:
+            token += '|{}'.format(sorted(self.device_decode_fields))
+        if ngram is not None:
+            # an NGram entry holds the window starts this NGram formed
+            token += '|ngram:{}|{}|{}|{}'.format(
+                sorted((offset, sorted(ngram.get_field_names_at_timestep(offset)))
+                       for offset in ngram.fields),
+                ngram.delta_threshold, ngram.timestamp_field_name, ngram.timestamp_overlap)
+        self.dataset_token = hashlib.md5(token.encode('utf-8')).hexdigest()[:16]
+        #: the cache key's identity of the worker predicate, made once; None
+        #: bypasses the cache (no cache, or a predicate that does not pickle)
+        self.predicate_token = (None if isinstance(self.cache, NullCache)
+                                else _predicate_token(predicate))
         read_view = schema.create_schema_view(
             [re.escape(name) for name in self.fields_to_read])
         if transform_spec is not None:
@@ -68,28 +108,45 @@ class RowGroupWorker(WorkerBase):
         super().__init__(worker_id, publish_func, args)
         self._setup = args
         self._parquet_format = pads.ParquetFileFormat()
-        setup = args
-        self._plan = decode_engine.compile_decode_plan(
-            setup.schema, setup.fields_to_read,
-            partition_field_names=setup.partition_field_names,
-            decode=not setup.batched_output,
-            device_decode_fields=setup.device_decode_fields)
+        # compiled decode plans per (field set, ship raw), kept for the
+        # worker's lifetime
+        self._decode_plans = {}
 
     def process(self, piece_index, fragment_path, row_group_id, partition_keys=None,
-                shuffle_row_drop_partition=(0, 1), epoch_index=0):
+                worker_predicate=None, shuffle_row_drop_partition=(0, 1), epoch_index=0):
         setup = self._setup
+        if setup.ngram is not None:
+            # every piece publishes, a piece of no window too: the reader's
+            # accounting must see every item
+            from petastorm_tpu_torch.ngram_worker import process_ngram_piece
+            self.publish_func(process_ngram_piece(
+                self, piece_index, fragment_path, row_group_id, partition_keys,
+                shuffle_row_drop_partition, epoch_index))
+            return
         item_id = (epoch_index, piece_index, shuffle_row_drop_partition[0])
-        fragment = self._parquet_format.make_fragment(fragment_path, setup.filesystem,
-                                                      row_groups=[row_group_id])
-        table = fragment.to_table(columns=[name for name in setup.fields_to_read
-                                           if name not in setup.partition_field_names])
-        part_index, num_parts = shuffle_row_drop_partition
-        if num_parts > 1:
-            # the same equal split of row indices petastorm_tpu's worker takes
-            table = table.take(np.array_split(np.arange(table.num_rows), num_parts)[part_index])
-        columns = self._plan.execute(table, partition_keys or {},
-                                     fragment_path=fragment_path)
-        num_rows = table.num_rows
+
+        def load():
+            return self._load_and_decode(fragment_path, row_group_id, partition_keys,
+                                         worker_predicate, shuffle_row_drop_partition)
+
+        cache_hit = None
+        if setup.predicate_token is None:
+            # no cache, or a predicate with no stable identity: serving its rows
+            # from an entry another predicate filled would be wrong
+            columns = load()
+        else:
+            cache_key = '{}:{}:{}:{}:{}'.format(setup.dataset_token, fragment_path,
+                                                row_group_id, shuffle_row_drop_partition,
+                                                setup.predicate_token)
+            filled = []
+
+            def fill():
+                filled.append(True)
+                return load()
+
+            columns = setup.cache.get(cache_key, fill)
+            cache_hit = not filled
+        num_rows = columns_num_rows(columns)
         if num_rows:
             if setup.shuffle_rows:
                 # the same seeded permutation petastorm_tpu's worker draws
@@ -100,7 +157,107 @@ class RowGroupWorker(WorkerBase):
         # an emptied item is published too: every item yields exactly one
         # result, so the reader's consumption accounting stays exact
         self.publish_func(ColumnarBatch(columns if num_rows else {}, num_rows,
-                                        item_id=item_id))
+                                        item_id=item_id, cache_hit=cache_hit))
+
+    # -------------------------------------------------------------------- load
+
+    def _make_fragment(self, fragment_path, row_group_id):
+        return self._parquet_format.make_fragment(fragment_path, self._setup.filesystem,
+                                                  row_groups=[row_group_id])
+
+    def _storage_columns(self, field_names):
+        return [name for name in field_names
+                if name not in self._setup.partition_field_names]
+
+    def _load_and_decode(self, fragment_path, row_group_id, partition_keys,
+                         worker_predicate, shuffle_row_drop_partition):
+        """The piece's decoded columns: the predicate's survivors (if any),
+        then the drop partition's equal share of them."""
+        all_fields = self._setup.fields_to_read
+        if worker_predicate is not None:
+            table, keep = self._two_phase_load(fragment_path, row_group_id, partition_keys,
+                                               worker_predicate, all_fields)
+        else:
+            table = self._make_fragment(fragment_path, row_group_id).to_table(
+                columns=self._storage_columns(all_fields))
+            keep = np.arange(table.num_rows)
+        part_index, num_parts = shuffle_row_drop_partition
+        # the same equal split of the (kept) row indices petastorm_tpu's worker takes
+        selected = np.array_split(keep, num_parts)[part_index] if num_parts > 1 else keep
+        if len(selected) != table.num_rows:
+            table = table.take(selected)
+        return self._decode_table(table, partition_keys, all_fields,
+                                  fragment_path=fragment_path)
+
+    def _two_phase_load(self, fragment_path, row_group_id, partition_keys,
+                        worker_predicate, all_fields):
+        """Read the predicate's columns, evaluate it, then read only the other
+        columns (each storage column is read once); returns the full table and
+        the indices of the rows kept. The predicate evaluates on its decoded
+        columns (:func:`~petastorm_tpu_torch.decode_engine.evaluate_predicate_mask`)."""
+        setup = self._setup
+        predicate_fields = sorted(worker_predicate.get_fields())
+        unknown = [f for f in predicate_fields
+                   if f not in setup.schema.fields and f not in setup.partition_field_names]
+        if unknown:
+            raise ValueError('Predicate references unknown fields {}'.format(unknown))
+        fragment = self._make_fragment(fragment_path, row_group_id)
+        predicate_table = fragment.to_table(columns=self._storage_columns(predicate_fields))
+        # a predicate reads decoded values, even of fields that ship raw
+        predicate_columns = self._decode_table(predicate_table, partition_keys,
+                                               predicate_fields, fragment_path=fragment_path,
+                                               ship_raw=False)
+        mask = self._evaluate_predicate(worker_predicate, predicate_columns,
+                                        predicate_table.num_rows)
+        keep = np.nonzero(mask)[0]
+        all_storage = self._storage_columns(all_fields)
+        if not len(keep):
+            # no survivor: an empty table of the output columns, nothing read
+            physical = fragment.physical_schema
+            return (pa.table({name: pa.array([], type=physical.field(name).type)
+                              for name in all_storage}), keep)
+        have = set(predicate_table.column_names)
+        remaining = [name for name in all_storage if name not in have]
+        if remaining:
+            remaining_table = fragment.to_table(columns=remaining)
+            table = pa.table({name: (predicate_table.column(name) if name in have
+                                     else remaining_table.column(name))
+                              for name in all_storage})
+        else:
+            table = predicate_table.select(all_storage)
+        return table, keep
+
+    def _evaluate_predicate(self, worker_predicate, predicate_columns, num_rows):
+        if self._setup.batched_output:
+            mask = np.asarray(worker_predicate.do_include(
+                {k: np.asarray(v) for k, v in predicate_columns.items()}))
+            if mask.shape != (num_rows,):
+                raise ValueError('Batched predicate must return a boolean mask of shape '
+                                 '({},); got {}'.format(num_rows, mask.shape))
+            return mask
+        return decode_engine.evaluate_predicate_mask(worker_predicate, predicate_columns,
+                                                     num_rows)
+
+    # ------------------------------------------------------------------ decode
+
+    def _decode_table(self, table, partition_keys, field_names, fragment_path=None,
+                      ship_raw=True):
+        """Arrow table -> ``{name: ndarray-or-list}`` through the compiled plan
+        of ``field_names`` (without the ship-raw kernels when not
+        ``ship_raw``)."""
+        setup = self._setup
+        device_fields = setup.device_decode_fields if ship_raw else frozenset()
+        key = (tuple(field_names), bool(device_fields))
+        plan = self._decode_plans.get(key)
+        if plan is None:
+            plan = decode_engine.compile_decode_plan(
+                setup.schema, list(field_names),
+                partition_field_names=setup.partition_field_names,
+                decode=not setup.batched_output, device_decode_fields=device_fields)
+            self._decode_plans[key] = plan
+        return plan.execute(table, partition_keys or {}, fragment_path=fragment_path)
+
+    # --------------------------------------------------------------- transform
 
     def _apply_transform(self, columns, num_rows):
         setup = self._setup
@@ -136,6 +293,20 @@ class RowGroupWorker(WorkerBase):
                 for i in range(num_rows)]
         return ({name: decode_engine.stack_if_uniform([row[name] for row in rows], field)
                  for name, field in fields.items()}, len(rows))
+
+
+def _predicate_token(worker_predicate):
+    """A stable cache token of a predicate (an md5 of its pickle), ``'nopred'``
+    without one, None when it does not pickle (the caller then bypasses the
+    cache)."""
+    if worker_predicate is None:
+        return 'nopred'
+    try:
+        return hashlib.md5(pickle.dumps(worker_predicate)).hexdigest()[:12]
+    except Exception:  # noqa: BLE001 - any pickling failure means no stable identity
+        logger.debug('predicate %s has no stable cache token; bypassing the rowgroup '
+                     'cache for it', type(worker_predicate).__name__, exc_info=True)
+        return None
 
 
 def _take(col, indices):

@@ -261,6 +261,15 @@ def _numpy_from_arrow_type(arrow_type):
         raise ValueError('Arrow type {} has no numpy mapping'.format(arrow_type))
 
 
+def match_unischema_fields(schema, field_regexes):
+    """The schema's fields whose names fullmatch any of ``field_regexes``."""
+    if not field_regexes:
+        return []
+    compiled = [re.compile(p) for p in field_regexes]
+    return [field for name, field in schema.fields.items()
+            if any(c.fullmatch(name) for c in compiled)]
+
+
 def dict_to_encoded_row(schema, row_dict):
     """Validate and codec-encode one row dict into its storage representation
     (the input of the Arrow writer in :mod:`petastorm_tpu_torch.etl`). Missing
