@@ -54,7 +54,17 @@ version on the card, then drives the port's two paths at full width:
   step: with ``num_epochs=2`` each epoch must read exactly the split's
   ``idx`` set with one cache hit or miss a rowgroup; then two passes of a
   ``num_epochs=1`` loader over a new cache must each deliver that set, the
-  first with a miss and the second with a hit for every rowgroup (12b).
+  first with a miss and the second with a hit for every rowgroup (12b);
+- the process pool (phase 13): phase 5's store and model read by a process
+  pool of 4 spawned workers with the shared-memory ring required (13a: K1 on
+  every batch, every row once with its label and embedding bytes, every
+  result through the ring with no fallback, CRC failure or stale drop, the
+  ring's segment gone after ``join()``, no worker holding a CUDA context);
+  phase 10's MNIST stream on a process pool of 4 (13b: each epoch's ``idx``
+  once, and the first chunk, read by one process worker, against the eager
+  twin); then one epoch of it with a worker SIGKILLed once the first chunk's
+  rows were read (13c: every ``idx`` once, one respawn, the segment gone).
+  It prints ``/dev/shm``'s size and ``os.cpu_count()``.
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -96,6 +106,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -133,6 +144,8 @@ from petastorm_tpu_torch.ops.ring_attention import dense_attention
 from petastorm_tpu_torch.predicates import in_pseudorandom_split
 from petastorm_tpu_torch.selectors import SingleIndexSelector
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from petastorm_tpu_torch.workers.process_pool import ProcessPool
+from petastorm_tpu_torch.workers.shm_ring import SHM_DIR
 
 # the module, not the function the ops package exports under the same name
 flash = importlib.import_module('petastorm_tpu_torch.ops.flash_attention')
@@ -442,9 +455,12 @@ def phase_k1(batch, seed):
     return result
 
 
-def phase_main_path(url, args):
+def phase_main_path(url, args, reader_pool=None, inspect=None):
     """One epoch of the main path; returns its measurements and the (idx,
-    embedding) pairs it delivered."""
+    label, embedding) it delivered. The reader runs on a thread pool of
+    ``args.workers``, or on ``reader_pool``; ``inspect(reader)`` runs once the
+    first batch arrived. ``first_batch_s`` is the time from the reader's
+    construction (a process pool's spawn included) to the first batch."""
     torch.manual_seed(args.seed)
     model = ResNet50(num_classes=1000).train()
     optimizer = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
@@ -466,13 +482,20 @@ def phase_main_path(url, args):
     step_s = []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    open_start = time.perf_counter()
+    first_batch_s = None
     with make_reader(url, reader_pool_type='thread', workers_count=args.workers,
-                     seed=args.seed, device_decode_fields=['image', 'embedding']) as reader:
+                     reader_pool=reader_pool, seed=args.seed,
+                     device_decode_fields=['image', 'embedding']) as reader:
         loader = TorchDataLoader(reader, batch_size=args.batch,
                                  device_transforms={'image': transform})
         start = time.perf_counter()
         for batch in loader:
             step_start = time.perf_counter()
+            if first_batch_s is None:
+                first_batch_s = step_start - open_start
+                if inspect is not None:
+                    inspect(reader)
             check(tuple(batch['image'].shape) == (args.batch, crop, crop, 3)
                   and batch['image'].dtype == torch.bfloat16
                   and batch['image'].device.type == 'cuda', 'image batch shape/dtype')
@@ -492,6 +515,8 @@ def phase_main_path(url, args):
         wall_s = time.perf_counter() - start
         counts = read_counts()
         stats = loader.stats.as_dict()
+        diagnostics = reader.diagnostics
+        items_per_epoch = reader.items_per_epoch
     launches = counts['stored_copy']
     steps = len(losses)
     losses = [float(x) for x in losses]
@@ -506,7 +531,9 @@ def phase_main_path(url, args):
             'step_ms_median': statistics.median(step_s) * 1e3,
             'step_ms': [s * 1e3 for s in step_s],
             'peak_memory_bytes': torch.cuda.max_memory_allocated(),
-            'losses': losses, 'k1_launches': launches, 'counts': counts}, delivered
+            'losses': losses, 'k1_launches': launches, 'counts': counts,
+            'first_batch_s': first_batch_s, 'items_per_epoch': items_per_epoch,
+            'diagnostics': diagnostics}, delivered
 
 
 def check_delivered(delivered, seed):
@@ -1856,6 +1883,219 @@ def mnist_stream_line(result, card):
                 result['first_chunk']['max_rel_err'], result['first_chunk']['rtol'], card))
 
 
+# ------------------------------------------------------ the process pool (phase 13)
+
+def shm_segment_gone(pool):
+    """True when the pool made a ring and its segment is no longer in /dev/shm."""
+    return pool.ring_name is not None and not os.path.exists(
+        os.path.join(SHM_DIR, pool.ring_name))
+
+
+def machine_facts():
+    """The size and free bytes of /dev/shm and os.cpu_count()."""
+    stat = os.statvfs(SHM_DIR)
+    return {'dev_shm_bytes': stat.f_blocks * stat.f_frsize,
+            'dev_shm_free_bytes': stat.f_bavail * stat.f_frsize,
+            'cpu_count': os.cpu_count()}
+
+
+def check_no_cuda_in_workers(pool):
+    """The pool's live workers hold no CUDA context: nvidia-smi lists one
+    compute process (this one; in a container it may show it under another
+    pid namespace's number) and none of the workers' pids, and no worker has
+    libcuda mapped."""
+    pids = [process.pid for process in pool.processes]
+    check(all(process.poll() is None for process in pool.processes),
+          'a pool worker was not alive at the CUDA check')
+    out = subprocess.run(['nvidia-smi', '--query-compute-apps=pid', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, 'nvidia-smi --query-compute-apps failed: {}'.format(out.stderr))
+    listed = sorted(int(word) for word in out.stdout.split() if word.strip().isdigit())
+    mapped = []
+    for pid in pids:
+        with open('/proc/{}/maps'.format(pid)) as f:
+            if 'libcuda' in f.read():
+                mapped.append(pid)
+    check(len(listed) == 1 and not set(listed) & set(pids) and not mapped,
+          'CUDA contexts: nvidia-smi lists {} (this process is {}, the workers {}); '
+          'workers with libcuda mapped: {}'.format(listed, os.getpid(), pids, mapped))
+    return {'worker_pids': pids, 'compute_app_pids': listed, 'own_pid': os.getpid()}
+
+
+def check_transport(diag, items, what):
+    """Every result of the run came through the ring, none dropped or redone."""
+    check(diag['shm_batches'] == diag['wire_batches'] == items
+          and diag['shm_fallback_batches'] == diag['shm_crc_failures']
+          == diag['shm_stale_drops'] == 0,
+          '{}: {} results, {} of them through the ring (fallbacks {}, CRC failures {}, '
+          'stale drops {})'.format(what, diag['wire_batches'], diag['shm_batches'],
+                                   diag['shm_fallback_batches'], diag['shm_crc_failures'],
+                                   diag['shm_stale_drops']))
+
+
+def phase_process_imagenet(tmp, args):
+    """Phase 13a: phase 5's store and configuration read by a process pool of
+    ``args.workers`` spawned workers with the shm ring required (what
+    ``make_reader(reader_pool_type='process', workers_count=args.workers,
+    shm_transport=True)`` builds): K1 on every batch, every row once with its
+    label and embedding bytes, every result through the ring, the segment gone
+    after join, and no CUDA context in a worker."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'imagenet')
+    pool = ProcessPool(args.workers, shm_transport=True)
+    cuda = {}
+    result, delivered = phase_main_path(
+        url, args, reader_pool=pool,
+        inspect=lambda reader: cuda.update(check_no_cuda_in_workers(pool)))
+    result['distinct_rows'] = check_delivered(delivered, args.seed)
+    check(result['distinct_rows'] == result['rows'] == args.rows,
+          '13a: {} distinct rows of {} delivered, {} in the store'.format(
+              result['distinct_rows'], result['rows'], args.rows))
+    check_transport(result['diagnostics'], result['items_per_epoch'], '13a')
+    check(shm_segment_gone(pool), '13a: the ring {} outlived join()'.format(pool.ring_name))
+    result['cuda'] = cuda
+    result['machine'] = machine_facts()
+    result['phase_s'] = time.perf_counter() - phase_start
+    return result
+
+
+def epoch_idx_once(seen, epochs):
+    """Each epoch's idx values, seen as the reader delivered them, are
+    0..MNIST_ROWS-1 once."""
+    check(sorted(seen) == list(range(epochs)), 'epochs seen: {}'.format(sorted(seen)))
+    for epoch, parts in seen.items():
+        idx = np.sort(np.concatenate(parts))
+        check(np.array_equal(idx, np.arange(MNIST_ROWS)),
+              'epoch {}: {} idx values, {} distinct, not 0..{} once'.format(
+                  epoch, len(idx), len(np.unique(idx)), MNIST_ROWS - 1))
+
+
+def phase_process_mnist_stream(tmp, seed):
+    """Phase 13b: phase 10 on a process pool. First a pass through one
+    process worker, whose stream order is the in-line reader's: its first
+    chunk held against the eager twin; then epochs 0-7 on a pool of 4
+    (the first a warm-up), each epoch's idx once."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist')
+    model, optimizer, twin, twin_opt = mnist_model(seed + 1)
+    step = mnist_step(model, optimizer)
+
+    def inline_reader():
+        return make_reader(url, reader_pool_type='dummy', shuffle_row_groups=True, seed=42)
+
+    with make_reader(url, reader_pool_type='process', workers_count=1, shm_transport=True,
+                     shuffle_row_groups=True, seed=42) as reader:
+        chunks = TorchDataLoader(reader, batch_size=MNIST_BATCH).scan_stream(
+            step, chunk_batches=MNIST_CHUNK, seed=0, state=(model, optimizer))
+    twin_step = mnist_step(twin, twin_opt)
+    eager = [twin_step(batch) for batch in first_chunk_batches(
+        inline_reader, MNIST_CHUNK, MNIST_BATCH, 0)]
+    agreement = loss_agreement(chunks[0].tolist(), eager, MNIST_LOSS_RTOL)
+    epochs = []
+    pool = ProcessPool(4, shm_transport=True)
+    open_start = time.perf_counter()
+    with make_reader(url, reader_pool=pool, shuffle_row_groups=True, seed=42,
+                     num_epochs=1) as reader:
+        seen = observe_items(reader)
+        loader = TorchDataLoader(reader, batch_size=MNIST_BATCH)
+        for epoch in range(MNIST_EPOCHS + 1):
+            def one_pass():
+                aux = loader.scan_stream(step, chunk_batches=MNIST_CHUNK, seed=epoch,
+                                         state=(model, optimizer))
+                float(aux[-1][-1])
+                return sum(int(a.shape[0]) for a in aux) * MNIST_BATCH
+            rows, elapsed = timed(one_pass)
+            epochs.append({'s': elapsed, 'rows': rows, 'rows_per_s': rows / elapsed})
+        diag = reader.diagnostics
+        items = reader.items_per_epoch
+    epoch_idx_once(seen, MNIST_EPOCHS + 1)
+    check_transport(diag, items * (MNIST_EPOCHS + 1), '13b')
+    check(shm_segment_gone(pool), '13b: the ring {} outlived join()'.format(pool.ring_name))
+    return {'chunk_batches': MNIST_CHUNK, 'epochs': epochs, 'workers': 4,
+            'rows_per_s': statistics.median(e['rows_per_s'] for e in epochs[1:]),
+            'first_chunk': agreement, 'items_per_epoch': items,
+            'open_to_end_s': time.perf_counter() - open_start,
+            'phase_s': time.perf_counter() - phase_start, 'diagnostics': diag}
+
+
+def phase_process_kill(tmp, seed):
+    """Phase 13c: 13b's reader for one epoch of scan_stream, one worker
+    SIGKILLed (its pid from the pool's process handles) once the first chunk's
+    rows were read: every idx once, one respawn, the segment gone after join."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist')
+    model, optimizer, _, _ = mnist_model(seed + 2)
+    step = mnist_step(model, optimizer)
+    pool = ProcessPool(4, shm_transport=True)
+    killed = []
+    with make_reader(url, reader_pool=pool, shuffle_row_groups=True, seed=42,
+                     num_epochs=1) as reader:
+        seen = observe_items(reader)
+        observed = reader.iter_columnar
+
+        def iter_columnar(*args, **kwargs):
+            rows = 0
+            for batch in observed(*args, **kwargs):
+                rows += batch.num_rows
+                if not killed and rows >= MNIST_CHUNK * MNIST_BATCH:
+                    victim = pool.processes[0].pid
+                    os.kill(victim, signal.SIGKILL)
+                    killed.append(victim)
+                yield batch
+        reader.iter_columnar = iter_columnar
+        loader = TorchDataLoader(reader, batch_size=MNIST_BATCH)
+
+        def one_pass():
+            aux = loader.scan_stream(step, chunk_batches=MNIST_CHUNK, seed=0,
+                                     state=(model, optimizer))
+            last = float(aux[-1][-1])
+            check(np.isfinite(last), '13c: non-finite loss {}'.format(last))
+            return sum(int(a.shape[0]) for a in aux) * MNIST_BATCH
+        rows, elapsed = timed(one_pass)
+        diag = reader.diagnostics
+    epoch_idx_once(seen, 1)
+    check(len(killed) == 1 and diag['workers_respawned'] == 1,
+          '13c: killed {}, {} respawns'.format(killed, diag['workers_respawned']))
+    check(shm_segment_gone(pool), '13c: the ring {} outlived join()'.format(pool.ring_name))
+    return {'killed_pid': killed[0], 'rows': rows, 's': elapsed, 'rows_per_s': rows / elapsed,
+            'workers_respawned': diag['workers_respawned'],
+            'results_dropped': diag['results_dropped'],
+            'shm_stale_drops': diag['shm_stale_drops'],
+            'phase_s': time.perf_counter() - phase_start, 'diagnostics': diag}
+
+
+def process_lines(imagenet, stream, kill, thread_main, thread_stream, card):
+    machine = imagenet['machine']
+    return [
+        'phase 13a ImageNet path on a process pool of {} workers (shm ring): rows/s={:.2f} '
+        'step_ms(median)={:.2f} input_stall_fraction={:.4f} spawn-to-first-batch {:.3f} s | '
+        'phase 5 threads: rows/s={:.2f} step_ms(median)={:.2f} input_stall_fraction={:.4f} '
+        'first batch {:.3f} s | K1 launches {} on {} batches, {} rows each once, {} results '
+        'all through the ring, segment gone, worker pids {} hold no CUDA context (nvidia-smi '
+        'lists {}) | /dev/shm {} bytes, os.cpu_count() {}; the phase took {:.1f} s '
+        '[{}]'.format(
+            len(imagenet['cuda']['worker_pids']), imagenet['rows_per_s'],
+            imagenet['step_ms_median'], imagenet['input_stall_fraction'],
+            imagenet['first_batch_s'], thread_main['rows_per_s'],
+            thread_main['step_ms_median'], thread_main['input_stall_fraction'],
+            thread_main['first_batch_s'], imagenet['k1_launches'], imagenet['steps'],
+            imagenet['distinct_rows'], imagenet['diagnostics']['shm_batches'],
+            imagenet['cuda']['worker_pids'], imagenet['cuda']['compute_app_pids'],
+            machine['dev_shm_bytes'], machine['cpu_count'], imagenet['phase_s'], card),
+        'phase 13b MNIST scan_stream on a process pool of {}: rows/s={:.1f} (median of '
+        'epochs 1-{}) | phase 10 threads: rows/s={:.1f}; each epoch\'s idx once; first chunk '
+        '(one process worker) vs eager max rel err {:.3e} (limit {:.1e}); the phase took '
+        '{:.1f} s [{}]'.format(
+            stream['workers'], stream['rows_per_s'], MNIST_EPOCHS, thread_stream['rows_per_s'],
+            stream['first_chunk']['max_rel_err'], stream['first_chunk']['rtol'],
+            stream['phase_s'], card),
+        'phase 13c a worker SIGKILLed after the first chunk: {} rows in {:.3f} s '
+        '(rows/s={:.1f}), every idx once, workers_respawned={}, results_dropped={}, '
+        'shm_stale_drops={}, segment gone; the phase took {:.1f} s [{}]'.format(
+            kill['rows'], kill['s'], kill['rows_per_s'], kill['workers_respawned'],
+            kill['results_dropped'], kill['shm_stale_drops'], kill['phase_s'], card)]
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -2011,6 +2251,13 @@ def main(argv=None):
         log(ngram_line(record['ngram_lm'], record['lm'], card))
         record['split_cache'] = phase_split_cache(tmp, args.seed)
         log(split_cache_line(record['split_cache'], card))
+        record['process_imagenet'] = phase_process_imagenet(tmp, args)
+        record['process_stream'] = phase_process_mnist_stream(tmp, args.seed)
+        record['process_kill'] = phase_process_kill(tmp, args.seed)
+        for line in process_lines(record['process_imagenet'], record['process_stream'],
+                                  record['process_kill'], record['main_path'],
+                                  record['mnist_stream'], card):
+            log(line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2020,6 +2267,7 @@ def main(argv=None):
         'source': 'petastorm_tpu_torch/csrc/stored_copy.cu',
         'replaces': 'petastorm_tpu/ops/raw_decode.py:165',
         'launches': record['main_path']['k1_launches'],
+        'process_pool_launches': record['process_imagenet']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
                            for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
                                         'large')),

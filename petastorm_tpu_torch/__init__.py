@@ -23,22 +23,44 @@ mixing (:class:`WeightedSamplingReader`). Entry points run on CUDA unless the
 caller passes ``device='cpu'``.
 """
 
-from petastorm_tpu_torch.models.mnist import MnistCNN
-from petastorm_tpu_torch.ngram import NGram
-from petastorm_tpu_torch.models.transformer import TransformerLM
-from petastorm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_segmented
-from petastorm_tpu_torch.ops.packing import make_packing_transform, pack_sequences
-from petastorm_tpu_torch.parallel.checkpoint import TrainingCheckpointer
-from petastorm_tpu_torch.parallel.device_stage import DeviceTransform
-from petastorm_tpu_torch.parallel.inmem_loader import InMemTorchLoader
-from petastorm_tpu_torch.parallel.loader import TorchDataLoader, make_torch_loader
-from petastorm_tpu_torch.reader import Reader, make_batch_reader, make_reader
-from petastorm_tpu_torch.transform import TransformSpec
-from petastorm_tpu_torch.unischema import Unischema, UnischemaField
-from petastorm_tpu_torch.weighted_sampling_reader import WeightedSamplingReader
+import importlib
 
-__all__ = ['DeviceTransform', 'InMemTorchLoader', 'MnistCNN', 'NGram', 'Reader',
-           'TorchDataLoader', 'TrainingCheckpointer', 'TransformSpec', 'TransformerLM',
-           'Unischema', 'UnischemaField', 'WeightedSamplingReader', 'flash_attention',
-           'flash_attention_segmented', 'make_batch_reader', 'make_packing_transform',
-           'make_reader', 'make_torch_loader', 'pack_sequences']
+#: public name -> the module that defines it, imported on first access (PEP 562):
+#: importing a submodule such as ``petastorm_tpu_torch.reader`` or a spawned
+#: process-pool worker then loads no torch
+_EXPORTS = {
+    'DeviceTransform': 'petastorm_tpu_torch.parallel.device_stage',
+    'InMemTorchLoader': 'petastorm_tpu_torch.parallel.inmem_loader',
+    'MnistCNN': 'petastorm_tpu_torch.models.mnist',
+    'NGram': 'petastorm_tpu_torch.ngram',
+    'Reader': 'petastorm_tpu_torch.reader',
+    'TorchDataLoader': 'petastorm_tpu_torch.parallel.loader',
+    'TrainingCheckpointer': 'petastorm_tpu_torch.parallel.checkpoint',
+    'TransformSpec': 'petastorm_tpu_torch.transform',
+    'TransformerLM': 'petastorm_tpu_torch.models.transformer',
+    'Unischema': 'petastorm_tpu_torch.unischema',
+    'UnischemaField': 'petastorm_tpu_torch.unischema',
+    'WeightedSamplingReader': 'petastorm_tpu_torch.weighted_sampling_reader',
+    'flash_attention': 'petastorm_tpu_torch.ops.flash_attention',
+    'flash_attention_segmented': 'petastorm_tpu_torch.ops.flash_attention',
+    'make_batch_reader': 'petastorm_tpu_torch.reader',
+    'make_packing_transform': 'petastorm_tpu_torch.ops.packing',
+    'make_reader': 'petastorm_tpu_torch.reader',
+    'make_torch_loader': 'petastorm_tpu_torch.parallel.loader',
+    'pack_sequences': 'petastorm_tpu_torch.ops.packing',
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError('module {!r} has no attribute {!r}'.format(__name__, name))
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -99,6 +99,16 @@ class LocalDiskCache(CacheBase):
         # store; the full rescan runs only when it crosses the limit
         self._approx_bytes = None
 
+    def __getstate__(self):
+        # shipped to process-pool workers: each process keeps its own lock
+        state = self.__dict__.copy()
+        del state['_lock']
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
     def _key_path(self, key):
         digest = hashlib.sha1(str(key).encode('utf-8')).hexdigest()
         return os.path.join(self._path, digest[:2], digest + self._SUFFIX)

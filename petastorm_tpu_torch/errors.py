@@ -37,3 +37,29 @@ class CacheCorruptionError(PetastormTpuError):
     """A disk-cache entry failed its integrity check (footer missing, length
     or CRC mismatch). Never propagates out of the cache: ``get`` deletes the
     entry and serves the fill function."""
+
+
+class TransientIOError(PetastormTpuError, OSError):
+    """An IO failure that is expected to succeed on retry (connection reset,
+    throttled store). Subclasses ``OSError``, so the default transient
+    classifier of :mod:`petastorm_tpu_torch.resilience` retries it like any
+    errno failure; raise it from a custom filesystem to opt an error into the
+    retry path."""
+
+
+class QuarantinedRowGroupError(PetastormTpuError):
+    """A rowgroup exhausted its error budget under ``on_error='skip'`` and was
+    left out of the stream. Raised only by
+    :meth:`~petastorm_tpu_torch.resilience.QuarantineLedger.raise_if_any`
+    (strict post-epoch validation), with the first record's ``piece_index``,
+    ``fragment_path``, ``row_group_id`` and ``attempts``."""
+
+    def __init__(self, message: str, piece_index: Optional[int] = None,
+                 fragment_path: Optional[str] = None,
+                 row_group_id: Optional[int] = None,
+                 attempts: Optional[int] = None) -> None:
+        super().__init__(message)
+        self.piece_index = piece_index
+        self.fragment_path = fragment_path
+        self.row_group_id = row_group_id
+        self.attempts = attempts

@@ -80,10 +80,11 @@ class DatasetHandle(object):
         return [name for name in partitioning.schema.names if name not in data_names]
 
 
-def open_dataset(dataset_url_or_urls):
+def open_dataset(dataset_url_or_urls, filesystem=None):
     """Resolve URL(s) and open a pyarrow dataset with hive-partition discovery
-    (``_``/``.``-prefixed files such as ``_common_metadata`` are skipped)."""
-    fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls)
+    (``_``/``.``-prefixed files such as ``_common_metadata`` are skipped),
+    through ``filesystem`` when given."""
+    fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls, filesystem)
     arrow_dataset = pads.dataset(path_or_paths, filesystem=fs,
                                  format='parquet', partitioning='hive')
     return DatasetHandle(fs, path_or_paths, arrow_dataset)
@@ -245,9 +246,14 @@ def write_dataset_metadata(handle, new_keys):
 
 # ----------------------------------------------------------------- read path
 
-def load_row_groups(handle):
+def load_row_groups(handle, on_fragment_error=None):
     """Every rowgroup of the dataset in path-sorted order. Uses the metadata
-    index when it is present and its file sizes match, else the footers."""
+    index when it is present and its file sizes match, else the footers.
+
+    ``on_fragment_error(exc, fragment_path, fragment_index)``, when given, is
+    told of a fragment whose footer cannot be read for a permanent reason (a
+    truncated or corrupt file), which is then left out; a transient IO error
+    still raises, for the caller's retry policy."""
     metadata = read_metadata_dict(handle)
     index_map = None
     if ROW_GROUPS_JSON_KEY in metadata:
@@ -270,8 +276,17 @@ def load_row_groups(handle):
                 logger.warning('Rowgroup index for %s is stale; recomputing from footer',
                                rel)
         if counts is None:
-            fragment.ensure_complete_metadata()
-            counts = [rg.num_rows for rg in fragment.row_groups]
+            try:
+                fragment.ensure_complete_metadata()
+                counts = [rg.num_rows for rg in fragment.row_groups]
+            except Exception as exc:  # noqa: BLE001 - the policy decides below
+                from petastorm_tpu_torch.resilience import is_transient_error
+                if on_fragment_error is None or is_transient_error(exc):
+                    raise
+                logger.warning('Excluding fragment %s from the rowgroup schedule: footer '
+                               'unreadable (%s: %s)', fragment.path, type(exc).__name__, exc)
+                on_fragment_error(exc, fragment.path, fragment_index)
+                continue
         for row_group_id, num_rows in enumerate(counts):
             row_groups.append(RowGroupIndices(fragment_index, fragment.path, row_group_id,
                                               num_rows, partition_keys))

@@ -1,9 +1,10 @@
 """Filesystem resolution: dataset URL -> (pyarrow filesystem, path).
 
 This slice reads local paths and ``file://`` URLs through
-``pyarrow.fs.LocalFileSystem``; HDFS and object stores (``petastorm_tpu``'s
-namenode resolver and fsspec bridge) come in a later slice and are refused
-here with the scheme named.
+``pyarrow.fs.LocalFileSystem``, or through a ``pyarrow.fs.FileSystem`` the
+caller passes (a local one or one wrapping it, such as a ``PyFileSystem``);
+HDFS and object stores (``petastorm_tpu``'s namenode resolver and fsspec
+bridge) come in a later slice and are refused here with the scheme named.
 """
 
 from urllib.parse import urlparse
@@ -43,12 +44,16 @@ def _local_path(url):
                      '(local paths and file:// only)'.format(scheme, url))
 
 
-def get_filesystem_and_path_or_paths(url_or_urls):
-    """Resolve a URL (or list of URLs) into a local pyarrow filesystem and
-    path(s)."""
+def get_filesystem_and_path_or_paths(url_or_urls, filesystem=None):
+    """Resolve a URL (or list of URLs) into a pyarrow filesystem (``filesystem``
+    when given, else a local one) and path(s)."""
     urls = url_or_urls if isinstance(url_or_urls, (list, tuple)) else [url_or_urls]
     paths = [_local_path(normalize_dataset_url(u)) for u in urls]
-    filesystem = pafs.LocalFileSystem()
+    if filesystem is None:
+        filesystem = pafs.LocalFileSystem()
+    elif not isinstance(filesystem, pafs.FileSystem):
+        raise ValueError('filesystem must be a pyarrow.fs.FileSystem, got {!r}'
+                         .format(filesystem))
     if isinstance(url_or_urls, (list, tuple)):
         return filesystem, paths
     return filesystem, paths[0]

@@ -17,14 +17,20 @@ class NGramWindows(object):
     ``columns``. ``item_id`` is the work item's ``(epoch, piece,
     drop_partition)``, the unit of the reader's accounting (a piece with no
     window is published too, to carry it). As in the JAX package, NGram
-    pieces count no cache hits or misses."""
+    pieces count no cache hits or misses. ``retries``, ``quarantine`` and
+    ``breakers`` are :class:`~petastorm_tpu_torch.reader_worker.ColumnarBatch`'s
+    resilience fields."""
 
-    __slots__ = ('columns', 'starts', 'item_id')
+    __slots__ = ('columns', 'starts', 'item_id', 'retries', 'quarantine', 'breakers')
 
-    def __init__(self, columns, starts, item_id=None):
+    def __init__(self, columns, starts, item_id=None, retries=0, quarantine=None,
+                 breakers=None):
         self.columns = columns
         self.starts = starts
         self.item_id = item_id
+        self.retries = retries
+        self.quarantine = quarantine
+        self.breakers = breakers
 
     def __len__(self):
         return len(self.starts)
@@ -36,9 +42,10 @@ class NGramWindows(object):
 
 
 def process_ngram_piece(worker, piece_index, fragment_path, row_group_id, partition_keys,
-                        shuffle_row_drop_partition, epoch_index=0):
+                        shuffle_row_drop_partition, epoch_index=0, with_retry=None):
     """Decode one rowgroup piece and form its windows: an :class:`NGramWindows`
-    (possibly of no window) tagged with the piece's item id."""
+    (possibly of no window) tagged with the piece's item id. ``with_retry``
+    runs the load under the reader's retry policy."""
     from petastorm_tpu_torch.reader_worker import _take
     setup = worker._setup
     ngram = setup.ngram
@@ -66,7 +73,8 @@ def process_ngram_piece(worker, piece_index, fragment_path, row_group_id, partit
 
     cache_key = 'ngram:{}:{}:{}:{}'.format(setup.dataset_token, fragment_path,
                                            row_group_id, shuffle_row_drop_partition)
-    payload = setup.cache.get(cache_key, load_windows)
+    payload = setup.cache.get(cache_key, load_windows if with_retry is None
+                              else lambda: with_retry(load_windows))
     starts = payload['starts']
     if setup.shuffle_rows and len(starts):
         # seeded per piece: a replayed piece gives the same window order,

@@ -76,11 +76,14 @@ class LoaderStats(object):
     that went through the device decode tail, ``device_stored_batches`` those
     whose stored-deflate fields inflated through kernel K1 (its plain version
     on the CPU), ``device_fallback_batches`` reader chunks (rowgroups)
-    decoded in host mode."""
+    decoded in host mode. ``io_retries`` and ``rowgroups_quarantined`` mirror
+    the reader's resilience counters (as the JAX loader's do), so a job that
+    watches only the loader still sees an epoch that served fewer
+    rowgroups."""
 
     _FIELDS = ('batches', 'rows', 'wait_time_s', 'total_time_s',
                'device_decode_batches', 'device_stored_batches',
-               'device_fallback_batches')
+               'device_fallback_batches', 'io_retries', 'rowgroups_quarantined')
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -94,6 +97,14 @@ class LoaderStats(object):
                 if name not in self._FIELDS:
                     raise AttributeError('unknown LoaderStats field {!r}'.format(name))
                 setattr(self, name, getattr(self, name) + delta)
+
+    def mirror(self, **values):
+        """Set counter fields to absolute values atomically."""
+        with self._lock:
+            for name, value in values.items():
+                if name not in self._FIELDS:
+                    raise AttributeError('unknown LoaderStats field {!r}'.format(name))
+                setattr(self, name, value)
 
     @property
     def input_stall_fraction(self):
@@ -295,12 +306,23 @@ class TorchDataLoader(object):
     def _reader_chunks(self):
         """Sanitized columnar chunks from the reader, each work item (emptied
         ones too) queued for delivery accounting."""
-        for columns, num_rows, item_id in iter_reader_chunks(self.reader,
-                                                             include_empty=True):
-            with self._fifo_lock:
-                self._delivery_fifo.append([item_id, num_rows])
-            if num_rows:
-                yield self._sanitize(columns)
+        try:
+            for columns, num_rows, item_id in iter_reader_chunks(self.reader,
+                                                                 include_empty=True):
+                with self._fifo_lock:
+                    self._delivery_fifo.append([item_id, num_rows])
+                self._sync_resilience_stats()
+                if num_rows:
+                    yield self._sanitize(columns)
+        finally:
+            self._sync_resilience_stats()
+
+    def _sync_resilience_stats(self):
+        """Mirror the reader's retry and quarantine counters into the stats."""
+        retries = getattr(self.reader, 'io_retries', None)
+        ledger = getattr(self.reader, 'quarantine', None)
+        if retries is not None and ledger is not None:
+            self.stats.mirror(io_retries=retries, rowgroups_quarantined=len(ledger))
 
     def _sanitize(self, columns):
         passthrough = frozenset()

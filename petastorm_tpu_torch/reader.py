@@ -2,9 +2,12 @@
 copy of ``petastorm_tpu.reader``.
 
 The reader ventilates one work item per rowgroup and shuffle-row-drop
-partition through a thread or dummy worker pool, in the same seeded order as
-``petastorm_tpu`` (so both packages emit the same row stream for the same
-store, seed and pool type). ``make_reader`` decodes Unischema stores through
+partition through a thread, process or dummy worker pool, in the same seeded
+order as ``petastorm_tpu`` (so both packages emit the same row stream for the
+same store, seed and pool type). The process pool
+(:mod:`~petastorm_tpu_torch.workers.process_pool`) spawns its workers as fresh
+interpreters that load no torch, and brings their results back through a
+shared-memory ring. ``make_reader`` decodes Unischema stores through
 their codecs and gives one row namedtuple per ``next()``;
 ``make_batch_reader`` reads any Parquet store natively and gives one
 namedtuple of column arrays per rowgroup. The loader takes whole columnar
@@ -30,12 +33,22 @@ resumes a reader of the other, apart from the ``lineage`` and ``topology``
 blocks, which the port never writes (it has neither plane) and refuses to
 resume.
 
-Left for later slices, and absent from the signatures: the process pool,
-retries/quarantine, telemetry and SLOs, lineage, cost scheduling, autotuning,
-topology negotiation, ``shard_seed``, the input service and non-local
-filesystems.
+Resilience is the JAX package's (:mod:`~petastorm_tpu_torch.resilience`):
+``on_error='retry'`` retries transient IO failures of dataset open, rowgroup
+enumeration and rowgroup loads under ``retry_policy``; ``'skip'`` also
+quarantines a rowgroup that still fails (an empty stand-in batch carries its
+record, so it counts as consumed in ``state_dict``), and the process pool's
+watchdog quarantines one whose worker overruns ``item_deadline_s``. Retries,
+the quarantine ledger, tripped breakers and the process pool's counters show
+in :attr:`Reader.diagnostics`.
+
+Left for later slices, and absent from the signatures: telemetry and SLOs,
+lineage, cost scheduling, autotuning, topology negotiation, ``shard_seed``, the
+input service, the cache's bypass breaker and non-local filesystems
+(``filesystem=`` takes a local or wrapped ``pyarrow.fs.FileSystem``).
 """
 
+import logging
 import threading
 import warnings
 
@@ -45,24 +58,51 @@ from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError
 from petastorm_tpu_torch.etl import dataset_metadata
 from petastorm_tpu_torch.fs_utils import normalize_dataset_url_or_urls
 from petastorm_tpu_torch.ngram import NGram
-from petastorm_tpu_torch.reader_worker import ColumnarBatch, RowGroupWorker, WorkerSetup
+from petastorm_tpu_torch.reader_worker import (ColumnarBatch, RowGroupWorker, WorkerSetup,
+                                               hang_stand_in_factory)
+from petastorm_tpu_torch.resilience import (QuarantineLedger, QuarantineRecord,
+                                            resolve_retry_policy, run_with_retry)
 from petastorm_tpu_torch.unischema import Unischema
 from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
 
+logger = logging.getLogger(__name__)
+
 #: extra rowgroups kept in flight beyond the worker count
 _VENTILATE_EXTRA_ROWGROUPS = 2
 
 
-def _make_pool(reader_pool_type, workers_count):
+def _make_pool(reader_pool_type, workers_count, results_queue_size=50,
+               shm_transport=None, item_deadline_s=None, heartbeat_interval_s=None):
     if reader_pool_type == 'thread':
-        return ThreadPool(workers_count)
+        return ThreadPool(workers_count, results_queue_size)
+    if reader_pool_type == 'process':
+        from petastorm_tpu_torch.workers.process_pool import ProcessPool
+        kwargs = {}
+        if heartbeat_interval_s is not None:
+            kwargs['heartbeat_interval_s'] = heartbeat_interval_s
+        return ProcessPool(workers_count, results_queue_size, shm_transport=shm_transport,
+                           item_deadline_s=item_deadline_s, **kwargs)
     if reader_pool_type == 'dummy':
         return DummyPool()
-    raise ValueError('Unknown reader_pool_type {!r} (expected thread/dummy)'
+    raise ValueError('Unknown reader_pool_type {!r} (expected thread/process/dummy)'
                      .format(reader_pool_type))
+
+
+def _retrying(fn, retry_policy, counter):
+    """Run a construction-time filesystem operation under the reader's retry
+    policy, adding its retries to ``counter`` (a one-element list)."""
+    if retry_policy is None:
+        return fn()
+
+    def on_retry(attempt, exc, delay):
+        logger.warning('Transient IO failure opening dataset (attempt %d): %s; '
+                       'retrying in %.3fs', attempt, exc, delay)
+    result, retries = run_with_retry(fn, retry_policy, on_retry=on_retry)
+    counter[0] += retries
+    return result
 
 
 def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
@@ -92,20 +132,30 @@ def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_est
 
 
 def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
-                workers_count=10, seed=None, shuffle_rows=False, shuffle_row_groups=True,
-                shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
-                num_epochs=1, cur_shard=None, shard_count=None, cache_type='null',
-                cache_location=None, cache_size_limit=None, cache_row_size_estimate=None,
-                cache_extra_settings=None, cache_format='arrow-ipc', transform_spec=None,
-                resume_state=None, field_overrides=None, device_decode_fields=None):
+                workers_count=10, results_queue_size=50, seed=None, shuffle_rows=False,
+                shuffle_row_groups=True, shuffle_row_drop_partitions=1, predicate=None,
+                rowgroup_selector=None, num_epochs=1, cur_shard=None, shard_count=None,
+                cache_type='null', cache_location=None, cache_size_limit=None,
+                cache_row_size_estimate=None, cache_extra_settings=None,
+                cache_format='arrow-ipc', transform_spec=None, filesystem=None,
+                resume_state=None, reader_pool=None, field_overrides=None, on_error='raise',
+                retry_policy=None, shm_transport=None, item_deadline_s=None,
+                heartbeat_interval_s=None, device_decode_fields=None):
     """Reader for stores written with a Unischema (by this package or by
     ``petastorm_tpu``): rows decoded through the codecs.
 
     :param schema_fields: field names or regex patterns to read (default all),
         or an :class:`~petastorm_tpu_torch.ngram.NGram` for windows of
         consecutive rows (one ``{offset: namedtuple}`` per ``next()``).
-    :param reader_pool_type: ``'thread'`` or ``'dummy'`` (in-line, deterministic).
-    :param workers_count: threads of the thread pool.
+    :param reader_pool_type: ``'thread'``, ``'process'`` (spawned worker
+        processes, results through a shared-memory ring) or ``'dummy'``
+        (in-line, deterministic).
+    :param workers_count: threads or processes of the pool.
+    :param results_queue_size: the thread pool's results queue bound.
+    :param reader_pool: a pool built by the caller, used instead of
+        ``reader_pool_type`` and ``workers_count`` (e.g. a
+        :class:`~petastorm_tpu_torch.workers.process_pool.ProcessPool` with its
+        watchdog settings).
     :param seed: seeds the rowgroup order and the in-rowgroup row shuffle.
     :param shuffle_rows: shuffle rows inside each rowgroup.
     :param shuffle_row_groups: visit rowgroups in a new seeded order each epoch.
@@ -129,41 +179,67 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
     :param transform_spec: a :class:`~petastorm_tpu_torch.transform.TransformSpec`
         applied on the workers (one row dict at a time, or the rowgroup's
         columns with ``batched=True``).
+    :param filesystem: a ``pyarrow.fs.FileSystem`` (local, or wrapping one)
+        to read through instead of the local filesystem.
     :param resume_state: a :meth:`Reader.state_dict` (or a loader's) to
         continue from; the other arguments must be those of the saved reader.
     :param field_overrides: :class:`UnischemaField`s replacing same-named
         stored fields for this read.
+    :param on_error: ``'raise'`` (the first failure ends the read),
+        ``'retry'`` (transient IO failures are retried under ``retry_policy``,
+        then raised) or ``'skip'`` (as ``'retry'``, then the rowgroup is
+        quarantined: :attr:`Reader.quarantine`, ``diagnostics['quarantine']``).
+    :param retry_policy: a :class:`~petastorm_tpu_torch.resilience.RetryPolicy`
+        (default one when None); ignored under ``'raise'``.
+    :param shm_transport: the process pool's shared-memory ring: None (when
+        ``/dev/shm`` can hold it), True (required) or False (off).
+    :param item_deadline_s: the process pool reaps a worker holding an item
+        longer than this; under ``on_error='skip'`` the item is quarantined
+        with ``reason='hang'``.
+    :param heartbeat_interval_s: the process pool's heartbeat cadence.
     :param device_decode_fields: fields whose codec payloads skip host decode:
         workers pass the DCT coefficients / ``.npy`` bytes / raw deflate frames
         through, and :class:`~petastorm_tpu_torch.parallel.loader.TorchDataLoader`
         decodes them on the card. The ``__hw``/``__enc`` auxiliary columns ride
         :meth:`Reader.iter_columnar` batches only.
     """
+    retry_policy = resolve_retry_policy(on_error, retry_policy)
+    retries = [0]
     dataset_url_or_urls = normalize_dataset_url_or_urls(dataset_url_or_urls)
-    handle = dataset_metadata.open_dataset(dataset_url_or_urls)
+    handle = _retrying(lambda: dataset_metadata.open_dataset(dataset_url_or_urls,
+                                                             filesystem=filesystem),
+                       retry_policy, retries)
     schema = dataset_metadata.get_schema(handle)
     if field_overrides:
         schema = _apply_field_overrides(schema, field_overrides)
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings, cache_format,
                         transform_spec is not None)
-    return Reader(handle, schema, _make_pool(reader_pool_type, workers_count),
+    if reader_pool is None:
+        reader_pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                                 shm_transport, item_deadline_s, heartbeat_interval_s)
+    return Reader(handle, schema, reader_pool,
                   schema_fields=schema_fields, seed=seed, shuffle_rows=shuffle_rows,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   predicate=predicate, rowgroup_selector=rowgroup_selector,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
-                  device_decode_fields=device_decode_fields)
+                  device_decode_fields=device_decode_fields, on_error=on_error,
+                  retry_policy=retry_policy, initial_io_retries=retries[0])
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
-                      workers_count=10, seed=None, shuffle_rows=False,
-                      shuffle_row_groups=True, shuffle_row_drop_partitions=1,
-                      predicate=None, num_epochs=1, cur_shard=None, shard_count=None,
-                      cache_type='null', cache_location=None, cache_size_limit=None,
+                      workers_count=10, results_queue_size=50, seed=None,
+                      shuffle_rows=False, shuffle_row_groups=True,
+                      shuffle_row_drop_partitions=1, predicate=None, num_epochs=1,
+                      cur_shard=None, shard_count=None, cache_type='null',
+                      cache_location=None, cache_size_limit=None,
                       cache_row_size_estimate=None, cache_extra_settings=None,
-                      cache_format='arrow-ipc', transform_spec=None, resume_state=None):
+                      cache_format='arrow-ipc', transform_spec=None, filesystem=None,
+                      resume_state=None, reader_pool=None, on_error='raise',
+                      retry_policy=None, shm_transport=None, item_deadline_s=None,
+                      heartbeat_interval_s=None):
     """Reader for any Parquet store: native columns (no codec decode; a
     ``list<int32>`` column arrives as a list of int32 arrays), one namedtuple
     of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s
@@ -176,8 +252,12 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     :mod:`~petastorm_tpu_torch.transform`). On a store written with a
     Unischema it emits the stored (encoded) values, with a warning.
     """
+    retry_policy = resolve_retry_policy(on_error, retry_policy)
+    retries = [0]
     dataset_url_or_urls = normalize_dataset_url_or_urls(dataset_url_or_urls)
-    handle = dataset_metadata.open_dataset(dataset_url_or_urls)
+    handle = _retrying(lambda: dataset_metadata.open_dataset(dataset_url_or_urls,
+                                                             filesystem=filesystem),
+                       retry_policy, retries)
     try:
         dataset_metadata.get_schema(handle)
         warnings.warn('This store was written with a Unischema; use make_reader to get '
@@ -188,13 +268,17 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings, cache_format,
                         transform_spec is not None)
-    return Reader(handle, schema, _make_pool(reader_pool_type, workers_count),
+    if reader_pool is None:
+        reader_pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                                 shm_transport, item_deadline_s, heartbeat_interval_s)
+    return Reader(handle, schema, reader_pool,
                   schema_fields=schema_fields, seed=seed, shuffle_rows=shuffle_rows,
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, cache=cache, transform_spec=transform_spec,
-                  resume_state=resume_state, is_batched_reader=True)
+                  resume_state=resume_state, is_batched_reader=True, on_error=on_error,
+                  retry_policy=retry_policy, initial_io_retries=retries[0])
 
 
 class Reader(object):
@@ -205,7 +289,8 @@ class Reader(object):
                  shuffle_rows=False, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=None, transform_spec=None, resume_state=None,
-                 is_batched_reader=False, device_decode_fields=None):
+                 is_batched_reader=False, device_decode_fields=None, on_error='raise',
+                 retry_policy=None, initial_io_retries=0):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -213,8 +298,14 @@ class Reader(object):
         ngram = schema_fields if isinstance(schema_fields, NGram) else None
         if predicate is not None and ngram is not None:
             raise ValueError('Predicates are not supported together with NGram')
+        retry_policy = resolve_retry_policy(on_error, retry_policy)
         self.num_epochs = num_epochs
         self.is_batched_reader = is_batched_reader
+        self.on_error = on_error
+        #: the skip-with-quarantine ledger: records arrive with the results
+        self.quarantine = QuarantineLedger()
+        self._io_retries = initial_io_retries
+        self._breaker_states = {}
         self.schema = schema
         self.last_row_consumed = False
         self._stopped = False
@@ -274,10 +365,37 @@ class Reader(object):
                             partition_field_names=partition_names,
                             device_decode_fields=self.device_decode_fields, ngram=ngram,
                             cache=cache, dataset_path_or_paths=handle.path_or_paths,
-                            predicate=worker_predicate)
+                            predicate=worker_predicate, on_error=on_error,
+                            retry_policy=retry_policy)
         self.result_schema = setup.result_schema
 
-        row_groups = dataset_metadata.load_row_groups(handle)
+        # under 'skip' a fragment whose footer is unreadable for good is left out
+        # of the schedule and quarantined here (not with a rowgroup selector: its
+        # piece indexes refer to the full enumeration). Records are staged per
+        # attempt, so a retried enumeration records a fragment once.
+        def enumerate_row_groups():
+            staged = []
+            on_fragment_error = None
+            if on_error == 'skip' and rowgroup_selector is None:
+                def on_fragment_error(exc, fragment_path, fragment_index):
+                    staged.append(QuarantineRecord.from_exception(
+                        exc, piece_index=fragment_index, fragment_path=fragment_path,
+                        row_group_id=None, attempts=1, epoch=0))
+            return dataset_metadata.load_row_groups(
+                handle, on_fragment_error=on_fragment_error), staged
+
+        retries = [0]
+        row_groups, construction_quarantine = _retrying(enumerate_row_groups,
+                                                        retry_policy, retries)
+        self._io_retries += retries[0]
+        if construction_quarantine and resume_state is not None:
+            raise ValueError(
+                'Cannot resume: {} fragment(s) became unreadable since the checkpoint '
+                'was taken ({}); resume coordinates would not match the checkpoint'
+                .format(len(construction_quarantine),
+                        ', '.join(r.fragment_path for r in construction_quarantine)))
+        for record in construction_quarantine:
+            self.quarantine.add(record)
         if rowgroup_selector is not None:
             # the selected piece indexes refer to the full enumeration (what
             # build_rowgroup_index scanned): applied before any other filter
@@ -341,6 +459,13 @@ class Reader(object):
             item_id_fn=_item_id,
             reset_iterations=num_epochs)
         self._pool = reader_pool
+        if hasattr(reader_pool, 'check_picklable') and worker_predicate is not None:
+            # every work item carries it to the worker processes
+            reader_pool.check_picklable(worker_predicate, 'the predicate')
+        if on_error == 'skip' and hasattr(reader_pool, 'set_hang_result_factory'):
+            # a rowgroup whose worker the watchdog reaps is quarantined: its
+            # stand-in rides the normal delivery path
+            reader_pool.set_hang_result_factory(hang_stand_in_factory(ngram))
         self._pool.start(RowGroupWorker, setup, self._ventilator)
         if ngram is not None:
             self._results_reader = _NGramResultsReader(ngram, on_batch=self._note_item_consumed,
@@ -390,7 +515,9 @@ class Reader(object):
                 return
             if self.ngram is not None:
                 batch = ColumnarBatch(self.ngram.windows_as_arrays(batch.columns, batch.starts),
-                                      len(batch.starts), item_id=batch.item_id)
+                                      len(batch.starts), item_id=batch.item_id,
+                                      retries=batch.retries, quarantine=batch.quarantine,
+                                      breakers=batch.breakers)
             self._note_item_consumed(batch)
             if self._resume_fast_forward and batch.item_id is not None:
                 # honour a row-path checkpoint's cursor: skip the rows already
@@ -414,6 +541,14 @@ class Reader(object):
     # ------------------------------------------------------- checkpoint / resume
 
     def _note_item_consumed(self, batch):
+        record = getattr(batch, 'quarantine', None)
+        if record is not None:
+            self.quarantine.add(record)
+        breakers = getattr(batch, 'breakers', None)
+        with self._accounting_lock:
+            self._io_retries += getattr(batch, 'retries', 0)
+            if breakers:
+                self._breaker_states.update(breakers)
         item_id = batch.item_id
         if item_id is None:
             return
@@ -508,21 +643,47 @@ class Reader(object):
         return self._items_per_epoch
 
     @property
-    def diagnostics(self):
-        """The rowgroup cache's counters under the JAX package's names:
-        ``cache_hits`` and ``cache_misses`` count consumed work items served
-        from and filled into the cache (NGram pieces count neither),
-        ``cache_by_epoch`` (the port's own) splits them by absolute epoch as
-        ``{epoch: {'hits': n, 'misses': n}}``, and ``cache`` is a copy of the
-        cache's own ``stats`` (absent without a cache)."""
+    def io_retries(self):
+        """Transient-IO retries spent on this reader's behalf (construction and
+        workers)."""
         with self._accounting_lock:
-            diag = {'cache_hits': self._cache_hits, 'cache_misses': self._cache_misses,
-                    'cache_by_epoch': {epoch: {'hits': hits, 'misses': misses}
-                                       for epoch, (hits, misses)
-                                       in sorted(self._cache_by_epoch.items())}}
+            return self._io_retries
+
+    @property
+    def diagnostics(self):
+        """Counters under the JAX package's names: the process pool's own
+        (``workers_alive``, ``workers_respawned``, ``shm_batches``, ...: see
+        :attr:`~petastorm_tpu_torch.workers.process_pool.ProcessPool.diagnostics`);
+        ``io_retries``; ``rowgroups_quarantined`` and ``quarantine`` (the
+        ledger's records as dicts); ``breakers``, the tripped circuit breakers
+        by name (the workers' filesystem breakers and the pool's shm breaker;
+        empty while all are closed); ``cache_hits`` and ``cache_misses``, the
+        consumed work items served from and filled into the cache (NGram
+        pieces count neither), ``cache_by_epoch`` (the port's own) splitting
+        them by absolute epoch as ``{epoch: {'hits': n, 'misses': n}}``, and
+        ``cache``, a copy of the cache's own ``stats`` (absent without a
+        cache)."""
+        diag = dict(getattr(self._pool, 'diagnostics', None) or {})
+        with self._accounting_lock:
+            diag.update({'io_retries': self._io_retries,
+                         'cache_hits': self._cache_hits,
+                         'cache_misses': self._cache_misses,
+                         'cache_by_epoch': {epoch: {'hits': hits, 'misses': misses}
+                                            for epoch, (hits, misses)
+                                            in sorted(self._cache_by_epoch.items())}})
+            breakers = dict(self._breaker_states)
         stats = getattr(self._cache, 'stats', None)
         if stats is not None:
             diag['cache'] = dict(stats)
+        diag['rowgroups_quarantined'] = len(self.quarantine)
+        diag['quarantine'] = self.quarantine.as_dicts()
+        from petastorm_tpu_torch.resilience import default_board
+        breakers.update(default_board().snapshot(only_tripped=True))
+        shm_breaker = diag.get('shm_breaker')
+        if shm_breaker is not None and (shm_breaker['failures'] or shm_breaker['opened_count']
+                                        or shm_breaker['state'] != 'closed'):
+            breakers['shm_transport'] = shm_breaker
+        diag['breakers'] = breakers
         return diag
 
     # --------------------------------------------------------------- lifecycle

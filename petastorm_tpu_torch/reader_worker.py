@@ -4,11 +4,20 @@ the compiled decode plan, serves and fills the rowgroup cache, applies the
 seeded in-rowgroup shuffle and the :class:`TransformSpec`, and publishes a
 columnar batch; NGram readers publish the piece's windows instead
 (:mod:`~petastorm_tpu_torch.ngram_worker`). A trimmed copy of
-``petastorm_tpu.reader_worker``: retries/quarantine, the object-store ingest
-engine and the telemetry sidecars are left for later slices."""
+``petastorm_tpu.reader_worker``: the object-store ingest engine and the
+telemetry sidecars are left out.
+
+Under ``on_error='retry'`` or ``'skip'`` the load runs under the reader's
+:class:`~petastorm_tpu_torch.resilience.RetryPolicy`, behind a circuit breaker
+of the fragment's directory; under ``'skip'`` a piece that still fails is
+published as an empty batch carrying its
+:class:`~petastorm_tpu_torch.resilience.QuarantineRecord`, so the reader's
+accounting sees every item once on every pool.
+"""
 
 import hashlib
 import logging
+import os
 import pickle
 import re
 
@@ -24,6 +33,12 @@ from petastorm_tpu_torch.workers.worker_base import WorkerBase
 
 logger = logging.getLogger(__name__)
 
+#: the filesystem breaker of a path prefix (the JAX package's settings): well
+#: above one rowgroup's retry budget, so one bad file does not open it for its
+#: whole directory, while a stall of every open crosses it within a piece or two
+FS_BREAKER_THRESHOLD = 10
+FS_BREAKER_RECOVERY_S = 30.0
+
 
 class ColumnarBatch(object):
     """Decoded columns of (a drop partition of) one rowgroup:
@@ -31,15 +46,24 @@ class ColumnarBatch(object):
     drop_partition)`` names the work item that produced it, the unit of the
     reader's checkpoint accounting (empty batches are published to carry it).
     ``cache_hit`` is True when the batch was served from the rowgroup cache,
-    False on a miss that filled it, None when no cache applied."""
+    False on a miss that filled it, None when no cache applied. ``retries``
+    counts the transient-IO retries spent on it; ``quarantine`` is the
+    :class:`~petastorm_tpu_torch.resilience.QuarantineRecord` of an empty batch
+    that stands in for a skipped rowgroup; ``breakers`` holds the producing
+    process's tripped breakers (``{name: state}``, None when all are healthy)."""
 
-    __slots__ = ('columns', 'num_rows', 'item_id', 'cache_hit')
+    __slots__ = ('columns', 'num_rows', 'item_id', 'cache_hit', 'retries', 'quarantine',
+                 'breakers')
 
-    def __init__(self, columns, num_rows, item_id=None, cache_hit=None):
+    def __init__(self, columns, num_rows, item_id=None, cache_hit=None, retries=0,
+                 quarantine=None, breakers=None):
         self.columns = columns
         self.num_rows = num_rows
         self.item_id = item_id
         self.cache_hit = cache_hit
+        self.retries = retries
+        self.quarantine = quarantine
+        self.breakers = breakers
 
 
 class WorkerSetup(object):
@@ -47,17 +71,23 @@ class WorkerSetup(object):
     marks the batch reader: it emits stored values without codec decode, and
     its transform ``func`` takes a ``DataFrame`` unless the spec is
     ``batched``. ``dataset_token`` is the cache key's identity of the store
-    and the read configuration."""
+    and the read configuration. ``retry_policy`` is the one
+    :func:`~petastorm_tpu_torch.resilience.resolve_retry_policy` gives for
+    ``on_error``."""
 
     __slots__ = ('filesystem', 'schema', 'fields_to_read', 'result_schema',
                  'transform_spec', 'batched_output', 'shuffle_rows', 'seed',
                  'partition_field_names', 'device_decode_fields', 'ngram', 'cache',
-                 'dataset_token', 'predicate_token')
+                 'dataset_token', 'predicate_token', 'on_error', 'retry_policy')
 
     def __init__(self, filesystem, schema, fields_to_read, transform_spec=None,
                  batched_output=False, shuffle_rows=False, seed=None,
                  partition_field_names=(), device_decode_fields=(), ngram=None,
-                 cache=None, dataset_path_or_paths=None, predicate=None):
+                 cache=None, dataset_path_or_paths=None, predicate=None,
+                 on_error='raise', retry_policy=None):
+        from petastorm_tpu_torch.resilience import resolve_retry_policy
+        self.on_error = on_error
+        self.retry_policy = resolve_retry_policy(on_error, retry_policy)
         self.filesystem = filesystem
         self.schema = schema
         self.fields_to_read = list(fields_to_read)
@@ -115,19 +145,64 @@ class RowGroupWorker(WorkerBase):
     def process(self, piece_index, fragment_path, row_group_id, partition_keys=None,
                 worker_predicate=None, shuffle_row_drop_partition=(0, 1), epoch_index=0):
         setup = self._setup
-        if setup.ngram is not None:
-            # every piece publishes, a piece of no window too: the reader's
-            # accounting must see every item
-            from petastorm_tpu_torch.ngram_worker import process_ngram_piece
-            self.publish_func(process_ngram_piece(
-                self, piece_index, fragment_path, row_group_id, partition_keys,
-                shuffle_row_drop_partition, epoch_index))
-            return
         item_id = (epoch_index, piece_index, shuffle_row_drop_partition[0])
+        # the retry goes around the loads only (shuffle and transform touch no
+        # filesystem); under 'skip' any failure of the piece quarantines it
+        retries = [0]
+
+        def with_retry(load_fn):
+            if setup.retry_policy is None:
+                return load_fn()
+            from petastorm_tpu_torch.resilience import (call_with_breaker, default_board,
+                                                        run_with_retry)
+
+            def on_retry(attempt, exc, delay):
+                retries[0] += 1
+                logger.warning('Transient IO failure on piece %s (%s rg %s), attempt %d: '
+                               '%s; retrying in %.3fs', piece_index, fragment_path,
+                               row_group_id, attempt, exc, delay)
+
+            breaker = default_board().breaker(
+                'fs:{}'.format(os.path.dirname(fragment_path) or fragment_path),
+                failure_threshold=FS_BREAKER_THRESHOLD,
+                recovery_timeout_s=FS_BREAKER_RECOVERY_S)
+            return run_with_retry(lambda: call_with_breaker(load_fn, breaker),
+                                  setup.retry_policy, key=piece_index,
+                                  on_retry=on_retry)[0]
+
+        try:
+            if setup.ngram is not None:
+                # every piece publishes, a piece of no window too: the reader's
+                # accounting must see every item
+                from petastorm_tpu_torch.ngram_worker import process_ngram_piece
+                payload = process_ngram_piece(self, piece_index, fragment_path,
+                                              row_group_id, partition_keys,
+                                              shuffle_row_drop_partition, epoch_index,
+                                              with_retry)
+            else:
+                payload = self._process_rows(item_id, fragment_path, row_group_id,
+                                             partition_keys, worker_predicate,
+                                             shuffle_row_drop_partition, with_retry)
+        except Exception as exc:  # noqa: BLE001 - the on_error policy decides
+            if setup.on_error != 'skip':
+                raise
+            payload = self._quarantined(exc, item_id, fragment_path, row_group_id,
+                                        retries[0])
+        payload.retries = retries[0]
+        if setup.retry_policy is not None:
+            from petastorm_tpu_torch.resilience import default_board
+            payload.breakers = default_board().snapshot(only_tripped=True) or None
+        self.publish_func(payload)
+
+    def _process_rows(self, item_id, fragment_path, row_group_id, partition_keys,
+                      worker_predicate, shuffle_row_drop_partition, with_retry):
+        setup = self._setup
+        piece_index = item_id[1]
 
         def load():
-            return self._load_and_decode(fragment_path, row_group_id, partition_keys,
-                                         worker_predicate, shuffle_row_drop_partition)
+            return with_retry(lambda: self._load_and_decode(
+                fragment_path, row_group_id, partition_keys, worker_predicate,
+                shuffle_row_drop_partition))
 
         cache_hit = None
         if setup.predicate_token is None:
@@ -156,8 +231,19 @@ class RowGroupWorker(WorkerBase):
             columns, num_rows = self._apply_transform(columns, num_rows)
         # an emptied item is published too: every item yields exactly one
         # result, so the reader's consumption accounting stays exact
-        self.publish_func(ColumnarBatch(columns if num_rows else {}, num_rows,
-                                        item_id=item_id, cache_hit=cache_hit))
+        return ColumnarBatch(columns if num_rows else {}, num_rows, item_id=item_id,
+                             cache_hit=cache_hit)
+
+    def _quarantined(self, exc, item_id, fragment_path, row_group_id, retries):
+        """The empty stand-in of a skipped piece, carrying its record."""
+        from petastorm_tpu_torch.resilience import QuarantineRecord
+        record = QuarantineRecord.from_exception(
+            exc, piece_index=item_id[1], fragment_path=fragment_path,
+            row_group_id=row_group_id, attempts=retries + 1, epoch=item_id[0])
+        logger.warning('Quarantining rowgroup piece %s (%s rg %s) after %d attempt(s): '
+                       '%s: %s', item_id[1], fragment_path, row_group_id, retries + 1,
+                       type(exc).__name__, exc)
+        return quarantine_stand_in(self._setup.ngram, item_id, record)
 
     # -------------------------------------------------------------------- load
 
@@ -293,6 +379,34 @@ class RowGroupWorker(WorkerBase):
                 for i in range(num_rows)]
         return ({name: decode_engine.stack_if_uniform([row[name] for row in rows], field)
                  for name, field in fields.items()}, len(rows))
+
+
+def quarantine_stand_in(ngram, item_id, record):
+    """The empty payload published (or, for a hang, made by the pool) in place
+    of a quarantined item: an NGram reader's shape when ``ngram`` is set."""
+    if ngram is not None:
+        from petastorm_tpu_torch.ngram_worker import NGramWindows
+        return NGramWindows({}, np.empty(0, np.int64), item_id=item_id, quarantine=record)
+    return ColumnarBatch({}, 0, item_id=item_id, quarantine=record)
+
+
+def hang_stand_in_factory(ngram):
+    """The process pool's hang-quarantine hook for a reader under
+    ``on_error='skip'``: maps an overdue item's keyword arguments to its empty
+    stand-in carrying a ``QuarantineRecord(reason='hang')``."""
+    def factory(item_kwargs, elapsed_s):
+        from petastorm_tpu_torch.resilience import QuarantineRecord
+        epoch = int(item_kwargs.get('epoch_index', 0))
+        piece_index = int(item_kwargs['piece_index'])
+        record = QuarantineRecord(
+            piece_index=piece_index, fragment_path=item_kwargs.get('fragment_path', ''),
+            row_group_id=item_kwargs.get('row_group_id'), error_type='WorkerHangError',
+            error='no result after {:.3g}s; the worker holding this rowgroup was reaped '
+                  'by the watchdog'.format(elapsed_s),
+            attempts=1, epoch=epoch, reason='hang')
+        item_id = (epoch, piece_index, item_kwargs['shuffle_row_drop_partition'][0])
+        return quarantine_stand_in(ngram, item_id, record)
+    return factory
 
 
 def _predicate_token(worker_predicate):

@@ -1,8 +1,10 @@
 """petastorm_tpu_torch and chip_smoke.py import neither JAX (jax, flax, optax,
 orbax) nor anything of the JAX package (``petastorm_tpu`` or ``petastorm_tpu.*``; the
-port's own name shares that prefix, so matches are on whole module names)."""
+port's own name shares that prefix, so matches are on whole module names), and
+neither do the process pool's spawned workers, which load no torch either."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -126,3 +128,68 @@ def test_top_level_modules_name_no_jax_in_their_globals(module):
     for value in vars(mod).values():
         owner = getattr(value, '__module__', None) or getattr(value, '__name__', '')
         assert not _forbidden(str(owner)), (module, owner)
+
+
+_SITECUSTOMIZE = textwrap.dedent('''
+    import atexit, importlib.abc, json, os, sys
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'petastorm_tpu'):
+                raise ImportError('blocked import of ' + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+
+    def _report():
+        path = os.path.join(os.environ['BOUNDARY_REPORT_DIR'], '{}.json'.format(os.getpid()))
+        with open(path, 'w') as f:
+            json.dump({'argv': sys.argv, 'torch': 'torch' in sys.modules,
+                       'refused': sorted(m for m in sys.modules
+                                         if m.split('.')[0] in ('jax', 'flax', 'optax',
+                                                                'petastorm_tpu'))}, f)
+
+    atexit.register(_report)
+''')
+
+_POOL_RUN = textwrap.dedent('''
+    import os, sys, tempfile
+    import numpy as np
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.etl.dataset_metadata import write_rows
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    url = 'file://' + os.path.join(tempfile.mkdtemp(), 'store')
+    schema = Unischema('Pool', [UnischemaField('id', np.int64, (), ScalarCodec(), False)])
+    write_rows(url, schema, [{'id': i} for i in range(24)], n_files=4)
+    with make_reader(url, reader_pool_type='process', workers_count=2) as reader:
+        ids = sorted(int(row.id) for row in reader)
+        shm = reader.diagnostics['shm_batches']
+    print('IDS', ids == list(range(24)), 'SHM', shm, 'PARENT', os.getpid())
+''')
+
+
+def test_process_pool_workers_refuse_jax_and_load_no_torch(tmp_path):
+    """One process-pool epoch in a fresh interpreter whose spawned workers
+    (they inherit ``sitecustomize.py`` through ``PYTHONPATH``) refuse jax and
+    the JAX package; each worker reports at exit that it loaded no torch."""
+    site = tmp_path / 'site'
+    reports = tmp_path / 'reports'
+    site.mkdir()
+    reports.mkdir()
+    (site / 'sitecustomize.py').write_text(_SITECUSTOMIZE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(site), REPO]),
+               BOUNDARY_REPORT_DIR=str(reports))
+    result = subprocess.run([sys.executable, '-c', _POOL_RUN], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=240)
+    assert result.returncode == 0, result.stderr[-3000:]
+    line = [l for l in result.stdout.splitlines() if l.startswith('IDS')][-1].split()
+    assert line[1] == 'True' and line[3] == '4'
+    parent = int(line[5])
+    reports = {int(path.stem): json.loads(path.read_text()) for path in reports.iterdir()}
+    assert reports[parent]['torch'] is False and reports[parent]['refused'] == []
+    workers = [report for report in reports.values()
+               if report['argv'][0].endswith('process_worker_main.py')]
+    assert len(workers) == 2
+    for report in workers:
+        assert report['torch'] is False and report['refused'] == []
