@@ -64,7 +64,24 @@ version on the card, then drives the port's two paths at full width:
   once, and the first chunk, read by one process worker, against the eager
   twin); then one epoch of it with a worker SIGKILLed once the first chunk's
   rows were read (13c: every ``idx`` once, one respawn, the segment gone).
-  It prints ``/dev/shm``'s size and ``os.cpu_count()``.
+  It prints ``/dev/shm``'s size and ``os.cpu_count()``;
+- expert-routed MoE training, ``bench.py``'s ``moe`` section (phase 14): a
+  store of 32 rows of 2048 int32 tokens -> ``make_reader`` (2 threads) ->
+  ``InMemTorchLoader(batch_size=4, shuffle=True, seed=4)`` ->
+  ``MoETransformerLM`` (embed 512, 4 heads, 2 layers, 8 experts in every
+  layer, top-1 Switch routing at capacity factor 1.25, bfloat16, weights from
+  ``--seed``) with dense causal attention, Adam, one warm-up and 8 timed
+  steps and a profiled one; switch_routing on the card and on the CPU must
+  agree bit for bit on the first batch's router probabilities, and the first
+  layer's MoE output in float32 must match a per-token loop reference (14a);
+  the same model, weights and batches with the causal flash kernels, whose
+  attention is held against dense attention layer by layer and whose first
+  batch must be within 1e-3 of 14a's loss with under 1% of tokens rerouted
+  (14b); then a one-rank NCCL process group: ``sharded_moe_ffn`` against the
+  MoE layer's local path, and ``ring_attention_sharded`` (causal and
+  segmented) at [2, 8192, 4, 128] against the flash kernels (14c). One card
+  runs one rank, so no exchange happens: the ring's rotation and merge and
+  the expert all-to-all across ranks are held by the CPU tests.
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -77,8 +94,9 @@ batches from the same weights. K1 is held
 bit for bit against its plain version on outputs whose memory held 0xAB
 (an edge batch, source offsets 0-15 with gaps between rows, the main path's
 batch and a 64 MiB batch of multi-block frames). The flash
-kernels are compared with their plain versions in four modes (causal,
-non-causal, segmented with padding, head_dim 64 with a ragged T) by
+kernels are compared with their plain versions in five modes (causal,
+non-causal, segmented with padding, segmented with the keys' ids apart from
+the queries' as a ring's blocks run them, head_dim 64 with a ragged T) by
 ``flash_compare`` of ``ops/flash_attention.py``, and the LM path's
 first-batch loss and gradient norm with the kernels against the same model
 run with plain dense attention. Kernel times are the mean of back-to-back
@@ -118,6 +136,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.fs as pafs
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, NGram,
@@ -128,11 +147,15 @@ from petastorm_tpu_torch.benchmark.lm_data import (FRAME_STREAM_INDEX, full_bin_
                                                    ragged_documents, write_frame_store,
                                                    write_packed_store, write_ragged_store,
                                                    write_token_store)
-from petastorm_tpu_torch.benchmark.mfu import mfu, transformer_train_flops_per_step
+from petastorm_tpu_torch.benchmark.mfu import (mfu, moe_transformer_train_flops_per_step,
+                                               transformer_train_flops_per_step)
 from petastorm_tpu_torch.benchmark.mnist_data import write_mnist_store
 from petastorm_tpu_torch.benchmark.stored_plan import plan_ms, stored_frames
 from petastorm_tpu_torch.codecs import CompressedNdarrayCodec, DctImageCodec, ScalarCodec
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
+from petastorm_tpu_torch.models.moe import (MoETransformerLM, moe_aux_total, moe_drop_fractions,
+                                            switch_routing)
+from petastorm_tpu_torch.models.moe import _capacity as moe_capacity
 from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.transformer import next_token_loss
 from petastorm_tpu_torch.ops import raw_decode
@@ -140,7 +163,9 @@ from petastorm_tpu_torch.ops.image import normalize_image
 from petastorm_tpu_torch.ops.index_shuffle import epoch_round_keys, random_index_shuffle
 from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_loss,
                                              segment_causal_attention)
-from petastorm_tpu_torch.ops.ring_attention import dense_attention
+from petastorm_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
+from petastorm_tpu_torch.ops.sharded_moe import sharded_moe_ffn
+from petastorm_tpu_torch.parallel.mesh import make_mesh
 from petastorm_tpu_torch.predicates import in_pseudorandom_split
 from petastorm_tpu_torch.selectors import SingleIndexSelector
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -652,16 +677,17 @@ def packed_segments(b, t, seed):
     return torch.from_numpy(pack_sequences(docs, t)['segments'][:b]).to('cuda')
 
 
-def flash_outputs(b, t, h, d, causal, dtype, segments, seed):
+def flash_outputs(b, t, h, d, causal, dtype, segments, seed, key_segments=None):
     """K2, K3 and K4 and what they are held against on the same inputs
     (``flash_reference``): a list of (kernel, output, got, want, bound)."""
     gen = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(b * h, t, d, generator=gen).to('cuda', dtype)
                    for _ in range(4))
-    want, bound, lse_ref, delta = flash.flash_reference(q, k, v, do, causal, segments, h)
-    o, lse = flash.flash_forward(q, k, v, causal, segments, h)
-    dq = flash.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, segments, h)
-    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, segments, h)
+    mode = (causal, segments, h, key_segments)
+    want, bound, lse_ref, delta = flash.flash_reference(q, k, v, do, *mode)
+    o, lse = flash.flash_forward(q, k, v, *mode)
+    dq = flash.flash_bwd_dq(q, k, v, do, lse_ref, delta, *mode)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse_ref, delta, *mode)
     torch.cuda.synchronize()
     return [(kernel, label, got, want[label], bound.get(label))
             for kernel, label, got in (('fwd', 'o', o), ('fwd', 'lse', lse), ('dq', 'dq', dq),
@@ -669,8 +695,11 @@ def flash_outputs(b, t, h, d, causal, dtype, segments, seed):
 
 
 def flash_cases(seed):
-    """name -> (B, T, H, D, causal, dtype, segments): four modes at a small
-    shape, causal and segmented-causal also at the LM path's shape."""
+    """name -> (B, T, H, D, causal, dtype, segments[, key segments]): five
+    modes at a small shape (the fifth, the keys' segment ids apart from the
+    queries', is what a ring's off-diagonal blocks run); causal,
+    segmented-causal and key segments also at the LM path's shape, which is
+    phase 14c's ring shape."""
     heads = LM['heads']
     d = LM['embed'] // heads
     t_main = LM['max_len']
@@ -680,23 +709,30 @@ def flash_cases(seed):
         'causal_f32': (2, 320, 2, 128, True, torch.float32, None),
         'noncausal': (2, 320, 2, 128, False, bf16, None),
         'segmented_causal': (2, 320, 2, 128, True, bf16, short_segments(2, 320, seed)),
+        'key_segments': (2, 320, 2, 128, False, bf16, short_segments(2, 320, seed + 1),
+                         short_segments(2, 320, seed + 2)),
+        'key_segments_f32': (2, 320, 2, 64, False, torch.float32,
+                             short_segments(2, 320, seed + 3), short_segments(2, 320, seed + 4)),
         'd64_ragged_t': (2, 200, 4, 64, True, bf16, None),
         'd64_ragged_t_noncausal': (1, 77, 2, 64, False, bf16, None),
         'causal_main': (LM_BATCH, t_main, heads, d, True, bf16, None),
         'segmented_causal_main': (LM_BATCH, t_main, heads, d, True, bf16,
                                   packed_segments(LM_BATCH, t_main, seed)),
+        'key_segments_main': (LM_BATCH, t_main, heads, d, False, bf16,
+                              packed_segments(LM_BATCH, t_main, seed + 5),
+                              packed_segments(LM_BATCH, t_main, seed + 6)),
     }
 
 
-def flash_case(name, b, t, h, d, causal, dtype, segments, seed):
+def flash_case(name, b, t, h, d, causal, dtype, segments, key_segments=None, seed=0):
     """Each of K2, K3 and K4 against its plain version on the same inputs,
     element by element and in norm (``flash.flash_compare``, with the
     allowance for the bf16 kernels' rounding of P and dS); returns the case's
     errors."""
     result = {'shape': [b * h, t, d], 'causal': causal, 'dtype': str(dtype),
-              'segmented': segments is not None}
+              'segmented': segments is not None, 'key_segments': key_segments is not None}
     for kernel, label, got, want, bound in flash_outputs(b, t, h, d, causal, dtype, segments,
-                                                         seed):
+                                                         seed, key_segments):
         check(bool(torch.isfinite(got.float()).all()),
               'flash {} {}: non-finite {}'.format(name, kernel, label))
         result[label] = flash.flash_compare(got, want, bound)
@@ -706,9 +742,9 @@ def flash_case(name, b, t, h, d, causal, dtype, segments, seed):
 
 
 def phase_flash(seed):
-    """K2-K4 against their plain versions in four modes, at a small shape and
-    (causal, segmented-causal) the LM path's shape; then times at the LM
-    path's shape."""
+    """K2-K4 against their plain versions in five modes at a small shape and
+    three (causal, segmented-causal, key segments) at the LM path's shape;
+    then times at the LM path's shape."""
     result = {'cases': {}}
     for index, (name, args) in enumerate(flash_cases(seed).items()):
         result['cases'][name] = flash_case(name, *args, seed=seed + index)
@@ -2096,6 +2132,412 @@ def process_lines(imagenet, stream, kill, thread_main, thread_stream, card):
             kill['results_dropped'], kill['shm_stale_drops'], kill['phase_s'], card)]
 
 
+# --------------------------------------------- expert-routed MoE training (phase 14)
+
+#: bench.py's moe section (bench.py:91-98, 1171-1242), at its width and depth
+MOE = dict(vocab=256, embed=512, heads=4, layers=2, num_experts=8, moe_every=1, max_len=2048)
+MOE_ROWS = 32
+MOE_BATCH = 4
+MOE_STEPS = 8
+MOE_AUX_WEIGHT = 0.01
+#: 14b's first batch (flash attention) against 14a's (dense attention): the
+#: loss's relative difference, and the share of tokens whose top-1 expert
+#: differs. Rounding in attention can flip the route of a token whose two
+#: largest router logits nearly tie, and a flipped token changes its whole
+#: MoE output, so phase 7's 5e-5 does not carry over.
+MOE_LOSS_RTOL = 1e-3
+MOE_REROUTED_LIMIT = 0.01
+#: the first layer's MoE output in float32 on the card against the per-token
+#: loop reference on the CPU (float64), over the first batch's first tokens,
+#: with capacity_factor = num_experts so that none is dropped; the tolerance of
+#: tests/test_moe.py
+MOE_CHECK_TOKENS = 1024
+MOE_CHECK_TOL = (2e-4, 2e-5)
+#: 14c: sharded_moe_ffn against MoEMlp's local path, float32, relative to max|ref|
+EXCHANGE_RTOL = 1e-5
+#: 14c's ring: [B, T, H, D] of bench.py's flash section at the LM path's batch
+RING_SHAPE = (LM_BATCH, LM['max_len'], LM['heads'], LM['embed'] // LM['heads'])
+
+
+def moe_model(seed, attention_fn=None):
+    """The phase's MoETransformerLM, bf16, its weights drawn from ``seed``."""
+    return MoETransformerLM(dtype=torch.bfloat16, attention_fn=attention_fn,
+                            generator=torch.Generator().manual_seed(seed), **MOE)
+
+
+def moe_loss(model, tokens, attention_fn=None, drops=None):
+    """``next_token_loss + moe_aux_total(weight=0.01)`` as bench.py trains
+    it; the largest layer's drop fraction is appended to ``drops``."""
+    logits, losses = model(tokens, attention_fn=attention_fn)
+    if drops is not None:
+        drops.append(torch.stack(moe_drop_fractions(losses)).max().detach())
+    return next_token_loss(logits, tokens) + moe_aux_total(losses, MOE_AUX_WEIGHT)
+
+
+def moe_inputs(model, run):
+    """Each MoE layer's input ``[B, T, D]`` while ``run()`` runs."""
+    seen = []
+    hooks = [block.moe.register_forward_hook(lambda module, args, out: seen.append(
+        args[0].detach())) for block in model.blocks if hasattr(block, 'moe')]
+    try:
+        run()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return seen
+
+
+def top1_experts(model, inputs):
+    """Each MoE layer's top-1 expert of every token of its input."""
+    with torch.no_grad():
+        return [torch.argmax(block.moe.router(x.reshape(-1, x.shape[-1]).float()), dim=-1)
+                for block, x in zip((b for b in model.blocks if hasattr(b, 'moe')), inputs)]
+
+
+def routing_check(moe, x):
+    """switch_routing on the card and on the CPU on the same router
+    probabilities (the first layer's, on the first batch): dispatch equal bit
+    for bit, combine exactly; its time on the card at this shape."""
+    tokens = x.reshape(-1, x.shape[-1])
+    with torch.no_grad():
+        probs = torch.softmax(moe.router(tokens.float()), dim=-1)
+        cap = moe_capacity(tokens.shape[0], MOE['num_experts'], 1, moe.capacity_factor)
+        card = switch_routing(probs, cap, 1)
+        host = switch_routing(probs.cpu(), cap, 1)
+        ms = cuda_ms(lambda: switch_routing(probs, cap, 1), reps=5)
+    result = {'shape': [tokens.shape[0], MOE['num_experts'], cap],
+              'dispatch_equal': torch.equal(card[0].cpu(), host[0]),
+              'combine_equal': torch.equal(card[1].cpu(), host[1]),
+              'aux': float(card[2]), 'aux_host': float(host[2]),
+              'drop_fraction': float(card[3]), 'drop_fraction_host': float(host[3]), 'ms': ms}
+    check(result['dispatch_equal'] and result['combine_equal'],
+          'switch_routing on the card differs from the CPU: {}'.format(result))
+    return result
+
+
+def moe_loop_reference(moe, tokens):
+    """Per-token top-1 routing the slow, obvious way (no drops), in float64 on
+    the CPU, as tests/test_moe.py computes it."""
+    router = moe.router.weight.detach().double().cpu().numpy().T
+    w1 = moe.w1.detach().double().cpu().numpy()
+    w2 = moe.w2.detach().double().cpu().numpy()
+    x = tokens.double().cpu().numpy()
+    logits = x @ router
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs /= probs.sum(axis=1, keepdims=True)
+    expert = probs.argmax(axis=1)
+    out = np.zeros_like(x)
+    for e in range(w1.shape[0]):
+        rows = expert == e
+        h = x[rows] @ w1[e]
+        h = 0.5 * h * (1 + np.tanh(np.sqrt(2 / np.pi) * (h + 0.044715 * h ** 3)))
+        out[rows] = (h @ w2[e]) * probs[rows, e][:, None]
+    return out
+
+
+def moe_output_check(moe, x):
+    """The MoE layer in float32 on the card, capacity_factor = num_experts,
+    against :func:`moe_loop_reference` on MOE_CHECK_TOKENS tokens."""
+    layer = copy.deepcopy(moe)
+    layer.dtype = torch.float32
+    layer.capacity_factor = float(MOE['num_experts'])
+    tokens = x.reshape(-1, x.shape[-1])[:MOE_CHECK_TOKENS].float()
+    with torch.no_grad():
+        got, losses = layer(tokens[None])
+    want = moe_loop_reference(layer, tokens)
+    got = got[0].double().cpu().numpy()
+    err = np.abs(got - want)
+    rtol, atol = MOE_CHECK_TOL
+    result = {'tokens': MOE_CHECK_TOKENS, 'max_abs_err': float(err.max()),
+              'tol_share': float((err / (rtol * np.abs(want) + atol)).max()),
+              'drop_fraction': float(losses['moe_drop_fraction'])}
+    check(result['drop_fraction'] == 0.0 and result['tol_share'] <= 1,
+          'the MoE layer differs from the loop reference: {}'.format(result))
+    return result
+
+
+def einsum_times(moe, x):
+    """Device time of the dispatch einsum (bf16) and the combine einsum
+    (float32) of one MoE layer at the main path's shape, each forward and
+    backward (the dispatch needs no gradient, the combine two), with the
+    FLOPs of one of their products."""
+    tokens = x.reshape(-1, x.shape[-1]).detach()
+    with torch.no_grad():
+        probs = torch.softmax(moe.router(tokens.float()), dim=-1)
+    cap = moe_capacity(tokens.shape[0], MOE['num_experts'], 1, moe.capacity_factor)
+    dispatch, combine = (t.detach() for t in switch_routing(probs, cap, 1)[:2])
+    gen = torch.Generator().manual_seed(0)
+    expert_out = torch.randn(MOE['num_experts'], cap, MOE['embed'], generator=gen).to(
+        tokens.device)
+    tokens = tokens.to(torch.bfloat16).requires_grad_()
+    dispatch = dispatch.to(torch.bfloat16)
+    expert_out.requires_grad_()
+    combine.requires_grad_()
+    slots = torch.einsum('sd,sxc->xcd', tokens, dispatch)
+    mixed = torch.einsum('xcd,sxc->sd', expert_out, combine)
+    slot_grad, mix_grad = torch.ones_like(slots), torch.ones_like(mixed)
+    return {
+        'shape': [tokens.shape[0], MOE['num_experts'], cap, MOE['embed']],
+        'flop_per_product': 2 * tokens.shape[0] * MOE['num_experts'] * cap * MOE['embed'],
+        'dispatch_fwd_ms': cuda_ms(lambda: torch.einsum('sd,sxc->xcd', tokens, dispatch)),
+        'dispatch_bwd_ms': cuda_ms(lambda: torch.autograd.grad(slots, tokens, slot_grad,
+                                                               retain_graph=True)),
+        'combine_fwd_ms': cuda_ms(lambda: torch.einsum('xcd,sxc->sd', expert_out, combine)),
+        'combine_bwd_ms': cuda_ms(lambda: torch.autograd.grad(
+            mixed, (expert_out, combine), mix_grad, retain_graph=True))}
+
+
+def attention_vs_dense(seen):
+    """Each layer's attention with K2 against dense attention on the inputs
+    it had (``flash_compare``, with the bf16 rounding allowance of
+    ``flash_forward_plain`` over |V|)."""
+    results = []
+    for q, k, v in seen:
+        b, _, h, _ = q.shape
+        with torch.no_grad():
+            got = flash.flash_attention(q, k, v, causal=True)
+            want = dense_attention(q, k, v, causal=True)
+            qf, kf, vf = (flash._to_bh(x.float()) for x in (q, k, v))
+            bound = flash._from_bh(flash.flash_forward_plain(qf, kf, vf.abs(), True)[0], b, h)
+        results.append(flash.flash_compare(got, want, bound))
+        check(results[-1]['ok'], 'attention with K2 differs from dense attention: {}'.format(
+            results[-1]))
+    return results
+
+
+def train_moe(model, batches, drops, attention_fn=None):
+    """1 + MOE_STEPS Adam steps (lr 3e-4) on ``batches``, counted: the
+    kernels' launches, the step times and the largest drop fraction."""
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+
+    def step_loss(batch):
+        return moe_loss(model, batch['tokens'], attention_fn, drops)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s, window_s = train_lm(batches, optimizer, MOE_STEPS + 1, step_loss)
+    counts = read_counts()
+    flops = moe_transformer_train_flops_per_step(
+        MOE_BATCH, MOE['max_len'], MOE['vocab'], MOE['embed'], MOE['layers'],
+        MOE['num_experts'], moe_every=MOE['moe_every'])
+    result = lm_metrics(losses, step_s, window_s, {'input_stall_fraction': None},
+                        MOE_BATCH * MOE['max_len'], flops)
+    result.update(counts=counts, max_drop_fraction=max(float(d) for d in drops))
+    check(all(np.isfinite(losses)), 'non-finite MoE loss {}'.format(losses))
+    return result, optimizer, step_loss
+
+
+def phase_moe(tmp, seed):
+    """Phase 14a: bench.py's moe section at its width: a token store ->
+    make_reader -> InMemTorchLoader -> MoETransformerLM (dense causal
+    attention) -> Adam, with the on-card routing and MoE-output checks, the
+    einsums' times and a profiled step. Returns the result, the initial
+    weights, the batches and the first batch's reference numbers for 14b."""
+    path = os.path.join(tmp, 'moe_tokens')
+    start = time.perf_counter()
+    write_token_store('file://' + path, MOE_ROWS, MOE['max_len'], n_files=2,
+                      rowgroup_size_mb=32)
+    store_write_s = time.perf_counter() - start
+    model = moe_model(seed)
+    initial = copy.deepcopy(model.state_dict())
+    batches = []
+
+    def recorded(loader):
+        for batch in loader:
+            batches.append(batch)
+            yield batch
+
+    with make_reader('file://' + path, workers_count=2, num_epochs=1,
+                     shuffle_row_groups=False) as reader:
+        loader = recorded(InMemTorchLoader(reader, batch_size=MOE_BATCH, num_epochs=None,
+                                           shuffle=True, seed=4, drop_last=True))
+        first = next(loader)['tokens']
+        check(tuple(first.shape) == (MOE_BATCH, MOE['max_len'])
+              and first.device.type == 'cuda',
+              'MoE batch shape/device {} {}'.format(tuple(first.shape), first.device))
+        with torch.no_grad():
+            inputs = moe_inputs(model, lambda: model(first))
+        first_batch = dict(zip(('loss', 'grad_norm'), loss_and_grad_norm(
+            model, lambda: moe_loss(model, first))))
+        experts = top1_experts(model, inputs)
+        moe = model.blocks[0].moe
+        routing = routing_check(moe, inputs[0])
+        output = moe_output_check(moe, inputs[0])
+        einsums = einsum_times(moe, inputs[0])
+        drops = []
+        # the timed window fetches each batch after the first from the loader
+        result, optimizer, step_loss = train_moe(
+            model, itertools.chain([batches[0]], loader), drops)
+    breakdown = device_breakdown(lambda: adam_step(optimizer, step_loss, batches[0]))
+    check(result['counts']['dense_fallbacks'] == 0, 'the MoE path counted a dense fallback')
+    result.update(first_batch=first_batch, routing=routing, moe_output=output,
+                  einsums=einsums, breakdown=breakdown, store_write_s=store_write_s)
+    return result, initial, batches, inputs, experts
+
+
+def phase_moe_flash(seed, initial, batches, dense_inputs, dense_experts, dense_first):
+    """Phase 14b: 14a's model, weights and batches with the causal flash
+    kernels as attention_fn: each layer's attention on the first batch against
+    dense attention, the first batch's loss against 14a's and the share of
+    rerouted tokens, then the same 1 + MOE_STEPS steps, K2-K4 counted."""
+    model = moe_model(seed)
+    model.load_state_dict(initial)
+    first = batches[0]['tokens']
+    seen = []
+
+    def recording(q, k, v):
+        seen.append((q.detach(), k.detach(), v.detach()))
+        return causal_flash(q, k, v)
+
+    with torch.no_grad():
+        inputs = moe_inputs(model, lambda: model(first, attention_fn=recording))
+    attention = attention_vs_dense(seen)
+    experts = top1_experts(model, inputs)
+    rerouted = float(sum(int((a != b).sum()) for a, b in zip(experts, dense_experts))
+                     / sum(a.numel() for a in experts))
+    loss, grad_norm = loss_and_grad_norm(model, lambda: moe_loss(model, first, causal_flash))
+    first_batch = {'loss': loss, 'dense_loss': dense_first['loss'], 'grad_norm': grad_norm,
+                   'dense_grad_norm': dense_first['grad_norm'],
+                   'loss_rel_err': abs(loss - dense_first['loss']) / abs(dense_first['loss']),
+                   'grad_norm_rel_err': abs(grad_norm - dense_first['grad_norm'])
+                   / abs(dense_first['grad_norm']),
+                   'rerouted_share': rerouted, 'loss_rtol': MOE_LOSS_RTOL,
+                   'rerouted_limit': MOE_REROUTED_LIMIT}
+    check(first_batch['loss_rel_err'] <= MOE_LOSS_RTOL and rerouted < MOE_REROUTED_LIMIT,
+          'the first batch with the kernels differs from dense attention: {}'.format(
+              first_batch))
+    drops = []
+    result, _, _ = train_moe(model, iter(batches), drops, causal_flash)
+    launches = {name: result['counts'][name] for name in FLASH_PRODUCTS}
+    expected = MOE['layers'] * result['steps_run']
+    check(all(n == expected for n in launches.values()),
+          'flash kernels launched {} times on the MoE path, expected {} each (layers x steps)'
+          .format(launches, expected))
+    check(result['counts']['dense_fallbacks'] == 0, 'MoE attention took the dense path')
+    result.update(first_batch=first_batch, attention=attention, launches=launches)
+    return result
+
+
+def ring_case(mesh, causal, segments, seed):
+    """ring_attention_sharded on a one-rank group against the port's flash
+    attention on the same global tensors, forward and gradients, with the
+    launches of one ring call (forward and backward) counted."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(*RING_SHAPE, generator=gen).to(mesh.device_type, torch.bfloat16)
+                   for _ in range(4))
+    ring = ring_attention_sharded(mesh, 'seq', causal=causal)
+    extra = () if segments is None else (segments,)
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, *extra)
+        out.backward(do)
+        return [out.detach()] + [x.grad for x in leaves]
+
+    def flash_fn(q, k, v, *segments):
+        if segments:
+            return flash.flash_attention_segmented(q, k, v, segments[0], causal=causal)
+        return flash.flash_attention(q, k, v, causal=causal)
+
+    reset_counts()
+    got = run(ring)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = run(flash_fn)
+    result = {'counts': counts, 'ring_ms': cuda_ms(lambda: run(ring), reps=5),
+              'flash_ms': cuda_ms(lambda: run(flash_fn), reps=5)}
+    for label, g, w in zip(('o', 'dq', 'dk', 'dv'), got, want):
+        result[label] = flash.flash_compare(g, w)
+        check(result[label]['ok'], 'ring {} differs from flash attention: {}'.format(
+            label, result[label]))
+    check(all(counts[name] == 1 for name in FLASH_PRODUCTS) and counts['dense_fallbacks'] == 0,
+          'a ring call launched {}, expected K2-K4 once each'.format(counts))
+    return result
+
+
+def phase_one_rank(tmp, seed, moe, x):
+    """Phase 14c: a one-rank NCCL process group (a file store in the run's
+    temporary directory). sharded_moe_ffn against MoEMlp's local path on the
+    same weights in float32, then ring_attention_sharded causal and
+    segmented-causal at RING_SHAPE against the flash kernels. World size 1
+    exchanges nothing: the rotation and the merge are held by the CPU tests."""
+    dist.init_process_group('nccl', init_method='file://' + os.path.join(tmp, 'nccl_store'),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(('seq', 'expert'), (1, 1))
+        layer = copy.deepcopy(moe)
+        layer.dtype = torch.float32
+        tokens = x.reshape(-1, x.shape[-1]).float()
+        with torch.no_grad():
+            want = layer(tokens[None])[0][0]
+            router = layer.router.weight.t()
+            got = sharded_moe_ffn(tokens, router, layer.w1, layer.w2, mesh['expert'],
+                                  capacity_factor=layer.capacity_factor)[0]
+            exchange = {'tokens': tokens.shape[0],
+                        'max_abs_err': float((got - want).abs().max()),
+                        'max_abs_ref': float(want.abs().max()),
+                        'sharded_ms': cuda_ms(lambda: sharded_moe_ffn(
+                            tokens, router, layer.w1, layer.w2, mesh['expert'],
+                            capacity_factor=layer.capacity_factor), reps=5),
+                        'local_ms': cuda_ms(lambda: layer(tokens[None]), reps=5)}
+        check(exchange['max_abs_err'] <= EXCHANGE_RTOL * exchange['max_abs_ref'],
+              'sharded_moe_ffn differs from the local path: {}'.format(exchange))
+        segments = packed_segments(RING_SHAPE[0], RING_SHAPE[1], seed)
+        rings = {'causal': ring_case(mesh, True, None, seed),
+                 'segmented_causal': ring_case(mesh, True, segments, seed + 1)}
+    finally:
+        dist.destroy_process_group()
+    return {'exchange': exchange, 'rings': rings, 'world_size': 1,
+            'ring_launches': {name: sum(r['counts'][name] for r in rings.values())
+                              for name in FLASH_PRODUCTS}}
+
+
+def moe_lines(moe, moe_flash, one_rank, card):
+    einsums = moe['einsums']
+    fwd_bwd = {name: einsums[name + '_fwd_ms'] + einsums[name + '_bwd_ms']
+               for name in ('dispatch', 'combine')}
+    return [
+        'phase 14a MoE path (bench.py moe: {} steps (1 warm-up) of MoETransformerLM [{}x{}] '
+        'embed {} x{} experts, {} layers, bf16, dense attention, InMemTorchLoader): '
+        'tokens/s={:.1f} step_ms(median)={:.2f} model TFLOP/s={:.3f} MFU={:.5f} '
+        'peak_memory={:.3f} GiB max drop fraction {:.4f} losses {:.4f}->{:.4f}; routing '
+        'card vs CPU: dispatch equal {}, combine equal {} ({:.4f} ms on the card); MoE output '
+        'vs loop reference max abs err {:.3e} (tol share {:.3f}); a layer\'s dispatch einsum '
+        'fwd+bwd {:.3f} ms (bf16), combine einsum fwd+bwd {:.3f} ms (float32), {:.3e} FLOP '
+        'a product; one profiled step: {}; top kernels {}; the store written in {:.2f} s '
+        '[{}]'.format(
+            moe['steps_run'], MOE_BATCH, MOE['max_len'], MOE['embed'], MOE['num_experts'],
+            MOE['layers'], moe['tokens_per_s'], moe['step_ms_median'],
+            moe['model_tflops_per_s'], moe['mfu'], moe['peak_memory_bytes'] / 2 ** 30,
+            moe['max_drop_fraction'], moe['losses'][0], moe['losses'][-1],
+            moe['routing']['dispatch_equal'], moe['routing']['combine_equal'],
+            moe['routing']['ms'], moe['moe_output']['max_abs_err'],
+            moe['moe_output']['tol_share'], fwd_bwd['dispatch'], fwd_bwd['combine'],
+            einsums['flop_per_product'], breakdown_line(moe['breakdown']),
+            {key: round(value, 3) for key, value in moe['breakdown']['top_kernels_ms'].items()},
+            moe['store_write_s'], card),
+        'phase 14b MoE path with the flash kernels: tokens/s={:.1f} step_ms(median)={:.2f} '
+        'MFU={:.5f} peak_memory={:.3f} GiB launches {} dense_fallbacks {}; attention vs dense '
+        'tol share {}; first batch beside 14a {} [{}]'.format(
+            moe_flash['tokens_per_s'], moe_flash['step_ms_median'], moe_flash['mfu'],
+            moe_flash['peak_memory_bytes'] / 2 ** 30, moe_flash['launches'],
+            moe_flash['counts']['dense_fallbacks'],
+            [round(a['tol_share'], 4) for a in moe_flash['attention']],
+            {key: round(value, 6) for key, value in moe_flash['first_batch'].items()}, card),
+        'phase 14c one-rank NCCL group (world size 1: no exchange, so the ring\'s rotation '
+        'and merge are held only by the CPU tests): sharded_moe_ffn vs MoEMlp local path max '
+        'abs err {:.3e} of max |ref| {:.3e} ({:.3f} ms vs {:.3f} ms, {} tokens float32); '
+        'ring_attention_sharded at {} bf16: {}; phase 14 took {:.1f} s [{}]'.format(
+            one_rank['exchange']['max_abs_err'], one_rank['exchange']['max_abs_ref'],
+            one_rank['exchange']['sharded_ms'], one_rank['exchange']['local_ms'],
+            one_rank['exchange']['tokens'], list(RING_SHAPE),
+            {name: {'launches': r['counts'], 'ring_ms': round(r['ring_ms'], 4),
+                    'flash_ms': round(r['flash_ms'], 4),
+                    'tol_share': {label: round(r[label]['tol_share'], 4)
+                                  for label in ('o', 'dq', 'dk', 'dv')}}
+             for name, r in one_rank['rings'].items()}, moe['phase_s'], card)]
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -2258,6 +2700,16 @@ def main(argv=None):
                                   record['process_kill'], record['main_path'],
                                   record['mnist_stream'], card):
             log(line)
+        phase_start = time.perf_counter()
+        record['moe'], initial, batches, inputs, experts = phase_moe(tmp, args.seed)
+        record['moe_flash'] = phase_moe_flash(args.seed, initial, batches, inputs, experts,
+                                              record['moe']['first_batch'])
+        moe = moe_model(args.seed)
+        moe.load_state_dict(initial)
+        record['one_rank'] = phase_one_rank(tmp, args.seed, moe.blocks[0].moe, inputs[0])
+        record['moe']['phase_s'] = time.perf_counter() - phase_start
+        for line in moe_lines(record['moe'], record['moe_flash'], record['one_rank'], card):
+            log(line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2290,6 +2742,8 @@ def main(argv=None):
             'source': 'petastorm_tpu_torch/csrc/flash_attention_sm90.cuh', 'replaces': replaces,
             'launches': record['lm']['launches'][counter],
             'ngram_launches': record['ngram_lm']['launches'][counter],
+            'moe_launches': record['moe_flash']['launches'][counter],
+            'ring_launches': record['one_rank']['ring_launches'][counter],
             'max_abs_err': flash_errors(flash_result, labels),
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
             'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],

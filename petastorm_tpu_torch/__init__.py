@@ -11,7 +11,8 @@ and ``scan_stream`` for whole chunks of steps as CUDA graphs) or
 CUDA graphs through ``scan_epochs``) -> models such as :class:`MnistCNN`,
 :class:`~petastorm_tpu_torch.models.resnet.ResNet` or
 :class:`~petastorm_tpu_torch.models.transformer.TransformerLM` with the
-flash-attention kernels (:func:`flash_attention`). Readers and loaders
+flash-attention kernels (:func:`flash_attention`), or the expert-routed
+:class:`MoETransformerLM` (its losses collected by :func:`moe_aux_total`). Readers and loaders
 checkpoint their read position (``state_dict``, ``resume_state=``), and
 :class:`TrainingCheckpointer` saves it with the model and optimizer as one
 unit. The readers' row-space features are the JAX package's: predicates
@@ -19,8 +20,12 @@ unit. The readers' row-space features are the JAX package's: predicates
 (:mod:`~petastorm_tpu_torch.etl.rowgroup_indexing`,
 :mod:`~petastorm_tpu_torch.selectors`), :class:`NGram` windows, the
 local-disk rowgroup cache (:mod:`~petastorm_tpu_torch.cache`) and weighted
-mixing (:class:`WeightedSamplingReader`). Entry points run on CUDA unless the
-caller passes ``device='cpu'``.
+mixing (:class:`WeightedSamplingReader`). Expert and sequence parallelism run
+over ``torch.distributed`` groups named by
+:func:`~petastorm_tpu_torch.parallel.mesh.make_mesh`
+(:mod:`~petastorm_tpu_torch.ops.sharded_moe`,
+:mod:`~petastorm_tpu_torch.ops.ring_attention`). Entry points run on CUDA
+unless the caller passes ``device='cpu'``.
 """
 
 import importlib
@@ -32,6 +37,7 @@ _EXPORTS = {
     'DeviceTransform': 'petastorm_tpu_torch.parallel.device_stage',
     'InMemTorchLoader': 'petastorm_tpu_torch.parallel.inmem_loader',
     'MnistCNN': 'petastorm_tpu_torch.models.mnist',
+    'MoETransformerLM': 'petastorm_tpu_torch.models.moe',
     'NGram': 'petastorm_tpu_torch.ngram',
     'Reader': 'petastorm_tpu_torch.reader',
     'TorchDataLoader': 'petastorm_tpu_torch.parallel.loader',
@@ -47,6 +53,8 @@ _EXPORTS = {
     'make_packing_transform': 'petastorm_tpu_torch.ops.packing',
     'make_reader': 'petastorm_tpu_torch.reader',
     'make_torch_loader': 'petastorm_tpu_torch.parallel.loader',
+    'moe_aux_total': 'petastorm_tpu_torch.models.moe',
+    'moe_drop_fractions': 'petastorm_tpu_torch.models.moe',
     'pack_sequences': 'petastorm_tpu_torch.ops.packing',
 }
 

@@ -121,3 +121,55 @@ def mnist_state_dict_from_flax(variables):
             out['{}.{}'.format(port_name, name)] = torch.from_numpy(
                 np.array(value, dtype=np.float32))
     return out
+
+
+#: flax submodule name -> port submodule name inside one MoE block (its MoEMlp
+#: is converted apart)
+_MOE_BLOCK_LAYERS = (('LayerNorm_0', 'norm_attn'), ('Dense_0', 'qkv'), ('Dense_1', 'proj'),
+                     ('LayerNorm_1', 'norm_mlp'))
+
+
+def _moe_mlp(params):
+    # w1/w2 are einsum operands [experts, in, out], not Dense kernels: as they are
+    return {'router.weight': np.asarray(params['router']['kernel']).T,
+            'w1': np.asarray(params['w1']), 'w2': np.asarray(params['w2'])}
+
+
+def moe_state_dict_from_flax(variables, moe_every=1):
+    """``petastorm_tpu.models.moe`` variables (``{'params': ...}`` with numpy
+    leaves) of a ``MoETransformerLM`` built with ``moe_every``, or of a root
+    ``MoEMlp``, -> a ``state_dict`` for the port's module of the same
+    configuration. Layer ``i`` is flax's ``MoEBlock_j`` when ``(i + 1) %
+    moe_every == 0`` (the j-th such layer), else ``Block_j``; dense kernels
+    ``(in, out)`` -> ``(out, in)``, the router's too."""
+    params = variables['params']
+    out = {}
+
+    def put(prefix, tensors):
+        for name, value in tensors.items():
+            key = '{}.{}'.format(prefix, name) if prefix else name
+            out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+
+    if 'router' in params:
+        put('', _moe_mlp(params))
+        return out
+    put('tok_embed', {'weight': params['Embed_0']['embedding']})
+    put('pos_embed', {'weight': params['Embed_1']['embedding']})
+    n_moe = n_dense = 0
+    for index in range(sum(1 for key in params if key.startswith(('Block_', 'MoEBlock_')))):
+        prefix = 'blocks.{}'.format(index)
+        if (index + 1) % moe_every == 0:
+            block = params['MoEBlock_{}'.format(n_moe)]
+            layers = _MOE_BLOCK_LAYERS
+            put(prefix + '.moe', _moe_mlp(block['MoEMlp_0']))
+            n_moe += 1
+        else:
+            block = params['Block_{}'.format(n_dense)]
+            layers = _TRANSFORMER_BLOCK_LAYERS
+            n_dense += 1
+        for flax_name, port_name in layers:
+            convert = _layer_norm if flax_name.startswith('LayerNorm') else _dense
+            put('{}.{}'.format(prefix, port_name), convert(block[flax_name]))
+    put('norm', _layer_norm(params['LayerNorm_0']))
+    put('head', _dense(params['Dense_0']))
+    return out

@@ -8,7 +8,8 @@
 // They compute the same functions, with the same conventions:
 //   - scores s = q.k / sqrt(D), causal mask k <= q, optional packed-segment
 //     mask (same segment and both ids > 0; segments[b, t] is shared by the
-//     heads of batch row b = bh / heads);
+//     heads of batch row b = bh / heads; the query rows' ids and the key
+//     rows' come in separate arrays, the same one for self-attention);
 //   - a row with no valid key (padding) gets o = 0 and lse = 0, so the
 //     backward's replay exp(s - lse) is masked to 0, never NaN;
 //   - the backward replays P = exp(s - lse) and dS = P * (dO.V^T - delta),
@@ -180,7 +181,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ seg,
-                 float* __restrict__ o, float* __restrict__ lse, int t, int heads, int causal) {
+                 const int* __restrict__ key_seg, float* __restrict__ o,
+                 float* __restrict__ lse, int t, int heads, int causal) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* kv = qs + tile_floats<D>();  // K, then V, of the current k tile
@@ -196,6 +198,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t base = static_cast<int64_t>(bh) * t * D;
   const bool segmented = seg != nullptr;
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
+  const int* key_seg_row = segmented ? key_seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   const float scale = rsqrtf(static_cast<float>(D));
 
   load_tile<D>(qs, q + base, q0, t);
@@ -214,7 +217,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile's readers of kv, ps and kseg are done
     load_tile<D>(kv, k + base, k0, t);
-    if (segmented) load_rows<int>(kseg, seg_row, k0, t, 0);
+    if (segmented) load_rows<int>(kseg, key_seg_row, k0, t, 0);
     __syncthreads();
     float s[kRows][kRows];
     dot_tile<D>(s, qs, kv, ty, tx);
@@ -272,7 +275,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, const int* __restrict__ seg,
-                    float* __restrict__ dq, int t, int heads, int causal) {
+                    const int* __restrict__ key_seg, float* __restrict__ dq, int t, int heads,
+                    int causal) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + tile_floats<D>();
@@ -293,6 +297,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t row_base = static_cast<int64_t>(bh) * t;
   const bool segmented = seg != nullptr;
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
+  const int* key_seg_row = segmented ? key_seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   const float scale = rsqrtf(static_cast<float>(D));
 
   load_tile<D>(qs, q + base, q0, t);
@@ -312,7 +317,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     load_tile<D>(ks, k + base, k0, t);
     load_tile<D>(vs, v + base, k0, t);
-    if (segmented) load_rows<int>(kseg, seg_row, k0, t, 0);
+    if (segmented) load_rows<int>(kseg, key_seg_row, k0, t, 0);
     __syncthreads();
     float s[kRows][kRows], dp[kRows][kRows];
     dot_tile2<D>(s, qs, ks, dp, dos, vs, ty, tx);
@@ -351,7 +356,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, const int* __restrict__ seg,
-                     float* __restrict__ dk, float* __restrict__ dv, int t, int heads, int causal) {
+                     const int* __restrict__ key_seg, float* __restrict__ dk,
+                     float* __restrict__ dv, int t, int heads, int causal) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + tile_floats<D>();
@@ -374,11 +380,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t row_base = static_cast<int64_t>(bh) * t;
   const bool segmented = seg != nullptr;
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
+  const int* key_seg_row = segmented ? key_seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   const float scale = rsqrtf(static_cast<float>(D));
 
   load_tile<D>(ks, k + base, k0, t);
   load_tile<D>(vs, v + base, k0, t);
-  if (segmented) load_rows<int>(kseg, seg_row, k0, t, 0);
+  if (segmented) load_rows<int>(kseg, key_seg_row, k0, t, 0);
 
   float acc_dk[kRows][D / kLanes], acc_dv[kRows][D / kLanes];
 #pragma unroll
@@ -457,23 +464,24 @@ int prepare(Kernel kernel, size_t smem) {
 }
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
-               int bh, int t, int heads, int causal, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, const void* seg,
+               const void* key_seg, void* o, void* lse, int bh, int t, int heads, int causal,
+               cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
   const int status = prepare(flash_fwd_kernel<D>, smem);
   if (status != 0) return status;
   const dim3 grid((t + kTile - 1) / kTile, bh);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(seg), static_cast<float*>(o), static_cast<float*>(lse), t, heads,
-      causal);
+      static_cast<const int*>(seg), static_cast<const int*>(key_seg), static_cast<float*>(o),
+      static_cast<float*>(lse), t, heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, const void* seg, void* dq, int bh, int t, int heads, int causal,
-              cudaStream_t stream) {
+              const void* delta, const void* seg, const void* key_seg, void* dq, int bh, int t,
+              int heads, int causal, cudaStream_t stream) {
   const size_t smem = dq_smem<D>();
   const int status = prepare(flash_bwd_dq_kernel<D>, smem);
   if (status != 0) return status;
@@ -481,15 +489,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dq), t,
-      heads, causal);
+      static_cast<const float*>(delta), static_cast<const int*>(seg),
+      static_cast<const int*>(key_seg), static_cast<float*>(dq), t, heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, const void* seg, void* dk, void* dv, int bh, int t, int heads,
-               int causal, cudaStream_t stream) {
+               const void* delta, const void* seg, const void* key_seg, void* dk, void* dv, int bh,
+               int t, int heads, int causal, cudaStream_t stream) {
   const size_t smem = dkv_smem<D>();
   const int status = prepare(flash_bwd_dkv_kernel<D>, smem);
   if (status != 0) return status;
@@ -497,8 +505,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dk),
-      static_cast<float*>(dv), t, heads, causal);
+      static_cast<const float*>(delta), static_cast<const int*>(seg),
+      static_cast<const int*>(key_seg), static_cast<float*>(dk), static_cast<float*>(dv), t,
+      heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -508,8 +517,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // `stream` and returns a cudaError_t (0 on success). All tensors are device
 // pointers to contiguous arrays: q, k, v, dout, o, dq, dk, dv [bh, t, d] of
 // `dtype` (0 = float32, 1 = bfloat16); lse and delta [bh, t] float32; seg
-// null or [bh / heads, t] int32. d must be 64 or 128; anything else returns
-// cudaErrorInvalidValue without launching. The bfloat16 kernels also return
+// null or [bh / heads, t] int32, the query rows' segment ids, and key_seg the
+// key rows' of the same shape (seg itself for self-attention; null with seg,
+// a ring's block pairs the local queries with another shard's keys). d must
+// be 64 or 128; anything else returns cudaErrorInvalidValue without launching. The bfloat16 kernels also return
 // cudaErrorInvalidValue when a TMA tensor map cannot be made (an input not
 // 16-byte aligned). The Python wrappers check shapes, types and devices
 // before they call.
@@ -521,37 +532,39 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (dtype == 1) return d == 64 ? BF16(64) : BF16(128);                 \
   return static_cast<int>(cudaErrorInvalidValue);
 
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* seg, void* o,
-                         void* lse, int bh, int t, int d, int heads, int causal, int dtype,
-                         void* stream) {
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* seg,
+                         const void* key_seg, void* o, void* lse, int bh, int t, int d,
+                         int heads, int causal, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define F32(D) launch_fwd<D>(q, k, v, seg, o, lse, bh, t, heads, causal, s)
-#define BF16(D) sm90::launch_fwd<D>(q, k, v, seg, o, lse, bh, t, heads, causal, s)
+#define F32(D) launch_fwd<D>(q, k, v, seg, key_seg, o, lse, bh, t, heads, causal, s)
+#define BF16(D) sm90::launch_fwd<D>(q, k, v, seg, key_seg, o, lse, bh, t, heads, causal, s)
   FLASH_DISPATCH(F32, BF16)
 #undef F32
 #undef BF16
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, const void* seg, void* dq, int bh,
-                            int t, int d, int heads, int causal, int dtype, void* stream) {
+                            const void* lse, const void* delta, const void* seg,
+                            const void* key_seg, void* dq, int bh, int t, int d, int heads,
+                            int causal, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define F32(D) launch_dq<D>(q, k, v, dout, lse, delta, seg, dq, bh, t, heads, causal, s)
-#define BF16(D) sm90::launch_dq<D>(q, k, v, dout, lse, delta, seg, dq, bh, t, heads, causal, s)
+#define F32(D) launch_dq<D>(q, k, v, dout, lse, delta, seg, key_seg, dq, bh, t, heads, causal, s)
+#define BF16(D) \
+  sm90::launch_dq<D>(q, k, v, dout, lse, delta, seg, key_seg, dq, bh, t, heads, causal, s)
   FLASH_DISPATCH(F32, BF16)
 #undef F32
 #undef BF16
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, const void* seg, void* dk,
-                             void* dv, int bh, int t, int d, int heads, int causal, int dtype,
-                             void* stream) {
+                             const void* lse, const void* delta, const void* seg,
+                             const void* key_seg, void* dk, void* dv, int bh, int t, int d,
+                             int heads, int causal, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define F32(D) \
-  launch_dkv<D>(q, k, v, dout, lse, delta, seg, dk, dv, bh, t, heads, causal, s)
+  launch_dkv<D>(q, k, v, dout, lse, delta, seg, key_seg, dk, dv, bh, t, heads, causal, s)
 #define BF16(D) \
-  sm90::launch_dkv<D>(q, k, v, dout, lse, delta, seg, dk, dv, bh, t, heads, causal, s)
+  sm90::launch_dkv<D>(q, k, v, dout, lse, delta, seg, key_seg, dk, dv, bh, t, heads, causal, s)
   FLASH_DISPATCH(F32, BF16)
 #undef F32
 #undef BF16

@@ -8,7 +8,8 @@
 //   K3 _flash_bwd_dq_kernel via _flash_backward  (dq)
 //   K4 _flash_bwd_dkv_kernel via _flash_backward (dk, dv)
 // with the conventions of flash_attention.cu (scale 1/sqrt(D), causal k <= q,
-// packed segments, o = 0 and lse = 0 on a row with no valid key).
+// packed segments with the query and key rows' ids in separate arrays, o = 0
+// and lse = 0 on a row with no valid key).
 //
 // Bound on this card: the tensor cores. At the LM path's shape (BH 8, T 8192,
 // D 128, causal) K2 does 1.4e11 FLOP, K3 2.1e11 and K4 2.7e11 over ~34 MB,
@@ -311,8 +312,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, const int* __restrict__ seg,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int t, int heads,
-                 int causal) {
+                 const int* __restrict__ key_seg, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int t, int heads, int causal) {
   using L = FwdLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -327,6 +328,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * L::kM;  // longest rows first
   const bool segmented = seg != nullptr;
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
+  const int* key_seg_row = segmented ? key_seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   const int k_end = causal ? min(t, q0 + L::kM) : t;
   const int n_tiles = (k_end + L::kN - 1) / L::kN;
   const int warp = threadIdx.x / 32;
@@ -359,7 +361,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       if (j >= L::kStages) mbar_wait(empty + s, (j / L::kStages - 1) & 1);
       if (segmented) {
         for (int i = lane; i < L::kN; i += 32)
-          kseg[s * L::kN + i] = k0 + i < t ? seg_row[k0 + i] : 0;
+          kseg[s * L::kN + i] = k0 + i < t ? key_seg_row[k0 + i] : 0;
         __threadfence_block();
         __syncwarp();
       }
@@ -520,7 +522,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap v_map,
                     const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                     const float* __restrict__ delta, const int* __restrict__ seg,
-                    __nv_bfloat16* __restrict__ dq, int t, int heads, int causal) {
+                    const int* __restrict__ key_seg, __nv_bfloat16* __restrict__ dq, int t,
+                    int heads, int causal) {
   using L = DqLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -534,6 +537,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * L::kM;  // longest rows first
   const bool segmented = seg != nullptr;
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
+  const int* key_seg_row = segmented ? key_seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   const int k_end = causal ? min(t, q0 + L::kM) : t;
   const int n_tiles = (k_end + L::kN - 1) / L::kN;
   const int warp = threadIdx.x / 32;
@@ -565,7 +569,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       if (j >= L::kStages) mbar_wait(empty + s, (j / L::kStages - 1) & 1);
       if (segmented) {
         for (int i = lane; i < L::kN; i += 32)
-          kseg[s * L::kN + i] = k0 + i < t ? seg_row[k0 + i] : 0;
+          kseg[s * L::kN + i] = k0 + i < t ? key_seg_row[k0 + i] : 0;
         __threadfence_block();
         __syncwarp();
       }
@@ -727,8 +731,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap v_map,
                      const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                      const float* __restrict__ delta, const int* __restrict__ seg,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int t,
-                     int heads, int causal) {
+                     const int* __restrict__ key_seg, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int t, int heads, int causal) {
   using L = DkvLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -742,6 +746,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   const int k0 = static_cast<int>(blockIdx.y) * L::kN;
   const bool segmented = seg != nullptr;
   const int* seg_row = segmented ? seg + static_cast<int64_t>(bh / heads) * t : nullptr;
+  const int* key_seg_row = segmented ? key_seg + static_cast<int64_t>(bh / heads) * t : nullptr;
   // query tiles wholly above the diagonal (every q < k0) contribute nothing
   const int q_start = causal ? k0 : 0;
   const int n_tiles = (t - q_start + L::kM - 1) / L::kM;
@@ -803,7 +808,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   int kseg[2] = {0, 0};
   if (segmented) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) kseg[i] = key + 8 * i < t ? seg_row[key + 8 * i] : 0;
+    for (int i = 0; i < 2; ++i) kseg[i] = key + 8 * i < t ? key_seg_row[key + 8 * i] : 0;
   }
   constexpr float scale = softmax_scale<D>();
   constexpr float scale_log2 = scale * kLog2e;
@@ -957,8 +962,8 @@ inline bool tile_map(CUtensorMap* map, const void* base, int bh, int t, int d, i
 }
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
-               int bh, int t, int heads, int causal, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, const void* seg, const void* key_seg,
+               void* o, void* lse, int bh, int t, int heads, int causal, cudaStream_t stream) {
   using L = FwdLayout<D>;
   CUtensorMap q_map, k_map, v_map;
   if (!tile_map(&q_map, q, bh, t, D, L::kM) || !tile_map(&k_map, k, bh, t, D, L::kN) ||
@@ -969,15 +974,15 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* seg, voi
   if (status != 0) return status;
   const dim3 grid(bh, (t + L::kM - 1) / L::kM);
   flash_fwd_kernel<D><<<grid, kThreads, L::bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), t, heads, causal);
+      q_map, k_map, v_map, static_cast<const int*>(seg), static_cast<const int*>(key_seg),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), t, heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, const void* seg, void* dq, int bh, int t, int heads, int causal,
-              cudaStream_t stream) {
+              const void* delta, const void* seg, const void* key_seg, void* dq, int bh, int t,
+              int heads, int causal, cudaStream_t stream) {
   using L = DqLayout<D>;
   CUtensorMap q_map, k_map, v_map, do_map;
   if (!tile_map(&q_map, q, bh, t, D, L::kM) || !tile_map(&k_map, k, bh, t, D, L::kN) ||
@@ -990,14 +995,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   flash_bwd_dq_kernel<D><<<grid, kThreads, L::bytes, stream>>>(
       q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(dq), t, heads, causal);
+      static_cast<const int*>(key_seg), static_cast<__nv_bfloat16*>(dq), t, heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, const void* seg, void* dk, void* dv, int bh, int t, int heads,
-               int causal, cudaStream_t stream) {
+               const void* delta, const void* seg, const void* key_seg, void* dk, void* dv, int bh,
+               int t, int heads, int causal, cudaStream_t stream) {
   using L = DkvLayout<D>;
   CUtensorMap q_map, k_map, v_map, do_map;
   if (!tile_map(&q_map, q, bh, t, D, L::kM) || !tile_map(&k_map, k, bh, t, D, L::kN) ||
@@ -1010,7 +1015,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   flash_bwd_dkv_kernel<D><<<grid, kThreads, L::bytes, stream>>>(
       q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), t, heads, causal);
+      static_cast<const int*>(key_seg), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), t, heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

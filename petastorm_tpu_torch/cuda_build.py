@@ -35,12 +35,14 @@ KERNELS = {
         'stored_copy': (_P, _P, _I, _P, ctypes.c_longlong, _P),
     }),
     'flash_attention': ('flash_attention.cu', {
-        # q, k, v, seg, o, lse, bh, t, d, heads, causal, dtype, stream
-        'flash_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        # q, k, v, do, lse, delta, seg, dq, bh, t, d, heads, causal, dtype, stream
-        'flash_bwd_dq': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        # q, k, v, do, lse, delta, seg, dk, dv, bh, t, d, heads, causal, dtype, stream
-        'flash_bwd_dkv': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # q, k, v, seg, key_seg, o, lse, bh, t, d, heads, causal, dtype, stream
+        'flash_fwd': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # q, k, v, do, lse, delta, seg, key_seg, dq, bh, t, d, heads, causal, dtype, stream
+        'flash_bwd_dq': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # q, k, v, do, lse, delta, seg, key_seg, dk, dv, bh, t, d, heads, causal, dtype,
+        # stream
+        'flash_bwd_dkv': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P),
     }),
 }
 

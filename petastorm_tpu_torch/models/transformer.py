@@ -43,22 +43,24 @@ def dense_causal_attention(q, k, v):
     return dense_attention(q, k, v, causal=True)
 
 
-def _lecun_normal_(weight, fan_in):
+def _lecun_normal_(weight, fan_in, generator=None):
     # flax's default kernel init: truncated normal with variance 1 / fan_in
     std = math.sqrt(1.0 / fan_in) / .87962566103423978
-    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: a float32 ``(out, in)`` weight (and bias) cast to
-    ``dtype`` with the input."""
+    ``dtype`` with the input. ``generator`` (a CPU ``torch.Generator``, or
+    None for torch's global one) draws the weight."""
 
-    def __init__(self, features_in, features_out, bias=True, dtype=torch.bfloat16):
+    def __init__(self, features_in, features_out, bias=True, dtype=torch.bfloat16,
+                 generator=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features_out, features_in))
         self.bias = nn.Parameter(torch.zeros(features_out)) if bias else None
         self.dtype = dtype
-        _lecun_normal_(self.weight, features_in)
+        _lecun_normal_(self.weight, features_in, generator)
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
@@ -69,9 +71,10 @@ class Embed(nn.Module):
     """flax ``nn.Embed``: a float32 ``(num, features)`` table cast to ``dtype``
     before the lookup."""
 
-    def __init__(self, num, features, dtype=torch.bfloat16):
+    def __init__(self, num, features, dtype=torch.bfloat16, generator=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.randn(num, features) / math.sqrt(features))
+        self.weight = nn.Parameter(torch.randn(num, features, generator=generator)
+                                   / math.sqrt(features))
         self.dtype = dtype
 
     def forward(self, ids):
@@ -108,16 +111,16 @@ class Block(nn.Module):
     """Pre-norm transformer block: attention, then a 4x GELU MLP, each with
     its residual."""
 
-    def __init__(self, embed, heads, dtype=torch.bfloat16):
+    def __init__(self, embed, heads, dtype=torch.bfloat16, generator=None):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
         self.norm_attn = LayerNorm(embed)
-        self.qkv = Dense(embed, 3 * embed, bias=False, dtype=dtype)
-        self.proj = Dense(embed, embed, bias=False, dtype=dtype)
+        self.qkv = Dense(embed, 3 * embed, bias=False, dtype=dtype, generator=generator)
+        self.proj = Dense(embed, embed, bias=False, dtype=dtype, generator=generator)
         self.norm_mlp = LayerNorm(embed)
-        self.mlp_up = Dense(embed, 4 * embed, dtype=dtype)
-        self.mlp_down = Dense(4 * embed, embed, dtype=dtype)
+        self.mlp_up = Dense(embed, 4 * embed, dtype=dtype, generator=generator)
+        self.mlp_down = Dense(4 * embed, embed, dtype=dtype, generator=generator)
 
     def forward(self, x, attention_fn):
         x = attention_sublayer(x, self.heads, attention_fn, self.norm_attn, self.qkv,
@@ -129,10 +132,13 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """Decoder-only LM: tokens ``[B, T]`` int -> logits ``[B, T, vocab]``
-    float32. Parameters live on ``device`` (CUDA unless ``'cpu'``)."""
+    float32. Parameters live on ``device`` (CUDA unless ``'cpu'``);
+    ``generator`` (a CPU ``torch.Generator``, None for torch's global one)
+    draws them."""
 
     def __init__(self, vocab=256, embed=64, heads=4, layers=2, max_len=8192,
-                 dtype=torch.bfloat16, attention_fn=None, remat=False, device=None):
+                 dtype=torch.bfloat16, attention_fn=None, remat=False, device=None,
+                 generator=None):
         super().__init__()
         if embed % heads != 0:
             raise ValueError('embed={} must be divisible by heads={}'.format(embed, heads))
@@ -141,33 +147,46 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.attention_fn = attention_fn or dense_causal_attention
         self.remat = remat
-        self.tok_embed = Embed(vocab, embed, dtype=dtype)
-        self.pos_embed = Embed(max_len, embed, dtype=dtype)
-        self.blocks = nn.ModuleList(Block(embed, heads, dtype) for _ in range(layers))
+        self.tok_embed = Embed(vocab, embed, dtype=dtype, generator=generator)
+        self.pos_embed = Embed(max_len, embed, dtype=dtype, generator=generator)
+        self.blocks = nn.ModuleList(self.make_block(i, embed, heads, dtype, generator)
+                                    for i in range(layers))
         self.norm = LayerNorm(embed)
-        self.head = Dense(embed, vocab, dtype=torch.float32)
+        self.head = Dense(embed, vocab, dtype=torch.float32, generator=generator)
         self.to(device)
+
+    def make_block(self, index, embed, heads, dtype, generator):
+        """Block ``index`` of the stack (a subclass picks another kind)."""
+        return Block(embed, heads, dtype, generator)
+
+    def embed(self, tokens, positions=None):
+        """Token plus position embeddings; ``positions`` None means
+        ``arange(T)``."""
+        t = tokens.shape[1]
+        if t > self.max_len:
+            raise ValueError('sequence length {} exceeds max_len={}; raise max_len'
+                             .format(t, self.max_len))
+        x = self.tok_embed(tokens)
+        if positions is None:
+            return x + self.pos_embed(torch.arange(t, device=tokens.device))[None]
+        return x + self.pos_embed(positions)
+
+    def run_block(self, block, x, attention_fn):
+        """``block(x, attention_fn)``, recomputed in the backward
+        (``torch.utils.checkpoint``) when ``remat`` is set."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, attention_fn, use_reentrant=False)
+        return block(x, attention_fn)
 
     def forward(self, tokens, positions=None, attention_fn=None):
         """``positions`` (optional ``[B, T]`` int): per-token position ids, such
         as a packed batch's ``*_positions`` column, so each packed document
         restarts at 0; None means ``arange(T)``. ``attention_fn`` overrides
         the constructor's for this call."""
-        t = tokens.shape[1]
-        if t > self.max_len:
-            raise ValueError('sequence length {} exceeds max_len={}; raise max_len'
-                             .format(t, self.max_len))
         attention_fn = attention_fn or self.attention_fn
-        x = self.tok_embed(tokens)
-        if positions is None:
-            x = x + self.pos_embed(torch.arange(t, device=tokens.device))[None]
-        else:
-            x = x + self.pos_embed(positions)
+        x = self.embed(tokens, positions)
         for block in self.blocks:
-            if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, attention_fn, use_reentrant=False)
-            else:
-                x = block(x, attention_fn)
+            x = self.run_block(block, x, attention_fn)
         return self.head(self.norm(x))
 
 

@@ -26,7 +26,9 @@ exported by ``csrc/flash_attention.cu``:
   with an allowance derived from that rounding (:func:`flash_reference`).
 - Segments (``[B, T]`` int32, 0 = padding, documents numbered from 1) are
   shared by the H heads of each batch row; a row with no valid key gets
-  ``o = 0`` and ``lse = 0``.
+  ``o = 0`` and ``lse = 0``. The kernel wrappers also take ``key_segments``,
+  the key rows' ids where they are not the query rows' (ring attention
+  pairs its local queries with another shard's keys).
 
 Each kernel wrapper (:func:`flash_forward`, :func:`flash_bwd_dq`,
 :func:`flash_bwd_dkv`) checks its inputs, launches on the current CUDA stream
@@ -65,34 +67,37 @@ def _bh_segments(segments, heads):
     return None if segments is None else segments.repeat_interleave(heads, dim=0)
 
 
-def _mask(q0, q1, k0, k1, causal, seg, device):
+def _mask(q0, q1, k0, k1, causal, seg, key_seg, device):
     """Boolean mask ``[BH or 1, q1 - q0, k1 - k0]`` of the scores that attend,
-    or None when every score does."""
+    or None when every score does; ``seg`` holds the query rows' segment
+    ids, ``key_seg`` the key rows'."""
     mask = None
     if causal:
         rows = torch.arange(q0, q1, device=device)
         mask = (rows[:, None] >= torch.arange(k0, k1, device=device)[None, :])[None]
     if seg is not None:
         qs = seg[:, q0:q1, None]
-        same = (qs == seg[:, None, k0:k1]) & (qs > 0)
+        same = (qs == key_seg[:, None, k0:k1]) & (qs > 0)
         mask = same if mask is None else mask & same
     return mask
 
 
-def flash_forward_plain(q, k, v, causal=False, segments=None, heads=1):
+def flash_forward_plain(q, k, v, causal=False, segments=None, heads=1,
+                        key_segments=None):
     """Plain PyTorch version of K2: ``[BH, T, D]`` q, k, v -> (o in q's dtype,
     lse ``[BH, T]`` float32), exact in float32, a block of query rows at a
     time with a full softmax over the keys they see."""
     bh, t, d = q.shape
     scale = d ** -0.5
     seg = _bh_segments(segments, heads)
+    key_seg = seg if key_segments is None else _bh_segments(key_segments, heads)
     o = torch.empty_like(q)
     lse = torch.empty(bh, t, dtype=torch.float32, device=q.device)
     for q0 in range(0, t, _PLAIN_BLOCK):
         q1 = min(t, q0 + _PLAIN_BLOCK)
         k1 = q1 if causal else t
         s = torch.matmul(q[:, q0:q1].float(), k[:, :k1].float().transpose(1, 2)) * scale
-        mask = _mask(q0, q1, 0, k1, causal, seg, q.device)
+        mask = _mask(q0, q1, 0, k1, causal, seg, key_seg, q.device)
         if mask is not None:
             s = s.masked_fill(~mask, _NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
@@ -118,37 +123,41 @@ def _replay(q_blk, k_blk, lse_rows, mask, scale):
     return p
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1,
+                       key_segments=None):
     """Plain PyTorch version of K3: dQ = sum_k dS K scale with
     dS = P * (dO V^T - delta), block by block of query rows, in float32."""
     bh, t, d = q.shape
     scale = d ** -0.5
     seg = _bh_segments(segments, heads)
+    key_seg = seg if key_segments is None else _bh_segments(key_segments, heads)
     dq = torch.empty_like(q)
     for q0 in range(0, t, _PLAIN_BLOCK):
         q1 = min(t, q0 + _PLAIN_BLOCK)
         k1 = q1 if causal else t
         p = _replay(q[:, q0:q1], k[:, :k1], lse[:, q0:q1],
-                    _mask(q0, q1, 0, k1, causal, seg, q.device), scale)
+                    _mask(q0, q1, 0, k1, causal, seg, key_seg, q.device), scale)
         dp = torch.matmul(do[:, q0:q1].float(), v[:, :k1].float().transpose(1, 2))
         ds = p * (dp - delta[:, q0:q1, None])
         dq[:, q0:q1] = (torch.matmul(ds, k[:, :k1].float()) * scale).to(q.dtype)
     return dq
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1,
+                        key_segments=None):
     """Plain PyTorch version of K4: dV = sum_q P^T dO and dK = sum_q dS^T Q
     scale, block by block of key rows, in float32."""
     bh, t, d = q.shape
     scale = d ** -0.5
     seg = _bh_segments(segments, heads)
+    key_seg = seg if key_segments is None else _bh_segments(key_segments, heads)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     for k0 in range(0, t, _PLAIN_BLOCK):
         k1 = min(t, k0 + _PLAIN_BLOCK)
         q0 = k0 if causal else 0
         p = _replay(q[:, q0:], k[:, k0:k1], lse[:, q0:],
-                    _mask(q0, t, k0, k1, causal, seg, q.device), scale)
+                    _mask(q0, t, k0, k1, causal, seg, key_seg, q.device), scale)
         dv[:, k0:k1] = torch.matmul(p.transpose(1, 2), do[:, q0:].float()).to(v.dtype)
         dp = torch.matmul(do[:, q0:].float(), v[:, k0:k1].float().transpose(1, 2))
         ds = p * (dp - delta[:, q0:, None])
@@ -156,36 +165,40 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False, segments=None, he
     return dk, dv
 
 
-def flash_dq_abs_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
+def flash_dq_abs_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1,
+                       key_segments=None):
     """``scale * |dS| |K|`` in float32: K3's dQ taken over absolute values,
     the size of the sum whose terms the kernel rounds to bf16."""
     bh, t, d = q.shape
     scale = d ** -0.5
     seg = _bh_segments(segments, heads)
+    key_seg = seg if key_segments is None else _bh_segments(key_segments, heads)
     out = torch.empty(bh, t, d, dtype=torch.float32, device=q.device)
     for q0 in range(0, t, _PLAIN_BLOCK):
         q1 = min(t, q0 + _PLAIN_BLOCK)
         k1 = q1 if causal else t
         p = _replay(q[:, q0:q1], k[:, :k1], lse[:, q0:q1],
-                    _mask(q0, q1, 0, k1, causal, seg, q.device), scale)
+                    _mask(q0, q1, 0, k1, causal, seg, key_seg, q.device), scale)
         dp = torch.matmul(do[:, q0:q1].float(), v[:, :k1].float().transpose(1, 2))
         ds = (p * (dp - delta[:, q0:q1, None])).abs()
         out[:, q0:q1] = torch.matmul(ds, k[:, :k1].float().abs()) * scale
     return out
 
 
-def flash_dk_abs_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
+def flash_dk_abs_plain(q, k, v, do, lse, delta, causal=False, segments=None, heads=1,
+                       key_segments=None):
     """``scale * |dS|^T |Q|`` in float32: K4's dK taken over absolute values,
     the size of the sum whose terms the kernel rounds to bf16."""
     bh, t, d = q.shape
     scale = d ** -0.5
     seg = _bh_segments(segments, heads)
+    key_seg = seg if key_segments is None else _bh_segments(key_segments, heads)
     out = torch.empty(bh, t, d, dtype=torch.float32, device=q.device)
     for k0 in range(0, t, _PLAIN_BLOCK):
         k1 = min(t, k0 + _PLAIN_BLOCK)
         q0 = k0 if causal else 0
         p = _replay(q[:, q0:], k[:, k0:k1], lse[:, q0:],
-                    _mask(q0, t, k0, k1, causal, seg, q.device), scale)
+                    _mask(q0, t, k0, k1, causal, seg, key_seg, q.device), scale)
         dp = torch.matmul(do[:, q0:].float(), v[:, k0:k1].float().transpose(1, 2))
         ds = (p * (dp - delta[:, q0:, None])).abs()
         out[:, k0:k1] = torch.matmul(ds.transpose(1, 2), q[:, q0:].float().abs()) * scale
@@ -215,7 +228,7 @@ ROUNDING = 2.0 ** -8
 ROUNDED_NORM_LIMIT = 1.1e-2
 
 
-def flash_reference(q, k, v, do, causal=False, segments=None, heads=1):
+def flash_reference(q, k, v, do, causal=False, segments=None, heads=1, key_segments=None):
     """What K2-K4 are held against on inputs ``q, k, v, do``: ``(want,
     bound, lse, delta)``. ``want`` maps each output ('o', 'lse', 'dq', 'dk',
     'dv') to its plain version, the backward's from the plain forward's lse
@@ -223,20 +236,19 @@ def flash_reference(q, k, v, do, causal=False, segments=None, heads=1):
     ``bound`` maps the outputs that the bf16 kernels round (o, dq, dk, dv;
     none for float32 inputs) to the sum over absolute values that bounds
     it."""
-    o, lse = flash_forward_plain(q, k, v, causal, segments, heads)
+    mode = (causal, segments, heads, key_segments)
+    o, lse = flash_forward_plain(q, k, v, *mode)
     delta = (do.float() * o.float()).sum(dim=-1)
-    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, segments, heads)
-    want = {'o': o, 'lse': lse, 'dq': flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
-                                                         segments, heads),
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, *mode)
+    want = {'o': o, 'lse': lse, 'dq': flash_bwd_dq_plain(q, k, v, do, lse, delta, *mode),
             'dk': dk, 'dv': dv}
     bound = {}
     if q.dtype == torch.bfloat16:
         qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-        bound['o'] = flash_forward_plain(qf, kf, vf.abs(), causal, segments, heads)[0]
-        bound['dv'] = flash_bwd_dkv_plain(qf, kf, vf, dof.abs(), lse, delta, causal,
-                                          segments, heads)[1]
-        bound['dq'] = flash_dq_abs_plain(qf, kf, vf, dof, lse, delta, causal, segments, heads)
-        bound['dk'] = flash_dk_abs_plain(qf, kf, vf, dof, lse, delta, causal, segments, heads)
+        bound['o'] = flash_forward_plain(qf, kf, vf.abs(), *mode)[0]
+        bound['dv'] = flash_bwd_dkv_plain(qf, kf, vf, dof.abs(), lse, delta, *mode)[1]
+        bound['dq'] = flash_dq_abs_plain(qf, kf, vf, dof, lse, delta, *mode)
+        bound['dk'] = flash_dk_abs_plain(qf, kf, vf, dof, lse, delta, *mode)
     return want, bound, lse, delta
 
 
@@ -262,9 +274,10 @@ def flash_compare(got, want, bound=None):
 
 # ----------------------------------------------------------------- kernel wrappers
 
-def _check(name, tensors, segments, heads, rows=()):
+def _check(name, tensors, segments, heads, rows=(), key_segments=None):
     """Raise unless the [BH, T, D] tensors, the [BH, T] float32 row vectors
-    and the [BH / heads, T] int32 segments are what the kernels take."""
+    and the [BH / heads, T] int32 segments (and key segments) are what the
+    kernels take."""
     first = tensors[0]
     device = first.device
     if device.type not in ('cuda', 'cpu'):
@@ -291,14 +304,17 @@ def _check(name, tensors, segments, heads, rows=()):
                 or not x.is_contiguous()):
             raise ValueError('{}: lse and delta must be contiguous float32 [BH, T]'
                              .format(name))
+    if key_segments is not None and segments is None:
+        raise ValueError('{}: key_segments need segments'.format(name))
     if segments is not None:
         if heads < 1 or bh % heads:
             raise ValueError('{}: B * H = {} is not a multiple of heads = {}'.format(
                 name, bh, heads))
-        if (segments.shape != (bh // heads, t) or segments.dtype != torch.int32
-                or segments.device != device or not segments.is_contiguous()):
-            raise ValueError('{}: segments must be contiguous int32 [B, T] on the '
-                             'inputs\' device'.format(name))
+        for ids in (segments, key_segments):
+            if ids is not None and (ids.shape != (bh // heads, t) or ids.dtype != torch.int32
+                                    or ids.device != device or not ids.is_contiguous()):
+                raise ValueError('{}: segments must be contiguous int32 [B, T] on the '
+                                 'inputs\' device'.format(name))
 
 
 def _run(symbol, counter, tensors, ints):
@@ -317,46 +333,60 @@ def _run(symbol, counter, tensors, ints):
         flash_attention.launches[counter] += 1   # a captured call only records the launch
 
 
-def flash_forward(q, k, v, causal=False, segments=None, heads=1):
+def _key_ids(segments, key_segments):
+    """The key rows' segment ids the kernels read: the query rows' own for
+    self-attention."""
+    return segments if key_segments is None else key_segments
+
+
+def flash_forward(q, k, v, causal=False, segments=None, heads=1, key_segments=None):
     """K2: ``[BH, T, D]`` q, k, v (and optional ``[B, T]`` int32 segments with
-    B = BH / heads) -> (o ``[BH, T, D]`` in q's dtype, lse ``[BH, T]``
-    float32). Launches the kernel for CUDA tensors, runs
-    :func:`flash_forward_plain` for CPU tensors."""
-    _check('flash_forward', (q, k, v), segments, heads)
+    B = BH / heads, and the key rows' own when they differ) -> (o ``[BH, T,
+    D]`` in q's dtype, lse ``[BH, T]`` float32). Launches the kernel for CUDA
+    tensors, runs :func:`flash_forward_plain` for CPU tensors."""
+    _check('flash_forward', (q, k, v), segments, heads, key_segments=key_segments)
     if q.device.type == 'cpu':
-        return flash_forward_plain(q, k, v, causal, segments, heads)
+        return flash_forward_plain(q, k, v, causal, segments, heads, key_segments)
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(bh, t, dtype=torch.float32, device=q.device)
-    _run('flash_fwd', 'fwd', (q, k, v, segments, o, lse),
+    _run('flash_fwd', 'fwd', (q, k, v, segments, _key_ids(segments, key_segments), o, lse),
          (bh, t, d, heads, int(bool(causal)), _DTYPE_CODES[q.dtype]))
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, segments=None, heads=1,
+                 key_segments=None):
     """K3: dQ ``[BH, T, D]`` from q, k, v, dO, the forward's lse and
     ``delta = rowsum(dO * O)``. Kernel for CUDA tensors,
     :func:`flash_bwd_dq_plain` for CPU tensors."""
-    _check('flash_bwd_dq', (q, k, v, do), segments, heads, rows=(lse, delta))
+    _check('flash_bwd_dq', (q, k, v, do), segments, heads, rows=(lse, delta),
+           key_segments=key_segments)
     if q.device.type == 'cpu':
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, segments, heads)
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, segments, heads,
+                                  key_segments)
     bh, t, d = q.shape
     dq = torch.empty_like(q)
-    _run('flash_bwd_dq', 'dq', (q, k, v, do, lse, delta, segments, dq),
+    _run('flash_bwd_dq', 'dq',
+         (q, k, v, do, lse, delta, segments, _key_ids(segments, key_segments), dq),
          (bh, t, d, heads, int(bool(causal)), _DTYPE_CODES[q.dtype]))
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, segments=None, heads=1):
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, segments=None, heads=1,
+                  key_segments=None):
     """K4: (dK, dV) ``[BH, T, D]`` from the same inputs as K3. Kernel for CUDA
     tensors, :func:`flash_bwd_dkv_plain` for CPU tensors."""
-    _check('flash_bwd_dkv', (q, k, v, do), segments, heads, rows=(lse, delta))
+    _check('flash_bwd_dkv', (q, k, v, do), segments, heads, rows=(lse, delta),
+           key_segments=key_segments)
     if q.device.type == 'cpu':
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, segments, heads)
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, segments, heads,
+                                   key_segments)
     bh, t, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _run('flash_bwd_dkv', 'dkv', (q, k, v, do, lse, delta, segments, dk, dv),
+    _run('flash_bwd_dkv', 'dkv',
+         (q, k, v, do, lse, delta, segments, _key_ids(segments, key_segments), dk, dv),
          (bh, t, d, heads, int(bool(causal)), _DTYPE_CODES[q.dtype]))
     return dk, dv
 
