@@ -81,7 +81,24 @@ version on the card, then drives the port's two paths at full width:
   MoE layer's local path, and ``ring_attention_sharded`` (causal and
   segmented) at [2, 8192, 4, 128] against the flash kernels (14c). One card
   runs one rank, so no exchange happens: the ring's rotation and merge and
-  the expert all-to-all across ranks are held by the CPU tests.
+  the expert all-to-all across ranks are held by the CPU tests;
+- data- and pipeline-parallel training (phase 15) on a one-rank NCCL group
+  (``initialize_distributed`` on a file store of its own, destroyed after
+  the phase): phase 7's token store -> ``make_reader`` sharded by the mesh's
+  'data' coordinate -> ``TorchDataLoader(batch_size=4, mesh=('stage',
+  'data') of 1 x 1, partition_spec=('data',))``, whose fields must be
+  DTensors on cuda -> an embedding, ``make_pipeline`` with one stage of the
+  4 flash Blocks and 2 microbatches (K2-K4 at phase 7's [8, 8192, 128]), the
+  head and ``next_token_loss``, Adam, 1 + 8 steps; the first batch within
+  ``PIPE_LOSS_RTOL``/``PIPE_GRAD_NORM_RTOL`` of the unpipelined
+  ``TransformerLM`` with the same weights, and a profiled step running K2-K4
+  8 times each (15a); phase 9's store -> ``InMemTorchLoader(mesh=('data',))
+  .scan_epochs``, the shard-local shuffle (J9) at one shard, 3 epochs of one
+  graph replay each, every epoch's rows distinct, the first epoch against an
+  eager twin (15b); phase 10's stream through ``scan_stream`` over the mesh,
+  bit-equal to the mesh-less loader's batches (15c). The stage shift to
+  itself is skipped at one stage; the P2P schedule across stages is held by
+  the CPU tests.
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -138,6 +155,7 @@ import pyarrow.fs as pafs
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, NGram,
                                  TorchDataLoader, TrainingCheckpointer, TransformerLM,
@@ -165,7 +183,9 @@ from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_l
                                              segment_causal_attention)
 from petastorm_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
 from petastorm_tpu_torch.ops.sharded_moe import sharded_moe_ffn
-from petastorm_tpu_torch.parallel.mesh import make_mesh
+from petastorm_tpu_torch.parallel.mesh import (PartitionSpec, initialize_distributed,
+                                               make_mesh, mesh_shard_info)
+from petastorm_tpu_torch.parallel.pipeline import blocks_stage_fn, make_pipeline, microbatch
 from petastorm_tpu_torch.predicates import in_pseudorandom_split
 from petastorm_tpu_torch.selectors import SingleIndexSelector
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -2538,6 +2558,283 @@ def moe_lines(moe, moe_flash, one_rank, card):
              for name, r in one_rank['rings'].items()}, moe['phase_s'], card)]
 
 
+# ------------------------------------- data- and pipeline-parallel training (phase 15)
+
+#: 15a: rows a step (phase 7's LM at twice its batch), microbatches a step
+PIPE_BATCH = 4
+PIPE_MICRO = 2
+#: 15a's first batch through the pipeline against the unpipelined
+#: TransformerLM with the same weights and rows, relative: phase 14b's loss
+#: limit and phase 7's gradient-norm limit. Only the microbatch split
+#: differs: the projections' products run over 2 rows instead of 4 (cuBLAS
+#: may pick another kernel, rounding bf16 outputs otherwise) and each block
+#: weight's gradient is the float32 sum of two bf16 halves.
+PIPE_LOSS_RTOL = 1e-4
+PIPE_GRAD_NORM_RTOL = 2.5e-4
+#: 15b/15c: MNIST epochs (the first fills, uploads and captures) and timed
+#: scan_stream passes after a warm-up pass
+MESH_EPOCHS = 3
+MESH_STREAM_PASSES = 2
+
+
+def phase_pipeline_lm(tmp, seed, mesh):
+    """15a: phase 7's token store -> make_reader sharded by the mesh's 'data'
+    coordinate -> TorchDataLoader(batch_size=PIPE_BATCH, mesh) -> an
+    embedding, make_pipeline with one stage holding the 4 flash Blocks
+    (PIPE_MICRO microbatches of 2 rows: K2-K4 at phase 7's [8, 8192, 128]),
+    the head and next_token_loss; Adam 3e-4, one warm-up and LM_STEPS timed
+    steps. The first batch is held against the unpipelined TransformerLM
+    with the same weights, and a profiled step must run K2-K4
+    layers x microbatches times each."""
+    path = 'file://' + os.path.join(tmp, 'tokens')   # phase 7's store
+    torch.manual_seed(seed)
+    model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+    pipe = make_pipeline(blocks_stage_fn(model.blocks, causal_flash), mesh)
+    stage_params = dict(model.blocks.named_parameters())
+
+    def pipelined_loss(tokens):
+        x = model.embed(tokens)
+        ys = pipe(stage_params, microbatch(x, PIPE_MICRO)).reshape(x.shape)
+        return next_token_loss(model.head(model.norm(ys)), tokens)
+
+    def step_loss(batch):
+        return pipelined_loss(batch['tokens'].to_local())
+
+    def plain_loss(batch):
+        tokens = batch['tokens'].to_local()
+        return next_token_loss(model(tokens), tokens)
+
+    cur_shard, shard_count = mesh_shard_info(mesh, 'data')
+    flops = transformer_train_flops_per_step(PIPE_BATCH, LM['max_len'], LM['vocab'],
+                                             LM['embed'], LM['layers'])
+    with make_reader(path, workers_count=2, seed=seed, cur_shard=cur_shard,
+                     shard_count=shard_count) as reader:
+        loader = TorchDataLoader(reader, batch_size=PIPE_BATCH, mesh=mesh,
+                                 partition_spec=PartitionSpec('data'))
+        batches = iter(loader)
+        first = next(batches)
+        tokens = first['tokens']
+        check(isinstance(tokens, DTensor) and tokens.device.type == 'cuda'
+              and tokens.to_local().device.type == 'cuda'
+              and tuple(tokens.shape) == (PIPE_BATCH * shard_count, LM['max_len'])
+              and tokens.dtype == torch.int32,
+              'a 15a batch field is not an int32 DTensor on cuda of the global shape: {} {} {}'
+              .format(type(tokens).__name__, tokens.device, tuple(tokens.shape)))
+        loss, norm = loss_and_grad_norm(model, lambda: step_loss(first))
+        plain, plain_norm = loss_and_grad_norm(model, lambda: plain_loss(first))
+        parity = {'loss': loss, 'unpipelined_loss': plain, 'grad_norm': norm,
+                  'unpipelined_grad_norm': plain_norm,
+                  'loss_rel_err': abs(loss - plain) / abs(plain),
+                  'grad_norm_rel_err': abs(norm - plain_norm) / abs(plain_norm),
+                  'loss_rtol': PIPE_LOSS_RTOL, 'grad_norm_rtol': PIPE_GRAD_NORM_RTOL}
+        check(np.isfinite([loss, plain, norm, plain_norm]).all()
+              and parity['loss_rel_err'] <= PIPE_LOSS_RTOL
+              and parity['grad_norm_rel_err'] <= PIPE_GRAD_NORM_RTOL,
+              'the pipelined first batch differs from the unpipelined model: {}'.format(parity))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, window_s = train_lm(itertools.chain([first], batches), optimizer,
+                                            LM_STEPS + 1, step_loss)
+        counts = read_counts()
+        stats = loader.stats.as_dict()
+        result = lm_metrics(losses, step_s, window_s, stats, PIPE_BATCH * LM['max_len'], flops)
+        breakdown = device_breakdown(lambda: adam_step(optimizer, step_loss, first))
+        plain_breakdown = device_breakdown(lambda: adam_step(optimizer, plain_loss, first))
+        unpipelined = []
+        for _ in range(LM_STEPS + 1):
+            start = time.perf_counter()
+            adam_step(optimizer, plain_loss, first)
+            torch.cuda.synchronize()
+            unpipelined.append(time.perf_counter() - start)
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    per_step = LM['layers'] * PIPE_MICRO
+    check(all(n == per_step * result['steps_run'] for n in launches.values())
+          and counts['dense_fallbacks'] == 0,
+          'flash kernels launched {} times on the pipeline path, expected {} each (layers x '
+          'microbatches x steps)'.format(counts, per_step * result['steps_run']))
+    check(all(n == per_step for n in breakdown['calls'].values()),
+          'a profiled pipeline step ran the flash kernels {} times, expected {} each'
+          .format(breakdown['calls'], per_step))
+    check(all(np.isfinite(losses)), 'non-finite pipeline loss {}'.format(losses))
+    unpipelined_ms = statistics.median(unpipelined[1:]) * 1e3
+    result.update(first_batch=parity, launches=launches, counts=counts, breakdown=breakdown,
+                  unpipelined_breakdown=plain_breakdown, unpipelined_step_ms=unpipelined_ms,
+                  overhead=result['step_ms_median'] / unpipelined_ms,
+                  stages=mesh['stage'].size(),
+                  stage_shift='skipped (one stage sends nothing to itself)'
+                  if mesh['stage'].size() == 1 else 'batch_isend_irecv')
+    return result
+
+
+def mesh_mnist_step(model, optimizer):
+    """bench.py's MNIST step on the local rows of a DTensor batch; returns
+    the loss and the batch's ``idx`` for the delivery check."""
+    train = mnist_step(model, optimizer)
+
+    def step(batch):
+        local = {name: value.to_local() for name, value in batch.items()}
+        return train(local), local['idx']
+    return step
+
+
+def phase_mnist_mesh(tmp, seed, mesh):
+    """15b: phase 9's store -> InMemTorchLoader(batch_size=MNIST_BATCH,
+    mesh) -> MnistCNN through scan_epochs over the one-rank mesh: the
+    shard-blocked residency and the shard-local shuffle (J9) at one shard,
+    MESH_EPOCHS shuffled epochs of one graph replay each. Every epoch must
+    deliver distinct rows, batches x batch of them; the first epoch's losses
+    are held against an eager twin on the same batches."""
+    url = 'file://' + os.path.join(tmp, 'mnist')   # phase 9's store
+    model, optimizer, twin, twin_opt = mnist_model(seed + 2)
+    step = mesh_mnist_step(model, optimizer)
+    state = (model, optimizer)
+    reader = make_reader(url, workers_count=4, shuffle_row_groups=True, seed=42, num_epochs=1)
+    loader = InMemTorchLoader(reader, batch_size=MNIST_BATCH, num_epochs=None, shuffle=True,
+                              seed=7, mesh=mesh)
+    batches = loader.num_rows // MNIST_BATCH
+    rows = batches * MNIST_BATCH
+    def one_epoch():
+        (aux,) = loader.scan_epochs(step, state=state)
+        float(aux[0][-1])   # the last loss on the host: the replay has run
+        return aux
+
+    epochs, delivered = [], []
+    for epoch in range(MESH_EPOCHS):
+        (losses, idx), elapsed = timed(one_epoch)
+        losses = losses.tolist()
+        check_permutation(loader._index, loader.num_rows)
+        delivered.append(int(torch.unique(idx).numel()))
+        check(idx.numel() == rows and delivered[-1] == rows,
+              '15b epoch {} delivered {} rows, {} distinct, expected {} once each'.format(
+                  epoch, idx.numel(), delivered[-1], rows))
+        check(np.isfinite(losses).all(), 'non-finite 15b loss {}'.format(losses))
+        if epoch == 0:
+            index = loader._index.clone()
+            data = loader._data
+            twin_step = mnist_step(twin, twin_opt)
+            eager = [twin_step({name: col.index_select(
+                0, index[i * MNIST_BATCH:(i + 1) * MNIST_BATCH]) for name, col in data.items()})
+                for i in range(batches)]
+            agreement = loss_agreement(losses, eager, MNIST_LOSS_RTOL)
+        epochs.append({'s': elapsed, 'rows_per_s': rows / elapsed, 'last_loss': losses[-1]})
+    (program,) = loader._scan_cache.programs()
+    check(program.replays == MESH_EPOCHS, '15b ran {} graph replays for {} epochs'.format(
+        program.replays, MESH_EPOCHS))
+    shuffle_ms = cuda_ms(lambda: loader._epoch_indices(1000), reps=10)
+    return {'rows': rows, 'batches_per_epoch': batches, 'epochs': epochs,
+            'epoch_ms': statistics.median(e['s'] for e in epochs[1:]) * 1e3,
+            'rows_per_s': statistics.median(e['rows_per_s'] for e in epochs[1:]),
+            'delivered': delivered, 'first_epoch': agreement, 'replays': program.replays,
+            'capture_s': program.capture_s, 'shard_shuffle_ms': shuffle_ms,
+            'shard': list(loader._shard)}
+
+
+def phase_mnist_stream_mesh(tmp, seed, mesh):
+    """15c: phase 10's stream (the in-line reader, seed 0) through
+    TorchDataLoader.scan_stream over the mesh: every chunk's batches must
+    equal the mesh-less loader's bit for bit; then MESH_STREAM_PASSES timed
+    training passes on a thread pool of 4 after a warm-up pass."""
+    url = 'file://' + os.path.join(tmp, 'mnist')   # phase 9's store
+
+    def inline_reader():
+        return make_reader(url, reader_pool_type='dummy', shuffle_row_groups=True, seed=42)
+
+    def record(batch):
+        return {name: value.to_local() if isinstance(value, DTensor) else value
+                for name, value in batch.items()}
+
+    with inline_reader() as reader:
+        got = TorchDataLoader(reader, batch_size=MNIST_BATCH, mesh=mesh,
+                              partition_spec=PartitionSpec('data')).scan_stream(
+            record, chunk_batches=MNIST_CHUNK, seed=0, state=())
+    with inline_reader() as reader:
+        want = TorchDataLoader(reader, batch_size=MNIST_BATCH).scan_stream(
+            record, chunk_batches=MNIST_CHUNK, seed=0, state=())
+    check(len(got) == len(want) > 0
+          and all(sorted(g) == sorted(w) and all(torch.equal(g[k], w[k]) for k in w)
+                  for g, w in zip(got, want)),
+          '15c: scan_stream over the mesh gave other batches than the mesh-less loader')
+    model, optimizer, _, _ = mnist_model(seed + 3)
+    step = mesh_mnist_step(model, optimizer)
+    passes = []
+    with make_reader(url, workers_count=4, shuffle_row_groups=True, seed=42,
+                     num_epochs=1) as reader:
+        loader = TorchDataLoader(reader, batch_size=MNIST_BATCH, mesh=mesh,
+                                 partition_spec=PartitionSpec('data'))
+        for index in range(MESH_STREAM_PASSES + 1):
+            def one_pass():
+                aux = loader.scan_stream(step, chunk_batches=MNIST_CHUNK, seed=index,
+                                         state=(model, optimizer))
+                float(aux[-1][0][-1])
+                return sum(int(a[0].shape[0]) for a in aux) * MNIST_BATCH
+            rows, elapsed = timed(one_pass)
+            passes.append({'s': elapsed, 'rows': rows, 'rows_per_s': rows / elapsed})
+    return {'chunks': len(got), 'batches': sum(int(g['idx'].shape[0]) for g in got),
+            'passes': passes,
+            'rows_per_s': statistics.median(p['rows_per_s'] for p in passes[1:])}
+
+
+def phase_data_pipeline(tmp, seed):
+    """Phase 15 on a one-rank NCCL group (``initialize_distributed`` on a
+    file store of its own in the run's temporary directory, destroyed at
+    the end): 15a the pipelined flash LM on a ('stage', 'data') mesh of 1 x
+    1, 15b J9 and 15c scan_stream on a ('data',) mesh of 1."""
+    start = time.perf_counter()
+    check(initialize_distributed(init_method='file://' + os.path.join(tmp, 'phase15_store'),
+                                 world_size=1, rank=0),
+          'a process group was already up before phase 15')
+    try:
+        result = {'pipeline': phase_pipeline_lm(tmp, seed, make_mesh(('stage', 'data'), (1, 1)))}
+        data_mesh = make_mesh(('data',), (1,))
+        result['mnist_mesh'] = phase_mnist_mesh(tmp, seed, data_mesh)
+        result['stream_mesh'] = phase_mnist_stream_mesh(tmp, seed, data_mesh)
+    finally:
+        dist.destroy_process_group()
+    result['phase_s'] = time.perf_counter() - start
+    return result
+
+
+def data_pipeline_lines(result, lm, mnist_inmem, mnist_stream, card):
+    pipe, inmem, stream = result['pipeline'], result['mnist_mesh'], result['stream_mesh']
+    return [
+        'phase 15a pipelined flash LM (TorchDataLoader(batch_size={}, mesh stage x data = 1 '
+        'x 1) -> embed -> make_pipeline, {} stage of {} flash Blocks, {} microbatches -> '
+        'head; stage shift {}): {} steps (1 warm-up): tokens/s={:.1f} step_ms(median)={:.2f} '
+        'model TFLOP/s={:.3f} MFU={:.5f} peak_memory={:.3f} GiB input_stall_fraction={:.4f} '
+        'losses {:.4f}->{:.4f} launches {}; unpipelined TransformerLM on the same rows '
+        'step_ms(median)={:.2f} (pipeline / unpipelined {:.4f}), one profiled step: {}; '
+        'first batch vs unpipelined {}; one profiled step: {} calls {}; beside phase 7 '
+        '(batch {}): tokens/s={:.1f} [{}]'.format(
+            PIPE_BATCH, pipe['stages'], LM['layers'], PIPE_MICRO, pipe['stage_shift'],
+            pipe['steps_run'], pipe['tokens_per_s'], pipe['step_ms_median'],
+            pipe['model_tflops_per_s'], pipe['mfu'], pipe['peak_memory_bytes'] / 2 ** 30,
+            pipe['input_stall_fraction'], pipe['losses'][0], pipe['losses'][-1],
+            pipe['launches'], pipe['unpipelined_step_ms'], pipe['overhead'],
+            breakdown_line(pipe['unpipelined_breakdown']),
+            {key: round(value, 7) for key, value in pipe['first_batch'].items()},
+            breakdown_line(pipe['breakdown']), pipe['breakdown']['calls'], LM_BATCH,
+            lm['tokens_per_s'], card),
+        'phase 15b MNIST InMemTorchLoader(mesh data = 1).scan_epochs (shard {} of {}, J9 '
+        'per-shard shuffle): epoch_ms(median of epochs 1-{})={:.3f} rows/s={:.1f} beside '
+        'phase 9 epoch_ms(median)={:.3f} rows/s={:.1f}; {} replays for {} epochs, '
+        'capture {:.3f} s; rows delivered once an epoch {}; first epoch graph vs eager max '
+        'rel err {:.3e} (limit {:.1e}); per-shard shuffle {:.4f} ms beside phase 9\'s J4 '
+        '{:.4f} ms [{}]'.format(
+            inmem['shard'][0], inmem['shard'][1], MESH_EPOCHS - 1, inmem['epoch_ms'],
+            inmem['rows_per_s'],
+            statistics.median(e['s'] for e in mnist_inmem['epochs']) * 1e3,
+            mnist_inmem['rows_per_s'], inmem['replays'], MESH_EPOCHS,
+            inmem['capture_s'], inmem['delivered'], inmem['first_epoch']['max_rel_err'],
+            inmem['first_epoch']['rtol'], inmem['shard_shuffle_ms'], mnist_inmem['j4_ms'],
+            card),
+        'phase 15c MNIST TorchDataLoader(mesh data = 1).scan_stream: {} chunks ({} batches) '
+        'equal to the mesh-less loader\'s bit for bit; rows/s={:.1f} (median of passes 1-{}) '
+        'beside phase 10 rows/s={:.1f}; phase 15 took {:.1f} s [{}]'.format(
+            stream['chunks'], stream['batches'], stream['rows_per_s'], MESH_STREAM_PASSES,
+            mnist_stream['rows_per_s'], result['phase_s'], card)]
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -2710,6 +3007,10 @@ def main(argv=None):
         record['moe']['phase_s'] = time.perf_counter() - phase_start
         for line in moe_lines(record['moe'], record['moe_flash'], record['one_rank'], card):
             log(line)
+        record['data_pipeline'] = phase_data_pipeline(tmp, args.seed)
+        for line in data_pipeline_lines(record['data_pipeline'], record['lm'],
+                                        record['mnist_inmem'], record['mnist_stream'], card):
+            log(line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2744,6 +3045,7 @@ def main(argv=None):
             'ngram_launches': record['ngram_lm']['launches'][counter],
             'moe_launches': record['moe_flash']['launches'][counter],
             'ring_launches': record['one_rank']['ring_launches'][counter],
+            'pipeline_launches': record['data_pipeline']['pipeline']['launches'][counter],
             'max_abs_err': flash_errors(flash_result, labels),
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
             'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],

@@ -24,8 +24,11 @@ mixing (:class:`WeightedSamplingReader`). Expert and sequence parallelism run
 over ``torch.distributed`` groups named by
 :func:`~petastorm_tpu_torch.parallel.mesh.make_mesh`
 (:mod:`~petastorm_tpu_torch.ops.sharded_moe`,
-:mod:`~petastorm_tpu_torch.ops.ring_attention`). Entry points run on CUDA
-unless the caller passes ``device='cpu'``.
+:mod:`~petastorm_tpu_torch.ops.ring_attention`), pipeline parallelism over
+its ``'stage'`` dimension (:func:`make_pipeline`), and both loaders take a
+``mesh`` and yield ``DTensor`` batches laid out by a :class:`PartitionSpec`
+(:func:`batch_sharding`; :func:`initialize_distributed` starts the group).
+Entry points run on CUDA unless the caller passes ``device='cpu'``.
 """
 
 import importlib
@@ -39,6 +42,7 @@ _EXPORTS = {
     'MnistCNN': 'petastorm_tpu_torch.models.mnist',
     'MoETransformerLM': 'petastorm_tpu_torch.models.moe',
     'NGram': 'petastorm_tpu_torch.ngram',
+    'PartitionSpec': 'petastorm_tpu_torch.parallel.mesh',
     'Reader': 'petastorm_tpu_torch.reader',
     'TorchDataLoader': 'petastorm_tpu_torch.parallel.loader',
     'TrainingCheckpointer': 'petastorm_tpu_torch.parallel.checkpoint',
@@ -47,15 +51,23 @@ _EXPORTS = {
     'Unischema': 'petastorm_tpu_torch.unischema',
     'UnischemaField': 'petastorm_tpu_torch.unischema',
     'WeightedSamplingReader': 'petastorm_tpu_torch.weighted_sampling_reader',
+    'batch_sharding': 'petastorm_tpu_torch.parallel.mesh',
     'flash_attention': 'petastorm_tpu_torch.ops.flash_attention',
     'flash_attention_segmented': 'petastorm_tpu_torch.ops.flash_attention',
+    'initialize_distributed': 'petastorm_tpu_torch.parallel.mesh',
     'make_batch_reader': 'petastorm_tpu_torch.reader',
+    'make_mesh': 'petastorm_tpu_torch.parallel.mesh',
     'make_packing_transform': 'petastorm_tpu_torch.ops.packing',
+    'make_pipeline': 'petastorm_tpu_torch.parallel.pipeline',
     'make_reader': 'petastorm_tpu_torch.reader',
     'make_torch_loader': 'petastorm_tpu_torch.parallel.loader',
+    'microbatch': 'petastorm_tpu_torch.parallel.pipeline',
     'moe_aux_total': 'petastorm_tpu_torch.models.moe',
     'moe_drop_fractions': 'petastorm_tpu_torch.models.moe',
     'pack_sequences': 'petastorm_tpu_torch.ops.packing',
+    'stack_stage_params': 'petastorm_tpu_torch.parallel.pipeline',
+    'stage_partition_specs': 'petastorm_tpu_torch.parallel.pipeline',
+    'unstack_stage_params': 'petastorm_tpu_torch.parallel.pipeline',
 }
 
 __all__ = sorted(_EXPORTS)

@@ -99,6 +99,27 @@ def transformer_state_dict_from_flax(variables):
     return out
 
 
+def block_state_dicts_from_flax(stacked):
+    """The JAX package's stacked pipeline stages (``stack_stage_params`` of
+    ``petastorm_tpu.models.transformer.Block`` params, numpy leaves with a
+    leading stages axis) -> one ``state_dict`` per stage for
+    :class:`petastorm_tpu_torch.models.transformer.Block`, converted as
+    :func:`transformer_state_dict_from_flax` converts a block."""
+    stages = len(np.asarray(stacked['Dense_0']['kernel']))
+    out = []
+    for stage in range(stages):
+        state = {}
+        for flax_name, port_name in _TRANSFORMER_BLOCK_LAYERS:
+            layer = {name: np.asarray(value)[stage]
+                     for name, value in stacked[flax_name].items()}
+            convert = _layer_norm if flax_name.startswith('LayerNorm') else _dense
+            for name, value in convert(layer).items():
+                state['{}.{}'.format(port_name, name)] = torch.from_numpy(
+                    np.array(value, dtype=np.float32))
+        out.append(state)
+    return out
+
+
 #: flax submodule name -> port submodule name of MnistCNN
 _MNIST_LAYERS = (('Conv_0', 'conv1'), ('Conv_1', 'conv2'), ('Dense_0', 'fc1'),
                  ('Dense_1', 'fc2'))

@@ -19,7 +19,8 @@ The round keys are explicit. :func:`epoch_round_keys` draws them from a
 ``torch.Generator`` seeded from ``(seed, epoch)``; the reference draws them
 with ``jax.random.randint`` from ``fold_in(PRNGKey(seed), epoch)``. The port
 does not reproduce threefry, so the same seed gives another permutation in
-the two packages (a defined difference); a test hands the port JAX's keys to
+the two packages (a defined difference, and so do the per-shard keys of a
+mesh loader's shard-local shuffle, J9); a test hands the port JAX's keys to
 compare the two.
 
 The cycle walk tests ``(x >= n).any()`` on the host after each pass, so on the
@@ -71,12 +72,18 @@ def _splitmix64(value):
     return value ^ (value >> 31)
 
 
-def epoch_round_keys(seed, epoch, rounds=_DEFAULT_ROUNDS):
+def epoch_round_keys(seed, epoch, rounds=_DEFAULT_ROUNDS, shard=None):
     """``rounds`` round keys in ``[0, 2^31 - 1)`` for epoch ``epoch`` of base
     seed ``seed``, from a CPU ``torch.Generator`` seeded from both. The CPU
     generator keeps 32 bits of its seed, so ``(seed, epoch)`` is mixed
-    (splitmix64) into those bits rather than packed side by side."""
+    (splitmix64) into those bits rather than packed side by side.
+
+    ``shard`` (a mesh loader's shard-local shuffle) mixes the shard in once
+    more, as the JAX package folds the shard into the epoch's key
+    (``fold_in(epoch_key, shard)``); None gives the single-device keys."""
     mixed = _splitmix64(_splitmix64(int(seed) & 0xFFFFFFFFFFFFFFFF) ^ (int(epoch) & _MASK32))
+    if shard is not None:
+        mixed = _splitmix64(mixed ^ (int(shard) & _MASK32))
     generator = torch.Generator().manual_seed(mixed & _MASK32)
     return torch.randint(0, KEY_LIMIT, (rounds,), generator=generator).tolist()
 

@@ -32,6 +32,8 @@ kernels' plain versions.
 import torch
 import torch.distributed as dist
 
+from petastorm_tpu_torch.parallel.mesh import Ring, process_group
+
 _NEG_INF = -1e30
 
 
@@ -52,37 +54,14 @@ def dense_attention(q, k, v, causal=False):
 
 # ----------------------------------------------------------------- the ring
 
-class _Ring(object):
-    """This rank's place in ``group``: its index, the group's size and the
-    global ranks of its neighbours."""
-
-    def __init__(self, group):
-        self.group = group
-        self.size = dist.get_world_size(group)
-        self.index = dist.get_rank(group)
-        self.next = dist.get_global_rank(group, (self.index + 1) % self.size)
-        self.prev = dist.get_global_rank(group, (self.index - 1) % self.size)
-
-    def start(self, tensors):
-        """Start sending ``tensors`` to the next rank and receiving their
-        counterparts from the previous one: ``(requests, received)``. Every
-        rank posts the same sequence, so the transfers pair up on NCCL as on
-        gloo (tags tell them apart there)."""
-        received = [torch.empty_like(x) for x in tensors]
-        ops = []
-        for tag, (x, buf) in enumerate(zip(tensors, received)):
-            ops.append(dist.P2POp(dist.isend, x.contiguous(), self.next, self.group, tag))
-            ops.append(dist.P2POp(dist.irecv, buf, self.prev, self.group, tag))
-        return (dist.batch_isend_irecv(ops) if ops else []), received
-
-    def block(self, step, causal):
-        """At ``step`` the block held came from rank ``index - step``: None
-        when the causal mask hides it, else whether it is the diagonal
-        (causal) block."""
-        source = (self.index - step) % self.size
-        if causal and source > self.index:
-            return None
-        return causal and source == self.index
+def _block_mode(ring, step, causal):
+    """At ``step`` the block held came from rank ``index - step``: None
+    when the causal mask hides it, else whether it is the diagonal
+    (causal) block."""
+    source = (ring.index - step) % ring.size
+    if causal and source > ring.index:
+        return None
+    return causal and source == ring.index
 
 
 def _wait(requests):
@@ -107,7 +86,7 @@ def _ring_forward(ring, q, k, v, segments, causal, heads):
     block = [k, v] if segments is None else [k, v, segments]
     for step in range(ring.size):
         requests, received = ring.start(block) if step < ring.size - 1 else ([], block)
-        mode = ring.block(step, causal)
+        mode = _block_mode(ring, step, causal)
         if mode is not None:
             key_segments = None if segments is None else block[2]
             o_blk, lse_blk = flash_forward(q, block[0], block[1], mode, segments, heads,
@@ -136,7 +115,7 @@ def _ring_backward(ring, do, q, k, v, o, lse, segments, causal, heads):
         # the next block, and the previous block's accumulators to its next rank
         moving = block if step < ring.size - 1 else []
         requests, received = ring.start(moving + acc)
-        mode = ring.block(step, causal)   # never None at step 0: the diagonal
+        mode = _block_mode(ring, step, causal)   # never None at step 0: the diagonal
         contribution = None
         if mode is not None:
             key_segments = None if segments is None else block[2]
@@ -197,7 +176,6 @@ def ring_attention(q, k, v, group, causal=False, segments=None):
         within a segment and padding rows return zeros. The ids travel with
         their K/V blocks.
     """
-    from petastorm_tpu_torch.parallel.mesh import process_group
     if not q.shape == k.shape == v.shape or q.dim() != 4:
         raise ValueError('ring_attention takes equal [B, T_local, H, D] q, k, v; got {}, '
                          '{}, {}'.format(tuple(q.shape), tuple(k.shape), tuple(v.shape)))
@@ -206,7 +184,7 @@ def ring_attention(q, k, v, group, causal=False, segments=None):
             raise ValueError('segments must be [B, T_local] = {}, got {}'.format(
                 tuple(q.shape[:2]), tuple(segments.shape)))
         segments = segments.to(device=q.device, dtype=torch.int32).contiguous()
-    ring = _Ring(process_group(group))
+    ring = Ring(process_group(group))
     return _RingAttention.apply(q, k, v, segments, ring, bool(causal))
 
 

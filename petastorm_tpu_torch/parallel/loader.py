@@ -1,7 +1,6 @@
 """TorchDataLoader: reader -> batches of torch tensors on the card, with a
 prefetching producer thread, one pinned upload per batch and input-stall
-accounting. The counterpart of ``petastorm_tpu.parallel.loader.JaxDataLoader``
-for one device.
+accounting. The counterpart of ``petastorm_tpu.parallel.loader.JaxDataLoader``.
 
 - Batches are assembled columnar on the host (numpy), optionally through the
   seeded shuffling buffer, which draws the same stream as the JAX loader's.
@@ -28,9 +27,21 @@ yielded to the caller (uploaded or queued batches do not count), and the
 state resumes a reader through ``resume_state=``. :func:`make_torch_loader`
 builds the reader and the loader in one call.
 
-Left for later slices, and absent from the signature: meshes and partition
-specs (one device here), telemetry/SLO/incident/history hooks, lineage
-stamping and autotuning knobs beyond ``set_prefetch``/``set_device_buffer_depth``.
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``), each field of a
+batch is a ``DTensor`` made by ``DTensor.from_local`` from this rank's rows
+with the placements of ``partition_spec`` (:class:`FieldShardings`): no
+collective runs in the input path, as ``make_array_from_process_local_data``
+runs none in the JAX loader. ``batch_size`` counts this rank's rows. The
+reader decides which rows a rank holds: shard it by the coordinate of the
+mesh dimension that splits the batch
+(:func:`~petastorm_tpu_torch.parallel.mesh.mesh_shard_info`), not by the
+global rank, so that the ranks along the other dimensions (``'stage'`` of a
+``('stage', 'data')`` mesh) read the same rows, which their placements
+declare replicated. ``device_put=False`` yields host numpy batches.
+
+Left for later slices, and absent from the signature: telemetry/SLO/incident/
+history hooks, lineage stamping, ``coalesce_fields`` and autotuning knobs
+beyond ``set_prefetch``/``set_device_buffer_depth``.
 """
 
 import collections
@@ -38,6 +49,7 @@ import queue
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -132,7 +144,7 @@ class TorchDataLoader(object):
         *shape)``. A reader without ``iter_columnar`` (a
         :class:`~petastorm_tpu_torch.WeightedSamplingReader`) is read through
         its batches or rows, and then :meth:`state_dict` is refused.
-    :param batch_size: rows per emitted batch.
+    :param batch_size: rows per emitted batch on this rank.
     :param shuffling_queue_capacity: >0 enables a random shuffling buffer of
         that many rows.
     :param min_after_retrieve: decorrelation floor (default capacity // 2).
@@ -148,17 +160,30 @@ class TorchDataLoader(object):
         training step.
     :param host_decode: with ``device='cpu'``, decode raw-shipped fields through
         the codecs' host math instead of the device path.
+    :param mesh: optional ``DeviceMesh`` (on the loader's device type): each
+        field becomes a ``DTensor`` over it (see the module docstring).
+    :param partition_spec: a :class:`~petastorm_tpu_torch.parallel.mesh.PartitionSpec`
+        (or tuple) for every field, default the batch dimension over the
+        mesh's first dimension; or a dict ``{field: spec}``, the other fields
+        on the default. Needs a mesh.
+    :param device_put: False yields host numpy batches (no upload).
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0,
                  min_after_retrieve=None, seed=None, pad_ragged=None, prefetch=2,
                  drop_last=True, device=None, device_transforms=None,
-                 device_buffer_depth=2, host_decode=False):
+                 device_buffer_depth=2, host_decode=False, mesh=None, partition_spec=None,
+                 device_put=True):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1')
         self.reader = reader
         self.batch_size = batch_size
         self.device = resolve_device(device)
+        self._shardings = resolve_shardings(mesh, partition_spec, self.device)
+        self._device_put = device_put
+        if not device_put and getattr(reader, 'device_decode_fields', None):
+            raise ValueError('device_put=False yields host batches; a reader with '
+                             'device_decode_fields decodes on the device')
         if host_decode and self.device.type != 'cpu':
             raise ValueError('host_decode applies to device="cpu" only; on the card '
                              'raw-shipped fields always decode on the device')
@@ -184,7 +209,7 @@ class TorchDataLoader(object):
         self._delivered_by_epoch = {}
         self._scan_stream_used = False
         self._stream = (torch.cuda.Stream(device=self.device)
-                        if self.device.type == 'cuda' else None)
+                        if self.device.type == 'cuda' and device_put else None)
         self._scan_stream_programs = ProgramCache(
             _SCAN_STREAM_CACHE_MAX,
             'scan_stream built more than {limit} distinct (step_fn, chunk-shape) programs; '
@@ -247,6 +272,8 @@ class TorchDataLoader(object):
                     consumer.wait_event(done)
                     for tensor in batch.values():
                         tensor.record_stream(consumer)
+                if self._shardings is not None and self._device_put:
+                    batch = self._shardings.distribute(batch)
                 self._mark_delivered(rows)
                 yield batch
         finally:
@@ -336,6 +363,9 @@ class TorchDataLoader(object):
 
     def _emit(self, columns, out_queue, stop_event):
         rows = _num_rows(columns)
+        if not self._device_put:
+            self._put((columns, rows, None), out_queue, stop_event)
+            return
         stage = self._device_stage
         recipe = None
         if stage is not None and not stage.host_mode:
@@ -385,6 +415,10 @@ class TorchDataLoader(object):
         The counterpart of ``JaxDataLoader.scan_stream``, whose chunk is one
         ``lax.scan`` dispatch.
 
+        With a mesh each step's batch is a ``DTensor`` with the loader's
+        placements, as in ``__iter__`` (the JAX chunk's scan axis is
+        replicated, so each step keeps the batch's spec).
+
         Rows are shuffled within each chunk by
         ``np.random.RandomState((seed + chunk_index) % 2**31).permutation``,
         the JAX package's order. The trailing smaller chunk runs through a
@@ -408,6 +442,9 @@ class TorchDataLoader(object):
                              'the loader with shuffling_queue_capacity=0')
         if chunk_batches < 1:
             raise ValueError('chunk_batches must be >= 1')
+        if not self._device_put:
+            raise ValueError('scan_stream runs device programs; it does not support '
+                             'device_put=False (use __iter__ for host batches)')
         if not self._drop_last:
             raise ValueError('scan_stream always drops the sub-batch-size remainder '
                              '(static shapes); construct the loader with '
@@ -495,8 +532,13 @@ class TorchDataLoader(object):
         buffer = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=self.device)
         views = {name: buffer[start:start + col.nbytes].view(torch_dtype(col.dtype))
                  .view(col.shape) for name, start, col in layout}
-        program = StepProgram(step_fn, lambda i: {name: view[i] for name, view in views.items()},
-                              n_batches, state, self.device)
+        shardings = self._shardings
+
+        def batch_of(i):
+            batch = {name: view[i] for name, view in views.items()}
+            return batch if shardings is None else shardings.distribute(batch)
+
+        program = StepProgram(step_fn, batch_of, n_batches, state, self.device)
         return program, buffer, _layout_key(chunk)
 
     # ---------------------------------------------------------------- checkpoint
@@ -629,6 +671,61 @@ class TorchDataLoader(object):
     def __exit__(self, exc_type, exc_val, exc_tb):
         self.stop()
         self.join()
+
+
+class FieldShardings(object):
+    """DTensor placements of a batch's fields on ``mesh``, the counterpart of
+    the JAX loader's ``FieldShardings``: the fields a dict ``partition_spec``
+    names get their spec, every other field the default (the batch dimension
+    over the mesh's first dimension)."""
+
+    def __init__(self, mesh, partition_spec):
+        from petastorm_tpu_torch.parallel.mesh import PartitionSpec, batch_sharding
+        self.mesh = mesh
+        default = PartitionSpec(mesh.mesh_dim_names[0])
+        per_field = partition_spec if isinstance(partition_spec, dict) else {}
+        self._per_field = {name: batch_sharding(mesh, default if spec is None else spec)
+                           for name, spec in per_field.items()}
+        self._default = batch_sharding(
+            mesh, default if partition_spec is None or per_field else partition_spec)
+        self._checked = False
+
+    def placements(self, name):
+        return self._per_field.get(name, self._default)
+
+    def check_unused(self, field_names):
+        """Warn about spec keys that match no batch field (a typo would leave
+        its field on the default)."""
+        unused = set(self._per_field) - set(field_names)
+        if unused:
+            warnings.warn('partition_spec keys {} match no batch field (fields: {}); those '
+                          'fields fall back to the default batch-axis sharding'
+                          .format(sorted(unused), sorted(field_names)))
+
+    def distribute(self, batch):
+        """``{name: DTensor}`` from this rank's ``{name: tensor}``: no
+        collective (``run_check=False``), so also inside a CUDA graph
+        capture. The first call checks the spec's keys."""
+        from torch.distributed.tensor import DTensor
+        if not self._checked:
+            self._checked = True
+            self.check_unused(batch.keys())
+        return {name: DTensor.from_local(tensor, self.mesh, self.placements(name),
+                                         run_check=False)
+                for name, tensor in batch.items()}
+
+
+def resolve_shardings(mesh, partition_spec, device):
+    """:class:`FieldShardings` of ``mesh`` (None without one); a spec without
+    a mesh, or a mesh on another device type than ``device``, raises."""
+    if mesh is None:
+        if partition_spec is not None:
+            raise ValueError('partition_spec requires a mesh')
+        return None
+    if mesh.device_type != device.type:
+        raise ValueError('the mesh is on {} but the loader on {}'.format(mesh.device_type,
+                                                                        device))
+    return FieldShardings(mesh, partition_spec)
 
 
 def packed_layout(columns):
@@ -813,16 +910,23 @@ def _pad_column(col, target_shape, name):
 def make_torch_loader(dataset_url_or_urls, batch_size, batched=True, loader_kwargs=None,
                       **reader_kwargs):
     """Reader and :class:`TorchDataLoader` in one call, the counterpart of
-    ``make_jax_loader`` (one device: no mesh or partition spec).
+    ``make_jax_loader``.
     ``batched=True`` reads through ``make_batch_reader`` (native Parquet),
     ``batched=False`` through ``make_reader`` (codec decode); ``reader_kwargs``
     go to the reader (``resume_state=`` among them) and ``loader_kwargs`` to the
     loader, whose ``device`` is CUDA unless ``'cpu'`` is given. Without
     explicit ``cur_shard``/``shard_count`` the shard comes from
-    :func:`~petastorm_tpu_torch.parallel.mesh.distributed_shard_info`."""
+    :func:`~petastorm_tpu_torch.parallel.mesh.distributed_shard_info`; with a
+    ``mesh`` in ``loader_kwargs`` they must be given
+    (:func:`~petastorm_tpu_torch.parallel.mesh.mesh_shard_info` of the
+    dimension that splits the batch)."""
     from petastorm_tpu_torch.parallel.mesh import distributed_shard_info
     from petastorm_tpu_torch.reader import make_batch_reader, make_reader
     loader_kwargs = dict(loader_kwargs or {})
+    if loader_kwargs.get('mesh') is not None and 'shard_count' not in reader_kwargs:
+        raise ValueError('with a mesh pass cur_shard and shard_count: the coordinate of '
+                         'the mesh dimension that splits the batch (mesh_shard_info), '
+                         'not the global rank')
     # the device is checked before the reader starts its workers
     loader_kwargs['device'] = resolve_device(loader_kwargs.get('device'))
     cur_shard, shard_count = distributed_shard_info(

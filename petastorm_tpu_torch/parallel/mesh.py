@@ -12,10 +12,22 @@
   row-major order, so within each dimension's group the group rank is the
   index along that dimension: the order ``all_to_all_single`` splits in.
 - :func:`process_group`: the group such an op runs over, given a group or a
-  one-dimensional ``DeviceMesh``.
-
-``batch_sharding`` and the loader's partition specs come with the loader's
-mesh path.
+  one-dimensional ``DeviceMesh``; :class:`Ring`: a rank's neighbours in
+  such a group and the paired send/receive to them that ring attention and
+  the pipeline's shift use.
+- :class:`PartitionSpec`, a copy of JAX's: one mesh dimension name (or a
+  tuple of names, or None) per tensor dimension. :func:`batch_sharding`
+  turns one into the DTensor placements the loaders put on their batches:
+  ``Shard(d)`` on the mesh dimension that names tensor dimension ``d``,
+  ``Replicate()`` on every other.
+- :func:`initialize_distributed`, the counterpart of the JAX package's gate
+  over ``jax.distributed.initialize``: ``init_process_group`` with NCCL on
+  the card (``gloo`` only for ``device='cpu'``), a no-op when a group is up.
+- :func:`mesh_shard_info`: a reader's ``(cur_shard, shard_count)`` from one
+  mesh dimension. On a ``('stage', 'data')`` mesh the reader is sharded by
+  the data coordinate, not by the global rank
+  (:func:`distributed_shard_info`): the stage ranks of one data coordinate
+  read the same rows, as the JAX package replicates a batch over ``stage``.
 """
 
 import math
@@ -93,3 +105,110 @@ def process_group(group):
     if group is None:
         raise ValueError('a process group is required')
     return group
+
+
+class Ring(object):
+    """This rank's place in ``group``: its index, the group's size and the
+    global ranks of its neighbours."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.index = dist.get_rank(group)
+        self.next = dist.get_global_rank(group, (self.index + 1) % self.size)
+        self.prev = dist.get_global_rank(group, (self.index - 1) % self.size)
+
+    def start(self, tensors, reverse=False):
+        """Start sending ``tensors`` to the next rank and receiving their
+        counterparts from the previous one (``reverse``: to the previous,
+        from the next): ``(requests, received)``. Every rank posts the same
+        sequence, so the transfers pair up on NCCL as on gloo (tags tell them
+        apart there)."""
+        import torch
+        import torch.distributed as dist
+        to, source = (self.prev, self.next) if reverse else (self.next, self.prev)
+        received = [torch.empty_like(x) for x in tensors]
+        ops = []
+        for tag, (x, buf) in enumerate(zip(tensors, received)):
+            ops.append(dist.P2POp(dist.isend, x.contiguous(), to, self.group, tag))
+            ops.append(dist.P2POp(dist.irecv, buf, source, self.group, tag))
+        return (dist.batch_isend_irecv(ops) if ops else []), received
+
+
+class PartitionSpec(tuple):
+    """A tuple with one entry per tensor dimension: the name of the mesh
+    dimension that shards it, a tuple of such names (sharded over their
+    product, the first outermost), or None (not sharded). A copy of JAX's
+    ``PartitionSpec``; a plain tuple of the same entries works too."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return 'PartitionSpec{}'.format(tuple.__repr__(self))
+
+
+def spec_axes(entry):
+    """The mesh dimension names of one spec entry, in order."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
+
+
+def batch_sharding(mesh, partition_spec=None, batch_axis='data'):
+    """The DTensor placements, one per mesh dimension, of a tensor laid out
+    by ``partition_spec`` on ``mesh`` (default: ``PartitionSpec(batch_axis)``,
+    the batch dimension over ``batch_axis``): ``Shard(d)`` where the mesh
+    dimension names tensor dimension ``d``, ``Replicate()`` elsewhere. An
+    unknown or repeated mesh dimension raises ``ValueError``."""
+    from torch.distributed.tensor import Replicate, Shard
+    if partition_spec is None:
+        partition_spec = PartitionSpec(batch_axis)
+    names = tuple(mesh.mesh_dim_names or ())
+    placements = [Replicate()] * len(names)
+    seen = set()
+    for dim, entry in enumerate(partition_spec):
+        for axis in spec_axes(entry):
+            if axis not in names:
+                raise ValueError('partition spec {} names {!r}, which is not a dimension of '
+                                 'the mesh {}'.format(partition_spec, axis, names))
+            if axis in seen:
+                raise ValueError('partition spec {} uses mesh dimension {!r} twice'
+                                 .format(partition_spec, axis))
+            seen.add(axis)
+            placements[names.index(axis)] = Shard(dim)
+    return tuple(placements)
+
+
+def mesh_shard_info(mesh, axis='data'):
+    """``(cur_shard, shard_count)`` for a reader fed to ``mesh``: this rank's
+    coordinate along ``axis`` and the dimension's size."""
+    return mesh.get_local_rank(axis), mesh[axis].size()
+
+
+def initialize_distributed(init_method=None, world_size=None, rank=None, device=None):
+    """``torch.distributed.init_process_group`` for this process, safe to call
+    when a group is already up (then it does nothing). The backend is NCCL
+    on the card and ``gloo`` only with ``device='cpu'``; CUDA without a card
+    raises, as every entry point does. ``init_method`` None reads
+    ``MASTER_ADDR``/``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE`` (as
+    ``torchrun`` sets them); a ``file://`` or ``tcp://localhost:<port>`` URL
+    needs ``world_size`` and ``rank``. Returns whether it started a group,
+    so that the caller destroys only a group it started."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.parallel.loader import resolve_device
+    device = resolve_device(device)
+    if dist.is_initialized():
+        return False
+    kwargs = {}
+    if world_size is not None:
+        kwargs['world_size'] = int(world_size)
+    if rank is not None:
+        kwargs['rank'] = int(rank)
+    dist.init_process_group('nccl' if device.type == 'cuda' else 'gloo',
+                            init_method=init_method, **kwargs)
+    return True

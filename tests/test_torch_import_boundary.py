@@ -1,4 +1,4 @@
-"""petastorm_tpu_torch and chip_smoke.py import neither JAX (jax, flax, optax,
+"""petastorm_tpu_torch, chip_smoke.py and examples/moe/torch_example.py import neither JAX (jax, flax, optax,
 orbax) nor anything of the JAX package (``petastorm_tpu`` or ``petastorm_tpu.*``; the
 port's own name shares that prefix, so matches are on whole module names), and
 neither do the process pool's spawned workers, which load no torch either."""
@@ -22,7 +22,8 @@ def _forbidden(module):
 
 
 def _scanned_files():
-    files = [os.path.join(REPO, 'chip_smoke.py')]
+    files = [os.path.join(REPO, 'chip_smoke.py'),
+             os.path.join(REPO, 'examples', 'moe', 'torch_example.py')]
     for root, _, names in os.walk(PORT):
         files.extend(os.path.join(root, n) for n in names if n.endswith('.py'))
     return sorted(files)
@@ -56,6 +57,7 @@ def test_forbidden_matches_whole_module_names():
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = _scanned_files()
     assert os.path.join(REPO, 'chip_smoke.py') in files and len(files) > 20
+    assert os.path.join(REPO, 'examples', 'moe', 'torch_example.py') in files
     offenders = [(os.path.relpath(path, REPO), name) for path in files
                  for name in _imports(path) if _forbidden(name)]
     assert not offenders

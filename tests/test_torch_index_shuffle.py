@@ -1,7 +1,10 @@
 """J4 on the CPU: the port's random_index_shuffle against the JAX package's,
 bit for bit, given the round keys JAX draws (``jax.random.randint`` of the
 folded epoch key, as ``petastorm_tpu/ops/index_shuffle.py`` does), over full
-and windowed positions; and the port's own epoch keys."""
+and windowed positions, and over a mesh loader's shards (J9: the key of
+epoch and shard, ``fold_in(fold_in(PRNGKey(seed), epoch), shard)``, vmapped
+over the shards as ``petastorm_tpu/parallel/inmem_loader.py`` does); and the
+port's own epoch and per-shard keys."""
 
 import jax
 import jax.numpy as jnp
@@ -68,3 +71,32 @@ def test_rejects_bad_arguments():
     for keys in ([], [1, 2, 3, -1], [1, 2, 3, KEY_LIMIT]):
         with pytest.raises(ValueError, match='round_keys'):
             random_index_shuffle(torch.arange(3), keys, 3)
+
+
+def jax_shard_permutations(seed, epoch, shards, rows):
+    """The JAX mesh loader's shard-local permutations of one epoch and the
+    round keys each shard's shuffle draws."""
+    import jax
+    from petastorm_tpu.ops.index_shuffle import random_index_shuffle as reference
+    epoch_key = jax.random.fold_in(jax.random.PRNGKey(seed), epoch)
+    keys = jax.vmap(lambda s: jax.random.fold_in(epoch_key, s))(jnp.arange(shards))
+    perms = jax.vmap(lambda key: reference(jnp.arange(rows), key, rows))(keys)
+    round_keys = [[int(k) for k in np.asarray(jax.random.randint(
+        keys[s], (4,), 0, np.iinfo(np.int32).max, dtype=jnp.int32))] for s in range(shards)]
+    return np.asarray(perms), round_keys
+
+
+@pytest.mark.parametrize('shards,rows', [(4, 25), (8, 12), (2, 4097)])
+def test_shard_permutations_are_bit_exact_given_jax_keys(shards, rows):
+    want, round_keys = jax_shard_permutations(3, 1, shards, rows)
+    for shard in range(shards):
+        got = random_index_shuffle(torch.arange(rows), round_keys[shard], rows)
+        np.testing.assert_array_equal(got.numpy(), want[shard])
+
+
+def test_shard_round_keys_differ_by_shard_and_keep_the_epoch_keys():
+    keys = [epoch_round_keys(7, 2, shard=s) for s in range(4)]
+    assert len({tuple(k) for k in keys}) == 4
+    assert all(0 <= k < KEY_LIMIT for ks in keys for k in ks)
+    assert epoch_round_keys(7, 2) not in keys
+    assert epoch_round_keys(7, 2, shard=1) == keys[1] != epoch_round_keys(7, 3, shard=1)

@@ -37,6 +37,44 @@ def test_batch_sequence_matches_jax(store, capacity, drop_last, shuffle_rows):
     assert 0.0 <= stats['input_stall_fraction'] <= 1.0
 
 
+@pytest.fixture(scope='module')
+def ragged_store(tmp_path_factory):
+    """Two ragged NdarrayCodec fields, (None,) int32 and (None, 3) float32."""
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.etl.dataset_metadata import write_rows
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    url = 'file://' + str(tmp_path_factory.mktemp('ragged') / 'store')
+    schema = Unischema('Ragged', [
+        UnischemaField('idx', np.int64, (), ScalarCodec(), False),
+        UnischemaField('ids', np.int32, (None,), NdarrayCodec(), False),
+        UnischemaField('points', np.float32, (None, 3), NdarrayCodec(), False)])
+    rng = np.random.RandomState(2)
+    rows = []
+    for i in range(30):
+        n, m = rng.randint(1, 9), rng.randint(1, 6)
+        rows.append({'idx': i, 'ids': rng.randint(0, 1000, n).astype(np.int32),
+                     'points': rng.randn(m, 3).astype(np.float32)})
+    write_rows(url, schema, rows, n_files=3)
+    return url
+
+
+@pytest.mark.parametrize('capacity', [0, 10])
+def test_pad_ragged_matches_jax(ragged_store, capacity):
+    pad = {'ids': (8,), 'points': (5, 3)}
+    reader_kwargs = dict(seed=4, shuffle_row_groups=True)
+    loader_kwargs = dict(batch_size=7, shuffling_queue_capacity=capacity, seed=6,
+                         drop_last=False, pad_ragged=pad)
+    ours, _ = port_batches(ragged_store, reader_kwargs, **loader_kwargs)
+    theirs, _ = jax_batches(ragged_store, reader_kwargs, device_put=False, **loader_kwargs)
+    assert len(ours) == len(theirs) == -(-30 // 7)
+    for got, want in zip(ours, theirs):
+        assert sorted(got) == sorted(want) == ['ids', 'ids_len', 'idx', 'points', 'points_len']
+        for key in want:
+            assert got[key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert sorted(np.concatenate([b['idx'] for b in ours]).tolist()) == list(range(30))
+
+
 @pytest.mark.parametrize('cur_shard', [0, 1])
 def test_shard_matches_jax(store, cur_shard):
     reader_kwargs = dict(schema_fields=NUMERIC, seed=3, cur_shard=cur_shard, shard_count=2)
