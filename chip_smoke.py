@@ -98,7 +98,28 @@ version on the card, then drives the port's two paths at full width:
   eager twin (15b); phase 10's stream through ``scan_stream`` over the mesh,
   bit-equal to the mesh-less loader's batches (15c). The stage shift to
   itself is skipped at one stage; the P2P schedule across stages is held by
-  the CPU tests.
+  the CPU tests;
+- the reference petastorm's user surface (phase 16): phase 7's 64 token rows
+  as a ``pyarrow.Table`` -> ``make_converter`` -> ``make_torch_loader``
+  (one worker, rowgroups in order) -> phase 7's LM for 1 + 8 Adam steps,
+  every batch the table's rows in order, K2-K4 layers x steps each, a second
+  conversion a cache hit and ``delete()`` removing the store (16a); phase
+  9's 50,000 MNIST rows as a table (``image`` a ``list<uint8>`` of 784)
+  through ``make_torch_dataloader`` (``BatchedDataLoader``), phase 9's store
+  through ``DataLoader(make_reader(...))`` and the converter's store through
+  ``InMemBatchedDataLoader(make_batch_reader(...), num_epochs=2)``, all onto
+  the card into eager ``MnistCNN`` steps, each epoch's ``idx`` values
+  distinct (16b); phase 5's store through
+  ``make_batch_reader(device_decode_fields=['image', 'embedding'])`` ->
+  phase 5's loader and ResNet-50, K1 on every batch, the first two decoded
+  batches bit-equal to ``make_reader``'s, coalesced and field by field, and
+  a plain store refused (16c); the example twins' ``main(argv)`` in this
+  process: the long-context twin ``--packed`` at phase 8's width (segmented
+  K2-K4 through the ring at one rank), the ImageNet twin
+  ``--on-chip-decode`` at ResNet-50's width on 256 synthetic 224x224 DCT
+  rows, the MNIST twin ``--inmem`` and the converter twin, each ending with
+  a finite loss (16d). It prints first whether ``cv2``, ``pandas`` and
+  ``dill`` import.
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -147,6 +168,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 
 import numpy as np
@@ -159,15 +181,15 @@ from torch.distributed.tensor import DTensor
 
 from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, NGram,
                                  TorchDataLoader, TrainingCheckpointer, TransformerLM,
-                                 cuda_build, make_packing_transform, make_reader,
-                                 make_torch_loader)
+                                 cuda_build, make_batch_reader, make_converter,
+                                 make_packing_transform, make_reader, make_torch_loader)
 from petastorm_tpu_torch.benchmark.lm_data import (FRAME_STREAM_INDEX, full_bin_rowgroups,
-                                                   ragged_documents, write_frame_store,
-                                                   write_packed_store, write_ragged_store,
-                                                   write_token_store)
+                                                   ragged_documents, token_rows,
+                                                   write_frame_store, write_packed_store,
+                                                   write_ragged_store, write_token_store)
 from petastorm_tpu_torch.benchmark.mfu import (mfu, moe_transformer_train_flops_per_step,
                                                transformer_train_flops_per_step)
-from petastorm_tpu_torch.benchmark.mnist_data import write_mnist_store
+from petastorm_tpu_torch.benchmark.mnist_data import mnist_rows, write_mnist_store
 from petastorm_tpu_torch.benchmark.stored_plan import plan_ms, stored_frames
 from petastorm_tpu_torch.codecs import CompressedNdarrayCodec, DctImageCodec, ScalarCodec
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
@@ -187,6 +209,7 @@ from petastorm_tpu_torch.parallel.mesh import (PartitionSpec, initialize_distrib
                                                make_mesh, mesh_shard_info)
 from petastorm_tpu_torch.parallel.pipeline import blocks_stage_fn, make_pipeline, microbatch
 from petastorm_tpu_torch.predicates import in_pseudorandom_split
+from petastorm_tpu_torch.pytorch import DataLoader, InMemBatchedDataLoader
 from petastorm_tpu_torch.selectors import SingleIndexSelector
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.workers.process_pool import ProcessPool
@@ -500,9 +523,10 @@ def phase_k1(batch, seed):
     return result
 
 
-def phase_main_path(url, args, reader_pool=None, inspect=None):
+def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_reader):
     """One epoch of the main path; returns its measurements and the (idx,
-    label, embedding) it delivered. The reader runs on a thread pool of
+    label, embedding) it delivered. The reader (``factory``: ``make_reader``,
+    or ``make_batch_reader`` for phase 16c) runs on a thread pool of
     ``args.workers``, or on ``reader_pool``; ``inspect(reader)`` runs once the
     first batch arrived. ``first_batch_s`` is the time from the reader's
     construction (a process pool's spawn included) to the first batch."""
@@ -529,9 +553,12 @@ def phase_main_path(url, args, reader_pool=None, inspect=None):
     reset_counts()
     open_start = time.perf_counter()
     first_batch_s = None
-    with make_reader(url, reader_pool_type='thread', workers_count=args.workers,
-                     reader_pool=reader_pool, seed=args.seed,
-                     device_decode_fields=['image', 'embedding']) as reader:
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')   # make_batch_reader on a Unischema store
+        reader = factory(url, reader_pool_type='thread', workers_count=args.workers,
+                         reader_pool=reader_pool, seed=args.seed,
+                         device_decode_fields=['image', 'embedding'])
+    with reader:
         loader = TorchDataLoader(reader, batch_size=args.batch,
                                  device_transforms={'image': transform})
         start = time.perf_counter()
@@ -2835,6 +2862,343 @@ def data_pipeline_lines(result, lm, mnist_inmem, mnist_stream, card):
             mnist_stream['rows_per_s'], result['phase_s'], card)]
 
 
+# ----------------------------------------- the reference petastorm's API (phase 16)
+
+#: the example twins driven in-process by phase 16d
+TWINS = ('long_context', 'imagenet', 'mnist', 'converter')
+
+
+def optional_imports():
+    """Whether each module that the port imports only where it is needed
+    (``cv2``, ``pandas``, ``dill``) imports on this machine."""
+    found = {}
+    for name in ('cv2', 'pandas', 'dill'):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
+def token_table():
+    """Phase 7's 64 rows of int32 (8192,) tokens as a ``pyarrow.Table``:
+    ``doc_id`` int64 and ``tokens`` ``list<int32>``."""
+    tokens = np.stack(token_rows(LM_ROWS, LM['max_len']))
+    offsets = np.arange(0, tokens.size + 1, LM['max_len'], dtype=np.int32)
+    return pa.table({'doc_id': pa.array(np.arange(LM_ROWS, dtype=np.int64)),
+                     'tokens': pa.ListArray.from_arrays(offsets, tokens.reshape(-1))}), tokens
+
+
+def recorded(batches, seen):
+    """``batches``, each one's ``doc_id`` and ``tokens`` kept in ``seen`` on
+    the host (a readback a step, outside the step's own time)."""
+    for batch in batches:
+        seen.append((batch['doc_id'].cpu().numpy(), batch['tokens'].cpu().numpy()))
+        yield batch
+
+
+def store_files(path):
+    """``{file name: mtime_ns}`` of every file in a store directory."""
+    return {name: os.stat(os.path.join(path, name)).st_mtime_ns
+            for name in sorted(os.listdir(path))}
+
+
+def phase_converter_lm(tmp, seed):
+    """16a: phase 7's tokens as an Arrow table -> make_converter ->
+    make_torch_loader (one worker, rowgroups in order) -> phase 7's LM with
+    the flash kernels and Adam for 1 + LM_STEPS steps, then the rest of the
+    epoch. Every batch must be the table's rows in order; K2-K4 launch layers
+    x steps times each; a second make_converter of the table is a cache hit
+    that writes nothing, and delete() removes the store."""
+    table, tokens = token_table()
+    parent = os.path.join(tmp, 'converter_cache')
+    start = time.perf_counter()
+    converter = make_converter(table, parent_cache_dir_url='file://' + parent)
+    convert_s = time.perf_counter() - start
+    store = converter.cache_dir_url.replace('file://', '')
+    before = store_files(store)
+    again = make_converter(table, parent_cache_dir_url='file://' + parent)
+    check(again.cache_dir_url == converter.cache_dir_url
+          and again.file_urls == converter.file_urls and store_files(store) == before,
+          'a second make_converter of the same table was not a cache hit')
+    torch.manual_seed(seed)
+    model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+    flops = transformer_train_flops_per_step(LM_BATCH, LM['max_len'], LM['vocab'],
+                                             LM['embed'], LM['layers'])
+    seen = []
+    with converter.make_torch_loader(
+            batch_size=LM_BATCH, shuffle_row_groups=False, workers_count=1,
+            loader_kwargs={'pad_ragged': {'tokens': (LM['max_len'],)}}) as loader:
+        batches = recorded(iter(loader), seen)
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases left allocated counts in the peak too
+        at_reset = torch.cuda.memory_allocated()
+        reset_counts()
+        losses, step_s, window_s = train_lm(
+            batches, optimizer, LM_STEPS + 1,
+            lambda batch: next_token_loss(model(batch['tokens']), batch['tokens']))
+        counts = read_counts()
+        stats = loader.stats.as_dict()
+        for _ in batches:   # the rest of the epoch
+            pass
+    result = lm_metrics(losses, step_s, window_s, stats, LM_BATCH * LM['max_len'], flops)
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    expected = LM['layers'] * result['steps_run']
+    check(all(n == expected for n in launches.values()) and counts['dense_fallbacks'] == 0,
+          'converter LM: flash kernels launched {} times ({} dense), expected {} each'
+          .format(launches, counts['dense_fallbacks'], expected))
+    check(all(np.isfinite(losses)), 'non-finite converter LM loss {}'.format(losses))
+    doc_ids = np.concatenate([ids for ids, _ in seen])
+    check(doc_ids.tolist() == list(range(LM_ROWS))
+          and np.array_equal(np.concatenate([t for _, t in seen]), tokens),
+          'the converter loader\'s batches are not the table\'s rows in order')
+    converter.delete()
+    check(not os.path.exists(store), 'delete() left the converter store behind')
+    result.update(convert_s=convert_s, launches=launches, counts=counts,
+                  rows_checked=int(doc_ids.size), store_files=len(before),
+                  memory_at_reset_bytes=at_reset)
+    return result
+
+
+def mnist_table(seed):
+    """Phase 9's 50,000 MNIST rows as a ``pyarrow.Table``: ``idx`` and
+    ``digit`` int64, ``image`` ``list<uint8>`` of 784 values."""
+    rows = mnist_rows(MNIST_ROWS, seed)
+    images = np.stack([row['image'] for row in rows]).reshape(-1)
+    offsets = np.arange(0, images.size + 1, 784, dtype=np.int32)
+    return pa.table({
+        'idx': pa.array(np.array([row['idx'] for row in rows], dtype=np.int64)),
+        'digit': pa.array(np.array([row['digit'] for row in rows], dtype=np.int64)),
+        'image': pa.ListArray.from_arrays(offsets, images)})
+
+
+def adapter_epochs(loader, step, epochs, batches_per_epoch=None):
+    """Run ``epochs`` epochs of ``loader`` (one pass, or ``batches_per_epoch``
+    batches an epoch of one pass) through the eager ``step``; returns each
+    epoch's ``idx`` values and wall seconds (to a readback of its last
+    loss)."""
+    out = []
+    batches = iter(loader)
+    for _ in range(epochs):
+        start = time.perf_counter()
+        ids, loss = [], None
+        for index, batch in enumerate(batches):
+            check(batch['image'].device.type == 'cuda', 'an adapter batch is not on the card')
+            ids.append(batch['idx'])
+            loss = step({'image': batch['image'].reshape(-1, 28, 28),
+                         'digit': batch['digit']})
+            if batches_per_epoch is not None and index + 1 == batches_per_epoch:
+                break
+        check(loss is not None and np.isfinite(float(loss)), 'non-finite MNIST loss')
+        out.append((torch.cat(ids).cpu().numpy(), time.perf_counter() - start))
+    return out
+
+
+def phase_adapters(tmp, seed):
+    """16b: the reference API's loaders onto the card into eager MnistCNN
+    steps: one epoch of the converter's store through
+    ``make_torch_dataloader`` (BatchedDataLoader), one of phase 9's store
+    through ``DataLoader(make_reader(...))`` (row collate) and two of the
+    converter's store through ``InMemBatchedDataLoader(make_batch_reader(...),
+    num_epochs=2)``, which serves full batches only. Each epoch's ``idx``
+    values must be distinct: all 50,000 rows for the streaming loaders, every
+    full batch's worth for the in-memory one."""
+    start = time.perf_counter()
+    converter = make_converter(mnist_table(seed),
+                               parent_cache_dir_url='file://' + os.path.join(tmp, 'mnist_conv'))
+    convert_s = time.perf_counter() - start
+    model, optimizer, _, _ = mnist_model(seed + 2)
+    step = mnist_step(model, optimizer)
+    result = {'convert_s': convert_s}
+    with converter.make_torch_dataloader(batch_size=MNIST_BATCH) as loader:
+        result['batched'] = adapter_epochs(loader, step, 1)
+    with DataLoader(make_reader('file://' + os.path.join(tmp, 'mnist'), workers_count=4),
+                    batch_size=MNIST_BATCH) as loader:
+        result['rows'] = adapter_epochs(loader, step, 1)
+    full = MNIST_ROWS // MNIST_BATCH
+    loader = InMemBatchedDataLoader(make_batch_reader(converter.file_urls, workers_count=4),
+                                    batch_size=MNIST_BATCH, num_epochs=2)
+    result['inmem'] = adapter_epochs(loader, step, 2, batches_per_epoch=full)
+    converter.delete()
+    summary = {'convert_s': convert_s}
+    for name, epochs in result.items():
+        if name == 'convert_s':
+            continue
+        want = MNIST_ROWS if name != 'inmem' else full * MNIST_BATCH
+        for ids, _ in epochs:
+            check(ids.size == want and np.unique(ids).size == want
+                  and ids.min() >= 0 and ids.max() < MNIST_ROWS,
+                  '{} loader: an epoch held {} idx values ({} distinct), expected {}'
+                  .format(name, ids.size, np.unique(ids).size, want))
+        summary[name] = {'epochs': len(epochs), 'rows_per_epoch': want,
+                         'epoch_s': [s for _, s in epochs],
+                         'rows_per_s': [want / s for _, s in epochs]}
+    return summary
+
+
+def first_decoded_batches(url, factory, count, batch_size, **loader_kwargs):
+    """The first ``count`` batches of phase 5's store, rowgroups in order on
+    one worker, decoded on the card with no augment, copied to the host."""
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')   # make_batch_reader on a Unischema store
+        reader = factory(url, workers_count=1, shuffle_row_groups=False,
+                         device_decode_fields=['image', 'embedding'])
+    with reader:
+        loader = TorchDataLoader(reader, batch_size=batch_size, **loader_kwargs)
+        out = [{name: t.cpu() for name, t in batch.items()}
+               for _, batch in zip(range(count), loader)]
+        stats = loader.stats.as_dict()
+    return out, stats
+
+
+def same_batch(a, b):
+    return sorted(a) == sorted(b) and all(
+        a[name].dtype == b[name].dtype and torch.equal(a[name], b[name]) for name in a)
+
+
+def phase_batch_decode(tmp, args):
+    """16c: phase 5's store through ``make_batch_reader(device_decode_fields=
+    ['image', 'embedding'])`` -> phase 5's loader (K1, DCT decode, crop, flip,
+    bf16 normalize) -> ResNet-50 for one epoch of SGD steps (phase 5's
+    checks: K1 on every batch, every row once with its label and embedding
+    bytes); then the first two decoded batches against
+    ``make_reader(device_decode_fields=...)``'s, bit for bit, the first
+    uploaded field by field against the packed upload, and a plain store,
+    which must raise."""
+    url = 'file://' + os.path.join(tmp, 'imagenet')
+    main_path, delivered = phase_main_path(url, args, factory=make_batch_reader)
+    main_path['distinct_rows'] = check_delivered(delivered, args.seed)
+    check(main_path['distinct_rows'] == main_path['rows'] == args.rows,
+          'make_batch_reader: rows repeated or lost')
+    reset_counts()
+    ours, stats = first_decoded_batches(url, make_batch_reader, 2, args.batch)
+    rows, _ = first_decoded_batches(url, make_reader, 2, args.batch)
+    single, single_stats = first_decoded_batches(url, make_batch_reader, 1, args.batch,
+                                                 coalesce_fields=False)
+    check(len(ours) == len(rows) == 2 and all(same_batch(a, b) for a, b in zip(ours, rows)),
+          'make_batch_reader\'s decoded batches differ from make_reader\'s')
+    check(same_batch(single[0], ours[0]) and stats['coalesced_uploads'] >= 2
+          and single_stats['per_field_uploads'] >= 1 and single_stats['coalesced_uploads'] == 0,
+          'the field-by-field upload differs from the packed one ({}, {})'.format(
+              stats, single_stats))
+    refused = None
+    try:
+        make_batch_reader('file://' + os.path.join(tmp, 'ragged'),
+                          device_decode_fields=['tokens'])
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused is not None and 'requires a Unischema store' in refused,
+          'make_batch_reader(device_decode_fields=...) on a plain store did not raise')
+    main_path.update(parity_batches=len(ours), parity_k1_launches=read_counts()['stored_copy'],
+                     plain_store_refused=refused[:80])
+    return main_path
+
+
+def phase_twins(tmp, seed):
+    """16d: each example twin's ``main(argv)`` in this process, at one rank:
+    the long-context twin ``--packed`` at phase 8's width (its segmented
+    K2-K4 must launch layers x steps times each), the ImageNet twin
+    ``--on-chip-decode`` at ResNet-50's width on 256 synthetic 224x224 DCT
+    rows, the MNIST twin ``--inmem`` and the converter twin. Each must end
+    with a finite loss."""
+    from examples.long_context import torch_example as long_context
+    twins = {name: importlib.import_module(
+        'examples.{0}.torch_{1}example'.format(name, 'converter_' if name == 'converter'
+                                                 else '')) for name in TWINS}
+    ragged = os.path.join(tmp, 'twin_ragged')
+    long_context.build_ragged_dataset(ragged, num_docs=8192, max_len=48, seed=seed)
+    steps, layers = 4, LM['layers']
+    argv = {
+        'long_context': ['--packed', '--dataset-url', ragged, '--seq-len', str(LM['max_len']),
+                         '--embed', str(LM['embed']), '--heads', str(LM['heads']),
+                         '--layers', str(layers), '--dtype', 'bfloat16', '--batch-size',
+                         str(LM_BATCH), '--epochs', '1', '--max-steps', str(steps)],
+        'imagenet': ['--on-chip-decode', '--dataset-url',
+                     'file://' + os.path.join(tmp, 'twin_imagenet'), '--image-hw', '224',
+                     '--stage-sizes', '3', '4', '6', '3', '--num-filters', '64',
+                     '--batch-size', '128', '--generate-rows', '256'],
+        'mnist': ['--inmem', '--dataset-url', 'file://' + os.path.join(tmp, 'twin_mnist')],
+        'converter': ['--cache-dir', os.path.join(tmp, 'twin_converter')],
+    }
+    result = {}
+    for name in TWINS:
+        reset_counts()
+        start = time.perf_counter()
+        loss = twins[name].main(argv[name])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        counts = read_counts()
+        check(loss is not None and np.isfinite(loss),
+              '{} twin ended with loss {}'.format(name, loss))
+        result[name] = {'loss': float(loss), 'wall_s': wall_s, 'counts': counts}
+    counts = result['long_context']['counts']
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    check(all(n == layers * steps for n in launches.values())
+          and counts['dense_fallbacks'] == 0,
+          'long-context twin: flash kernels launched {}, expected {} each'
+          .format(launches, layers * steps))
+    result['long_context']['launches'] = launches
+    return result
+
+
+def reference_api_lines(result, record, card):
+    lm, loaders, decode, twins = (result[k] for k in ('converter_lm', 'adapters',
+                                                       'batch_decode', 'twins'))
+    stream = record['mnist_stream']['rows_per_s']
+    yield ('phase 16a converter -> make_torch_loader -> TransformerLM [{}x{}] bf16: {} steps '
+           '(1 warm-up) tokens/s={:.1f} step_ms(median)={:.2f} input_stall_fraction={:.4f} '
+           'peak_memory={:.3f} GiB (allocated at its reset {:.3f} GiB) losses {:.4f}->{:.4f} '
+           'launches {} ({} rows in order; '
+           'phase 7: tokens/s={:.1f} step_ms(median)={:.2f} input_stall_fraction={:.4f} '
+           'peak_memory={:.3f} GiB); cache hit, delete ok, conversion {:.3f} s [{}]'.format(
+               LM_BATCH, LM['max_len'], lm['steps_run'], lm['tokens_per_s'],
+               lm['step_ms_median'], lm['input_stall_fraction'],
+               lm['peak_memory_bytes'] / 2 ** 30, lm['memory_at_reset_bytes'] / 2 ** 30,
+               lm['losses'][0], lm['losses'][-1],
+               lm['launches'], lm['rows_checked'], record['lm']['tokens_per_s'],
+               record['lm']['step_ms_median'], record['lm']['input_stall_fraction'],
+               record['lm']['peak_memory_bytes'] / 2 ** 30, lm['convert_s'], card))
+    yield ('phase 16b reference loaders into eager MnistCNN steps, rows/s by epoch: '
+           'BatchedDataLoader (make_torch_dataloader) {} ({:.3f} of phase 10), DataLoader '
+           '(row collate) {} ({:.3f}), InMemBatchedDataLoader {} ({:.3f}); phase 10 '
+           'TorchDataLoader.scan_stream {:.1f}; each epoch\'s idx distinct; conversion '
+           '{:.3f} s [{}]'.format(
+               [round(x, 1) for x in loaders['batched']['rows_per_s']],
+               loaders['batched']['rows_per_s'][0] / stream,
+               [round(x, 1) for x in loaders['rows']['rows_per_s']],
+               loaders['rows']['rows_per_s'][0] / stream,
+               [round(x, 1) for x in loaders['inmem']['rows_per_s']],
+               statistics.median(loaders['inmem']['rows_per_s']) / stream,
+               stream, loaders['convert_s'], card))
+    yield ('phase 16c make_batch_reader(device_decode_fields) -> ResNet-50: {} steps '
+           'rows/s={:.2f} input_stall_fraction={:.4f} step_ms(median)={:.2f} K1 launches {} '
+           '(phase 5: rows/s={:.2f} input_stall_fraction={:.4f}); first {} batches equal '
+           'make_reader\'s bit for bit, coalesced and not; a plain store raises [{}]'.format(
+               decode['steps'], decode['rows_per_s'], decode['input_stall_fraction'],
+               decode['step_ms_median'], decode['k1_launches'],
+               record['main_path']['rows_per_s'], record['main_path']['input_stall_fraction'],
+               decode['parity_batches'], card))
+    yield ('phase 16d example twins, wall s (final loss): {}; long-context launches {} '
+           '[{}]'.format({name: '{:.2f} ({:.4f})'.format(twins[name]['wall_s'],
+                                                         twins[name]['loss'])
+                          for name in TWINS}, twins['long_context']['launches'], card))
+
+
+def phase_reference_api(tmp, args):
+    """Phase 16: the reference petastorm's user surface on the card."""
+    start = time.perf_counter()
+    result = {'optional_imports': optional_imports()}
+    log('phase 16 optional imports: {}'.format(result['optional_imports']))
+    result['converter_lm'] = phase_converter_lm(tmp, args.seed)
+    result['adapters'] = phase_adapters(tmp, args.seed)
+    result['batch_decode'] = phase_batch_decode(tmp, args)
+    result['twins'] = phase_twins(tmp, args.seed)
+    result['phase_s'] = time.perf_counter() - start
+    return result
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -3011,6 +3375,9 @@ def main(argv=None):
         for line in data_pipeline_lines(record['data_pipeline'], record['lm'],
                                         record['mnist_inmem'], record['mnist_stream'], card):
             log(line)
+        record['reference_api'] = phase_reference_api(tmp, args)
+        for line in reference_api_lines(record['reference_api'], record, card):
+            log(line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3021,6 +3388,7 @@ def main(argv=None):
         'replaces': 'petastorm_tpu/ops/raw_decode.py:165',
         'launches': record['main_path']['k1_launches'],
         'process_pool_launches': record['process_imagenet']['k1_launches'],
+        'batch_reader_launches': record['reference_api']['batch_decode']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
                            for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
                                         'large')),
@@ -3046,6 +3414,9 @@ def main(argv=None):
             'moe_launches': record['moe_flash']['launches'][counter],
             'ring_launches': record['one_rank']['ring_launches'][counter],
             'pipeline_launches': record['data_pipeline']['pipeline']['launches'][counter],
+            'converter_launches': record['reference_api']['converter_lm']['launches'][counter],
+            'twin_launches': record['reference_api']['twins']['long_context']['launches'][
+                counter],
             'max_abs_err': flash_errors(flash_result, labels),
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
             'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],

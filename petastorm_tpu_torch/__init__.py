@@ -28,6 +28,10 @@ over ``torch.distributed`` groups named by
 its ``'stage'`` dimension (:func:`make_pipeline`), and both loaders take a
 ``mesh`` and yield ``DTensor`` batches laid out by a :class:`PartitionSpec`
 (:func:`batch_sharding`; :func:`initialize_distributed` starts the group).
+The reference petastorm's user surface is here too: :func:`make_converter`
+(an in-memory table to a cached store and its loaders), the torch adapters
+of :mod:`~petastorm_tpu_torch.pytorch`, stores written by the reference
+petastorm (:mod:`~petastorm_tpu_torch.etl.legacy`) and the store tools.
 Entry points run on CUDA unless the caller passes ``device='cpu'``.
 """
 
@@ -56,6 +60,7 @@ _EXPORTS = {
     'flash_attention_segmented': 'petastorm_tpu_torch.ops.flash_attention',
     'initialize_distributed': 'petastorm_tpu_torch.parallel.mesh',
     'make_batch_reader': 'petastorm_tpu_torch.reader',
+    'make_converter': 'petastorm_tpu_torch.converter',
     'make_mesh': 'petastorm_tpu_torch.parallel.mesh',
     'make_packing_transform': 'petastorm_tpu_torch.ops.packing',
     'make_pipeline': 'petastorm_tpu_torch.parallel.pipeline',

@@ -4,9 +4,10 @@ column. A trimmed copy of ``petastorm_tpu.codecs`` with the same
 the other.
 
 Kept: ``ScalarCodec``, ``NdarrayCodec``, ``CompressedNdarrayCodec``,
-``DctImageCodec``, ``DctCoefficientsCodec`` and the JSON codec registry.
-``CompressedImageCodec`` (OpenCV png/jpeg) is left for a later slice; a schema
-naming it fails to load with the codec named.
+``CompressedImageCodec`` (OpenCV png/jpeg, ``cv2`` imported where an image is
+encoded or decoded), ``DctImageCodec``, ``DctCoefficientsCodec`` and the JSON
+codec registry. A schema naming any other codec fails to load with the codec
+named.
 """
 
 import struct
@@ -387,6 +388,81 @@ class CompressedNdarrayCodec(FieldCodec):
         return pa.binary()
 
 
+class CompressedImageCodec(FieldCodec):
+    """png or jpeg image compression through OpenCV. A 3-channel image is
+    stored in OpenCV's BGR channel order and comes back as RGB, so the stored
+    bytes are those the reference petastorm and ``petastorm_tpu`` write."""
+
+    codec_name = 'compressed_image'
+
+    def __init__(self, image_codec='png', quality=80):
+        if image_codec not in ('png', 'jpeg'):
+            raise ValueError('image_codec must be "png" or "jpeg", got {!r}'
+                             .format(image_codec))
+        self._image_codec = '.' + image_codec
+        self._quality = int(quality)
+
+    @property
+    def image_codec(self):
+        return self._image_codec[1:]
+
+    @property
+    def quality(self):
+        return self._quality
+
+    def encode(self, unischema_field, value):
+        import cv2
+        expected = np.dtype(unischema_field.numpy_dtype)
+        if value.dtype != expected:
+            raise ValueError('Unexpected dtype {} for field {} (expected {})'
+                             .format(value.dtype, unischema_field.name, expected))
+        if not _is_compliant_shape(value.shape, unischema_field.shape):
+            raise ValueError('Unexpected shape {} for field {} (expected {})'
+                             .format(value.shape, unischema_field.name,
+                                     unischema_field.shape))
+        if self._image_codec == '.jpeg' and value.dtype != np.uint8:
+            raise ValueError('jpeg compression supports only uint8 images '
+                             '(field {})'.format(unischema_field.name))
+        image_bgr = value
+        if value.ndim == 3 and value.shape[2] == 3:
+            image_bgr = cv2.cvtColor(value, cv2.COLOR_RGB2BGR)
+        params = [cv2.IMWRITE_JPEG_QUALITY, self._quality] \
+            if self._image_codec == '.jpeg' else []
+        success, buf = cv2.imencode(self._image_codec, image_bgr, params)
+        if not success:
+            raise RuntimeError('cv2.imencode failed for field {}'
+                               .format(unischema_field.name))
+        return buf.tobytes()
+
+    def decode(self, unischema_field, value):
+        import cv2
+        buf = value if isinstance(value, np.ndarray) else np.frombuffer(value, np.uint8)
+        image = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+        if image is None:
+            raise ValueError('cv2.imdecode failed for field {}'.format(unischema_field.name))
+        if image.ndim == 3 and image.shape[2] == 3:
+            image = cv2.cvtColor(image, cv2.COLOR_BGR2RGB)
+        return np.ascontiguousarray(image.astype(unischema_field.numpy_dtype, copy=False))
+
+    def decode_arrow_column(self, unischema_field, arrow_col):
+        return self.decode_column(unischema_field, _column_blobs(arrow_col))
+
+    def arrow_type(self, unischema_field):
+        return pa.binary()
+
+    def to_config(self):
+        return {'codec': self.codec_name, 'image_codec': self.image_codec,
+                'quality': self._quality}
+
+    @classmethod
+    def from_config(cls, config):
+        return cls(image_codec=config['image_codec'], quality=config['quality'])
+
+    def __str__(self):
+        return 'CompressedImageCodec({!r}, quality={})'.format(self.image_codec,
+                                                              self._quality)
+
+
 class DctImageCodec(FieldCodec):
     """JPEG-style DCT-domain image storage: quantized 8x8 DCT coefficient blocks
     (int16) behind a ``DCT1`` + ``<HH`` (height, width) header. ``decode`` runs
@@ -460,6 +536,7 @@ _CODEC_REGISTRY = {
     ScalarCodec.codec_name: ScalarCodec,
     NdarrayCodec.codec_name: NdarrayCodec,
     CompressedNdarrayCodec.codec_name: CompressedNdarrayCodec,
+    CompressedImageCodec.codec_name: CompressedImageCodec,
     DctImageCodec.codec_name: DctImageCodec,
     DctCoefficientsCodec.codec_name: DctCoefficientsCodec,
 }

@@ -4,8 +4,10 @@
 The metadata keys and their JSON layouts are the same, so a store written by
 either package reads in the other: the Unischema as JSON under
 :data:`UNISCHEMA_JSON_KEY` and the per-file rowgroup row counts under
-:data:`ROW_GROUPS_JSON_KEY`, both in ``_common_metadata``. Reading the
-reference petastorm's pickled schema key is left for a later slice.
+:data:`ROW_GROUPS_JSON_KEY`, both in ``_common_metadata``. A store written by
+the reference petastorm, whose schema is a pickle under
+:data:`LEGACY_UNISCHEMA_PICKLE_KEY`, reads through
+:mod:`~petastorm_tpu_torch.etl.legacy`.
 """
 
 import json
@@ -27,6 +29,8 @@ logger = logging.getLogger(__name__)
 UNISCHEMA_JSON_KEY = b'petastorm_tpu.unischema.v1'
 #: JSON map of {relative file path: {'size': bytes, 'row_groups': [rows per rowgroup]}}
 ROW_GROUPS_JSON_KEY = b'petastorm_tpu.row_groups_per_file.v2'
+#: the reference petastorm's pickled Unischema
+LEGACY_UNISCHEMA_PICKLE_KEY = b'dataset-toolkit.unischema.v1'
 #: rowgroup count per file, in the layout the reference petastorm writes
 LEGACY_ROW_GROUPS_KEY = b'dataset-toolkit.num_row_groups_per_file.v1'
 
@@ -294,12 +298,32 @@ def load_row_groups(handle, on_fragment_error=None):
 
 
 def get_schema(handle):
-    """The Unischema embedded in ``_common_metadata``."""
+    """The Unischema embedded in ``_common_metadata``: the JSON key first,
+    then the reference petastorm's pickled key through the legacy shim."""
     metadata = read_metadata_dict(handle)
-    if UNISCHEMA_JSON_KEY not in metadata:
-        raise MetadataError(
-            'Dataset at {!r} has no {} metadata (stores written with the reference '
-            "petastorm's pickled schema are not readable by this package yet)"
-            .format(handle.root_path, UNISCHEMA_JSON_KEY))
-    return Unischema.from_json_dict(
-        json.loads(metadata[UNISCHEMA_JSON_KEY].decode('utf-8')))
+    if UNISCHEMA_JSON_KEY in metadata:
+        return Unischema.from_json_dict(
+            json.loads(metadata[UNISCHEMA_JSON_KEY].decode('utf-8')))
+    if LEGACY_UNISCHEMA_PICKLE_KEY in metadata:
+        from petastorm_tpu_torch.etl.legacy import depickle_legacy_unischema
+        return depickle_legacy_unischema(metadata[LEGACY_UNISCHEMA_PICKLE_KEY])
+    raise MetadataError(
+        'Dataset at {!r} has no unischema metadata (neither {} nor legacy {}). Either it '
+        'was not written with materialize_dataset, or metadata was lost. Use '
+        'make_batch_reader / schema inference for plain Parquet stores.'
+        .format(handle.root_path, UNISCHEMA_JSON_KEY, LEGACY_UNISCHEMA_PICKLE_KEY))
+
+
+def get_schema_from_dataset_url(dataset_url_or_urls, filesystem=None):
+    """:func:`get_schema` of the store at ``dataset_url_or_urls``."""
+    return get_schema(open_dataset(dataset_url_or_urls, filesystem=filesystem))
+
+
+def infer_or_load_unischema(handle):
+    """The embedded schema when there is one, else one inferred from the Arrow
+    schema."""
+    try:
+        return get_schema(handle)
+    except MetadataError:
+        logger.debug('Dataset has no embedded unischema; inferring from Arrow schema')
+        return Unischema.from_arrow_schema(handle.arrow_dataset.schema)

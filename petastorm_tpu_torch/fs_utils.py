@@ -62,3 +62,16 @@ def get_filesystem_and_path_or_paths(url_or_urls, filesystem=None):
 def path_exists(filesystem, path):
     """True when the path exists on the filesystem."""
     return filesystem.get_file_info(path).type != pafs.FileType.NotFound
+
+
+def delete_path(filesystem, path, recursive=True):
+    """Delete a file or a directory tree (only the directory's contents when
+    not ``recursive``); a missing path is left alone."""
+    info = filesystem.get_file_info(path)
+    if info.type == pafs.FileType.Directory:
+        if recursive:
+            filesystem.delete_dir(path)
+        else:
+            filesystem.delete_dir_contents(path)
+    elif info.type != pafs.FileType.NotFound:
+        filesystem.delete_file(path)

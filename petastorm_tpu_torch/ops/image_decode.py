@@ -10,6 +10,8 @@ products per block, YCbCr->RGB, round and clip to uint8. It is plain PyTorch
 (the JAX version is an XLA function, not a Pallas kernel).
 """
 
+import functools
+
 import numpy as np
 
 # Standard JPEG base quantization tables (Annex K): luminance and chrominance.
@@ -116,17 +118,27 @@ def _ycbcr_to_rgb_np(x):
     return np.stack([r, g, b], axis=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_constants(quality, channels, device):
+    # made once per (quality, channels, device): a tensor made from host data
+    # inside a CUDA graph capture would copy from the host, which a capture
+    # refuses
+    import torch
+    return (torch.from_numpy(quant_tables(quality, channels)).to(device),
+            torch.from_numpy(_C).to(device))
+
+
 def dct_decode_images_torch(coeffs, quality=75):
     """Batched decode on the coefficients' device: int16 [B, H8, W8, 8, 8, C]
     -> uint8 [B, H, W, C].
 
     Each block ``F`` becomes ``C.T @ (F * Q) @ C``, batched over every block
-    and channel; the offset, color conversion and rounding run in float32."""
+    and channel; the offset, color conversion and rounding run in float32.
+    The constants are made on the device once, so a call can be captured into
+    a CUDA graph after a first eager call."""
     import torch
     channels = coeffs.shape[-1]
-    device = coeffs.device
-    q = torch.from_numpy(quant_tables(quality, channels)).to(device)
-    c = torch.from_numpy(_C).to(device)
+    q, c = _decode_constants(int(quality), int(channels), coeffs.device)
     deq = coeffs.to(torch.float32) * q                       # [b, h8, w8, 8, 8, c]
     x = deq.permute(0, 1, 2, 5, 3, 4)                        # [b, h8, w8, c, j, k]
     blocks = torch.matmul(torch.matmul(c.t(), x), c)         # [b, h8, w8, c, i, l]

@@ -7,11 +7,14 @@ accounting. The counterpart of ``petastorm_tpu.parallel.loader.JaxDataLoader``.
 - A background producer thread keeps ``prefetch`` batches in flight, so host
   IO and decode, the upload and the device decode tail overlap the training
   step.
-- Upload: every field of a batch is packed into ONE pinned host buffer,
-  copied with ``non_blocking=True`` on a side CUDA stream and split on the
-  card into per-field ``view(dtype)`` slices. This replaces the JAX loader's
-  coalesced upload plus on-device unpack program: JAX exposes no pinned host
-  memory, PyTorch does. The device decode tail runs on the same side stream;
+- Upload (``coalesce_fields``, on by default on the card, off on the CPU):
+  every field of a batch is packed into ONE pinned host buffer, copied with
+  ``non_blocking=True`` on a side CUDA stream and split on the card into
+  per-field ``view(dtype)`` slices. This replaces the JAX loader's coalesced
+  upload plus on-device unpack program: JAX exposes no pinned host memory,
+  PyTorch does. Off, or for a batch that cannot pack (a column that is not a
+  native-endian numeric array), each field is pinned and copied by itself;
+  ``stats`` counts both kinds. The device decode tail runs on the same side stream;
   a CUDA event recorded after it is waited on by the consumer's stream before
   the batch is handed out, and every tensor is ``record_stream``-ed on the
   consumer's stream so the allocator does not reuse it early.
@@ -40,8 +43,8 @@ global rank, so that the ranks along the other dimensions (``'stage'`` of a
 declare replicated. ``device_put=False`` yields host numpy batches.
 
 Left for later slices, and absent from the signature: telemetry/SLO/incident/
-history hooks, lineage stamping, ``coalesce_fields`` and autotuning knobs
-beyond ``set_prefetch``/``set_device_buffer_depth``.
+history hooks, lineage stamping and autotuning knobs beyond
+``set_prefetch``/``set_device_buffer_depth``.
 """
 
 import collections
@@ -88,13 +91,15 @@ class LoaderStats(object):
     that went through the device decode tail, ``device_stored_batches`` those
     whose stored-deflate fields inflated through kernel K1 (its plain version
     on the CPU), ``device_fallback_batches`` reader chunks (rowgroups)
-    decoded in host mode. ``io_retries`` and ``rowgroups_quarantined`` mirror
+    decoded in host mode. ``coalesced_uploads`` and ``per_field_uploads``
+    count batches uploaded as one packed buffer and field by field (see
+    ``coalesce_fields``). ``io_retries`` and ``rowgroups_quarantined`` mirror
     the reader's resilience counters (as the JAX loader's do), so a job that
     watches only the loader still sees an epoch that served fewer
     rowgroups."""
 
     _FIELDS = ('batches', 'rows', 'wait_time_s', 'total_time_s',
-               'device_decode_batches', 'device_stored_batches',
+               'coalesced_uploads', 'per_field_uploads', 'device_decode_batches', 'device_stored_batches',
                'device_fallback_batches', 'io_retries', 'rowgroups_quarantined')
 
     def __init__(self):
@@ -167,13 +172,18 @@ class TorchDataLoader(object):
         mesh's first dimension; or a dict ``{field: spec}``, the other fields
         on the default. Needs a mesh.
     :param device_put: False yields host numpy batches (no upload).
+    :param coalesce_fields: upload each batch as ONE packed pinned buffer
+        (True) or field by field (False); None (default) is True on CUDA and
+        False on the CPU, where the packing is a host copy that buys nothing.
+        A batch with a column that cannot pack goes field by field. The
+        batches are equal either way.
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0,
                  min_after_retrieve=None, seed=None, pad_ragged=None, prefetch=2,
                  drop_last=True, device=None, device_transforms=None,
                  device_buffer_depth=2, host_decode=False, mesh=None, partition_spec=None,
-                 device_put=True):
+                 device_put=True, coalesce_fields=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1')
         self.reader = reader
@@ -181,6 +191,8 @@ class TorchDataLoader(object):
         self.device = resolve_device(device)
         self._shardings = resolve_shardings(mesh, partition_spec, self.device)
         self._device_put = device_put
+        self._coalesce_fields = (self.device.type == 'cuda' if coalesce_fields is None
+                                 else bool(coalesce_fields))
         if not device_put and getattr(reader, 'device_decode_fields', None):
             raise ValueError('device_put=False yields host batches; a reader with '
                              'device_decode_fields decodes on the device')
@@ -384,7 +396,12 @@ class TorchDataLoader(object):
 
     def _finish(self, columns, stage, recipe):
         """Upload, then run the decode tail, on the current stream."""
-        batch = upload_columns(columns, self.device)
+        if self._coalesce_fields and coalescible(columns):
+            batch = upload_columns(columns, self.device)
+            self.stats.add(coalesced_uploads=1)
+        else:
+            batch = upload_fields(columns, self.device)
+            self.stats.add(per_field_uploads=1)
         if recipe:
             stored_before = stage.stored_batches
             batch = stage.finish(batch, recipe)
@@ -767,6 +784,34 @@ def upload_columns(columns, device, out=None):
         buf = host
     return {name: buf[start:start + col.nbytes].view(torch_dtype(col.dtype))
             .view(col.shape) for name, start, col in layout}
+
+
+def coalescible(columns):
+    """True when every column can ride the packed upload: a numpy array of a
+    native-endian bool, int, uint or float dtype that torch has."""
+    for col in columns.values():
+        if (not isinstance(col, np.ndarray) or col.dtype.kind not in 'biuf'
+                or col.dtype.byteorder == '>'):
+            return False
+        try:
+            torch_dtype(col.dtype)
+        except ValueError:
+            return False
+    return True
+
+
+def upload_fields(columns, device):
+    """Host columns -> tensors on ``device``, one copy a field: each pinned
+    and copied asynchronously on the current stream for CUDA, a contiguous
+    native-endian copy on the CPU."""
+    out = {}
+    for name, col in columns.items():
+        host = np.array(col, dtype=col.dtype.newbyteorder('='), order='C', copy=True)
+        tensor = torch.from_numpy(host)
+        if device.type == 'cuda':
+            tensor = tensor.pin_memory().to(device, non_blocking=True)
+        out[name] = tensor
+    return out
 
 
 def reader_may_be_infinite(reader):

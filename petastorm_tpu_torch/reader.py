@@ -239,7 +239,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       cache_format='arrow-ipc', transform_spec=None, filesystem=None,
                       resume_state=None, reader_pool=None, on_error='raise',
                       retry_policy=None, shm_transport=None, item_deadline_s=None,
-                      heartbeat_interval_s=None):
+                      heartbeat_interval_s=None, device_decode_fields=None):
     """Reader for any Parquet store: native columns (no codec decode; a
     ``list<int32>`` column arrives as a list of int32 arrays), one namedtuple
     of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s
@@ -251,6 +251,12 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     (no pandas needed: the port's defined difference, see
     :mod:`~petastorm_tpu_torch.transform`). On a store written with a
     Unischema it emits the stored (encoded) values, with a warning.
+
+    ``device_decode_fields`` needs the store's Unischema: on a Unischema store
+    the named fields ship their raw codec payloads for the loader's device
+    decode tail (as :func:`make_reader`'s do) and the other columns stay
+    stored values; on a plain Parquet store it raises, since no codec says
+    what the bytes are.
     """
     retry_policy = resolve_retry_policy(on_error, retry_policy)
     retries = [0]
@@ -258,13 +264,23 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     handle = _retrying(lambda: dataset_metadata.open_dataset(dataset_url_or_urls,
                                                              filesystem=filesystem),
                        retry_policy, retries)
+    stored_schema = None
     try:
-        dataset_metadata.get_schema(handle)
+        stored_schema = dataset_metadata.get_schema(handle)
         warnings.warn('This store was written with a Unischema; use make_reader to get '
                       'codec-decoded rows. make_batch_reader will emit raw stored values.')
     except MetadataError:
         pass
-    schema = Unischema.from_arrow_schema(handle.arrow_dataset.schema)
+    if device_decode_fields:
+        if stored_schema is None:
+            raise ValueError(
+                'device_decode_fields requires a Unischema store (the codec '
+                'registry tells the ship-raw kernels what the payload bytes '
+                'are); this store has none — use make_reader on a Unischema '
+                'store instead')
+        schema = stored_schema
+    else:
+        schema = Unischema.from_arrow_schema(handle.arrow_dataset.schema)
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings, cache_format,
                         transform_spec is not None)
@@ -277,7 +293,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, cache=cache, transform_spec=transform_spec,
-                  resume_state=resume_state, is_batched_reader=True, on_error=on_error,
+                  resume_state=resume_state, is_batched_reader=True,
+                  device_decode_fields=device_decode_fields, on_error=on_error,
                   retry_policy=retry_policy, initial_io_retries=retries[0])
 
 

@@ -208,7 +208,8 @@ def test_multi_block_stored_field_matches_jax_stage(tmp_path, monkeypatch):
 
     monkeypatch.setattr(loader_module, 'upload_columns', spy)
     reader_kwargs = {'device_decode_fields': ['v']}
-    ours, stats = port_batches(url, reader_kwargs, batch_size=2)
+    # the packed upload, the default on the card (the CPU default is per field)
+    ours, stats = port_batches(url, reader_kwargs, batch_size=2, coalesce_fields=True)
     theirs, jax_loader = jax_batches(url, reader_kwargs, batch_size=2)
     assert stats['device_stored_batches'] == 2
     # the table rode in the batch's one upload, as in the JAX stage

@@ -1,9 +1,10 @@
-"""petastorm_tpu_torch, chip_smoke.py and examples/moe/torch_example.py import neither JAX (jax, flax, optax,
+"""petastorm_tpu_torch, chip_smoke.py and every examples/**/torch_*.py import neither JAX (jax, flax, optax,
 orbax) nor anything of the JAX package (``petastorm_tpu`` or ``petastorm_tpu.*``; the
 port's own name shares that prefix, so matches are on whole module names), and
 neither do the process pool's spawned workers, which load no torch either."""
 
 import ast
+import glob
 import json
 import os
 import subprocess
@@ -21,9 +22,13 @@ def _forbidden(module):
     return module.split('.')[0] in FORBIDDEN_ROOTS
 
 
+def _example_twins():
+    return sorted(glob.glob(os.path.join(REPO, 'examples', '**', 'torch_*.py'),
+                            recursive=True))
+
+
 def _scanned_files():
-    files = [os.path.join(REPO, 'chip_smoke.py'),
-             os.path.join(REPO, 'examples', 'moe', 'torch_example.py')]
+    files = [os.path.join(REPO, 'chip_smoke.py')] + _example_twins()
     for root, _, names in os.walk(PORT):
         files.extend(os.path.join(root, n) for n in names if n.endswith('.py'))
     return sorted(files)
@@ -57,7 +62,16 @@ def test_forbidden_matches_whole_module_names():
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = _scanned_files()
     assert os.path.join(REPO, 'chip_smoke.py') in files and len(files) > 20
-    assert os.path.join(REPO, 'examples', 'moe', 'torch_example.py') in files
+    for twin in (('moe', 'torch_example.py'), ('converter', 'torch_converter_example.py'),
+                 ('mnist', 'torch_example.py'), ('imagenet', 'torch_example.py'),
+                 ('long_context', 'torch_example.py')):
+        assert os.path.join(REPO, 'examples', *twin) in files
+    for module in ('converter.py', 'pytorch.py', 'utils.py', 'arrow_helpers.py',
+                   'generator.py', os.path.join('etl', 'legacy.py'),
+                   os.path.join('etl', 'generate_metadata.py'),
+                   os.path.join('etl', 'metadata_util.py'),
+                   os.path.join('tools', 'copy_dataset.py')):
+        assert os.path.join(PORT, module) in files
     offenders = [(os.path.relpath(path, REPO), name) for path in files
                  for name in _imports(path) if _forbidden(name)]
     assert not offenders
@@ -101,10 +115,23 @@ _BLOCKED_RUN = textwrap.dedent('''
         loader = TorchDataLoader(reader, batch_size=4, device='cpu', device_transforms={
             'img': DeviceTransform(crop=(8, 8), random_flip=True)})
         rows = sum(int(batch['label'].shape[0]) for batch in loader)
+    import pyarrow as pa
+    from petastorm_tpu_torch.converter import make_converter
+    from petastorm_tpu_torch.pytorch import BatchedDataLoader, DataLoader
+    converter = make_converter(pa.table({'x': np.arange(20, dtype=np.int64)}),
+                               parent_cache_dir_url=tempfile.mkdtemp())
+    with converter.make_torch_dataloader(batch_size=8, device='cpu',
+                                         reader_pool_type='dummy') as adapter:
+        adapter_rows = sum(int(batch['x'].shape[0]) for batch in adapter)
+    converter.delete()
+    for twin in ('converter.torch_converter_example', 'mnist.torch_example',
+                 'imagenet.torch_example', 'long_context.torch_example',
+                 'moe.torch_example'):
+        importlib.import_module('examples.' + twin)
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'petastorm_tpu'))
     print('MODULES', len(names), 'ROWS', rows, 'STORED', loader.stats.device_stored_batches,
-          'LEAKED', leaked)
+          'ADAPTER', adapter_rows, 'LEAKED', leaked)
 ''')
 
 
@@ -119,11 +146,14 @@ def test_port_imports_and_runs_an_epoch_with_jax_blocked():
     fields = line.split()
     assert int(fields[1]) > 20
     assert fields[3] == '12' and fields[5] == '3'
+    assert fields[7] == '20'
     assert line.endswith('LEAKED []')
 
 
 @pytest.mark.parametrize('module', ['petastorm_tpu_torch', 'petastorm_tpu_torch.reader',
-                                    'petastorm_tpu_torch.parallel.loader'])
+                                    'petastorm_tpu_torch.parallel.loader',
+                                    'petastorm_tpu_torch.converter',
+                                    'petastorm_tpu_torch.pytorch'])
 def test_top_level_modules_name_no_jax_in_their_globals(module):
     import importlib
     mod = importlib.import_module(module)
