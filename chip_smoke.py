@@ -119,7 +119,23 @@ version on the card, then drives the port's two paths at full width:
   ``--on-chip-decode`` at ResNet-50's width on 256 synthetic 224x224 DCT
   rows, the MNIST twin ``--inmem`` and the converter twin, each ending with
   a finite loss (16d). It prints first whether ``cv2``, ``pandas`` and
-  ``dill`` import.
+  ``dill`` import;
+- pipeline telemetry and the autotuner (phase 17): phase 5's store and path
+  with ``make_reader(trace=True, metrics_port=0)`` on a process pool of 4
+  and a loader with ``metrics_port=0``: the stage counts against the
+  batches and rowgroups, a ``/metrics`` and ``/healthz`` scrape during the
+  run, the Chrome trace's worker tracks and flow arrows, attribution, K1 8
+  launches, and the one pinned copy a batch timed on the card by CUDA events
+  around it in the smoke's own upload wrapper (17a); phase 10's stream
+  through eager ``MnistCNN`` steps with telemetry off, on and traced, each
+  twice in mirrored order after a warm-up epoch, then 2 epochs under
+  ``autotune=``: each epoch's ``idx`` once, at least two decisions, knobs
+  within bounds, no breaker (17b); phase 7's LM unarmed, then with the
+  flight recorder armed (its step within the unarmed pass's range widened
+  by 10%), a profiled 2-step window with the loader's ``wait_input`` and
+  ``h2d`` ranges beside K2-K4, and ``scan_stream`` passes with telemetry
+  armed: none launching outside the graph after the capture, one ``h2d``
+  span a chunk (17c).
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -156,6 +172,7 @@ and last ``{"ok": true, "device": {...}}``. The full record is also written to
 import argparse
 import concurrent.futures
 import copy
+import functools
 import importlib
 import itertools
 import json
@@ -168,6 +185,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 import warnings
 import zlib
 
@@ -183,6 +201,7 @@ from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, NG
                                  TorchDataLoader, TrainingCheckpointer, TransformerLM,
                                  cuda_build, make_batch_reader, make_converter,
                                  make_packing_transform, make_reader, make_torch_loader)
+from petastorm_tpu_torch.autotune import AutotunePolicy
 from petastorm_tpu_torch.benchmark.lm_data import (FRAME_STREAM_INDEX, full_bin_rowgroups,
                                                    ragged_documents, token_rows,
                                                    write_frame_store, write_packed_store,
@@ -205,12 +224,16 @@ from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_l
                                              segment_causal_attention)
 from petastorm_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
 from petastorm_tpu_torch.ops.sharded_moe import sharded_moe_ffn
+from petastorm_tpu_torch.parallel import loader as loader_module
 from petastorm_tpu_torch.parallel.mesh import (PartitionSpec, initialize_distributed,
                                                make_mesh, mesh_shard_info)
 from petastorm_tpu_torch.parallel.pipeline import blocks_stage_fn, make_pipeline, microbatch
 from petastorm_tpu_torch.predicates import in_pseudorandom_split
 from petastorm_tpu_torch.pytorch import DataLoader, InMemBatchedDataLoader
 from petastorm_tpu_torch.selectors import SingleIndexSelector
+from petastorm_tpu_torch.telemetry import registry as telemetry_registry
+from petastorm_tpu_torch.telemetry import tracing as telemetry_tracing
+from petastorm_tpu_torch.telemetry.analyze import attribute_bottleneck
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.workers.process_pool import ProcessPool
 from petastorm_tpu_torch.workers.shm_ring import SHM_DIR
@@ -523,12 +546,14 @@ def phase_k1(batch, seed):
     return result
 
 
-def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_reader):
+def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_reader,
+                    loader_kwargs=None):
     """One epoch of the main path; returns its measurements and the (idx,
     label, embedding) it delivered. The reader (``factory``: ``make_reader``,
     or ``make_batch_reader`` for phase 16c) runs on a thread pool of
-    ``args.workers``, or on ``reader_pool``; ``inspect(reader)`` runs once the
-    first batch arrived. ``first_batch_s`` is the time from the reader's
+    ``args.workers``, or on ``reader_pool``; the loader gets
+    ``loader_kwargs`` too; ``inspect(reader, loader)`` runs once the first
+    batch arrived. ``first_batch_s`` is the time from the reader's
     construction (a process pool's spawn included) to the first batch."""
     torch.manual_seed(args.seed)
     model = ResNet50(num_classes=1000).train()
@@ -560,14 +585,15 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
                          device_decode_fields=['image', 'embedding'])
     with reader:
         loader = TorchDataLoader(reader, batch_size=args.batch,
-                                 device_transforms={'image': transform})
+                                 device_transforms={'image': transform},
+                                 **(loader_kwargs or {}))
         start = time.perf_counter()
         for batch in loader:
             step_start = time.perf_counter()
             if first_batch_s is None:
                 first_batch_s = step_start - open_start
                 if inspect is not None:
-                    inspect(reader)
+                    inspect(reader, loader)
             check(tuple(batch['image'].shape) == (args.batch, crop, crop, 3)
                   and batch['image'].dtype == torch.bfloat16
                   and batch['image'].device.type == 'cuda', 'image batch shape/dtype')
@@ -2029,7 +2055,7 @@ def phase_process_imagenet(tmp, args):
     cuda = {}
     result, delivered = phase_main_path(
         url, args, reader_pool=pool,
-        inspect=lambda reader: cuda.update(check_no_cuda_in_workers(pool)))
+        inspect=lambda reader, loader: cuda.update(check_no_cuda_in_workers(pool)))
     result['distinct_rows'] = check_delivered(delivered, args.seed)
     check(result['distinct_rows'] == result['rows'] == args.rows,
           '13a: {} distinct rows of {} delivered, {} in the store'.format(
@@ -3199,6 +3225,487 @@ def phase_reference_api(tmp, args):
     return result
 
 
+# ------------------------------------- pipeline telemetry and autotuning (phase 17)
+
+#: the stages phase 17a counts: every batch passes the first four, every
+#: rowgroup the next three; d2d_wait once a batch past the decode tail's ring
+TELEMETRY_BATCH_STAGES = ('h2d', 'shuffle_wait', 'device_decode')
+TELEMETRY_ROWGROUP_STAGES = ('collate', 'rowgroup_read', 'decode')
+#: 17b's autotuner: windows short enough for several decisions an epoch
+MNIST_AUTOTUNE = AutotunePolicy(window_s=0.25, warmup_windows=1, hold_windows=1,
+                                cooldown_windows=2)
+#: 2 epochs, not 3, to keep phase 17 near 30 s (the autotuner decides within
+#: its first second)
+MNIST_AUTOTUNE_EPOCHS = 2
+#: 17c's profiled window, in steps
+TELEMETRY_PROFILED_STEPS = 2
+#: 17c's armed step median may sit this far outside the unarmed pass's range
+LM_STEP_RANGE_MARGIN = 0.1
+
+
+def scrape(url):
+    """``(status, body)`` of one GET of the local scrape endpoint."""
+    with urllib.request.urlopen(url, timeout=10) as response:
+        return response.status, response.read().decode('utf-8')
+
+
+def prometheus_series(text):
+    """``{series: value}`` of a Prometheus text exposition; a line that is
+    neither a comment nor ``name{labels} value`` fails the phase."""
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith('#'):
+            continue
+        name, value = line.rsplit(' ', 1)
+        check(re.match(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})?$', name) is not None,
+              'a malformed exposition line {!r}'.format(line))
+        series[name] = float(value)
+    return series
+
+
+def stage_counts(snapshot, stages):
+    histograms = snapshot.get('histograms') or {}
+    return {stage: (histograms.get(stage) or {}).get('count', 0) for stage in stages}
+
+
+def wait_split(events, wall_s):
+    """Fill against stall from the consumer's ``shuffle_wait`` spans of a
+    trace, in order: the first batch's wait (the pipeline's fill), the
+    others' sum, median and max (ms), and that sum's share of ``wall_s``."""
+    waits = [e['dur_us'] / 1e3 for e in sorted(events, key=lambda e: e['ts_us'])
+             if e['name'] == 'shuffle_wait']
+    rest = waits[1:] or [0.0]
+    return {'fill_ms': waits[0] if waits else 0.0, 'steady_ms': sum(rest),
+            'steady_median_ms': statistics.median(rest), 'steady_max_ms': max(rest),
+            'steady_share': sum(rest) / 1e3 / wall_s}
+
+
+def timed_copy_upload(copies):
+    """The loader's ``upload_columns`` with a CUDA event pair around the one
+    pinned copy alone, on the current stream (the loader's side stream):
+    the same packing and staging, then ``(start, end, bytes)`` appended to
+    ``copies``."""
+    def upload(columns, device, out=None):
+        check(out is None, 'the timed upload serves the loader only')
+        layout, nbytes = loader_module.packed_layout(columns)
+        host = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                           pin_memory=device.type == 'cuda')
+        host_np = host.numpy()
+        for _, start, col in layout:
+            host_np[start:start + col.nbytes] = col.reshape(-1).view(np.uint8)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        buf = host.to(device, non_blocking=True)
+        events[1].record()
+        copies.append((events[0], events[1], nbytes))
+        return {name: buf[start:start + col.nbytes].view(raw_decode.torch_dtype(col.dtype))
+                .view(col.shape) for name, start, col in layout}
+    return upload
+
+
+def phase_telemetry_imagenet(tmp, args):
+    """Phase 17a: phase 5's store and path, instrumented: ``make_reader(...,
+    trace=True, metrics_port=0)`` on a process pool of ``args.workers`` (the
+    one pool whose trace crosses processes, so the worker and consumer tracks
+    join by flow arrows), the loader with ``metrics_port=0``, K1 and the
+    decode tail, ResNet-50. Checks the stage counts against the batches and
+    rowgroups, one ``/metrics`` and ``/healthz`` scrape during the run, the
+    Chrome trace, the trace summary's stage names and the attribution; times
+    the one pinned copy a batch on the card with CUDA events."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'imagenet')
+    copies = []
+    live = {}
+
+    def inspect(reader, loader):
+        status, text = scrape(loader.metrics_url + '/metrics')
+        health, _ = scrape(loader.metrics_url + '/healthz')
+        live.update(reader=reader, loader=loader, metrics_status=status,
+                    series=prometheus_series(text), healthz_status=health)
+
+    telemetry_tracing.reset_tracing()
+    upload = loader_module.upload_columns
+    loader_module.upload_columns = timed_copy_upload(copies)
+    try:
+        result, delivered = phase_main_path(
+            url, args, reader_pool=ProcessPool(args.workers, shm_transport=True),
+            inspect=inspect, factory=functools.partial(make_reader, trace=True, metrics_port=0),
+            loader_kwargs={'metrics_port': 0})
+    finally:
+        loader_module.upload_columns = upload
+    reader, loader = live['reader'], live['loader']
+    try:
+        snapshot = loader.telemetry_snapshot()
+        chrome = json.loads(json.dumps(reader.dump_trace()))
+        summary = reader.trace_summary()
+        events = telemetry_tracing.trace_snapshot()['events']
+        h2d_us = [e['dur_us'] for e in events if e['name'] == 'h2d']
+        waits = wait_split(events, result['wall_s'])
+    finally:
+        loader.stop()
+        telemetry_tracing.set_trace_enabled(False)
+        telemetry_tracing.reset_tracing()
+    torch.cuda.synchronize()
+    steps, rowgroups = result['steps'], result['items_per_epoch']
+    counts = stage_counts(snapshot, TELEMETRY_BATCH_STAGES + TELEMETRY_ROWGROUP_STAGES
+                          + ('d2d_wait',))
+    check(result['k1_launches'] == steps, '17a: K1 launched {} times on {} batches'.format(
+        result['k1_launches'], steps))
+    check(check_delivered(delivered, args.seed) == result['rows'] == args.rows,
+          '17a: rows repeated or lost')
+    check(all(counts[stage] == steps for stage in TELEMETRY_BATCH_STAGES)
+          and all(counts[stage] == rowgroups for stage in TELEMETRY_ROWGROUP_STAGES),
+          '17a: stage counts {} against {} batches and {} rowgroups'.format(
+              counts, steps, rowgroups))
+    ring = loader.device_buffer_depth
+    check(counts['d2d_wait'] == max(0, steps - ring),
+          '17a: {} d2d_wait spans, expected one a batch past the ring of {}'.format(
+              counts['d2d_wait'], ring))
+    series = live['series']
+    check(live['metrics_status'] == 200 and live['healthz_status'] == 200
+          and series.get('petastorm_tpu_h2d_count', 0) >= 1
+          and any(name.startswith('petastorm_tpu_h2d_bucket{') for name in series),
+          '17a: the scrape during the run: /metrics {}, /healthz {}, h2d series {}'.format(
+              live['metrics_status'], live['healthz_status'],
+              sorted(name for name in series if '_h2d_' in name)))
+    consumer = [e for e in chrome['traceEvents']
+                if e['ph'] == 'M' and 'consumer' in e['args']['name']]
+    worker_tracks = [e for e in chrome['traceEvents']
+                     if e['ph'] == 'M' and 'worker' in e['args']['name']]
+    flows = [e for e in chrome['traceEvents'] if e['ph'] in ('s', 'f')]
+    check(len(consumer) == 1 and len(worker_tracks) == args.workers
+          and len(flows) == 2 * rowgroups,
+          '17a: the trace has {} consumer and {} worker tracks and {} flow events for {} '
+          'rowgroups'.format(len(consumer), len(worker_tracks), len(flows), rowgroups))
+    missing = sorted(set(TELEMETRY_BATCH_STAGES + TELEMETRY_ROWGROUP_STAGES + ('d2d_wait',))
+                     - set(summary['by_name']))
+    check(not missing and summary['dropped_events'] == 0,
+          '17a: the trace summary misses {} (dropped {})'.format(missing,
+                                                                 summary['dropped_events']))
+    report = attribute_bottleneck(snapshot)
+    check(report['top_stage'] is not None and report['recommendation'],
+          '17a: attribution named no stage: {}'.format(report))
+    copy_ms = [start.elapsed_time(end) for start, end, _ in copies]
+    copy_bytes = [nbytes for _, _, nbytes in copies]
+    check(len(copies) == steps, '17a: {} timed copies for {} batches'.format(len(copies),
+                                                                             steps))
+    copy_median = statistics.median(copy_ms)
+    bytes_median = statistics.median(copy_bytes)
+    return {'steps': steps, 'rowgroups': rowgroups, 'rows': result['rows'],
+            'rows_per_s': result['rows_per_s'],
+            'input_stall_fraction': result['input_stall_fraction'],
+            'step_ms_median': result['step_ms_median'], 'k1_launches': result['k1_launches'],
+            'stage_counts': counts,
+            'shares': {row['stage']: row['share'] for row in report['ranked']},
+            'top_stage': report['top_stage'], 'recommendation': report['recommendation'],
+            'h2d_span_ms_median': statistics.median(h2d_us) / 1e3, 'waits': waits,
+            'copy_ms': copy_ms, 'copy_ms_median': copy_median, 'copy_bytes': copy_bytes,
+            'copy_gb_per_s': bytes_median / (copy_median * 1e6),
+            'trace_events': summary['events'], 'flow_events': len(flows),
+            'processes': len(summary['processes']),
+            'metrics_series': len(series), 'phase_s': time.perf_counter() - phase_start}
+
+
+def mnist_eager_pass(url, step, epochs=1, **reader_kwargs):
+    """``epochs`` epochs of phase 10's stream through the eager MnistCNN step
+    (a thread pool of 4, batch MNIST_BATCH): rows/s to a readback of the
+    last loss, the ``idx`` values each epoch delivered (each once), the
+    loader's snapshot and the reader's autotune report."""
+    with make_reader(url, workers_count=4, shuffle_row_groups=True, seed=42,
+                     num_epochs=epochs, **reader_kwargs) as reader:
+        seen = observe_items(reader)
+        loader = TorchDataLoader(reader, batch_size=MNIST_BATCH)
+        start = time.perf_counter()
+        losses = [step(batch) for batch in loader]
+        last = float(losses[-1])
+        elapsed = time.perf_counter() - start
+        stats = loader.stats.as_dict()
+        snapshot = loader.telemetry_snapshot()
+        report = reader.autotune_report()
+        breakers = reader.diagnostics['breakers']
+    epoch_idx_once(seen, epochs)
+    check(np.isfinite(last), 'non-finite MNIST loss {}'.format(last))
+    return {'s': elapsed, 'rows': stats['rows'], 'rows_per_s': stats['rows'] / elapsed,
+            'input_stall_fraction': stats['input_stall_fraction'], 'last_loss': last,
+            'stage_counts': stage_counts(snapshot, ('shuffle_wait', 'h2d', 'collate',
+                                                    'decode', 'pool_wait')),
+            'autotune': report, 'breakers': breakers}
+
+
+def mnist_mode_pass(url, step, mode):
+    """One epoch of :func:`mnist_eager_pass` with telemetry ``'off'``,
+    ``'on'`` or ``'traced'`` (the flight recorder armed); the switches are
+    restored after it. A traced pass also counts its trace events."""
+    if mode == 'off':
+        telemetry_registry.set_telemetry_enabled(False)
+        try:
+            return mnist_eager_pass(url, step)
+        finally:
+            telemetry_registry.set_telemetry_enabled(True)
+    if mode == 'on':
+        return mnist_eager_pass(url, step)
+    telemetry_tracing.reset_tracing()
+    try:
+        result = mnist_eager_pass(url, step, trace=True)
+        result['trace_events'] = len(telemetry_tracing.trace_snapshot()['events'])
+        return result
+    finally:
+        telemetry_tracing.set_trace_enabled(False)
+        telemetry_tracing.reset_tracing()
+
+
+#: 17b's passes after a warm-up epoch: each mode twice, in mirrored order, so
+#: the drift of the run weighs on every mode alike
+MNIST_MODE_ORDER = ('off', 'on', 'traced', 'traced', 'on', 'off')
+
+
+def phase_telemetry_mnist(tmp, seed):
+    """Phase 17b: phase 10's MNIST stream (50,000 rows, batch 2048) through
+    eager MnistCNN steps: a warm-up epoch, then one epoch each in
+    MNIST_MODE_ORDER with telemetry off, on, and on with the flight recorder
+    (overhead from each mode's median rows/s); then a reader with
+    ``autotune=`` for MNIST_AUTOTUNE_EPOCHS epochs: each epoch's ``idx``
+    once, at least two decisions, every knob within its bounds, no
+    breaker."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist')   # phase 9's store
+    model, optimizer, _, _ = mnist_model(seed + 3)
+    step = mnist_step(model, optimizer)
+    warm_up = mnist_eager_pass(url, step)
+    passes = {mode: [] for mode in MNIST_MODE_ORDER}
+    for mode in MNIST_MODE_ORDER:
+        passes[mode].append(mnist_mode_pass(url, step, mode))
+    batches = MNIST_ROWS // MNIST_BATCH
+    for run in passes['off']:
+        check(not any(run['stage_counts'].values()),
+              '17b: telemetry off still recorded {}'.format(run['stage_counts']))
+    for mode in ('on', 'traced'):
+        for run in passes[mode]:
+            check(run['stage_counts']['shuffle_wait'] == run['stage_counts']['h2d'] == batches,
+                  '17b {}: stage counts {} for {} batches'.format(mode, run['stage_counts'],
+                                                                   batches))
+    check(all(run['trace_events'] > 0 for run in passes['traced']),
+          '17b: a traced pass recorded no event')
+    rate = {mode: statistics.median(run['rows_per_s'] for run in runs)
+            for mode, runs in passes.items()}
+    tuned = mnist_eager_pass(url, step, epochs=MNIST_AUTOTUNE_EPOCHS, autotune=MNIST_AUTOTUNE)
+    report = tuned['autotune']
+    decisions = report['decisions']
+    check(report['enabled'] and len(decisions) >= 2,
+          '17b: the autotuner made {} decisions in {} windows'.format(len(decisions),
+                                                                     report['windows']))
+    out_of_bounds = {knob_id: knob for knob_id, knob in report['knobs'].items()
+                     if not knob['min'] <= knob['value'] <= knob['max']}
+    check(not out_of_bounds, '17b: knobs out of their bounds: {}'.format(out_of_bounds))
+    check(not tuned['breakers'] and report['freezes'] == 0,
+          '17b: breakers {} tripped, {} freezes'.format(tuned['breakers'], report['freezes']))
+    return {'warm_up': warm_up, 'passes': passes, 'rows_per_s': rate,
+            'trace_events': passes['traced'][0]['trace_events'],
+            'overhead_on': 1 - rate['on'] / rate['off'],
+            'overhead_traced': 1 - rate['traced'] / rate['off'],
+            'autotune': tuned,
+            'decisions': [{key: d[key] for key in ('window', 'action', 'knob', 'from', 'to',
+                                                   'rate_rows_per_sec')}
+                          for d in decisions],
+            'knobs': {knob_id: knob['value'] for knob_id, knob in report['knobs'].items()},
+            'phase_s': time.perf_counter() - phase_start}
+
+
+def profiled_loader_steps(batches, optimizer, step_loss, steps):
+    """``steps`` Adam steps on batches from a loader's iterator under
+    ``torch.profiler`` (every thread, so the producer's ``h2d`` ranges show):
+    ``{range or flash kernel: count}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        kwargs = {'experimental_config':
+                  torch._C._profiler._ExperimentalConfig(profile_all_threads=True)}
+    except TypeError:   # an older torch: the producer's ranges will not show
+        kwargs = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kwargs) as prof:
+        for _ in range(steps):
+            adam_step(optimizer, step_loss, next(batches))
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(list(FLASH_KERNEL_NAMES) + ['wait_input', 'h2d'], 0)
+    counts['all_threads'] = bool(kwargs)
+    for event in prof.key_averages():
+        if event.device_type == DeviceType.CUDA:
+            for name, key in FLASH_KERNEL_NAMES.items():
+                if key in event.key:
+                    counts[name] += event.count
+        elif event.key.startswith('petastorm_tpu_torch.loader.'):
+            name = event.key.rsplit('.', 1)[1]
+            counts[name] = counts.get(name, 0) + event.count
+    return counts
+
+
+def phase_telemetry_lm(tmp, seed, lm):
+    """Phase 17c: phase 7's store, model and Adam, 1 + LM_STEPS steps first
+    with the flight recorder off (phase 7 again at this point of the run),
+    then with the reader's recorder armed (K2-K4 layers x steps each; its
+    step median within the unarmed pass's range, widened by
+    LM_STEP_RANGE_MARGIN, and printed beside phase 7's ``lm``), then a
+    profiled window where the loader's ``wait_input`` and ``h2d`` ranges show
+    once a batch beside K2-K4; then one ``scan_stream`` pass of
+    LM_GRAPH_CHUNK-step graphs (the capture), then a second (replays) with
+    telemetry armed: no launch outside the graph in the second, and ``h2d``
+    one span a chunk in both."""
+    phase_start = time.perf_counter()
+    path = 'file://' + os.path.join(tmp, 'tokens')   # phase 7's store
+    torch.manual_seed(seed)
+    model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+
+    def step_loss(batch):
+        return next_token_loss(model(batch['tokens']), batch['tokens'])
+
+    def lm_pass(trace):
+        with make_reader(path, workers_count=2, seed=seed, trace=trace) as reader:
+            loader = TorchDataLoader(reader, batch_size=LM_BATCH, shuffling_queue_capacity=16,
+                                     seed=3, drop_last=True)
+            batches = iter(loader)
+            reset_counts()
+            losses, step_s, _ = train_lm(batches, optimizer, LM_STEPS + 1, step_loss)
+            counts = read_counts()
+            waits = (wait_split(telemetry_tracing.trace_snapshot()['events'], sum(step_s))
+                     if trace else None)
+            profiled = (profiled_loader_steps(batches, optimizer, step_loss,
+                                              TELEMETRY_PROFILED_STEPS) if trace else None)
+            return losses, step_s, counts, profiled, loader.prefetch, waits
+
+    telemetry_tracing.reset_tracing()
+    try:
+        plain_losses, plain_step_s = lm_pass(trace=False)[:2]
+        losses, step_s, counts, profiled, prefetch, waits = lm_pass(trace=True)
+        losses += plain_losses
+        trace_events = len(telemetry_tracing.trace_snapshot()['events'])
+        graph_model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
+        graph_optimizer = torch.optim.Adam(graph_model.parameters(), lr=3e-4,
+                                           betas=(0.9, 0.999), eps=1e-8, capturable=True)
+
+        def graph_step(batch):
+            return adam_step(graph_optimizer, lambda b: next_token_loss(
+                graph_model(b['tokens']), b['tokens']), batch)
+
+        with make_reader(path, workers_count=2, seed=seed) as reader:
+            loader = TorchDataLoader(reader, batch_size=LM_BATCH)
+            # the first pass captures (its warm-up steps launch eagerly, as
+            # 7b's); the counted pass replays
+            first = loader.scan_stream(graph_step, chunk_batches=LM_GRAPH_CHUNK,
+                                       state=(graph_model, graph_optimizer))
+            reset_counts()
+            aux = loader.scan_stream(graph_step, chunk_batches=LM_GRAPH_CHUNK,
+                                     state=(graph_model, graph_optimizer))
+            graph_losses = torch.cat(first + aux).tolist()
+            graph_counts = read_counts()
+            graph_h2d = stage_counts(loader.telemetry.snapshot(), ('h2d',))['h2d']
+    finally:
+        telemetry_tracing.set_trace_enabled(False)
+        telemetry_tracing.reset_tracing()
+    steps = len(step_s)
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    check(all(n == LM['layers'] * steps for n in launches.values()),
+          '17c: flash kernels launched {} times, expected {} each'.format(
+              launches, LM['layers'] * steps))
+    check(all(np.isfinite(losses + graph_losses)), '17c: non-finite loss')
+    window = TELEMETRY_PROFILED_STEPS
+    check(profiled['wait_input'] == window and 1 <= profiled['h2d'] <= window + prefetch + 1
+          and all(profiled[name] == LM['layers'] * window for name in FLASH_KERNEL_NAMES),
+          '17c: the profiled window of {} steps shows {}'.format(window, profiled))
+    median = statistics.median(step_s[1:]) * 1e3
+    plain = [s * 1e3 for s in plain_step_s[1:]]
+    low, high = min(plain), max(plain)
+    check((1 - LM_STEP_RANGE_MARGIN) * low <= median <= (1 + LM_STEP_RANGE_MARGIN) * high,
+          '17c: the armed step median {:.2f} ms outside the unarmed pass\'s {:.2f}-{:.2f} ms'
+          .format(median, low, high))
+    eager = {name: graph_counts[name] for name in FLASH_PRODUCTS}
+    chunks = len(first) + len(aux)
+    check(all(n == 0 for n in eager.values()) and graph_counts['dense_fallbacks'] == 0,
+          '17c: the replayed pass launched {} outside the graph'.format(eager))
+    check(graph_h2d == chunks, '17c: {} h2d spans for {} chunks'.format(graph_h2d, chunks))
+    phase7 = lm['step_ms'][1:]
+    return {'steps': steps, 'step_ms_median': median,
+            'plain_step_ms_median': statistics.median(plain), 'plain_step_ms': [low, high],
+            'waits': waits,
+            'phase7_step_ms': [min(phase7), max(phase7)],
+            'launches': launches, 'profiled': profiled, 'trace_events': trace_events,
+            'graph_chunks': chunks, 'graph_h2d_spans': graph_h2d, 'graph_eager_launches': eager,
+            'phase_s': time.perf_counter() - phase_start}
+
+
+def telemetry_imagenet_line(imagenet, main_path, card):
+    return ('phase 17a ImageNet instrumented (process pool of {} workers, trace, '
+           '/metrics): stage counts {} ({} batches, {} rowgroups); shares {}; top {} -> '
+           '{!r}; h2d span median {:.4f} ms (host) against the copy\'s {:.4f} ms on the card '
+           'for {} B ({:.2f} GB/s); rows/s {:.2f} stall {:.4f} beside phase 5\'s {:.2f} and '
+           '{:.4f}; shuffle_wait: fill {:.2f} ms, then {:.2f} ms in all (median {:.3f}, max {:.3f}'
+           ', {:.4f} of the epoch); trace {} events, {} flow events, {} processes; K1 {} '
+           'launches; {:.1f} s [{}]'.format(imagenet['processes'] - 1, imagenet['stage_counts'], imagenet['steps'],
+                         imagenet['rowgroups'], imagenet['shares'], imagenet['top_stage'],
+                         imagenet['recommendation'], imagenet['h2d_span_ms_median'],
+                         imagenet['copy_ms_median'], int(statistics.median(
+                             imagenet['copy_bytes'])), imagenet['copy_gb_per_s'],
+                         imagenet['rows_per_s'], imagenet['input_stall_fraction'],
+                         main_path['rows_per_s'], main_path['input_stall_fraction'],
+                         *(imagenet['waits'][key] for key in (
+                             'fill_ms', 'steady_ms', 'steady_median_ms', 'steady_max_ms',
+                             'steady_share')),
+                         imagenet['trace_events'], imagenet['flow_events'],
+                         imagenet['processes'], imagenet['k1_launches'], imagenet['phase_s'],
+                         card))
+
+
+def telemetry_mnist_line(mnist, card):
+    return ('phase 17b MNIST stream, eager steps: rows/s (median of 2 epochs; each epoch in '
+           '{} after a {:.1f} warm-up) off {:.1f} ({}), on {:.1f} ({}), traced {:.1f} ({}) '
+           '(overhead 1 - on/off {:.4f}, 1 - traced/off {:.4f}; {} trace events); autotune '
+           'over {} epochs: {:.1f} rows/s, {} windows, decisions {}, knobs {}; {:.1f} s '
+           '[{}]'.format(MNIST_MODE_ORDER, mnist['warm_up']['rows_per_s'],
+                         *itertools.chain.from_iterable(
+                             (mnist['rows_per_s'][mode],
+                              ', '.join('{:.1f}'.format(run['rows_per_s'])
+                                        for run in mnist['passes'][mode]))
+                             for mode in ('off', 'on', 'traced')),
+                         mnist['overhead_on'],
+                         mnist['overhead_traced'], mnist['trace_events'],
+                         MNIST_AUTOTUNE_EPOCHS, mnist['autotune']['rows_per_s'],
+                         mnist['autotune']['autotune']['windows'],
+                         [(d['window'], d['action'], d['knob'], d['from'], d['to'])
+                          for d in mnist['decisions']], mnist['knobs'], mnist['phase_s'],
+                         card))
+
+
+def telemetry_lm_line(lm, card):
+    return ('phase 17c LM with the flight recorder: step median {:.2f} ms armed, {:.2f} ms '
+           '(range {:.2f}-{:.2f}) unarmed just before, phase 7\'s {:.2f}-{:.2f}; K2-K4 {}; '
+           'shuffle_wait: fill {:.2f} ms, then {:.2f} ms in all (median {:.3f}, max {:.3f}, '
+           '{:.4f} of the steps); profiled {} steps: {}; scan_stream {} chunks, {} h2d spans, '
+           'launches outside the graph {}; {} trace events; {:.1f} s [{}]'.format(
+               lm['step_ms_median'], lm['plain_step_ms_median'], *lm['plain_step_ms'],
+               *lm['phase7_step_ms'], lm['launches'],
+               *(lm['waits'][key] for key in ('fill_ms', 'steady_ms', 'steady_median_ms',
+                                               'steady_max_ms', 'steady_share')),
+               TELEMETRY_PROFILED_STEPS, lm['profiled'], lm['graph_chunks'],
+               lm['graph_h2d_spans'], lm['graph_eager_launches'], lm['trace_events'],
+               lm['phase_s'], card))
+
+
+def phase_telemetry(tmp, args, record, card):
+    """Phase 17: the telemetry plane and the autotuner on the ImageNet (17a),
+    MNIST-stream (17b) and LM (17c) paths, each logged as it ends."""
+    phase_start = time.perf_counter()
+    result = {'imagenet': phase_telemetry_imagenet(tmp, args)}
+    log(telemetry_imagenet_line(result['imagenet'], record['main_path'], card))
+    result['mnist'] = phase_telemetry_mnist(tmp, args.seed)
+    log(telemetry_mnist_line(result['mnist'], card))
+    result['lm'] = phase_telemetry_lm(tmp, args.seed, record['lm'])
+    log(telemetry_lm_line(result['lm'], card))
+    result['phase_s'] = time.perf_counter() - phase_start
+    log('phase 17 took {:.1f} s'.format(result['phase_s']))
+    return result
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -3378,6 +3885,7 @@ def main(argv=None):
         record['reference_api'] = phase_reference_api(tmp, args)
         for line in reference_api_lines(record['reference_api'], record, card):
             log(line)
+        record['telemetry'] = phase_telemetry(tmp, args, record, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3389,6 +3897,7 @@ def main(argv=None):
         'launches': record['main_path']['k1_launches'],
         'process_pool_launches': record['process_imagenet']['k1_launches'],
         'batch_reader_launches': record['reference_api']['batch_decode']['k1_launches'],
+        'telemetry_launches': record['telemetry']['imagenet']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
                            for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
                                         'large')),
@@ -3417,6 +3926,7 @@ def main(argv=None):
             'converter_launches': record['reference_api']['converter_lm']['launches'][counter],
             'twin_launches': record['reference_api']['twins']['long_context']['launches'][
                 counter],
+            'telemetry_launches': record['telemetry']['lm']['launches'][counter],
             'max_abs_err': flash_errors(flash_result, labels),
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
             'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],

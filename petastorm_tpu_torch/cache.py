@@ -19,10 +19,14 @@ Both keep a ``stats`` dict: ``hits``, ``misses``, ``arrow_hits``,
 ``pickle_hits``, ``bytes_mmapped``, ``bytes_written`` and
 ``corrupt_entries``.
 
+Telemetry: writing a filled value is the ``cache_store`` stage, and deleting
+an unreadable entry one ``cache_corrupt`` observation (the worker times
+``cache_hit``/``cache_miss`` around ``get``).
+
 Defined difference: the JAX package's cache also has a circuit breaker (an
-open breaker bypasses the cache), telemetry spans and autotuner knobs
-(``set_bypass``, ``set_writable_hits``); the port has none of those planes,
-so its cache has neither, and no ``bypass_reads`` stat. Nothing of the
+open breaker bypasses the cache) and autotuner knobs (``set_bypass``,
+``set_writable_hits``); the port has neither yet, and no ``bypass_reads``
+stat. Nothing of the
 reader removes a cache directory (the JAX caches' ``cleanup=True`` option,
 which no reader calls either, is left out).
 """
@@ -34,9 +38,11 @@ import pickle
 import struct
 import tempfile
 import threading
+import time
 import zlib
 
 from petastorm_tpu_torch.errors import CacheCorruptionError
+from petastorm_tpu_torch.telemetry.spans import record_stage, stage_span
 
 logger = logging.getLogger(__name__)
 
@@ -143,12 +149,14 @@ class LocalDiskCache(CacheBase):
                                exc_info=True)
             else:
                 logger.debug('cache entry %s is unreadable', file_path, exc_info=True)
+            delete_start = time.perf_counter()
             try:
                 os.unlink(file_path)
             except OSError:
                 pass   # a concurrent reader may have removed it already
             with self._lock:
                 self.stats['corrupt_entries'] += 1
+            record_stage('cache_corrupt', time.perf_counter() - delete_start)
         with self._lock:
             self.stats['misses'] += 1
         value = fill_cache_func()
@@ -161,22 +169,24 @@ class LocalDiskCache(CacheBase):
         return value
 
     def _store(self, file_path, value):
-        os.makedirs(os.path.dirname(file_path), exist_ok=True)
-        blob = self._encode_value(value)
-        if len(blob) > self._size_limit_bytes:
-            return   # one value larger than the cache: do not thrash
-        # concurrent fillers of one key each write a private temp file and
-        # publish it atomically: readers only ever see a whole entry
-        fd, tmp_path = tempfile.mkstemp(dir=os.path.dirname(file_path))
-        try:
-            with os.fdopen(fd, 'wb') as f:
-                f.write(blob)
-            os.replace(tmp_path, file_path)
-        finally:
+        # cache_store: encode + write + publish
+        with stage_span('cache_store'):
+            os.makedirs(os.path.dirname(file_path), exist_ok=True)
+            blob = self._encode_value(value)
+            if len(blob) > self._size_limit_bytes:
+                return   # one value larger than the cache: do not thrash
+            # concurrent fillers of one key each write a private temp file and
+            # publish it atomically: readers only ever see a whole entry
+            fd, tmp_path = tempfile.mkstemp(dir=os.path.dirname(file_path))
             try:
-                os.unlink(tmp_path)   # a no-op after os.replace
-            except OSError:
-                pass
+                with os.fdopen(fd, 'wb') as f:
+                    f.write(blob)
+                os.replace(tmp_path, file_path)
+            finally:
+                try:
+                    os.unlink(tmp_path)   # a no-op after os.replace
+                except OSError:
+                    pass
         with self._lock:
             self.stats['bytes_written'] += len(blob)
             if self._approx_bytes is None:

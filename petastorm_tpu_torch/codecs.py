@@ -8,15 +8,57 @@ Kept: ``ScalarCodec``, ``NdarrayCodec``, ``CompressedNdarrayCodec``,
 encoded or decoded), ``DctImageCodec``, ``DctCoefficientsCodec`` and the JSON
 codec registry. A schema naming any other codec fails to load with the codec
 named.
+
+``CompressedImageCodec`` decodes a column's images on a process-local pool of
+decode threads (``cv2.imdecode`` releases the GIL): ``decode_thread_count()``
+wide, ``PETASTORM_TPU_DECODE_THREADS`` when set (the autotuner's
+``decode_threads`` knob turns it), else ``min(4, cpu_count)``.
 """
 
+import os
 import struct
+import threading
 import zipfile
 import zlib
 from io import BytesIO
 
 import numpy as np
 import pyarrow as pa
+
+
+def decode_thread_count():
+    """Decode fan-out width for GIL-releasing batched kernels:
+    ``PETASTORM_TPU_DECODE_THREADS`` when set, else ``min(4, cpu_count)`` — 1
+    disables the pool."""
+    env = os.environ.get('PETASTORM_TPU_DECODE_THREADS')
+    if env is not None:
+        return max(1, int(env))
+    return max(1, min(4, os.cpu_count() or 1))
+
+
+#: below this many cells a thread fan-out costs more than it hides
+_MIN_PARALLEL_CELLS = 16
+
+_decode_pool_state = {'pool': None, 'threads': 0, 'pid': 0}
+_decode_pool_lock = threading.Lock()
+
+
+def _decode_pool(threads):
+    """Process-local decode thread pool, rebuilt under a lock if the width knob
+    or the pid changed; a superseded pool is shut down so its idle threads do
+    not linger."""
+    from concurrent.futures import ThreadPoolExecutor
+    state = _decode_pool_state
+    with _decode_pool_lock:
+        if (state['pool'] is None or state['threads'] != threads
+                or state['pid'] != os.getpid()):
+            if state['pool'] is not None and state['pid'] == os.getpid():
+                state['pool'].shutdown(wait=False)
+            state['pool'] = ThreadPoolExecutor(
+                max_workers=threads, thread_name_prefix='ptt-decode')
+            state['threads'] = threads
+            state['pid'] = os.getpid()
+        return state['pool']
 
 
 def _binary_chunk_blobs(chunk):
@@ -445,7 +487,18 @@ class CompressedImageCodec(FieldCodec):
         return np.ascontiguousarray(image.astype(unischema_field.numpy_dtype, copy=False))
 
     def decode_arrow_column(self, unischema_field, arrow_col):
-        return self.decode_column(unischema_field, _column_blobs(arrow_col))
+        """One ``cv2.imdecode`` a cell over zero-copy blob views, fanned
+        across the decode threads for a column of at least
+        ``_MIN_PARALLEL_CELLS`` cells."""
+        blobs = _column_blobs(arrow_col)
+
+        def decode_one(blob):
+            return None if blob is None else self.decode(unischema_field, blob)
+
+        threads = decode_thread_count()
+        if threads > 1 and len(blobs) >= _MIN_PARALLEL_CELLS:
+            return list(_decode_pool(threads).map(decode_one, blobs))
+        return [decode_one(blob) for blob in blobs]
 
     def arrow_type(self, unischema_field):
         return pa.binary()

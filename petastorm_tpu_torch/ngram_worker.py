@@ -19,18 +19,21 @@ class NGramWindows(object):
     window is published too, to carry it). As in the JAX package, NGram
     pieces count no cache hits or misses. ``retries``, ``quarantine`` and
     ``breakers`` are :class:`~petastorm_tpu_torch.reader_worker.ColumnarBatch`'s
-    resilience fields."""
+    resilience fields, ``telemetry`` and ``trace`` its telemetry sidecars."""
 
-    __slots__ = ('columns', 'starts', 'item_id', 'retries', 'quarantine', 'breakers')
+    __slots__ = ('columns', 'starts', 'item_id', 'retries', 'quarantine', 'breakers',
+                 'telemetry', 'trace')
 
     def __init__(self, columns, starts, item_id=None, retries=0, quarantine=None,
-                 breakers=None):
+                 breakers=None, telemetry=None, trace=None):
         self.columns = columns
         self.starts = starts
         self.item_id = item_id
         self.retries = retries
         self.quarantine = quarantine
         self.breakers = breakers
+        self.telemetry = telemetry
+        self.trace = trace
 
     def __len__(self):
         return len(self.starts)

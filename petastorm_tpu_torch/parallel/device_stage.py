@@ -42,6 +42,7 @@ Differences from the JAX stage, all deliberate:
 from __future__ import annotations
 
 import collections
+import time
 import zlib
 from dataclasses import dataclass
 from io import BytesIO
@@ -416,12 +417,19 @@ class DeviceDecodeStage:
 
     # ------------------------------------------------------------------ ring
 
-    def throttle(self, done: Optional[Any]) -> None:
+    def throttle(self, done: Optional[Any]) -> float:
         """Bound the decode work queued ahead of the train step: append this
         batch's completion event (None on the CPU, where work is synchronous)
-        and, past the ring depth, wait for the OLDEST batch to finish."""
+        and, past the ring depth, wait for the OLDEST batch to finish. Returns
+        the seconds the host spent blocked in ``Event.synchronize()`` (the
+        loader's ``d2d_wait`` stage)."""
         if done is None:
-            return
+            return 0.0
         self._ring.append(done)
+        waited = 0.0
         while len(self._ring) > self._depth:
-            self._ring.popleft().synchronize()
+            oldest = self._ring.popleft()
+            start = time.perf_counter()
+            oldest.synchronize()
+            waited += time.perf_counter() - start
+        return waited

@@ -42,9 +42,26 @@ global rank, so that the ranks along the other dimensions (``'stage'`` of a
 ``('stage', 'data')`` mesh) read the same rows, which their placements
 declare replicated. ``device_put=False`` yields host numpy batches.
 
-Left for later slices, and absent from the signature: telemetry/SLO/incident/
-history hooks, lineage stamping and autotuning knobs beyond
-``set_prefetch``/``set_device_buffer_depth``.
+Telemetry is the JAX loader's: the stages ``shuffle_wait`` (the training
+loop blocked on the prefetch queue), ``collate``, ``h2d``, ``device_decode``
+and ``d2d_wait`` land in the loader's registry (and, while tracing is armed,
+on the flight recorder's timeline; :meth:`TorchDataLoader.observe_traced`);
+:meth:`TorchDataLoader.telemetry_snapshot` merges them with the reader's.
+Every span is host wall time: ``h2d`` covers the pinned staging copy and the
+asynchronous issue of the upload, not the copy's time on the card, and
+``d2d_wait`` the host blocked on the decode tail's ring. The stages are also
+``torch.profiler.record_function`` ranges
+(``petastorm_tpu_torch.loader.{wait_input,h2d,device_decode}`` and
+``petastorm_tpu_torch.loader.scan_stream.h2d``), so they show in a profiler
+trace beside the kernels they feed. ``metrics_port=`` serves the merged
+snapshot, ``slo_policy=`` sets :meth:`TorchDataLoader.efficiency_report`'s
+target, ``PETASTORM_TPU_TELEMETRY_JSONL`` streams periodic snapshots from
+the consumer loop, and over a reader built with ``autotune=`` the loader adds
+its knobs (prefetch, decode-tail depth, shuffle-buffer floor) to the
+reader's controller.
+
+Left for later slices, and absent from the signature: the incident and
+history hooks and lineage stamping.
 """
 
 import collections
@@ -61,6 +78,7 @@ from petastorm_tpu_torch.ops.raw_decode import torch_dtype
 from petastorm_tpu_torch.parallel.graphs import ProgramCache, StepProgram, program_state
 from petastorm_tpu_torch.parallel.shuffling_buffer import (NoopShufflingBuffer,
                                                            RandomShufflingBuffer)
+from petastorm_tpu_torch.telemetry import tracing as _tracing
 
 _END = object()
 #: scan_stream keeps this many (step_fn, chunk-shape) programs per loader
@@ -177,13 +195,20 @@ class TorchDataLoader(object):
         False on the CPU, where the packing is a host copy that buys nothing.
         A batch with a column that cannot pack goes field by field. The
         batches are equal either way.
+    :param metrics_port: serve the merged snapshot as ``/metrics`` (with
+        ``/healthz`` and ``/vars``) on ``127.0.0.1`` at this port (0: an
+        ephemeral one, see :attr:`metrics_url`) until :meth:`stop`.
+    :param slo_policy: the input-efficiency SLO of :meth:`efficiency_report`
+        (an :class:`~petastorm_tpu_torch.telemetry.slo.SloPolicy`, a float
+        target, or None for 0.9).
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0,
                  min_after_retrieve=None, seed=None, pad_ragged=None, prefetch=2,
                  drop_last=True, device=None, device_transforms=None,
                  device_buffer_depth=2, host_decode=False, mesh=None, partition_spec=None,
-                 device_put=True, coalesce_fields=None):
+                 device_put=True, coalesce_fields=None, metrics_port=None,
+                 slo_policy=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1')
         self.reader = reader
@@ -200,6 +225,16 @@ class TorchDataLoader(object):
             raise ValueError('host_decode applies to device="cpu" only; on the card '
                              'raw-shipped fields always decode on the device')
         self.stats = LoaderStats()
+        from petastorm_tpu_torch.telemetry import MetricsRegistry
+        from petastorm_tpu_torch.telemetry.export import logger_from_env
+        from petastorm_tpu_torch.telemetry.slo import (SloTracker, resolve_slo_policy,
+                                                       slo_clock)
+        #: the loader's stages (see the module docstring)
+        self.telemetry = MetricsRegistry()
+        self._telemetry_jsonl = logger_from_env()
+        self._started_at = slo_clock()
+        self._slo = SloTracker(resolve_slo_policy(slo_policy), jsonl=self._telemetry_jsonl)
+        self._metrics_server = None
         self._pad_ragged = dict(pad_ragged or {})
         self._prefetch = max(1, prefetch)
         self._drop_last = drop_last
@@ -236,6 +271,21 @@ class TorchDataLoader(object):
                 raise ValueError('device_transforms requires a reader built '
                                  'with device_decode_fields')
             self._device_stage = None
+        # one controller tunes the whole pipeline: over a reader built with
+        # autotune= the loader's knobs join its catalog
+        controller = getattr(reader, '_autotune', None)
+        if controller is not None:
+            from petastorm_tpu_torch.autotune.knobs import build_loader_knobs
+            for knob in build_loader_knobs(self):
+                controller.catalog.add(knob)
+        # started last, so a scrape never sees a half-built loader
+        if metrics_port is not None:
+            from petastorm_tpu_torch.telemetry.http_exporter import MetricsHttpServer
+            self._metrics_server = MetricsHttpServer(
+                snapshot_fn=self._scrape_snapshot,
+                health_fn=lambda: {'batches': self.stats.batches, 'rows': self.stats.rows},
+                port=int(metrics_port))
+            self._metrics_server.start()
 
     # --------------------------------------------------------------- iteration
 
@@ -268,7 +318,8 @@ class TorchDataLoader(object):
             last_emit = time.monotonic()
             while True:
                 wait_start = time.monotonic()
-                item = self._queue.get()
+                with torch.profiler.record_function('petastorm_tpu_torch.loader.wait_input'):
+                    item = self._queue.get()
                 now = time.monotonic()
                 if item is _END:
                     if self._error is not None:
@@ -278,6 +329,14 @@ class TorchDataLoader(object):
                 batch, rows, done = item
                 self.stats.add(wait_time_s=now - wait_start,
                                total_time_s=now - last_emit, batches=1, rows=rows)
+                # shuffle_wait: the training loop blocked on the input pipeline
+                # for this batch (monotonic clock: the timeline leg back-dates)
+                self.observe_traced('shuffle_wait', now - wait_start)
+                if self._telemetry_jsonl is not None and self._telemetry_jsonl.due():
+                    # one snapshot for the interval line and the SLO check
+                    snapshot = self.telemetry_snapshot()
+                    self._evaluate_slo(snapshot)
+                    self._telemetry_jsonl.emit(snapshot, event='loader_interval')
                 last_emit = now
                 if done is not None:
                     consumer = torch.cuda.current_stream(self.device)
@@ -323,6 +382,7 @@ class TorchDataLoader(object):
                 # blow past the buffer's capacity
                 for part in _iter_column_slices(columns, self.batch_size):
                     buffer.add_many(part)
+                    self._apply_min_after_retrieve(buffer)
                     while buffer.can_retrieve(self.batch_size):
                         if stop_event.is_set():
                             return
@@ -341,6 +401,16 @@ class TorchDataLoader(object):
                 self._error = exc
         finally:
             self._put(_END, out_queue, stop_event)
+
+    def _apply_min_after_retrieve(self, buffer):
+        """Hand the ``loader_min_after_retrieve`` knob's value to the live
+        buffer, on this (the producer's) thread: the buffer is not
+        thread-safe, and a floor raised between ``can_retrieve`` and
+        ``retrieve`` would fail the retrieve."""
+        target = self._min_after_retrieve
+        if (target is not None and isinstance(buffer, RandomShufflingBuffer)
+                and target != buffer.min_after_retrieve):
+            buffer.set_min_after_retrieve(target)
 
     def _reader_chunks(self):
         """Sanitized columnar chunks from the reader, each work item (emptied
@@ -364,14 +434,23 @@ class TorchDataLoader(object):
             self.stats.mirror(io_retries=retries, rowgroups_quarantined=len(ledger))
 
     def _sanitize(self, columns):
+        # collate: host batch assembly, sanitizing and padding (with the
+        # host-mode decode of raw-shipped fields, also a device_decode span)
+        collate_start = time.perf_counter()
         passthrough = frozenset()
         stage = self._device_stage
         if stage is not None:
+            decode_start = time.perf_counter()
             columns, decoded_any = stage.sanitize_decode(columns)
             if decoded_any:
                 self.stats.add(device_fallback_batches=1)
+                self.observe_traced('device_decode', time.perf_counter() - decode_start,
+                                    start_pc=decode_start)
             passthrough = stage.passthrough_names
-        return sanitize_columns(columns, self._pad_ragged, passthrough=passthrough)
+        out = sanitize_columns(columns, self._pad_ragged, passthrough=passthrough)
+        self.observe_traced('collate', time.perf_counter() - collate_start,
+                            start_pc=collate_start)
+        return out
 
     def _emit(self, columns, out_queue, stop_event):
         rows = _num_rows(columns)
@@ -380,33 +459,49 @@ class TorchDataLoader(object):
             return
         stage = self._device_stage
         recipe = None
+        prepare_s = 0.0
         if stage is not None and not stage.host_mode:
+            # the decode tail's host half: pack/plan raw payloads for upload
+            prepare_start = time.perf_counter()
             columns, recipe = stage.prepare(columns)
+            prepare_s = time.perf_counter() - prepare_start
         done = None
         if self._stream is not None:
             with torch.cuda.stream(self._stream):
-                batch = self._finish(columns, stage, recipe)
+                batch = self._finish(columns, stage, recipe, prepare_s)
                 done = torch.cuda.Event()
                 done.record(self._stream)
         else:
-            batch = self._finish(columns, stage, recipe)
+            batch = self._finish(columns, stage, recipe, prepare_s)
         if recipe:
-            stage.throttle(done)
+            waited = stage.throttle(done)
+            if waited:
+                self.observe_traced('d2d_wait', waited)
         self._put((batch, rows, done), out_queue, stop_event)
 
-    def _finish(self, columns, stage, recipe):
-        """Upload, then run the decode tail, on the current stream."""
-        if self._coalesce_fields and coalescible(columns):
-            batch = upload_columns(columns, self.device)
-            self.stats.add(coalesced_uploads=1)
-        else:
-            batch = upload_fields(columns, self.device)
-            self.stats.add(per_field_uploads=1)
+    def _finish(self, columns, stage, recipe, prepare_s=0.0):
+        """Upload, then run the decode tail, on the current stream. ``h2d``
+        times the upload call on the host (staging copy and asynchronous
+        issue), ``device_decode`` the decode tail's host time (``prepare_s``
+        plus issuing ``finish``'s launches)."""
+        h2d_start = time.perf_counter()
+        with torch.profiler.record_function('petastorm_tpu_torch.loader.h2d'):
+            if self._coalesce_fields and coalescible(columns):
+                batch = upload_columns(columns, self.device)
+                self.stats.add(coalesced_uploads=1)
+            else:
+                batch = upload_fields(columns, self.device)
+                self.stats.add(per_field_uploads=1)
+        self.observe_traced('h2d', time.perf_counter() - h2d_start, start_pc=h2d_start)
         if recipe:
+            finish_start = time.perf_counter()
             stored_before = stage.stored_batches
-            batch = stage.finish(batch, recipe)
+            with torch.profiler.record_function('petastorm_tpu_torch.loader.device_decode'):
+                batch = stage.finish(batch, recipe)
             self.stats.add(device_decode_batches=1,
                            device_stored_batches=int(stage.stored_batches > stored_before))
+            self.observe_traced('device_decode',
+                                prepare_s + time.perf_counter() - finish_start)
         return batch
 
     def _put(self, item, out_queue, stop_event):
@@ -511,7 +606,12 @@ class TorchDataLoader(object):
             if layout != _layout_key(chunk):
                 raise ValueError('the stream\'s columns changed between chunks: {} then {}'
                                  .format(layout, _layout_key(chunk)))
-            upload_columns(chunk, self.device, out=buffer)
+            # the one pinned chunk copy, outside the graph's replay
+            h2d_start = time.perf_counter()
+            with torch.profiler.record_function(
+                    'petastorm_tpu_torch.loader.scan_stream.h2d'):
+                upload_columns(chunk, self.device, out=buffer)
+            self.observe_traced('h2d', time.perf_counter() - h2d_start, start_pc=h2d_start)
             self.stats.add(batches=n_batches, rows=usable)
             try:
                 return program.run()
@@ -671,9 +771,65 @@ class TorchDataLoader(object):
             return self._device_buffer_depth
         return self._device_stage.depth
 
+    # ---------------------------------------------------------------- telemetry
+
+    def observe_traced(self, stage, dur_s, start_pc=None):
+        """One loader-stage measurement into the loader's registry and, while
+        tracing is armed, the flight recorder's timeline. ``start_pc`` is the
+        ``perf_counter`` start; None back-dates by the duration (a stage
+        clocked on another timebase, as ``shuffle_wait``)."""
+        self.telemetry.observe(stage, dur_s)
+        if _tracing.trace_enabled():
+            if start_pc is None:
+                start_pc = time.perf_counter() - dur_s
+            _tracing.trace_complete(stage, start_pc, dur_s)
+
+    def telemetry_snapshot(self):
+        """One JSON-safe snapshot of the WHOLE pipeline: the loader's stages
+        merged with the reader's cross-process snapshot (workers and pool).
+        Feed it to
+        :func:`~petastorm_tpu_torch.telemetry.analyze.attribute_bottleneck`."""
+        from petastorm_tpu_torch.telemetry import merge_snapshots
+        reader_snapshot = getattr(self.reader, 'telemetry_snapshot', None)
+        if reader_snapshot is None:
+            return self.telemetry.snapshot()
+        return merge_snapshots(self.telemetry.snapshot(), reader_snapshot())
+
+    def _evaluate_slo(self, snapshot):
+        from petastorm_tpu_torch.telemetry.slo import slo_clock
+        return self._slo.evaluate(snapshot, slo_clock() - self._started_at,
+                                  rows=self.stats.rows, registry=self.telemetry)
+
+    def efficiency_report(self):
+        """One input-efficiency SLO evaluation over this loader's lifetime:
+        efficiency in [0, 1] from ``shuffle_wait`` (plus ``d2d_wait``), the
+        seconds the training loop sat starved, with goodput against ideal
+        rows/s and the edge-triggered breach accounting. Evaluated also at
+        every JSONL interval and on every ``/metrics`` scrape."""
+        return self._evaluate_slo(self.telemetry_snapshot())
+
+    def _scrape_snapshot(self):
+        snapshot = self.telemetry_snapshot()
+        report = self._evaluate_slo(snapshot)
+        gauges = snapshot.setdefault('gauges', {})
+        if report['efficiency'] is not None:
+            gauges['slo_efficiency'] = report['efficiency']
+        gauges['slo_target_efficiency'] = report['target_efficiency']
+        snapshot['slo_history'] = report.get('history', [])
+        return snapshot
+
+    @property
+    def metrics_url(self):
+        """The scrape endpoint's base URL, or None without ``metrics_port``."""
+        if self._metrics_server is None:
+            return None
+        return self._metrics_server.url
+
     # ---------------------------------------------------------------- lifecycle
 
     def stop(self):
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
         self._stop_event.set()
         self.reader.stop()
 

@@ -155,6 +155,20 @@ class RandomShufflingBuffer(object):
             return self._size > 0
         return self._size - n >= self._min_after
 
+    @property
+    def min_after_retrieve(self):
+        """The current decorrelation floor."""
+        return self._min_after
+
+    def set_min_after_retrieve(self, value):
+        """Set the decorrelation floor, clamped to ``[0, capacity]`` (the
+        loader's ``loader_min_after_retrieve`` knob). Returns the applied
+        value. Like the rest of the buffer, not thread-safe: the loader calls
+        it on its producer thread, between retrieves."""
+        value = max(0, min(int(value), self._capacity))
+        self._min_after = value
+        return value
+
     def finish(self):
         """No more adds; drain whatever remains."""
         self._finished = True

@@ -42,10 +42,21 @@ watchdog quarantines one whose worker overruns ``item_deadline_s``. Retries,
 the quarantine ledger, tripped breakers and the process pool's counters show
 in :attr:`Reader.diagnostics`.
 
-Left for later slices, and absent from the signatures: telemetry and SLOs,
-lineage, cost scheduling, autotuning, topology negotiation, ``shard_seed``, the
-input service, the cache's bypass breaker and non-local filesystems
-(``filesystem=`` takes a local or wrapped ``pyarrow.fs.FileSystem``).
+Telemetry is the JAX package's (:mod:`~petastorm_tpu_torch.telemetry`): the
+workers' stage spans and flight-recorder events ride each batch's sidecars
+and merge into the reader's registry and the process recorder, so
+:meth:`Reader.telemetry_snapshot` and :meth:`Reader.dump_trace` cover every
+process. ``trace=`` arms the flight recorder, ``metrics_port=`` serves
+``/metrics``, ``/healthz`` and ``/vars`` on ``127.0.0.1``, ``slo_policy=``
+sets the input-efficiency target of :meth:`Reader.efficiency_report`, and
+``autotune=`` starts the closed-loop knob controller
+(:mod:`~petastorm_tpu_torch.autotune`; :meth:`Reader.autotune_report`).
+
+Left for later slices, and absent from the signatures: the cost model and
+cost scheduling, lineage, incidents, run history, topology negotiation,
+``shard_seed``, the input service, the cache's bypass breaker and non-local
+filesystems (``filesystem=`` takes a local or wrapped
+``pyarrow.fs.FileSystem``).
 """
 
 import logging
@@ -62,6 +73,8 @@ from petastorm_tpu_torch.reader_worker import (ColumnarBatch, RowGroupWorker, Wo
                                                hang_stand_in_factory)
 from petastorm_tpu_torch.resilience import (QuarantineLedger, QuarantineRecord,
                                             resolve_retry_policy, run_with_retry)
+from petastorm_tpu_torch.telemetry.tracing import (merge_trace_events, set_trace_enabled,
+                                                   trace_enabled, trace_instant)
 from petastorm_tpu_torch.unischema import Unischema
 from petastorm_tpu_torch.workers import EmptyResultError
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
@@ -140,7 +153,8 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                 cache_format='arrow-ipc', transform_spec=None, filesystem=None,
                 resume_state=None, reader_pool=None, field_overrides=None, on_error='raise',
                 retry_policy=None, shm_transport=None, item_deadline_s=None,
-                heartbeat_interval_s=None, device_decode_fields=None):
+                heartbeat_interval_s=None, device_decode_fields=None, trace=None,
+                metrics_port=None, slo_policy=None, autotune=None):
     """Reader for stores written with a Unischema (by this package or by
     ``petastorm_tpu``): rows decoded through the codecs.
 
@@ -202,7 +216,27 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
         through, and :class:`~petastorm_tpu_torch.parallel.loader.TorchDataLoader`
         decodes them on the card. The ``__hw``/``__enc`` auxiliary columns ride
         :meth:`Reader.iter_columnar` batches only.
+    :param trace: True/False arm/disarm the flight recorder
+        (process-global, like ``PETASTORM_TPU_TRACE``; process-pool workers
+        spawned by this reader inherit it); None leaves it as it is. Export
+        the capture with :meth:`Reader.dump_trace`.
+    :param metrics_port: serve ``/metrics`` (Prometheus text of
+        :meth:`Reader.telemetry_snapshot`, SLO gauges fresh per scrape),
+        ``/healthz`` and ``/vars`` on ``127.0.0.1`` at this port (0: an
+        ephemeral one, see :attr:`Reader.metrics_url`) until :meth:`Reader.stop`.
+    :param slo_policy: the input-efficiency SLO
+        (:class:`~petastorm_tpu_torch.telemetry.slo.SloPolicy`, a float target
+        or None for 0.9), read by :meth:`Reader.efficiency_report`.
+    :param autotune: True or an
+        :class:`~petastorm_tpu_torch.autotune.AutotunePolicy` starts a
+        controller thread that samples this reader's telemetry, attributes
+        the bottleneck and turns one knob at a time (ventilation depth,
+        thread-pool workers, decode threads); :meth:`Reader.autotune_report`.
+        A knob changes how fast rows arrive, never which rows an epoch
+        delivers.
     """
+    if trace is not None:
+        set_trace_enabled(bool(trace))
     retry_policy = resolve_retry_policy(on_error, retry_policy)
     retries = [0]
     dataset_url_or_urls = normalize_dataset_url_or_urls(dataset_url_or_urls)
@@ -226,7 +260,8 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   device_decode_fields=device_decode_fields, on_error=on_error,
-                  retry_policy=retry_policy, initial_io_retries=retries[0])
+                  retry_policy=retry_policy, initial_io_retries=retries[0],
+                  metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
@@ -239,7 +274,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       cache_format='arrow-ipc', transform_spec=None, filesystem=None,
                       resume_state=None, reader_pool=None, on_error='raise',
                       retry_policy=None, shm_transport=None, item_deadline_s=None,
-                      heartbeat_interval_s=None, device_decode_fields=None):
+                      heartbeat_interval_s=None, device_decode_fields=None, trace=None,
+                      metrics_port=None, slo_policy=None, autotune=None):
     """Reader for any Parquet store: native columns (no codec decode; a
     ``list<int32>`` column arrives as a list of int32 arrays), one namedtuple
     of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s
@@ -258,6 +294,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     stored values; on a plain Parquet store it raises, since no codec says
     what the bytes are.
     """
+    if trace is not None:
+        set_trace_enabled(bool(trace))
     retry_policy = resolve_retry_policy(on_error, retry_policy)
     retries = [0]
     dataset_url_or_urls = normalize_dataset_url_or_urls(dataset_url_or_urls)
@@ -295,7 +333,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   shard_count=shard_count, cache=cache, transform_spec=transform_spec,
                   resume_state=resume_state, is_batched_reader=True,
                   device_decode_fields=device_decode_fields, on_error=on_error,
-                  retry_policy=retry_policy, initial_io_retries=retries[0])
+                  retry_policy=retry_policy, initial_io_retries=retries[0],
+                  metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune)
 
 
 class Reader(object):
@@ -307,7 +346,8 @@ class Reader(object):
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=None, transform_spec=None, resume_state=None,
                  is_batched_reader=False, device_decode_fields=None, on_error='raise',
-                 retry_policy=None, initial_io_retries=0):
+                 retry_policy=None, initial_io_retries=0, metrics_port=None,
+                 slo_policy=None, autotune=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -330,6 +370,21 @@ class Reader(object):
         self._cache_hits = 0
         self._cache_misses = 0
         self._cache_by_epoch = {}   # absolute epoch -> [hits, misses]
+        # rows delivered off the results channel (NGram: windows): the
+        # autotuner's goodput numerator
+        self._rows_consumed = 0
+        self._autotune = None
+        self._metrics_server = None
+        # the workers' stage times arrive on each batch's sidecar and merge
+        # here; the pool's registry merges at snapshot time
+        from petastorm_tpu_torch.telemetry import MetricsRegistry
+        from petastorm_tpu_torch.telemetry.export import logger_from_env
+        from petastorm_tpu_torch.telemetry.slo import (SloTracker, resolve_slo_policy,
+                                                       slo_clock)
+        self._telemetry = MetricsRegistry()
+        # efficiency windows run from construction on the span clock
+        self._started_at = slo_clock()
+        self._slo = SloTracker(resolve_slo_policy(slo_policy), jsonl=logger_from_env())
         if ngram is not None:
             if is_batched_reader:
                 raise ValueError('NGram is not supported by make_batch_reader')
@@ -464,7 +519,7 @@ class Reader(object):
                                      .format(num_epochs))
 
         self._ventilator = ConcurrentVentilator(
-            ventilate_fn=reader_pool.ventilate,
+            ventilate_fn=_traced_ventilate(reader_pool.ventilate),
             items_to_ventilate=items,
             iterations=iterations,
             max_ventilation_queue_size=reader_pool.workers_count
@@ -492,6 +547,19 @@ class Reader(object):
             self._results_reader = results_reader(self.result_schema,
                                                   on_batch=self._note_item_consumed,
                                                   fast_forward=self._resume_fast_forward)
+        from petastorm_tpu_torch.autotune.policy import resolve_policy
+        autotune_policy = resolve_policy(autotune)
+        if autotune_policy is not None:
+            from petastorm_tpu_torch.autotune.controller import setup_reader_autotune
+            self._autotune = setup_reader_autotune(self, autotune_policy)
+            self._autotune.start()
+        # started last, so a scrape never sees a half-built reader
+        if metrics_port is not None:
+            from petastorm_tpu_torch.telemetry.http_exporter import MetricsHttpServer
+            self._metrics_server = MetricsHttpServer(
+                snapshot_fn=self._scrape_snapshot, health_fn=self._scrape_health,
+                port=int(metrics_port))
+            self._metrics_server.start()
 
     # --------------------------------------------------------------- iteration
 
@@ -534,7 +602,8 @@ class Reader(object):
                 batch = ColumnarBatch(self.ngram.windows_as_arrays(batch.columns, batch.starts),
                                       len(batch.starts), item_id=batch.item_id,
                                       retries=batch.retries, quarantine=batch.quarantine,
-                                      breakers=batch.breakers)
+                                      breakers=batch.breakers, telemetry=batch.telemetry,
+                                      trace=batch.trace)
             self._note_item_consumed(batch)
             if self._resume_fast_forward and batch.item_id is not None:
                 # honour a row-path checkpoint's cursor: skip the rows already
@@ -566,12 +635,26 @@ class Reader(object):
             self._io_retries += getattr(batch, 'retries', 0)
             if breakers:
                 self._breaker_states.update(breakers)
+        stage_times = getattr(batch, 'telemetry', None)
+        if stage_times:
+            # additive, so a respawned worker's fresh recorder merges like any
+            self._telemetry.merge_stage_times(stage_times)
+        trace_sidecar = getattr(batch, 'trace', None)
+        if trace_sidecar:
+            # the producing thread's events land in this process's recorder,
+            # keeping their pid: one dump_trace() spans every process
+            merge_trace_events(trace_sidecar)
         item_id = batch.item_id
         if item_id is None:
             return
         epoch, piece, drop = item_id
+        if trace_enabled():
+            # the consumer-side anchor of the rowgroup's trace, on every pool
+            trace_instant('rowgroup_consumed', ctx=(epoch, piece, 0),
+                          args={'rows': batch.num_rows})
         cache_hit = getattr(batch, 'cache_hit', None)
         with self._accounting_lock:
+            self._rows_consumed += batch.num_rows
             if cache_hit is not None:
                 if cache_hit:
                     self._cache_hits += 1
@@ -667,6 +750,102 @@ class Reader(object):
             return self._io_retries
 
     @property
+    def rows_consumed(self):
+        """Rows delivered off the results channel so far (NGram: windows), the
+        autotuner's goodput numerator."""
+        with self._accounting_lock:
+            return self._rows_consumed
+
+    # --------------------------------------------------------------- telemetry
+
+    def telemetry_snapshot(self):
+        """One JSON-safe telemetry snapshot covering every process: the
+        reader's registry (with the workers' stage times) merged with the
+        pool's consumer-side registry (``pool_wait``, and on the process pool
+        ``shm_map``/``shm_release``/``wire_bytes_copied``). Feed it to
+        :func:`~petastorm_tpu_torch.telemetry.analyze.attribute_bottleneck` or
+        :func:`~petastorm_tpu_torch.telemetry.export.to_prometheus_text`."""
+        from petastorm_tpu_torch.telemetry import merge_snapshots
+        pool_registry = getattr(self._pool, 'telemetry', None)
+        if pool_registry is None:
+            return self._telemetry.snapshot()
+        return merge_snapshots(self._telemetry.snapshot(), pool_registry.snapshot())
+
+    def _evaluate_slo(self, snapshot):
+        from petastorm_tpu_torch.telemetry.slo import slo_clock
+        return self._slo.evaluate(snapshot, slo_clock() - self._started_at,
+                                  rows=self.rows_consumed, registry=self._telemetry)
+
+    def efficiency_report(self):
+        """One input-efficiency SLO evaluation over this reader's lifetime:
+        efficiency in [0, 1] from the recorded consumer wait spans
+        (``pool_wait``, or ``shuffle_wait``/``d2d_wait`` when a loader's are
+        in the snapshot), the starvation fraction, goodput against ideal
+        rows/s, and the edge-triggered breach accounting (``slo_breach``
+        counter, JSONL event and trace instant). Also ``diagnostics['slo']``."""
+        return self._evaluate_slo(self.telemetry_snapshot())
+
+    def _snapshot_with_slo(self):
+        """One telemetry snapshot evaluated against the SLO, with the fresh
+        ``slo_*`` gauges spliced in; returns ``(snapshot, slo_report)``."""
+        snapshot = self.telemetry_snapshot()
+        report = self._evaluate_slo(snapshot)
+        gauges = snapshot.setdefault('gauges', {})
+        if report['efficiency'] is not None:
+            gauges['slo_efficiency'] = report['efficiency']
+        gauges['slo_target_efficiency'] = report['target_efficiency']
+        # the tracker's trailing points ride /vars (a list: the text scrape
+        # ignores it)
+        snapshot['slo_history'] = report.get('history', [])
+        return snapshot, report
+
+    def _scrape_snapshot(self):
+        return self._snapshot_with_slo()[0]
+
+    def _scrape_health(self):
+        return {'rows_consumed': self.rows_consumed, 'stopped': self._stopped,
+                'rowgroups_quarantined': len(self.quarantine)}
+
+    @property
+    def metrics_url(self):
+        """The scrape endpoint's base URL, or None without ``metrics_port``."""
+        if self._metrics_server is None:
+            return None
+        return self._metrics_server.url
+
+    def dump_trace(self, path=None):
+        """The flight recorder as Chrome-trace/Perfetto JSON: every event of
+        this process plus the workers' events merged off the ``trace``
+        sidecars, with per-process tracks and worker->consumer flow arrows a
+        rowgroup. Written to ``path`` when given; returned either way. Empty
+        unless tracing was armed for the read (``trace=True`` or
+        ``PETASTORM_TPU_TRACE=1``)."""
+        from petastorm_tpu_torch.telemetry.trace_export import (to_chrome_trace,
+                                                                write_chrome_trace)
+        from petastorm_tpu_torch.telemetry.tracing import trace_snapshot
+        snapshot = trace_snapshot()
+        if path is not None:
+            return write_chrome_trace(path, snapshot)
+        return to_chrome_trace(snapshot)
+
+    def trace_summary(self):
+        """The non-visual flight-recorder view
+        (:func:`~petastorm_tpu_torch.telemetry.trace_export.summarize_trace`):
+        event counts by name, dropped events, anomaly instants and the
+        longest rowgroup traces."""
+        from petastorm_tpu_torch.telemetry.trace_export import summarize_trace
+        from petastorm_tpu_torch.telemetry.tracing import trace_snapshot
+        return summarize_trace(trace_snapshot())
+
+    def autotune_report(self):
+        """The autotuner's state (windows, decision log, frozen-by-breaker
+        flag, knob values and bounds), or ``{'enabled': False}`` without
+        ``autotune``."""
+        if self._autotune is None:
+            return {'enabled': False}
+        return self._autotune.report()
+
+    @property
     def diagnostics(self):
         """Counters under the JAX package's names: the process pool's own
         (``workers_alive``, ``workers_respawned``, ``shm_batches``, ...: see
@@ -677,9 +856,12 @@ class Reader(object):
         empty while all are closed); ``cache_hits`` and ``cache_misses``, the
         consumed work items served from and filled into the cache (NGram
         pieces count neither), ``cache_by_epoch`` (the port's own) splitting
-        them by absolute epoch as ``{epoch: {'hits': n, 'misses': n}}``, and
+        them by absolute epoch as ``{epoch: {'hits': n, 'misses': n}}``,
         ``cache``, a copy of the cache's own ``stats`` (absent without a
-        cache)."""
+        cache); ``telemetry``, one cross-process snapshot with fresh SLO
+        gauges, and ``slo``, its efficiency report; ``trace``, the
+        flight-recorder summary (only while tracing is armed); ``autotune``,
+        the controller's report (only with ``autotune``)."""
         diag = dict(getattr(self._pool, 'diagnostics', None) or {})
         with self._accounting_lock:
             diag.update({'io_retries': self._io_retries,
@@ -701,12 +883,25 @@ class Reader(object):
                                         or shm_breaker['state'] != 'closed'):
             breakers['shm_transport'] = shm_breaker
         diag['breakers'] = breakers
+        snapshot, slo_report = self._snapshot_with_slo()
+        diag['slo'] = slo_report
+        diag['telemetry'] = snapshot
+        if trace_enabled():
+            diag['trace'] = self.trace_summary()
+        if self._autotune is not None:
+            diag['autotune'] = self._autotune.report()
         return diag
 
     # --------------------------------------------------------------- lifecycle
 
     def stop(self):
         self._stopped = True
+        if self._metrics_server is not None:
+            # the scrape plane goes first: a scrape must not race the teardown
+            self._metrics_server.stop()
+        if self._autotune is not None:
+            # no knob turns once the pool starts tearing down
+            self._autotune.stop()
         self._pool.stop()
 
     def join(self):
@@ -718,6 +913,18 @@ class Reader(object):
     def __exit__(self, exc_type, exc_val, exc_tb):
         self.stop()
         self.join()
+
+
+def _traced_ventilate(pool_ventilate):
+    """A pool's ``ventilate`` that puts each item's birth on the flight
+    recorder's timeline: the ``ventilate`` instant is the causal origin of a
+    rowgroup's trace. One enabled check an item while tracing is off."""
+    def ventilate(**kwargs):
+        if trace_enabled():
+            trace_instant('ventilate', ctx=(int(kwargs.get('epoch_index', 0)),
+                                            int(kwargs['piece_index']), 0))
+        pool_ventilate(**kwargs)
+    return ventilate
 
 
 def _item_id(item):

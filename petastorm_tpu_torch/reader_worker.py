@@ -4,8 +4,15 @@ the compiled decode plan, serves and fills the rowgroup cache, applies the
 seeded in-rowgroup shuffle and the :class:`TransformSpec`, and publishes a
 columnar batch; NGram readers publish the piece's windows instead
 (:mod:`~petastorm_tpu_torch.ngram_worker`). A trimmed copy of
-``petastorm_tpu.reader_worker``: the object-store ingest engine and the
-telemetry sidecars are left out.
+``petastorm_tpu.reader_worker`` (the object-store ingest engine and the
+lineage fingerprints are left out).
+
+Telemetry is the JAX package's: the load, decode, shuffle and transform run
+under stage spans (``fs_open``, ``rowgroup_read``, ``decode``, ``shuffle``,
+``transform``, ``cache_hit``/``cache_miss``), every item runs under its causal
+trace context ``(epoch, rowgroup, attempt)``, and the single publish funnel
+drains the thread's stage times and trace events into the payload's
+``telemetry`` and ``trace`` sidecars, which the reader merges.
 
 Under ``on_error='retry'`` or ``'skip'`` the load runs under the reader's
 :class:`~petastorm_tpu_torch.resilience.RetryPolicy`, behind a circuit breaker
@@ -20,6 +27,7 @@ import logging
 import os
 import pickle
 import re
+import time
 
 import numpy as np
 import pyarrow as pa
@@ -27,6 +35,11 @@ import pyarrow.dataset as pads
 
 from petastorm_tpu_torch import decode_engine
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.telemetry.spans import drain_stage_times, record_stage, stage_span
+from petastorm_tpu_torch.telemetry.tracing import (clear_trace_context,
+                                                   current_dispatch_attempt,
+                                                   drain_trace_events, set_trace_context,
+                                                   trace_instant)
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers.serializers import columns_num_rows
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
@@ -50,13 +63,17 @@ class ColumnarBatch(object):
     counts the transient-IO retries spent on it; ``quarantine`` is the
     :class:`~petastorm_tpu_torch.resilience.QuarantineRecord` of an empty batch
     that stands in for a skipped rowgroup; ``breakers`` holds the producing
-    process's tripped breakers (``{name: state}``, None when all are healthy)."""
+    process's tripped breakers (``{name: state}``, None when all are healthy).
+    ``telemetry`` is the stage-span sidecar (``{stage: histogram_snapshot}``
+    drained from the producing thread since its previous publish) and
+    ``trace`` the flight-recorder sidecar (that thread's drained trace
+    events); both are None when empty or off."""
 
     __slots__ = ('columns', 'num_rows', 'item_id', 'cache_hit', 'retries', 'quarantine',
-                 'breakers')
+                 'breakers', 'telemetry', 'trace')
 
     def __init__(self, columns, num_rows, item_id=None, cache_hit=None, retries=0,
-                 quarantine=None, breakers=None):
+                 quarantine=None, breakers=None, telemetry=None, trace=None):
         self.columns = columns
         self.num_rows = num_rows
         self.item_id = item_id
@@ -64,6 +81,8 @@ class ColumnarBatch(object):
         self.retries = retries
         self.quarantine = quarantine
         self.breakers = breakers
+        self.telemetry = telemetry
+        self.trace = trace
 
 
 class WorkerSetup(object):
@@ -138,12 +157,42 @@ class RowGroupWorker(WorkerBase):
         super().__init__(worker_id, publish_func, args)
         self._setup = args
         self._parquet_format = pads.ParquetFileFormat()
+        self._filesystem = None
         # compiled decode plans per (field set, ship raw), kept for the
         # worker's lifetime
         self._decode_plans = {}
 
+    def _fs(self):
+        # fs_open: the setup carries a built filesystem, so this times its
+        # first resolution in this worker (one span a worker, as the JAX
+        # worker's filesystem factory records)
+        if self._filesystem is None:
+            with stage_span('fs_open'):
+                self._filesystem = self._setup.filesystem
+        return self._filesystem
+
+    def _publish(self, payload):
+        """The single publish funnel: attach this thread's stage times and
+        trace events since its previous publish, then hand the payload to the
+        pool's results channel."""
+        payload.telemetry = drain_stage_times()
+        payload.trace = drain_trace_events()
+        self.publish_func(payload)
+
     def process(self, piece_index, fragment_path, row_group_id, partition_keys=None,
                 worker_predicate=None, shuffle_row_drop_partition=(0, 1), epoch_index=0):
+        # every span and instant of the item, its publish included, carries
+        # (epoch, rowgroup, dispatch attempt); the process pool's worker main
+        # installs the attempt, the in-process pools leave 0
+        set_trace_context(epoch_index, piece_index, current_dispatch_attempt())
+        try:
+            self._process_item(piece_index, fragment_path, row_group_id, partition_keys,
+                               worker_predicate, shuffle_row_drop_partition, epoch_index)
+        finally:
+            clear_trace_context()
+
+    def _process_item(self, piece_index, fragment_path, row_group_id, partition_keys,
+                      worker_predicate, shuffle_row_drop_partition, epoch_index):
         setup = self._setup
         item_id = (epoch_index, piece_index, shuffle_row_drop_partition[0])
         # the retry goes around the loads only (shuffle and transform touch no
@@ -192,7 +241,7 @@ class RowGroupWorker(WorkerBase):
         if setup.retry_policy is not None:
             from petastorm_tpu_torch.resilience import default_board
             payload.breakers = default_board().snapshot(only_tripped=True) or None
-        self.publish_func(payload)
+        self._publish(payload)
 
     def _process_rows(self, item_id, fragment_path, row_group_id, partition_keys,
                       worker_predicate, shuffle_row_drop_partition, with_retry):
@@ -219,15 +268,23 @@ class RowGroupWorker(WorkerBase):
                 filled.append(True)
                 return load()
 
+            cache_start = time.perf_counter()
             columns = setup.cache.get(cache_key, fill)
             cache_hit = not filled
+            # cache_hit times serving from the cache; cache_miss is an
+            # ENVELOPE span (it wraps the rowgroup_read/decode of the fill)
+            record_stage('cache_hit' if cache_hit else 'cache_miss',
+                         time.perf_counter() - cache_start)
         num_rows = columns_num_rows(columns)
         if num_rows:
             if setup.shuffle_rows:
                 # the same seeded permutation petastorm_tpu's worker draws
-                seed = None if setup.seed is None else (setup.seed + piece_index) % (2 ** 31)
-                permutation = np.random.RandomState(seed).permutation(num_rows)
-                columns = {name: _take(col, permutation) for name, col in columns.items()}
+                with stage_span('shuffle'):
+                    seed = (None if setup.seed is None
+                            else (setup.seed + piece_index) % (2 ** 31))
+                    permutation = np.random.RandomState(seed).permutation(num_rows)
+                    columns = {name: _take(col, permutation)
+                               for name, col in columns.items()}
             columns, num_rows = self._apply_transform(columns, num_rows)
         # an emptied item is published too: every item yields exactly one
         # result, so the reader's consumption accounting stays exact
@@ -240,6 +297,9 @@ class RowGroupWorker(WorkerBase):
         record = QuarantineRecord.from_exception(
             exc, piece_index=item_id[1], fragment_path=fragment_path,
             row_group_id=row_group_id, attempts=retries + 1, epoch=item_id[0])
+        # anomaly marker on the flight-recorder timeline (ctx = this item)
+        trace_instant('quarantine', args={'reason': record.reason,
+                                          'error_type': record.error_type})
         logger.warning('Quarantining rowgroup piece %s (%s rg %s) after %d attempt(s): '
                        '%s: %s', item_id[1], fragment_path, row_group_id, retries + 1,
                        type(exc).__name__, exc)
@@ -248,7 +308,7 @@ class RowGroupWorker(WorkerBase):
     # -------------------------------------------------------------------- load
 
     def _make_fragment(self, fragment_path, row_group_id):
-        return self._parquet_format.make_fragment(fragment_path, self._setup.filesystem,
+        return self._parquet_format.make_fragment(fragment_path, self._fs(),
                                                   row_groups=[row_group_id])
 
     def _storage_columns(self, field_names):
@@ -264,8 +324,9 @@ class RowGroupWorker(WorkerBase):
             table, keep = self._two_phase_load(fragment_path, row_group_id, partition_keys,
                                                worker_predicate, all_fields)
         else:
-            table = self._make_fragment(fragment_path, row_group_id).to_table(
-                columns=self._storage_columns(all_fields))
+            fragment = self._make_fragment(fragment_path, row_group_id)
+            with stage_span('rowgroup_read'):
+                table = fragment.to_table(columns=self._storage_columns(all_fields))
             keep = np.arange(table.num_rows)
         part_index, num_parts = shuffle_row_drop_partition
         # the same equal split of the (kept) row indices petastorm_tpu's worker takes
@@ -288,7 +349,9 @@ class RowGroupWorker(WorkerBase):
         if unknown:
             raise ValueError('Predicate references unknown fields {}'.format(unknown))
         fragment = self._make_fragment(fragment_path, row_group_id)
-        predicate_table = fragment.to_table(columns=self._storage_columns(predicate_fields))
+        with stage_span('rowgroup_read'):
+            predicate_table = fragment.to_table(
+                columns=self._storage_columns(predicate_fields))
         # a predicate reads decoded values, even of fields that ship raw
         predicate_columns = self._decode_table(predicate_table, partition_keys,
                                                predicate_fields, fragment_path=fragment_path,
@@ -305,7 +368,8 @@ class RowGroupWorker(WorkerBase):
         have = set(predicate_table.column_names)
         remaining = [name for name in all_storage if name not in have]
         if remaining:
-            remaining_table = fragment.to_table(columns=remaining)
+            with stage_span('rowgroup_read'):
+                remaining_table = fragment.to_table(columns=remaining)
             table = pa.table({name: (predicate_table.column(name) if name in have
                                      else remaining_table.column(name))
                               for name in all_storage})
@@ -341,7 +405,8 @@ class RowGroupWorker(WorkerBase):
                 partition_field_names=setup.partition_field_names,
                 decode=not setup.batched_output, device_decode_fields=device_fields)
             self._decode_plans[key] = plan
-        return plan.execute(table, partition_keys or {}, fragment_path=fragment_path)
+        with stage_span('decode'):
+            return plan.execute(table, partition_keys or {}, fragment_path=fragment_path)
 
     # --------------------------------------------------------------- transform
 
@@ -350,6 +415,11 @@ class RowGroupWorker(WorkerBase):
         spec = setup.transform_spec
         if spec is None:
             return columns, num_rows
+        with stage_span('transform'):
+            return self._transform(spec, columns, num_rows)
+
+    def _transform(self, spec, columns, num_rows):
+        setup = self._setup
         fields = setup.result_schema.fields
         if spec.func is None:
             # a spec that only deletes, selects or redeclares fields

@@ -1,8 +1,9 @@
 """Resilience primitives: retry with backoff, the transient-error classifier,
 the quarantine ledger and circuit breakers. A copy of
-``petastorm_tpu.resilience`` without its telemetry hooks (trace instants and
-board-wide observers): the same policies, the same seeded jitter and the same
-breaker transitions.
+``petastorm_tpu.resilience`` without its board-wide observers (the incident
+plane's hook): the same policies, the same seeded jitter and the same breaker
+transitions, each a ``breaker_transition`` instant on the flight recorder's
+timeline while tracing is armed.
 
 - :class:`RetryPolicy`: bounded attempts, exponential backoff with
   deterministic seeded jitter, per-attempt and total deadlines. The reader
@@ -31,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from petastorm_tpu_torch.errors import TransientIOError
+from petastorm_tpu_torch.telemetry import tracing as _tracing
 
 #: on_error modes accepted by make_reader / make_batch_reader
 ON_ERROR_MODES: Tuple[str, ...] = ('raise', 'retry', 'skip')
@@ -302,6 +304,12 @@ class CircuitBreaker:
         if new_state == BREAKER_OPEN:
             self._opened_at = self._clock()
             self._opened_count += 1
+        # every transition in every process is an anomaly instant on the
+        # traced timeline (worker-side ones ride the trace batch sidecar)
+        if _tracing.trace_enabled():
+            _tracing.trace_instant('breaker_transition',
+                                   args={'breaker': self.name, 'from_state': old_state,
+                                         'to_state': new_state})
         if self._on_transition is not None:
             self._pending.append((old_state, new_state))
 

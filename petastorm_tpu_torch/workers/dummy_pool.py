@@ -4,6 +4,7 @@ inside ``get_results`` (deterministic order, for tests and debugging)."""
 import time
 from collections import deque
 
+from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 from petastorm_tpu_torch.workers import EmptyResultError, VentilatedItemProcessedMessage
 
 
@@ -17,6 +18,9 @@ class DummyPool(object):
         self._worker = None
         self._ventilator = None
         self.workers_count = 1
+        #: the pools' uniform telemetry surface; items run inline, so there is
+        #: no consumer wait to measure (the worker's stages ride its sidecar)
+        self.telemetry = MetricsRegistry()
 
     def start(self, worker_class, worker_args=None, ventilator=None):
         self._worker = worker_class(0, self._results.append, worker_args)

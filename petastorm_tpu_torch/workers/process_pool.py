@@ -37,6 +37,16 @@ What the design keeps from the JAX pool:
   while it is open, results travel as frames over the pipes.
 - **A clean** :meth:`join`: the ring is closed and unlinked whatever deaths
   occurred.
+- **Telemetry.** The pool's own registry (``ProcessPool.telemetry``, merged
+  into ``Reader.telemetry_snapshot()``) holds the consumer-side stages
+  ``shm_map``, ``shm_release`` and ``pool_wait``, the per-batch
+  ``wire_bytes_copied`` histogram and the ``breaker_open``, ``watchdog_reap``
+  and ``shm_crc_fail`` counters. The workers' stages and trace events ride
+  each result's sidecars. The telemetry and tracing switches of this process
+  pass to the workers it spawns (an explicit ``PETASTORM_TPU_TELEMETRY`` or
+  ``PETASTORM_TPU_TRACE`` in the environment wins), and each work message
+  carries its dispatch attempt, so a re-ventilated item's second life is
+  another attempt on the merged timeline.
 
 Defined differences from the JAX pool:
 
@@ -71,6 +81,9 @@ import threading
 import time
 from multiprocessing.connection import Connection, wait
 
+from petastorm_tpu_torch.telemetry import tracing as _tracing
+from petastorm_tpu_torch.telemetry.registry import (BYTES_UNIT, MetricsRegistry,
+                                                    telemetry_enabled)
 from petastorm_tpu_torch.workers import (EmptyResultError, TimeoutWaitingForResultError,
                                          WorkerTerminationError)
 
@@ -152,11 +165,18 @@ class ProcessPool(object):
         frames."""
         from petastorm_tpu_torch.resilience import CircuitBreaker
         from petastorm_tpu_torch.workers.serializers import ArrowIpcSerializer
+        from petastorm_tpu_torch.workers.shm_ring import (DEFAULT_SLOT_BYTES,
+                                                          DEFAULT_SLOTS_PER_WORKER)
         self.workers_count = workers_count
+        #: consumer-side telemetry (see the module docstring)
+        self.telemetry = MetricsRegistry()
         self._serializer = ArrowIpcSerializer()
         self._max_worker_respawns = max_worker_respawns
         self._shm_transport = shm_transport
         self._ring = None
+        #: the ring's shape; set_shm_slot_config changes it for the next ring
+        self._shm_slots_per_worker = DEFAULT_SLOTS_PER_WORKER
+        self._shm_slot_bytes = DEFAULT_SLOT_BYTES
         #: the ring's segment name (kept after join, to check it is gone)
         self.ring_name = None
         self._shm_capacity_fallbacks = 0
@@ -186,7 +206,8 @@ class ProcessPool(object):
         self._shm_crc_failures = 0
         self._shm_breaker = CircuitBreaker('shm_transport',
                                            failure_threshold=DEFAULT_SHM_BREAKER_THRESHOLD,
-                                           recovery_timeout_s=DEFAULT_SHM_BREAKER_RECOVERY_S)
+                                           recovery_timeout_s=DEFAULT_SHM_BREAKER_RECOVERY_S,
+                                           on_transition=self._count_breaker_open)
 
         # dispatch bookkeeping, under _state_lock: ventilate() runs on the
         # ventilator thread, the rest on the consumer thread
@@ -210,6 +231,10 @@ class ProcessPool(object):
         self._shm_stale_drops = 0
         self._shm_bytes_mapped = 0
         self._pipe_result_bytes = 0
+
+    def _count_breaker_open(self, name, old_state, new_state):
+        if new_state == 'open' and telemetry_enabled():
+            self.telemetry.inc('breaker_open')
 
     # ------------------------------------------------------------------ lifecycle
 
@@ -257,6 +282,12 @@ class ProcessPool(object):
         if self._child_env.get('PYTHONPATH'):
             paths.append(self._child_env['PYTHONPATH'])
         self._child_env['PYTHONPATH'] = os.pathsep.join(paths)
+        # this process's switches (set_telemetry_enabled, trace=) reach the
+        # workers; an explicit environment setting wins
+        self._child_env.setdefault('PETASTORM_TPU_TELEMETRY',
+                                   '1' if telemetry_enabled() else '0')
+        self._child_env.setdefault('PETASTORM_TPU_TRACE',
+                                   '1' if _tracing.trace_enabled() else '0')
         self._slot_generation = [0] * self.workers_count
         try:
             for slot in range(self.workers_count):
@@ -274,7 +305,8 @@ class ProcessPool(object):
     def _make_ring(self):
         from petastorm_tpu_torch.workers.shm_ring import ShmCapacityError, ShmRing
         try:
-            self._ring = ShmRing(self.workers_count)
+            self._ring = ShmRing(self.workers_count, self._shm_slots_per_worker,
+                                 self._shm_slot_bytes)
         except ShmCapacityError as exc:
             if self._shm_transport:
                 raise
@@ -390,7 +422,10 @@ class ProcessPool(object):
         """Give a read (or dropped) slot back to the worker that owns it."""
         worker = self._workers[descriptor.worker_slot]
         if worker.generation == descriptor.generation:
+            release_start = time.perf_counter()
             self._send(worker, ('release', descriptor.ring_slot))
+            if telemetry_enabled():
+                self.telemetry.observe('shm_release', time.perf_counter() - release_start)
 
     def _handle_done(self, token, attempt):
         with self._state_lock:
@@ -425,7 +460,7 @@ class ProcessPool(object):
     def _respawn(self, dead):
         """Replace ``dead`` and put the items it held back at the front of the
         queue (the oldest work: the consumer may be waiting on exactly these)."""
-        requeued = 0
+        requeued = []
         with self._state_lock:
             for token, worker in list(self._assigned.items()):
                 if worker is not dead:
@@ -433,9 +468,10 @@ class ProcessPool(object):
                 del self._assigned[token]
                 self._dispatch_time.pop(token, None)
                 # a new attempt: an ack the dead worker flushed cannot retire it
-                self._attempt[token] = self._attempt.get(token, 0) + 1
+                reaped_attempt = self._attempt.get(token, 0)
+                self._attempt[token] = reaped_attempt + 1
                 self._pending.appendleft(token)
-                requeued += 1
+                requeued.append((self._items.get(token), reaped_attempt))
             self._slot_generation[dead.slot] += 1
             generation = self._slot_generation[dead.slot]
             self._workers_respawned += 1
@@ -443,8 +479,50 @@ class ProcessPool(object):
         logger.warning('Worker %d (pid %d) died with exit code %s mid-epoch; respawning '
                        '(%d/%d respawns used) and re-ventilating %d in-flight item(s)',
                        dead.slot, dead.process.pid, dead.process.returncode,
-                       self._workers_respawned, self._max_worker_respawns, requeued)
+                       self._workers_respawned, self._max_worker_respawns, len(requeued))
+        if _tracing.trace_enabled():
+            # the dead worker took its unpublished events with it: this
+            # instant (old attempt) and the replacement's spans (attempt + 1)
+            # show the item's two lives on the merged timeline
+            for blob, reaped_attempt in requeued:
+                _tracing.trace_instant(
+                    'worker_respawn', ctx=self._blob_trace_ctx(blob, reaped_attempt),
+                    args={'worker_slot': dead.slot, 'exit_code': dead.process.returncode,
+                          'new_attempt': reaped_attempt + 1})
         self._workers[dead.slot] = self._spawn_worker(dead.slot, generation)
+
+    def set_shm_slot_config(self, slots_per_worker=None, slot_bytes=None):
+        """Update the shm ring's shape, a **deferred** knob: the live ring is
+        never resized under its workers, the shape applies to the next ring
+        this pool makes (its ``start()``). Returns the ``(slots_per_worker,
+        slot_bytes)`` now configured."""
+        if slots_per_worker is not None:
+            slots_per_worker = int(slots_per_worker)
+            if slots_per_worker < 1:
+                raise ValueError('slots_per_worker must be >= 1, got {}'
+                                 .format(slots_per_worker))
+            self._shm_slots_per_worker = slots_per_worker
+        if slot_bytes is not None:
+            slot_bytes = int(slot_bytes)
+            if slot_bytes < 4096:
+                raise ValueError('slot_bytes must be >= 4096, got {}'.format(slot_bytes))
+            self._shm_slot_bytes = slot_bytes
+        return self._shm_slots_per_worker, self._shm_slot_bytes
+
+    def _blob_trace_ctx(self, blob, attempt):
+        """The causal trace context ``(epoch, rowgroup, attempt)`` of a work
+        item's pickled kwargs (anomaly paths only: the hot path never loads
+        blobs), or None."""
+        if blob is None:
+            return None
+        try:
+            kwargs = self._codec.loads(blob)
+        except Exception:  # noqa: BLE001 - an undecodable blob only costs the marker its context
+            return None
+        piece = kwargs.get('piece_index')
+        if piece is None:
+            return None
+        return int(kwargs.get('epoch_index', 0)), int(piece), int(attempt)
 
     # ----------------------------------------------------------- hang watchdog
 
@@ -503,6 +581,20 @@ class ProcessPool(object):
         items); with a hang-result factory its overdue items are quarantined
         first, so a rowgroup that hangs workers is not dispatched again."""
         self._workers_hung_reaped += 1
+        if telemetry_enabled():
+            self.telemetry.inc('watchdog_reap')
+        if _tracing.trace_enabled():
+            # the hung worker published nothing: these instants, tagged with
+            # the reaped attempts, are its footprint on the merged timeline
+            reap_args = {'worker_slot': worker.slot, 'pid': worker.process.pid,
+                         'stale_s': None if stale_s is None else round(stale_s, 3)}
+            with self._state_lock:
+                pairs = [(self._items.get(token), self._attempt.get(token, 0))
+                         for token in overdue]
+            for blob, attempt in pairs or [(None, 0)]:
+                _tracing.trace_instant('watchdog_reap',
+                                       ctx=self._blob_trace_ctx(blob, attempt),
+                                       args=reap_args)
         logger.error('Worker %d (pid %d) is hung (heartbeat stale %.1fs, %d item(s) past '
                      'the %s s item deadline); reaping it (hung-reap #%d, which uses the '
                      'respawn budget)', worker.slot, worker.process.pid,
@@ -536,6 +628,7 @@ class ProcessPool(object):
 
     def _get_result(self, timeout):
         deadline = None if timeout is None else time.monotonic() + timeout
+        wait_start = time.perf_counter()
         while True:
             if self._stopped:
                 raise EmptyResultError()
@@ -573,6 +666,8 @@ class ProcessPool(object):
                     continue
                 result = self._handle(worker, message)
                 if result is not None:
+                    if telemetry_enabled():
+                        self.telemetry.observe('pool_wait', time.perf_counter() - wait_start)
                     return result[0]
 
     def _handle(self, worker, message):
@@ -603,16 +698,31 @@ class ProcessPool(object):
         return None   # 'started': a respawned worker joining
 
     def _handle_frames(self, token, frames):
+        frame_bytes = sum(len(frame) for frame in frames)
         with self._state_lock:
             self._wire_batches += 1
-            self._pipe_result_bytes += sum(len(frame) for frame in frames)
-            if self._ring is not None:
+            self._pipe_result_bytes += frame_bytes
+            shm_fallback = self._ring is not None
+            if shm_fallback:
                 self._shm_fallback_batches += 1
             if token not in self._items or token in self._delivered:
                 self._results_dropped += 1
                 return None
             self._delivered.add(token)
-        return (self._serializer.deserialize(frames),)
+        if shm_fallback and _tracing.trace_enabled():
+            # anomaly marker: this result rode the pipe though the ring is on
+            # (oversized, slot-starved, or the shm breaker open)
+            _tracing.trace_instant('shm_fallback', args={'token': token})
+        copied_before = self._serializer.stats['bytes_copied']
+        result = self._serializer.deserialize(frames)
+        if telemetry_enabled():
+            # bytes copied into new host memory for THIS batch: the frames
+            # plus the serializer's copies on receive
+            self.telemetry.observe(
+                'wire_bytes_copied',
+                frame_bytes + self._serializer.stats['bytes_copied'] - copied_before,
+                unit=BYTES_UNIT)
+        return (result,)
 
     def _handle_shm_result(self, token, blob):
         """Check the descriptor's generation, drop a duplicate, check the CRC,
@@ -634,6 +744,8 @@ class ProcessPool(object):
         if duplicate or self._ring is None:
             self._release_slot(descriptor)
             return None
+        map_start = time.perf_counter()
+        copied_before = self._serializer.stats['bytes_copied']
         views = self._ring.view(descriptor)
         try:
             if descriptor.crc is not None and payload_checksum(views) != descriptor.crc:
@@ -643,8 +755,25 @@ class ProcessPool(object):
                 self._delivered.add(token)
                 self._shm_batches += 1
                 self._shm_bytes_mapped += descriptor.total_bytes
+                attempt = self._attempt.get(token, 0)
             result = self._serializer.deserialize(views)
             self._shm_breaker.record_success()
+            map_s = time.perf_counter() - map_start
+            if _tracing.trace_enabled():
+                # the consumer-side leg of the rowgroup's trace, tagged with
+                # the delivered batch's (epoch, rowgroup, attempt)
+                item_id = getattr(result, 'item_id', None)
+                ctx = (None if item_id is None
+                       else (int(item_id[0]), int(item_id[1]), attempt))
+                _tracing.trace_complete('shm_map', map_start, map_s, ctx=ctx)
+            if telemetry_enabled():
+                # shm_map: slot view + CRC check + deserialize; copied bytes:
+                # the descriptor plus the serializer's copies on receive
+                self.telemetry.observe('shm_map', map_s)
+                self.telemetry.observe(
+                    'wire_bytes_copied',
+                    len(blob) + self._serializer.stats['bytes_copied'] - copied_before,
+                    unit=BYTES_UNIT)
         finally:
             # the result is a copy: no view outlives this call, and the slot
             # goes back to its worker (not after a CRC failure: that worker is
@@ -660,7 +789,16 @@ class ProcessPool(object):
         count a failure on the shm breaker."""
         with self._state_lock:
             self._shm_crc_failures += 1
-            self._attempt[token] = self._attempt.get(token, 0) + 1
+            reaped_attempt = self._attempt.get(token, 0)
+            self._attempt[token] = reaped_attempt + 1
+            blob = self._items.get(token)
+        if telemetry_enabled():
+            self.telemetry.inc('shm_crc_fail')
+        if _tracing.trace_enabled():
+            _tracing.trace_instant('shm_crc_drop',
+                                   ctx=self._blob_trace_ctx(blob, reaped_attempt),
+                                   args={'worker_slot': descriptor.worker_slot,
+                                         'ring_slot': descriptor.ring_slot, 'token': token})
         self._shm_breaker.record_failure()
         logger.error('shm frame from worker %d (ring slot %d, token %d) failed its CRC '
                      '(#%d); dropping it unread, reaping the worker (shm breaker %r)',

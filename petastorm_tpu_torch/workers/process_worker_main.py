@@ -27,6 +27,12 @@ breaker is open. A daemon thread stamps a heartbeat every
 ``heartbeat`` messages. Another thread exits the process when the parent
 dies.
 
+Telemetry: serializing a result is the ``serialize`` stage and waiting for a
+free slot ``shm_slot_wait``; both are recorded during a publish, so they ride
+the NEXT result's ``telemetry`` sidecar (one item late, the same process
+total). The ``attempt`` of each work message is installed as the item's
+dispatch attempt for its trace context.
+
 This module and what it imports load no torch: a worker is a reader process
 and holds no CUDA context.
 """
@@ -38,6 +44,9 @@ import sys
 import threading
 import time
 import traceback
+
+from petastorm_tpu_torch.telemetry.spans import stage_span
+from petastorm_tpu_torch.telemetry.tracing import set_dispatch_attempt
 
 #: bounded wait for a slot release before a result goes over the pipe; the pool
 #: releases every slot it reads, so this only runs out when it stalls
@@ -136,21 +145,29 @@ def main(bootstrap_path, fd):
     deferred = collections.deque()
     current = {'token': None, 'shm': True}
 
+    def wait_for_slot(frames):
+        deadline = time.monotonic() + _SLOT_WAIT_S
+        descriptor = None
+        while descriptor is None and time.monotonic() < deadline:
+            # every slot awaits its release: take the pool's releases, and
+            # keep anything else for the main loop
+            if conn.poll(0.1):
+                message = conn.recv()
+                if message[0] == 'release':
+                    ring_writer.release(message[1])
+                else:
+                    deferred.append(message)
+            descriptor = ring_writer.try_write(frames)
+        return descriptor
+
     def publish(result):
-        frames = serializer.serialize(result)
+        with stage_span('serialize'):
+            frames = serializer.serialize(result)
         if ring_writer is not None and current['shm'] and ring_writer.fits(frames):
             descriptor = ring_writer.try_write(frames)
-            deadline = time.monotonic() + _SLOT_WAIT_S
-            while descriptor is None and time.monotonic() < deadline:
-                # every slot awaits its release: take the pool's releases, and
-                # keep anything else for the main loop
-                if conn.poll(0.1):
-                    message = conn.recv()
-                    if message[0] == 'release':
-                        ring_writer.release(message[1])
-                    else:
-                        deferred.append(message)
-                descriptor = ring_writer.try_write(frames)
+            if descriptor is None:
+                with stage_span('shm_slot_wait'):
+                    descriptor = wait_for_slot(frames)
             if descriptor is not None:
                 channel.send(('result_shm', current['token'], descriptor.to_bytes()))
                 return
@@ -174,6 +191,7 @@ def main(bootstrap_path, fd):
                 continue
             _, token, blob, current['shm'], attempt = message
             current['token'] = token
+            set_dispatch_attempt(attempt)
             try:
                 worker.process(**codec.loads(blob))
                 channel.send(('done', token, attempt))

@@ -110,8 +110,8 @@ class ArrowIpcSerializer(object):
     """The process pool's default wire format: a
     :class:`~petastorm_tpu_torch.reader_worker.ColumnarBatch` travels as
     ``[b'A', ipc_stream, pickled_sidecar]`` (:func:`encode_columnar`, with
-    ``item_id``, ``cache_hit``, ``retries``, ``quarantine`` and ``breakers``
-    in the metadata); anything else, an
+    ``item_id``, ``cache_hit``, ``retries``, ``quarantine``, ``breakers`` and
+    the ``telemetry`` and ``trace`` sidecars in the metadata); anything else, an
     :class:`~petastorm_tpu_torch.ngram_worker.NGramWindows` for one, as one
     pickle. Receiving copies every column into ordinary writable arrays, so no
     array outlives the slot or frame it was read from."""
@@ -131,6 +131,8 @@ class ArrowIpcSerializer(object):
             'retries': int(obj.retries),
             'quarantine': obj.quarantine.as_dict() if obj.quarantine is not None else None,
             'breakers': obj.breakers,
+            'telemetry': obj.telemetry,
+            'trace': obj.trace,
         }
         ipc_buf, sidecar = encode_columnar(obj.columns, obj.num_rows, meta_extra)
         return [_MARKER_ARROW, ipc_buf, sidecar]
@@ -152,4 +154,5 @@ class ArrowIpcSerializer(object):
                              cache_hit=meta['cache_hit'], retries=meta['retries'],
                              quarantine=(QuarantineRecord(**quarantine)
                                          if quarantine is not None else None),
-                             breakers=meta['breakers'])
+                             breakers=meta['breakers'], telemetry=meta['telemetry'],
+                             trace=meta['trace'])

@@ -115,6 +115,26 @@ class ConcurrentVentilator(object):
                 self._in_flight -= 1
             self._item_processed.notify()
 
+    @property
+    def max_in_flight(self):
+        """The current in-flight bound."""
+        with self._lock:
+            return self._max_ventilation_queue_size
+
+    def set_max_in_flight(self, value):
+        """Thread-safe runtime resize of the in-flight window (the autotuner's
+        ``ventilator_max_in_flight`` knob): growing wakes the ventilation
+        thread at once, shrinking admits no new item until consumption drains
+        below the new bound (items in flight are never recalled). Returns the
+        applied value."""
+        value = int(value)
+        if value < 1:
+            raise ValueError('max_in_flight must be >= 1, got {}'.format(value))
+        with self._item_processed:
+            self._max_ventilation_queue_size = value
+            self._item_processed.notify_all()
+        return value
+
     def completed(self):
         """True once every epoch was dispatched and every item acknowledged."""
         with self._lock:
