@@ -135,7 +135,18 @@ version on the card, then drives the port's two paths at full width:
   by 10%), a profiled 2-step window with the loader's ``wait_input`` and
   ``h2d`` ranges beside K2-K4, and ``scan_stream`` passes with telemetry
   armed: none launching outside the graph after the capture, one ``h2d``
-  span a chunk (17c).
+  span a chunk (17c);
+- the measurement tools and cost-aware scheduling (phase 18): ``probe_link()``
+  on the card, its streaming ceiling at phase 5's batch beside 17a's pinned
+  copy (18a); ``reader_throughput`` over phase 10's store, the torch read
+  (a TorchDataLoader onto the card) and the python read (18b); phase 5's
+  rows rewritten in rowgroups of 32 and two of 256 rows, a cost ledger from
+  three traced epochs of ``profile_dataset``, then
+  ``make_reader(cost_schedule=SchedulePolicy())`` into phase 5's loader and
+  ResNet-50: both heavy rowgroups split, the plan equal to ``plan_preview``
+  of the ledger, every row once and K1 once a batch (18c); the doctor with
+  ``--json`` (the card up, the link block, healthy) and the CLI's
+  decode-bench and wire-bench, each in a child interpreter (18d).
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -173,6 +184,7 @@ import argparse
 import concurrent.futures
 import copy
 import functools
+import gc
 import importlib
 import itertools
 import json
@@ -192,6 +204,7 @@ import zlib
 import numpy as np
 import pyarrow as pa
 import pyarrow.fs as pafs
+import pyarrow.parquet as pq
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -202,6 +215,7 @@ from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, NG
                                  cuda_build, make_batch_reader, make_converter,
                                  make_packing_transform, make_reader, make_torch_loader)
 from petastorm_tpu_torch.autotune import AutotunePolicy
+from petastorm_tpu_torch.benchmark.linkprobe import probe_link, streaming_ceiling_rows_per_sec
 from petastorm_tpu_torch.benchmark.lm_data import (FRAME_STREAM_INDEX, full_bin_rowgroups,
                                                    ragged_documents, token_rows,
                                                    write_frame_store, write_packed_store,
@@ -210,7 +224,9 @@ from petastorm_tpu_torch.benchmark.mfu import (mfu, moe_transformer_train_flops_
                                                transformer_train_flops_per_step)
 from petastorm_tpu_torch.benchmark.mnist_data import mnist_rows, write_mnist_store
 from petastorm_tpu_torch.benchmark.stored_plan import plan_ms, stored_frames
+from petastorm_tpu_torch.benchmark.throughput import reader_throughput
 from petastorm_tpu_torch.codecs import CompressedNdarrayCodec, DctImageCodec, ScalarCodec
+from petastorm_tpu_torch.etl import dataset_metadata
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
 from petastorm_tpu_torch.models.moe import (MoETransformerLM, moe_aux_total, moe_drop_fractions,
                                             switch_routing)
@@ -230,10 +246,12 @@ from petastorm_tpu_torch.parallel.mesh import (PartitionSpec, initialize_distrib
 from petastorm_tpu_torch.parallel.pipeline import blocks_stage_fn, make_pipeline, microbatch
 from petastorm_tpu_torch.predicates import in_pseudorandom_split
 from petastorm_tpu_torch.pytorch import DataLoader, InMemBatchedDataLoader
+from petastorm_tpu_torch.schedule import SchedulePolicy, plan_preview
 from petastorm_tpu_torch.selectors import SingleIndexSelector
 from petastorm_tpu_torch.telemetry import registry as telemetry_registry
 from petastorm_tpu_torch.telemetry import tracing as telemetry_tracing
 from petastorm_tpu_torch.telemetry.analyze import attribute_bottleneck
+from petastorm_tpu_torch.telemetry.cost_model import CostLedger, profile_dataset
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.workers.process_pool import ProcessPool
 from petastorm_tpu_torch.workers.shm_ring import SHM_DIR
@@ -3706,6 +3724,294 @@ def phase_telemetry(tmp, args, record, card):
     return result
 
 
+# ------------------------------------------- the measurement tools (phase 18)
+
+#: phase 5's batch: 128 rows of a 256x256x3 int16 DCT image, an int64 label
+#: and idx and a (2048,) float32 embedding, 51,400,832 bytes a batch
+MAIN_BATCH_BYTES = 51400832
+#: 18c's rowgroups: 1024 rows, most of 32 rows and two of 256, in that order
+SCHEDULE_ROWGROUPS = [32, 32, 32, 256] + [32] * 8 + [256] + [32] * 5
+#: the traced epochs profile_dataset folds into 18c's ledger
+SCHEDULE_PROFILE_EPOCHS = 3
+#: 18b's throughput runs: (read method, warm-up cycles, measured cycles)
+THROUGHPUT_RUNS = (('python', 500, 20000), ('torch', 10, 100))
+THROUGHPUT_BATCH = 256
+#: the subprocess commands of 18d and their time limit
+TOOL_COMMANDS = (
+    ('doctor', ['-m', 'petastorm_tpu_torch.tools.doctor', '--json']),
+    ('decode-bench', ['-m', 'petastorm_tpu_torch.benchmark.cli', 'decode-bench', '--rows',
+                      '1000', '--image-rows', '64']),
+    ('wire-bench', ['-m', 'petastorm_tpu_torch.benchmark.cli', 'wire-bench', '--rows',
+                    '2048', '--batches', '12', '--workers', '1', '--cache-rows', '600']))
+TOOL_TIMEOUT_S = 300
+
+
+def phase_link(telemetry_imagenet):
+    """Phase 18a: the link probe on the card, and the streaming ceiling it
+    implies at phase 5's batch beside 17a's pinned copy of the same run."""
+    start = time.perf_counter()
+    link = probe_link()
+    check(link['platform'] == 'cuda', '18a: the link probe ran on {}'.format(link['platform']))
+    for key in ('dispatch_rtt_ms', 'h2d_mbytes_per_sec', 'd2h_mbytes_per_sec'):
+        check(np.isfinite(link[key]) and link[key] > 0, '18a: {} = {}'.format(key, link[key]))
+    for key in ('h2d_per_transfer_overhead_ms', 'd2h_per_transfer_overhead_ms'):
+        # the fit's intercept is clamped at 0 where noise makes it negative
+        check(np.isfinite(link[key]) and link[key] >= 0, '18a: {} = {}'.format(key,
+                                                                             link[key]))
+    ceiling = streaming_ceiling_rows_per_sec(link, MAIN_BATCH_BYTES / 128, 128)
+    pinned_mb_s = telemetry_imagenet['copy_gb_per_s'] * 1e9 / (1 << 20)
+    return {'link': link, 'ceiling_rows_per_s': ceiling,
+            'pageable_batch_ms': MAIN_BATCH_BYTES / (link['h2d_mbytes_per_sec'] * (1 << 20))
+            * 1e3 + link['h2d_per_transfer_overhead_ms'],
+            'pinned_copy_ms': telemetry_imagenet['copy_ms_median'],
+            'pinned_mbytes_per_s': pinned_mb_s, 'phase_s': time.perf_counter() - start}
+
+
+def phase_throughput(tmp, args):
+    """Phase 18b: ``reader_throughput`` over phase 10's MNIST store in this
+    process: the python read method, then the torch method (a TorchDataLoader
+    onto the card) with its stall fraction."""
+    start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist')   # phase 9's store
+    result = {'workers': args.workers}
+    for method, warmup, cycles in THROUGHPUT_RUNS:
+        run = reader_throughput(url, warmup_cycles_count=warmup, measure_cycles_count=cycles,
+                                loaders_count=args.workers, read_method=method,
+                                torch_batch_size=THROUGHPUT_BATCH, spawn_new_process=False)
+        check(run.samples_per_second > 0 and 0 <= run.input_stall_fraction <= 1,
+              '18b: {} read: {}'.format(method, run))
+        result[method] = {'rows_per_s': run.samples_per_second,
+                          'input_stall_fraction': run.input_stall_fraction,
+                          'cpu_percent': run.cpu, 'rss_bytes': run.memory_info.rss}
+    result['phase_s'] = time.perf_counter() - start
+    return result
+
+
+def write_schedule_store(tmp, url, path):
+    """Phase 5's rows, read back from its store (its encoded images and
+    containers: no second encode), rewritten in one rowgroup a file, of
+    SCHEDULE_ROWGROUPS rows each, under phase 5's Unischema."""
+    rows = sum(SCHEDULE_ROWGROUPS)
+    table = pq.read_table(os.path.join(tmp, 'imagenet')).sort_by('idx')
+    check(table.num_rows >= rows, '18c: phase 5 wrote {} rows, {} needed'.format(
+        table.num_rows, rows))
+    schema = dataset_metadata.get_schema(dataset_metadata.open_dataset(
+        'file://' + os.path.join(tmp, 'imagenet')))
+    table = table.select(list(schema.fields)).slice(0, rows)
+    with materialize_dataset(url, schema):
+        os.makedirs(path, exist_ok=True)
+        offset = 0
+        for index, count in enumerate(SCHEDULE_ROWGROUPS):
+            pq.write_table(table.slice(offset, count),
+                           os.path.join(path, 'part_{:05d}.parquet'.format(index)),
+                           row_group_size=count, compression='zstd')
+            offset += count
+    return rows
+
+
+def check_schedule_plan(report, fingerprint, ledger, heavy_keys, workers):
+    """18c's plan against the ledger: the heavy rowgroups split (a light one
+    the measurement put past the threshold may split too; it is reported),
+    and the fingerprint's policy, cold start, heavy set and splits equal to
+    ``plan_preview`` of the same ledger computed on the host (whose parts
+    the reader caps at its pool's workers, floored at 2)."""
+    preview = plan_preview(ledger)
+    costs = {row['rowgroup']: row['normalized_cost'] for row in preview['splits']}
+    check(not fingerprint['cold_start'] and fingerprint['splits'],
+          '18c: the plan split nothing (cold start {}); the measured skew did not cross '
+          'the split threshold: preview splits {}, median cost {} s, ranking {}'.format(
+              fingerprint['cold_start'], costs, preview['median_cost_s'],
+              [(row['rowgroup'], row['seconds']) for row in ledger.ranking(4)]))
+    split = sorted(row['rowgroup'] for row in fingerprint['splits'])
+    check(set(heavy_keys) <= set(split),
+          '18c: the plan split {}, not every heavy rowgroup of {}'.format(split, heavy_keys))
+    planned = sorted((row['rowgroup'], row['parts'], row['normalized_cost'])
+                     for row in fingerprint['splits'])
+    previewed = sorted((row['rowgroup'], min(row['parts'], max(2, workers)),
+                        row['normalized_cost']) for row in preview['splits'])
+    check(fingerprint['policy'] == preview['policy'] and not preview['cold_start']
+          and planned == previewed and report['heavy_rowgroups'] == preview['heavy'],
+          '18c: the plan {} / heavy {} differs from plan_preview {} / heavy {}'.format(
+              planned, report['heavy_rowgroups'], previewed, preview['heavy']))
+    return preview
+
+
+def phase_schedule(tmp, args):
+    """Phase 18c: a cost-scheduled ImageNet read. The store holds phase 5's
+    rows (schema, width and encodings) in rowgroups of unequal size; ``profile_dataset`` makes the
+    ledger from traced epochs of the path's read configuration on one worker,
+    then
+    ``make_reader(cost_schedule=SchedulePolicy())`` feeds phase 5's loader (K1
+    and the decode tail) and ResNet-50 for an epoch of 8 steps."""
+    start = time.perf_counter()
+    path = os.path.join(tmp, 'imagenet_schedule')
+    url = 'file://' + path
+    rows = write_schedule_store(tmp, url, path)
+    write_s = time.perf_counter() - start
+    read_config = dict(device_decode_fields=['image', 'embedding'])
+    profile_start = time.perf_counter()
+    # one worker: each span times its rowgroup alone, not its contention
+    # with the other workers for the host's cores; each call folds one more
+    # epoch into the persisted ledger, which averages the host's noise. The
+    # earlier phases' objects are frozen out of the collector, so no full
+    # collection of this process's heap lands inside a rowgroup's span
+    gc.collect()
+    gc.freeze()
+    try:
+        for _ in range(SCHEDULE_PROFILE_EPOCHS):
+            ledger, ledger_path = profile_dataset(url, workers=1, **read_config)
+    finally:
+        gc.unfreeze()
+    profile_s = time.perf_counter() - profile_start
+    heavy_keys = ['{}#0'.format(os.path.join(path, 'part_{:05d}.parquet'.format(index)))
+                  for index, count in enumerate(SCHEDULE_ROWGROUPS) if count == 256]
+    check(len(ledger) == len(SCHEDULE_ROWGROUPS),
+          '18c: the ledger holds {} rowgroups of {}'.format(len(ledger),
+                                                            len(SCHEDULE_ROWGROUPS)))
+    pristine = CostLedger.from_dict(ledger.to_dict())
+    live = {}
+
+    def inspect(reader, loader):
+        live.update(report=reader.diagnostics['schedule'],
+                    fingerprint=reader._cost_scheduler.plan_fingerprint(),
+                    items=reader.items_per_epoch, token=reader.dataset_token)
+
+    result, delivered = phase_main_path(
+        url, args, inspect=inspect,
+        factory=functools.partial(make_reader, cost_schedule=SchedulePolicy()))
+    check(live['token'] == ledger.dataset_token, '18c: the read is not the profiled one')
+    preview = check_schedule_plan(live['report'], live['fingerprint'], pristine, heavy_keys,
+                                  args.workers)
+    splits = live['fingerprint']['splits']
+    parts = sum(row['parts'] for row in splits)
+    check(live['items'] == len(SCHEDULE_ROWGROUPS) - len(splits) + parts,
+          '18c: {} work items for a plan of {} parts'.format(live['items'], parts))
+    distinct = check_delivered(delivered, args.seed)
+    check(distinct == result['rows'] == rows,
+          '18c: {} distinct rows of {} delivered, {} expected'.format(distinct,
+                                                                     result['rows'], rows))
+    check(result['k1_launches'] == result['steps'] == rows // args.batch,
+          '18c: K1 launched {} times on {} batches'.format(result['k1_launches'],
+                                                          result['steps']))
+    return {'rows': rows, 'rowgroups': len(SCHEDULE_ROWGROUPS), 'store_write_s': write_s,
+            'profile_s': profile_s, 'ledger_path': ledger_path,
+            'median_cost_s': preview['median_cost_s'], 'splits': live['fingerprint']['splits'],
+            'heavy': live['report']['heavy_rowgroups'], 'items_per_epoch': live['items'],
+            'first_order': live['report']['epoch_orders'][:1],
+            'steps': result['steps'], 'k1_launches': result['k1_launches'],
+            'rows_per_s': result['rows_per_s'],
+            'input_stall_fraction': result['input_stall_fraction'],
+            'step_ms_median': result['step_ms_median'], 'phase_s': time.perf_counter() - start}
+
+
+def run_tool(name, argv):
+    """One tool of 18d in a child interpreter with a hard time limit; returns
+    its last stdout line parsed as JSON."""
+    try:
+        out = subprocess.run([sys.executable] + argv, capture_output=True, text=True,
+                             timeout=TOOL_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(
+                                 __file__)))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError('check failed: 18d: {} ran past {} s'.format(name, TOOL_TIMEOUT_S))
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and lines, '18d: {} exited {}: {}'.format(
+        name, out.returncode, out.stderr.strip()[-2000:]))
+    return json.loads(lines[-1])
+
+
+def phase_tools_cli():
+    """Phase 18d: the doctor with ``--json`` and the CLI's decode-bench and
+    wire-bench at small sizes, each in a child interpreter."""
+    start = time.perf_counter()
+    result = {}
+    for name, argv in TOOL_COMMANDS:
+        tool_start = time.perf_counter()
+        result[name] = run_tool(name, argv)
+        result[name + '_s'] = time.perf_counter() - tool_start
+    report = result['doctor']
+    backend = report['backend']
+    check(backend['status'] == 'up' and backend['platform'] == 'cuda'
+          and backend['devices'] == 1, '18d: the doctor saw the backend as {}'.format(backend))
+    check('dispatch_rtt_ms' in report.get('link', {}),
+          '18d: the doctor has no link block: {}'.format(report.get('link')))
+    check(report['store_roundtrip']['status'] == 'ok' and report['healthy'] is True,
+          '18d: the doctor found the install unhealthy: {}'.format(report['store_roundtrip']))
+    check(result['wire-bench']['arrow_shm_shm_batches'] == 12
+          and result['wire-bench']['cache_warm_hits'] > 0,
+          '18d: wire-bench {}'.format(result['wire-bench']))
+    result['phase_s'] = time.perf_counter() - start
+    return result
+
+
+def tools_lines(tools, record, card):
+    link, throughput, schedule, cli = (tools['link'], tools['throughput'], tools['schedule'],
+                                       tools['cli'])
+    probe = link['link']
+    main_path = record['main_path']
+    doctor = cli['doctor']
+    doctor_link = doctor.get('link', {})
+    yield ('phase 18a link probe on {}: dispatch round trip {:.3f} ms; H2D {:.2f} MB/s '
+           '(overhead {:.3f} ms a copy), D2H {:.2f} MB/s (overhead {:.3f} ms); streaming '
+           'ceiling at phase 5\'s batch ({} B, pageable) {:.2f} rows/s, {:.4f} ms a batch, '
+           'beside 17a\'s pinned copy of the same bytes {:.4f} ms ({:.2f} MB/s) on the card; '
+           '{:.1f} s [{}]'.format(probe['platform'], probe['dispatch_rtt_ms'],
+                                  probe['h2d_mbytes_per_sec'],
+                                  probe['h2d_per_transfer_overhead_ms'],
+                                  probe['d2h_mbytes_per_sec'],
+                                  probe['d2h_per_transfer_overhead_ms'], MAIN_BATCH_BYTES,
+                                  link['ceiling_rows_per_s'], link['pageable_batch_ms'],
+                                  link['pinned_copy_ms'], link['pinned_mbytes_per_s'],
+                                  link['phase_s'], card))
+    yield ('phase 18b reader_throughput over phase 10\'s store ({} threads): torch read '
+           '(TorchDataLoader onto the card, batch {}) {:.2f} rows/s, stall {:.4f}; python read '
+           '{:.2f} rows/s; {:.1f} s [{}]'.format(
+               throughput['workers'], THROUGHPUT_BATCH,
+               throughput['torch']['rows_per_s'], throughput['torch']['input_stall_fraction'],
+               throughput['python']['rows_per_s'], throughput['phase_s'], card))
+    yield ('phase 18c cost-scheduled ImageNet read ({} rows in {} rowgroups, two of 256): '
+           'ledger by profile_dataset ({} epochs) in {:.2f} s, median rowgroup cost {:.6f} s; '
+           'plan splits '
+           '{} into {} work items; {} steps of ResNet-50, K1 {} launches; rows/s {:.2f} stall '
+           '{:.4f} step_ms(median) {:.2f} beside phase 5\'s {:.2f}, {:.4f} and {:.2f}; store '
+           'written in {:.1f} s; {:.1f} s [{}]'.format(
+               schedule['rows'], schedule['rowgroups'], SCHEDULE_PROFILE_EPOCHS,
+               schedule['profile_s'],
+               schedule['median_cost_s'],
+               [(os.path.basename(row['rowgroup']), row['parts'], row['normalized_cost'])
+                for row in schedule['splits']], schedule['items_per_epoch'], schedule['steps'],
+               schedule['k1_launches'], schedule['rows_per_s'],
+               schedule['input_stall_fraction'], schedule['step_ms_median'],
+               main_path['rows_per_s'], main_path['input_stall_fraction'],
+               main_path['step_ms_median'], schedule['store_write_s'], schedule['phase_s'],
+               card))
+    yield ('phase 18d doctor --json: backend {} on {} x{} ({}), link RTT {} ms H2D {} MB/s, '
+           'store roundtrip {} at {} rows/s, healthy {} ({:.1f} s) [{}]'.format(
+               doctor['backend']['status'], doctor['backend']['platform'],
+               doctor['backend']['devices'], doctor['backend']['device_name'],
+               doctor_link.get('dispatch_rtt_ms'), doctor_link.get('h2d_mbytes_per_sec'),
+               doctor['store_roundtrip']['status'], doctor['store_roundtrip']['rows_per_sec'],
+               doctor['healthy'], cli['doctor_s'], card))
+    for name in ('decode-bench', 'wire-bench'):
+        yield ('phase 18d {} (host numbers of the card machine\'s CPU, {:.1f} s): {} '
+               '[{}]'.format(name, cli[name + '_s'], json.dumps(cli[name]), card))
+    yield 'phase 18 took {:.1f} s'.format(tools['phase_s'])
+
+
+def phase_tools(tmp, args, record, card):
+    """Phase 18: the measurement tools and the cost-aware scheduler on the
+    card (18a link probe, 18b throughput, 18c cost-scheduled ImageNet read,
+    18d the doctor and the CLI benches), logged as it ends."""
+    phase_start = time.perf_counter()
+    result = {'link': phase_link(record['telemetry']['imagenet']),
+              'throughput': phase_throughput(tmp, args),
+              'schedule': phase_schedule(tmp, args),
+              'cli': phase_tools_cli()}
+    result['phase_s'] = time.perf_counter() - phase_start
+    for line in tools_lines(result, record, card):
+        log(line)
+    return result
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -3886,6 +4192,7 @@ def main(argv=None):
         for line in reference_api_lines(record['reference_api'], record, card):
             log(line)
         record['telemetry'] = phase_telemetry(tmp, args, record, card)
+        record['tools'] = phase_tools(tmp, args, record, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3898,6 +4205,7 @@ def main(argv=None):
         'process_pool_launches': record['process_imagenet']['k1_launches'],
         'batch_reader_launches': record['reference_api']['batch_decode']['k1_launches'],
         'telemetry_launches': record['telemetry']['imagenet']['k1_launches'],
+        'schedule_launches': record['tools']['schedule']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
                            for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
                                         'large')),

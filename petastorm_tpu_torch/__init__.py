@@ -31,7 +31,12 @@ its ``'stage'`` dimension (:func:`make_pipeline`), and both loaders take a
 The reference petastorm's user surface is here too: :func:`make_converter`
 (an in-memory table to a cached store and its loaders), the torch adapters
 of :mod:`~petastorm_tpu_torch.pytorch`, stores written by the reference
-petastorm (:mod:`~petastorm_tpu_torch.etl.legacy`) and the store tools.
+petastorm (:mod:`~petastorm_tpu_torch.etl.legacy`) and the store tools. So
+are the measurement tools (:mod:`~petastorm_tpu_torch.benchmark`, the doctor
+of :mod:`~petastorm_tpu_torch.tools.doctor`), the per-rowgroup cost profiler
+(:mod:`~petastorm_tpu_torch.telemetry.cost_model`) and the cost-aware
+scheduler it feeds (:mod:`~petastorm_tpu_torch.schedule`,
+``make_reader(cost_schedule=...)``).
 Entry points run on CUDA unless the caller passes ``device='cpu'``.
 """
 

@@ -14,9 +14,10 @@ package's fourteen ids: a snapshot's knob names mean the same in both).
 Builders (``build_reader_knobs`` / ``build_loader_knobs``) introspect live
 objects by duck-typing the ``set_*`` mutators, so an object without the
 mutator simply contributes no knob. The cache's knobs (``cache_bypass``,
-``cache_writable_hits``), the cost scheduler's, the storage engine's and the
-input service's wait with those planes: the port's objects have none of their
-actuators, so none is built.
+``cache_writable_hits``), the storage engine's and the input service's wait
+with those planes: the port's objects have none of their actuators, so none
+is built. The cost scheduler's ``schedule_interleave`` is built for a
+shuffling reader armed with ``cost_schedule``.
 """
 
 from __future__ import annotations
@@ -262,6 +263,20 @@ def build_reader_knobs(reader: Any) -> List[Knob]:
             get=lambda: float(pool._shm_slot_bytes),
             apply=lambda v: float(
                 pool.set_shm_slot_config(slot_bytes=int(v))[1])))
+    scheduler = getattr(reader, '_cost_scheduler', None)
+    if (scheduler is not None and hasattr(scheduler, 'set_interleave')
+            and getattr(scheduler, 'live_reorder', False)):
+        # the cost-aware interleave is a live toggle read at the next epoch's
+        # reorder (splits are frozen at construction); only a reader that
+        # reorders every epoch reads it again, so only such a reader gets it
+        knobs.append(Knob(
+            'schedule_interleave',
+            'cost-balanced heavy/light ventilation interleave '
+            '(0=plain order, 1=interleaved)',
+            minimum=0.0, maximum=1.0, step=1.0, cost='cheap',
+            stages=('pool_wait', 'shuffle_wait'), unit='flag',
+            get=lambda: float(bool(scheduler.interleave)),
+            apply=lambda v: float(scheduler.set_interleave(v >= 0.5))))
     return knobs
 
 

@@ -115,6 +115,12 @@ class LocalDiskCache(CacheBase):
         self.__dict__.update(state)
         self._lock = threading.Lock()
 
+    @property
+    def state_home(self):
+        """The cache root: the local-state home the cost ledger sidecar
+        defaults into (:func:`~petastorm_tpu_torch.dataset_state.cache_state_home`)."""
+        return self._path
+
     def _key_path(self, key):
         digest = hashlib.sha1(str(key).encode('utf-8')).hexdigest()
         return os.path.join(self._path, digest[:2], digest + self._SUFFIX)

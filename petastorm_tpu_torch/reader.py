@@ -52,8 +52,12 @@ sets the input-efficiency target of :meth:`Reader.efficiency_report`, and
 ``autotune=`` starts the closed-loop knob controller
 (:mod:`~petastorm_tpu_torch.autotune`; :meth:`Reader.autotune_report`).
 
-Left for later slices, and absent from the signatures: the cost model and
-cost scheduling, lineage, incidents, run history, topology negotiation,
+``cost_schedule=`` plans the work items from the persisted per-rowgroup
+cost ledger (:mod:`~petastorm_tpu_torch.schedule`), and
+:meth:`Reader.cost_ledger` folds a traced read into one.
+
+Left for later slices, and absent from the signatures: lineage, incidents,
+run history, topology negotiation,
 ``shard_seed``, the input service, the cache's bypass breaker and non-local
 filesystems (``filesystem=`` takes a local or wrapped
 ``pyarrow.fs.FileSystem``).
@@ -154,7 +158,7 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                 resume_state=None, reader_pool=None, field_overrides=None, on_error='raise',
                 retry_policy=None, shm_transport=None, item_deadline_s=None,
                 heartbeat_interval_s=None, device_decode_fields=None, trace=None,
-                metrics_port=None, slo_policy=None, autotune=None):
+                metrics_port=None, slo_policy=None, autotune=None, cost_schedule=None):
     """Reader for stores written with a Unischema (by this package or by
     ``petastorm_tpu``): rows decoded through the codecs.
 
@@ -234,6 +238,17 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
         thread-pool workers, decode threads); :meth:`Reader.autotune_report`.
         A knob changes how fast rows arrive, never which rows an epoch
         delivers.
+    :param cost_schedule: True, a ledger path or a
+        :class:`~petastorm_tpu_torch.schedule.SchedulePolicy` plans the
+        reader's work items from the persisted per-rowgroup cost ledger
+        (:mod:`~petastorm_tpu_torch.schedule`): heavy rowgroups interleaved
+        with light ones and the heaviest ventilated first, rowgroups past the
+        split threshold cut into ``row_range`` sub-items. The plan is frozen
+        here, a pure function of the ledger and ``seed``; with no ledger the
+        read equals an unscheduled one. The run's measured stage times are
+        folded into the ledger at :meth:`Reader.stop`. Not with
+        ``resume_state``; :attr:`Reader.diagnostics` ``['schedule']`` reports
+        the plan.
     """
     if trace is not None:
         set_trace_enabled(bool(trace))
@@ -261,7 +276,8 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   device_decode_fields=device_decode_fields, on_error=on_error,
                   retry_policy=retry_policy, initial_io_retries=retries[0],
-                  metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune)
+                  metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune,
+                  cost_schedule=cost_schedule)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
@@ -275,7 +291,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       resume_state=None, reader_pool=None, on_error='raise',
                       retry_policy=None, shm_transport=None, item_deadline_s=None,
                       heartbeat_interval_s=None, device_decode_fields=None, trace=None,
-                      metrics_port=None, slo_policy=None, autotune=None):
+                      metrics_port=None, slo_policy=None, autotune=None,
+                      cost_schedule=None):
     """Reader for any Parquet store: native columns (no codec decode; a
     ``list<int32>`` column arrives as a list of int32 arrays), one namedtuple
     of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s
@@ -334,7 +351,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   resume_state=resume_state, is_batched_reader=True,
                   device_decode_fields=device_decode_fields, on_error=on_error,
                   retry_policy=retry_policy, initial_io_retries=retries[0],
-                  metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune)
+                  metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune,
+                  cost_schedule=cost_schedule)
 
 
 class Reader(object):
@@ -347,7 +365,7 @@ class Reader(object):
                  shard_count=None, cache=None, transform_spec=None, resume_state=None,
                  is_batched_reader=False, device_decode_fields=None, on_error='raise',
                  retry_policy=None, initial_io_retries=0, metrics_port=None,
-                 slo_policy=None, autotune=None):
+                 slo_policy=None, autotune=None, cost_schedule=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -440,6 +458,8 @@ class Reader(object):
                             predicate=worker_predicate, on_error=on_error,
                             retry_policy=retry_policy)
         self.result_schema = setup.result_schema
+        #: the read's identity, the key of the disk cache and the cost ledger
+        self.dataset_token = setup.dataset_token
 
         # under 'skip' a fragment whose footer is unreadable for good is left out
         # of the schedule and quarantined here (not with a rowgroup selector: its
@@ -497,6 +517,46 @@ class Reader(object):
                  for piece_index, rg in enumerate(row_groups)
                  for drop in range(shuffle_row_drop_partitions)]
 
+        # cost-aware scheduling: the ledger's splits and the epoch order are
+        # frozen here (a pure function of ledger and seed, never of timing)
+        #: piece index -> (fragment_path, row_group_id), split pieces included
+        self._piece_locator = {index: (rg.fragment_path, rg.row_group_id)
+                               for index, rg in enumerate(row_groups)}
+        self._cost_scheduler = None
+        order_fn = None
+        from petastorm_tpu_torch.schedule import resolve_schedule_policy
+        schedule_policy = resolve_schedule_policy(cost_schedule)
+        if schedule_policy is not None:
+            if resume_state is not None:
+                raise ValueError(
+                    'cost_schedule cannot be combined with resume_state: a re-planned '
+                    'schedule (ledger-driven splits) would shift the work-item '
+                    'coordinates the checkpoint refers to; resume without cost_schedule')
+            from petastorm_tpu_torch.dataset_state import cache_state_home
+            from petastorm_tpu_torch.schedule import CostAwareScheduler, load_ledger
+            path_or_paths = handle.path_or_paths
+            url_for_ledger = (path_or_paths[0] if isinstance(path_or_paths, (list, tuple))
+                              else path_or_paths)
+            ledger, ledger_path = load_ledger(url_for_ledger, self.dataset_token,
+                                              cache_location=cache_state_home(cache),
+                                              ledger_path=schedule_policy.ledger_path)
+            self._cost_scheduler = CostAwareScheduler(self.dataset_token, schedule_policy,
+                                                      ledger=ledger, ledger_path=ledger_path)
+            locator = {index: (rg.fragment_path, rg.row_group_id, rg.row_group_num_rows)
+                       for index, rg in enumerate(row_groups)}
+            # NGram windows span rows: interleave, never split. Parts cap at
+            # the pool's workers (each re-reads the rowgroup), floored at 2
+            items, _ = self._cost_scheduler.plan_items(
+                items, locator, allow_split=ngram is None,
+                max_parts=max(2, int(getattr(reader_pool, 'workers_count', 1) or 1)))
+            self._piece_locator = self._cost_scheduler.piece_locator()
+            if shuffle_row_groups:
+                order_fn = self._cost_scheduler.order_items
+                self._cost_scheduler.live_reorder = True
+            else:
+                # one static cost-balanced order, the same every epoch
+                items = self._cost_scheduler.order_items(items, None)
+
         # Consumption is tracked per work item: every item yields exactly one
         # ColumnarBatch, tagged with its absolute epoch and counted when popped
         # off the results queue (on the row path: when its last row is emitted).
@@ -529,7 +589,8 @@ class Reader(object):
             pre_shuffle_count=self._epochs_consumed,
             skip_ids_by_iteration=skip_by_iteration,
             item_id_fn=_item_id,
-            reset_iterations=num_epochs)
+            reset_iterations=num_epochs,
+            order_fn=order_fn)
         self._pool = reader_pool
         if hasattr(reader_pool, 'check_picklable') and worker_predicate is not None:
             # every work item carries it to the worker processes
@@ -639,6 +700,10 @@ class Reader(object):
         if stage_times:
             # additive, so a respawned worker's fresh recorder merges like any
             self._telemetry.merge_stage_times(stage_times)
+            if self._cost_scheduler is not None and batch.item_id is not None:
+                # the live cost feed: a batch's sidecar holds (mostly) its own
+                # rowgroup's stage times, persisted into the ledger at stop()
+                self._cost_scheduler.observe(batch.item_id[1], stage_times)
         trace_sidecar = getattr(batch, 'trace', None)
         if trace_sidecar:
             # the producing thread's events land in this process's recorder,
@@ -715,7 +780,17 @@ class Reader(object):
         that row: exact when the in-item row order is reproducible
         (``shuffle_rows=False`` or a fixed ``seed``). Results published by
         workers but not yet popped are read again. Call from the consuming
-        thread, between ``next()`` calls."""
+        thread, between ``next()`` calls.
+
+        A cost-scheduled reader's state carries its plan's fingerprint under
+        ``schedule``; one whose plan split rowgroups refuses to checkpoint
+        (the sub-range items cannot be resumed)."""
+        if self._cost_scheduler is not None and self._cost_scheduler.split_count:
+            raise ValueError(
+                'state_dict() is not supported on a cost-scheduled reader whose plan '
+                'split rowgroups ({} split(s)): the sub-range work-item coordinates '
+                'cannot be resumed. Checkpoint with cost_schedule disabled, or a '
+                'SchedulePolicy(split=False).'.format(self._cost_scheduler.split_count))
         cursor = None
         if isinstance(self._results_reader, _RowResultsReader):
             with self._next_lock:
@@ -735,7 +810,9 @@ class Reader(object):
                 state['row_cursor'] = {'epoch_offset': epoch - self._epochs_consumed,
                                        'piece': piece, 'drop': drop,
                                        'next_row': next_row}
-            return state
+        if self._cost_scheduler is not None:
+            state['schedule'] = self._cost_scheduler.plan_fingerprint()
+        return state
 
     @property
     def items_per_epoch(self):
@@ -837,6 +914,21 @@ class Reader(object):
         from petastorm_tpu_torch.telemetry.tracing import trace_snapshot
         return summarize_trace(trace_snapshot())
 
+    def cost_ledger(self, ledger=None):
+        """The flight recorder's per-rowgroup span history of this read folded
+        into a :class:`~petastorm_tpu_torch.telemetry.cost_model.CostLedger`
+        (``ledger`` continues one of the same :attr:`dataset_token`; default a
+        fresh one). Empty unless tracing was armed for the read
+        (``trace=True`` or ``PETASTORM_TPU_TRACE=1``). Split pieces count
+        toward their rowgroup. The one-command form is
+        ``petastorm-tpu-torch-throughput costs <dataset_url>``."""
+        from petastorm_tpu_torch.telemetry.cost_model import CostLedger
+        from petastorm_tpu_torch.telemetry.tracing import trace_snapshot
+        if ledger is None:
+            ledger = CostLedger(self.dataset_token)
+        ledger.ingest_trace(trace_snapshot(), dict(self._piece_locator))
+        return ledger
+
     def autotune_report(self):
         """The autotuner's state (windows, decision log, frozen-by-breaker
         flag, knob values and bounds), or ``{'enabled': False}`` without
@@ -861,7 +953,8 @@ class Reader(object):
         cache); ``telemetry``, one cross-process snapshot with fresh SLO
         gauges, and ``slo``, its efficiency report; ``trace``, the
         flight-recorder summary (only while tracing is armed); ``autotune``,
-        the controller's report (only with ``autotune``)."""
+        the controller's report (only with ``autotune``); ``schedule``, the
+        cost scheduler's report (only with ``cost_schedule``)."""
         diag = dict(getattr(self._pool, 'diagnostics', None) or {})
         with self._accounting_lock:
             diag.update({'io_retries': self._io_retries,
@@ -890,6 +983,8 @@ class Reader(object):
             diag['trace'] = self.trace_summary()
         if self._autotune is not None:
             diag['autotune'] = self._autotune.report()
+        if self._cost_scheduler is not None:
+            diag['schedule'] = self._cost_scheduler.report()
         return diag
 
     # --------------------------------------------------------------- lifecycle
@@ -902,6 +997,13 @@ class Reader(object):
         if self._autotune is not None:
             # no knob turns once the pool starts tearing down
             self._autotune.stop()
+        if self._cost_scheduler is not None:
+            # this run's observations go to the next one; a read never fails
+            # over its cost bookkeeping
+            try:
+                self._cost_scheduler.persist()
+            except Exception:  # noqa: BLE001 - ledger persistence is advisory
+                logger.warning('could not persist the cost ledger', exc_info=True)
         self._pool.stop()
 
     def join(self):

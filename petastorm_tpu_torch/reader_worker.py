@@ -35,6 +35,7 @@ import pyarrow.dataset as pads
 
 from petastorm_tpu_torch import decode_engine
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.dataset_state import derive_dataset_token
 from petastorm_tpu_torch.telemetry.spans import drain_stage_times, record_stage, stage_span
 from petastorm_tpu_torch.telemetry.tracing import (clear_trace_context,
                                                    current_dispatch_attempt,
@@ -122,22 +123,23 @@ class WorkerSetup(object):
         self.cache = cache or NullCache()
         # cached values are the decoded output, so the identity covers the
         # store, the fields, the decode mode and each field's codec
+        # (derive_dataset_token, the JAX package's derivation)
         field_specs = [
             (name, str(field.numpy_dtype), str(field.shape),
              str(field.codec.to_config()) if field.codec is not None else 'none')
             for name, field in schema.fields.items() if name in self.fields_to_read]
-        token = '{}|{}|{}|{}|{}'.format(dataset_path_or_paths, sorted(self.fields_to_read),
-                                        not batched_output, transform_spec is not None,
-                                        sorted(field_specs))
-        if self.device_decode_fields:
-            token += '|{}'.format(sorted(self.device_decode_fields))
+        token = derive_dataset_token(dataset_path_or_paths, self.fields_to_read,
+                                     not batched_output, transform_spec is not None,
+                                     field_specs, self.device_decode_fields)
         if ngram is not None:
             # an NGram entry holds the window starts this NGram formed
-            token += '|ngram:{}|{}|{}|{}'.format(
+            token = hashlib.md5('{}|ngram:{}|{}|{}|{}'.format(
+                token,
                 sorted((offset, sorted(ngram.get_field_names_at_timestep(offset)))
                        for offset in ngram.fields),
-                ngram.delta_threshold, ngram.timestamp_field_name, ngram.timestamp_overlap)
-        self.dataset_token = hashlib.md5(token.encode('utf-8')).hexdigest()[:16]
+                ngram.delta_threshold, ngram.timestamp_field_name,
+                ngram.timestamp_overlap).encode('utf-8')).hexdigest()[:16]
+        self.dataset_token = token
         #: the cache key's identity of the worker predicate, made once; None
         #: bypasses the cache (no cache, or a predicate that does not pickle)
         self.predicate_token = (None if isinstance(self.cache, NullCache)
@@ -180,20 +182,28 @@ class RowGroupWorker(WorkerBase):
         self.publish_func(payload)
 
     def process(self, piece_index, fragment_path, row_group_id, partition_keys=None,
-                worker_predicate=None, shuffle_row_drop_partition=(0, 1), epoch_index=0):
+                worker_predicate=None, shuffle_row_drop_partition=(0, 1), epoch_index=0,
+                row_range=None):
+        """Load, decode and publish one work item. ``row_range=(start, stop)``
+        (a cost scheduler's sub-range of a split rowgroup) restricts it to
+        those physical rows."""
         # every span and instant of the item, its publish included, carries
         # (epoch, rowgroup, dispatch attempt); the process pool's worker main
         # installs the attempt, the in-process pools leave 0
         set_trace_context(epoch_index, piece_index, current_dispatch_attempt())
         try:
             self._process_item(piece_index, fragment_path, row_group_id, partition_keys,
-                               worker_predicate, shuffle_row_drop_partition, epoch_index)
+                               worker_predicate, shuffle_row_drop_partition, epoch_index,
+                               row_range)
         finally:
             clear_trace_context()
 
     def _process_item(self, piece_index, fragment_path, row_group_id, partition_keys,
-                      worker_predicate, shuffle_row_drop_partition, epoch_index):
+                      worker_predicate, shuffle_row_drop_partition, epoch_index, row_range):
         setup = self._setup
+        if setup.ngram is not None and row_range is not None:
+            # the scheduler never splits NGram readers (windows span rows)
+            raise ValueError('row_range sub-range items are not supported on the NGram path')
         item_id = (epoch_index, piece_index, shuffle_row_drop_partition[0])
         # the retry goes around the loads only (shuffle and transform touch no
         # filesystem); under 'skip' any failure of the piece quarantines it
@@ -231,7 +241,8 @@ class RowGroupWorker(WorkerBase):
             else:
                 payload = self._process_rows(item_id, fragment_path, row_group_id,
                                              partition_keys, worker_predicate,
-                                             shuffle_row_drop_partition, with_retry)
+                                             shuffle_row_drop_partition, with_retry,
+                                             row_range)
         except Exception as exc:  # noqa: BLE001 - the on_error policy decides
             if setup.on_error != 'skip':
                 raise
@@ -244,14 +255,15 @@ class RowGroupWorker(WorkerBase):
         self._publish(payload)
 
     def _process_rows(self, item_id, fragment_path, row_group_id, partition_keys,
-                      worker_predicate, shuffle_row_drop_partition, with_retry):
+                      worker_predicate, shuffle_row_drop_partition, with_retry,
+                      row_range=None):
         setup = self._setup
         piece_index = item_id[1]
 
         def load():
             return with_retry(lambda: self._load_and_decode(
                 fragment_path, row_group_id, partition_keys, worker_predicate,
-                shuffle_row_drop_partition))
+                shuffle_row_drop_partition, row_range))
 
         cache_hit = None
         if setup.predicate_token is None:
@@ -262,6 +274,9 @@ class RowGroupWorker(WorkerBase):
             cache_key = '{}:{}:{}:{}:{}'.format(setup.dataset_token, fragment_path,
                                                 row_group_id, shuffle_row_drop_partition,
                                                 setup.predicate_token)
+            if row_range is not None:
+                # a sub-range item caches its own slice (the JAX key's suffix)
+                cache_key += ':rr{}-{}'.format(int(row_range[0]), int(row_range[1]))
             filled = []
 
             def fill():
@@ -316,9 +331,10 @@ class RowGroupWorker(WorkerBase):
                 if name not in self._setup.partition_field_names]
 
     def _load_and_decode(self, fragment_path, row_group_id, partition_keys,
-                         worker_predicate, shuffle_row_drop_partition):
-        """The piece's decoded columns: the predicate's survivors (if any),
-        then the drop partition's equal share of them."""
+                         worker_predicate, shuffle_row_drop_partition, row_range=None):
+        """The piece's decoded columns: the predicate's survivors (if any)
+        among the physical rows of ``row_range`` (all rows when None), then the
+        drop partition's equal share of them."""
         all_fields = self._setup.fields_to_read
         if worker_predicate is not None:
             table, keep = self._two_phase_load(fragment_path, row_group_id, partition_keys,
@@ -328,6 +344,8 @@ class RowGroupWorker(WorkerBase):
             with stage_span('rowgroup_read'):
                 table = fragment.to_table(columns=self._storage_columns(all_fields))
             keep = np.arange(table.num_rows)
+        if row_range is not None:
+            keep = keep[(keep >= int(row_range[0])) & (keep < int(row_range[1]))]
         part_index, num_parts = shuffle_row_drop_partition
         # the same equal split of the (kept) row indices petastorm_tpu's worker takes
         selected = np.array_split(keep, num_parts)[part_index] if num_parts > 1 else keep

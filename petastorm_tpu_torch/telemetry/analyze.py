@@ -1,7 +1,7 @@
 """Bottleneck attribution: rank pipeline stages by time share and map the top
 stage to the knob that moves it. A copy of ``petastorm_tpu.telemetry.analyze``
-(its advice names the port's objects; the cost profiler's ``what_if`` rows
-wait with the cost model).
+(its advice names the port's objects), with the cost profiler's ``what_if``
+rows from a :class:`~petastorm_tpu_torch.telemetry.cost_model.CostLedger`.
 
 The input is any telemetry snapshot (``Reader.diagnostics['telemetry']``,
 ``TorchDataLoader.telemetry_snapshot()``, a JSONL event log). Shares are
@@ -169,7 +169,8 @@ def _service_advisories(snapshot: Dict[str, Any]) -> List[Dict[str, Any]]:
 
 
 def attribute_bottleneck(snapshot: Dict[str, Any],
-                         top_n: int = 5) -> Dict[str, Any]:
+                         top_n: int = 5,
+                         cost_ledger: Any = None) -> Dict[str, Any]:
     """Rank leaf stages by total-time share and name the knob for the top one.
 
     Returns ``{'total_stage_seconds', 'ranked': [{'stage', 'seconds', 'share',
@@ -178,7 +179,13 @@ def attribute_bottleneck(snapshot: Dict[str, Any],
     ``advisories`` carries the counter/gauge-driven service advice rows
     (``service_busy``/``service_resubmit``/``service_queue_depth`` — pressure
     that has no latency histogram to rank). An empty snapshot yields
-    ``top_stage=None`` with a no-data recommendation (never raises)."""
+    ``top_stage=None`` with a no-data recommendation (never raises).
+
+    ``cost_ledger`` (a
+    :class:`~petastorm_tpu_torch.telemetry.cost_model.CostLedger`, optional)
+    adds ``what_if`` rows: "if every rowgroup above the p95 cost dropped to
+    the median, total <scope> time -X%", the per-rowgroup skew the stage
+    ranking cannot see."""
     histograms = snapshot.get('histograms') or {}
     leaves = []
     envelopes = {}
@@ -201,10 +208,28 @@ def attribute_bottleneck(snapshot: Dict[str, Any],
                'mean_s': round(total / count, 6) if count else 0.0}
               for name, total, count in leaves[:max(top_n, 1)]]
     advisories = _service_advisories(snapshot)
+    what_if = list(cost_ledger.what_if()) if cost_ledger is not None else []
+    for row in what_if:
+        # per-rowgroup skew the stage ranking cannot see, fixed by a knob
+        if (row.get('scope') == 'total'
+                and float(row.get('skew_p95_over_median', 1.0)) >= 2.0
+                and float(row.get('saving_fraction', 0.0)) >= 0.05):
+            advisories.append({
+                'signal': 'cost_skew_p95_over_median',
+                'value': float(row['skew_p95_over_median']),
+                'recommendation': 'enable cost-aware scheduling '
+                                  '(make_reader(cost_schedule=True))',
+                'detail': 'Per-rowgroup decode cost is skewed {}x (p95/median); the '
+                          'cost-aware scheduler would interleave, split and pre-stage '
+                          'the heavy rowgroups from this ledger: preview with '
+                          'petastorm-tpu-torch-throughput costs --json.'
+                          .format(row['skew_p95_over_median'])})
+            break
     if not ranked:
         return {'total_stage_seconds': 0.0, 'ranked': [], 'envelopes': envelopes,
                 'top_stage': None, 'top_share': 0.0,
                 'advisories': advisories,
+                'what_if': what_if,
                 'recommendation': 'no stage timings recorded',
                 'detail': 'The snapshot holds no latency histograms — run an '
                           'instrumented read first (telemetry is on by default; '
@@ -217,6 +242,7 @@ def attribute_bottleneck(snapshot: Dict[str, Any],
             'top_stage': top['stage'],
             'top_share': top['share'],
             'advisories': advisories,
+            'what_if': what_if,
             'recommendation': headline,
             'detail': detail}
 
@@ -244,6 +270,8 @@ def format_report(report: Dict[str, Any]) -> str:
         lines.append('  [service] {}={:g} -> {}'.format(
             advisory['signal'], advisory['value'],
             advisory['recommendation']))
+    for row in report.get('what_if') or []:
+        lines.append('  [what-if] {}'.format(row['detail']))
     return '\n'.join(lines)
 
 
@@ -261,10 +289,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help='print one machine-readable JSON line instead')
     parser.add_argument('--top', type=int, default=5,
                         help='stages to rank (default 5)')
+    parser.add_argument('--costs', default=None, metavar='LEDGER',
+                        help='a persisted cost ledger (petastorm-tpu-torch-throughput '
+                             'costs) to derive what-if rows from')
     args = parser.parse_args(argv)
     from petastorm_tpu_torch.telemetry.export import load_snapshot
     snapshot = load_snapshot(args.snapshot_path)
-    report = attribute_bottleneck(snapshot, top_n=args.top)
+    cost_ledger = None
+    if args.costs:
+        from petastorm_tpu_torch.telemetry.cost_model import CostLedger
+        cost_ledger = CostLedger.load(args.costs)
+    report = attribute_bottleneck(snapshot, top_n=args.top, cost_ledger=cost_ledger)
     if args.json:
         print(json.dumps(report))
     else:

@@ -1,1 +1,1 @@
-"""Command-line store tools."""
+"""Command-line store tools and the environment doctor."""

@@ -65,8 +65,10 @@ Defined differences from the JAX pool:
 - ``results_queue_size`` is accepted for the JAX signature; results in flight
   are bounded by the pull-based dispatch, the pipes and the ring's slots.
 - The ring has the JAX defaults (32 MiB slots, 4 a worker) and always checks
-  CRCs; the JAX pool's serializer, slot-size, checksum and breaker arguments
-  are not taken.
+  CRCs; the JAX pool's slot-size, checksum and breaker arguments are not
+  taken. ``payload_serializer`` is the JAX pool's (Arrow IPC by default,
+  :class:`~petastorm_tpu_torch.workers.serializers.PickleSerializer` for
+  whole-object pickles).
 """
 
 import collections
@@ -149,7 +151,7 @@ class _Worker(object):
 class ProcessPool(object):
     """Spawned-process worker pool (see the module docstring)."""
 
-    def __init__(self, workers_count, results_queue_size=50,
+    def __init__(self, workers_count, results_queue_size=50, payload_serializer=None,
                  max_worker_respawns=DEFAULT_MAX_WORKER_RESPAWNS, shm_transport=None,
                  heartbeat_interval_s=DEFAULT_HEARTBEAT_INTERVAL_S,
                  hang_timeout_s=DEFAULT_HANG_TIMEOUT_S, item_deadline_s=None):
@@ -160,9 +162,12 @@ class ProcessPool(object):
         ``heartbeat_interval_s`` (0 or None: no stamps); a worker holding items
         whose stamp stalls for ``hang_timeout_s`` (None: no staleness reap) or
         whose item overruns ``item_deadline_s`` (None: no deadline) is
-        SIGKILLed and respawned within ``max_worker_respawns``. Results travel
-        as :class:`~petastorm_tpu_torch.workers.serializers.ArrowIpcSerializer`
-        frames."""
+        SIGKILLed and respawned within ``max_worker_respawns``.
+        ``payload_serializer`` is the results' wire format: None for
+        :class:`~petastorm_tpu_torch.workers.serializers.ArrowIpcSerializer`
+        frames, or a
+        :class:`~petastorm_tpu_torch.workers.serializers.PickleSerializer`
+        for whole-object pickles."""
         from petastorm_tpu_torch.resilience import CircuitBreaker
         from petastorm_tpu_torch.workers.serializers import ArrowIpcSerializer
         from petastorm_tpu_torch.workers.shm_ring import (DEFAULT_SLOT_BYTES,
@@ -170,7 +175,8 @@ class ProcessPool(object):
         self.workers_count = workers_count
         #: consumer-side telemetry (see the module docstring)
         self.telemetry = MetricsRegistry()
-        self._serializer = ArrowIpcSerializer()
+        self._serializer = (payload_serializer if payload_serializer is not None
+                            else ArrowIpcSerializer())
         self._max_worker_respawns = max_worker_respawns
         self._shm_transport = shm_transport
         self._ring = None
@@ -623,8 +629,12 @@ class ProcessPool(object):
         """The next result. Raises EmptyResultError once all ventilated work is
         done, or once the pool was stopped (a consumer still waiting returns);
         re-raises a worker's exception."""
+        if self._stopped:
+            # a stopped pool answers at once: join() drains the pipes without
+            # the lock, so a consumer never waits out its drain
+            raise EmptyResultError()
         with self._recv_lock:
-            return self._get_result(timeout)
+            return self._get_result(timeout)  # pipecheck: disable=lock-discipline -- one receiver at a time by design: the lock serializes the consumers' pipe reads, each wait is a 0.1 s poll that rechecks the stop, and join() never holds it while it blocks
 
     def _get_result(self, timeout):
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -822,11 +832,15 @@ class ProcessPool(object):
     def join(self):
         if not self._stopped:
             raise RuntimeError('join() must be preceded by stop()')
+        # a consumer inside _get_result sees the stop within one 0.1 s poll and
+        # leaves, and none enters once the pool is stopped: after taking the
+        # lock once, the drain owns the pipes and blocks without it
         with self._recv_lock:
-            self._drain_until_exit(time.monotonic() + 10)
-            for conn in list(self._conns):
-                conn.close()
-            self._conns.clear()
+            conns = dict(self._conns)
+        self._drain_until_exit(time.monotonic() + 10, conns)
+        for conn in conns:
+            conn.close()
+        self._conns.clear()
         for worker in self._workers:
             if worker.process.poll() is None:
                 logger.warning('Worker %d (pid %d) did not exit within 10s of stop(); '
@@ -842,15 +856,16 @@ class ProcessPool(object):
             self._ring.close_and_unlink()
             self._ring = None
 
-    def _drain_until_exit(self, deadline):
-        """Wait for the workers to exit, reading their pipes meanwhile: a worker
-        blocked on a full pipe or waiting for a slot release can then finish,
-        see the stop and exit."""
+    def _drain_until_exit(self, deadline, by_conn):
+        """Wait for the workers to exit, reading their pipes (``by_conn``,
+        pipe -> worker) meanwhile: a worker blocked on a full pipe or waiting
+        for a slot release can then finish, see the stop and exit."""
         from petastorm_tpu_torch.workers.shm_ring import ShmSlotDescriptor
         while any(worker.process.poll() is None for worker in self._workers):
             if time.monotonic() >= deadline:
                 return
-            by_conn = dict(self._conns)
+            # _recv closes a pipe at its EOF
+            by_conn = {conn: worker for conn, worker in by_conn.items() if not conn.closed}
             for conn in wait(list(by_conn), timeout=0.2) if by_conn else ():
                 message = self._recv(by_conn[conn])
                 if message is not None and message[0] == 'result_shm':

@@ -9,7 +9,8 @@ on disk, and :class:`ArrowIpcSerializer` sends it from a process-pool worker to
 the pool, with the batch's item id, cache hit, retries, quarantine record and
 tripped breakers in the metadata. Decoding maps the numeric columns back as
 zero-copy views of the stream's memory, or copies them (``writable=True``, what
-the pool needs: its shm slots are reused once a result is read)."""
+the pool needs: its shm slots are reused once a result is read).
+:class:`PickleSerializer` is the pool's other wire format."""
 
 import json
 import pickle
@@ -104,6 +105,24 @@ def decode_columnar_with_meta(ipc_buffer, sidecar, writable=True, stats=None):
 
 _MARKER_ARROW = b'A'
 _MARKER_PICKLE = b'P'
+
+
+class PickleSerializer(object):
+    """Whole-object pickle, the JAX package's ``PickleSerializer``: always
+    correct, copies everything. One frame ``[b'P', pickle]``; receiving
+    counts the payload's bytes as copied."""
+
+    def __init__(self):
+        #: receive-side counts: payloads, and bytes copied into new memory
+        self.stats = {'batches': 0, 'bytes_copied': 0}
+
+    def serialize(self, obj):
+        return [_MARKER_PICKLE, pickle.dumps(obj, protocol=5)]
+
+    def deserialize(self, frames):
+        self.stats['batches'] += 1
+        self.stats['bytes_copied'] += memoryview(frames[1]).nbytes
+        return pickle.loads(frames[1])
 
 
 class ArrowIpcSerializer(object):

@@ -38,6 +38,10 @@ class WorkerThread(threading.Thread):
         self._worker = worker
 
     def run(self):
+        profiler = None
+        if self._pool._profiling_enabled:
+            import cProfile
+            profiler = cProfile.Profile()
         while True:
             # a worker whose id is beyond the active count parks here instead
             # of pulling work (the shrink half of set_workers_count)
@@ -45,20 +49,40 @@ class WorkerThread(threading.Thread):
             item = self._pool._ventilator_queue.get()
             if item is _STOP_SENTINEL:
                 break
+            # CPython 3.12's cProfile is process-global: workers contend for
+            # one slot an item, so the profile samples all workers' work
+            profiling_this = (profiler is not None
+                              and self._pool._profiler_slot.acquire(blocking=False))
+            if profiling_this:
+                try:
+                    profiler.enable()
+                except ValueError:
+                    # another tool (coverage, say) holds the monitoring slot
+                    self._pool._profiler_slot.release()
+                    profiling_this = False
             try:
-                self._worker.process(**item)
+                try:
+                    self._worker.process(**item)
+                finally:
+                    if profiling_this:
+                        profiler.disable()
+                        self._pool._profiler_slot.release()
                 self._pool._put_result(VentilatedItemProcessedMessage())
             except Exception as exc:  # noqa: BLE001 - re-raised in the consumer
                 self._pool._put_result(_WorkerError(exc, traceback.format_exc()))
+        if profiler is not None:
+            self._pool._collect_profile(profiler)
         self._worker.shutdown()
 
 
 class ThreadPool(object):
     """N worker threads, each owning a worker instance; the bounded results
     queue gives backpressure. :meth:`set_workers_count` grows the pool to at
-    most ``4 * workers_count``."""
+    most ``4 * workers_count``. ``profiling_enabled`` wraps the workers' items
+    in cProfile and logs the aggregate at :meth:`join`."""
 
-    def __init__(self, workers_count, results_queue_size=DEFAULT_RESULTS_QUEUE_SIZE):
+    def __init__(self, workers_count, results_queue_size=DEFAULT_RESULTS_QUEUE_SIZE,
+                 profiling_enabled=False):
         self.workers_count = workers_count
         self._max_workers_count = 4 * workers_count
         self._results_queue = queue.Queue(results_queue_size)
@@ -73,6 +97,10 @@ class ThreadPool(object):
         self._active_workers = workers_count
         self._worker_class = None
         self._worker_args = None
+        self._profiling_enabled = profiling_enabled
+        self._profiles = []
+        self._profiles_lock = threading.Lock()
+        self._profiler_slot = threading.Lock()
         #: consumer-side telemetry: ``pool_wait``, the time the consumer spent
         #: inside get_results per result
         self.telemetry = MetricsRegistry()
@@ -178,6 +206,38 @@ class ThreadPool(object):
     def join(self):
         if not self._stopped.is_set():
             raise RuntimeError('join() must be preceded by stop()')
+        stragglers = []
         for thread in self._threads:
             thread.join(timeout=30)
+            if thread.is_alive():
+                stragglers.append(thread.name)
         self._threads = []
+        if self._profiling_enabled:
+            if stragglers:
+                logger.warning('Worker thread(s) %s still alive after the join timeout; '
+                               'their profiles are left out', stragglers)
+            self._log_profile()
+
+    def _collect_profile(self, profiler):
+        with self._profiles_lock:
+            self._profiles.append(profiler)
+
+    def _log_profile(self):
+        """Log the workers' aggregated profile (cumulative, top 30)."""
+        import io
+        import pstats
+        stream = io.StringIO()
+        stats = None
+        with self._profiles_lock:
+            profiles, self._profiles = self._profiles, []
+        for profiler in profiles:
+            profiler.create_stats()
+            if not profiler.stats:
+                continue   # this worker never held the profiler slot
+            if stats is None:
+                stats = pstats.Stats(profiler, stream=stream)
+            else:
+                stats.add(profiler)
+        if stats is not None:
+            stats.sort_stats('cumulative').print_stats(30)
+            logger.info('Aggregated worker-thread profile:\n%s', stream.getvalue())

@@ -24,12 +24,15 @@ class ConcurrentVentilator(object):
     construction (they were consumed before the checkpoint; results can
     straddle epochs, hence one set per pass). ``reset_iterations`` is what
     :meth:`reset` restores (default ``iterations``; a resumed reader passes its
-    full ``num_epochs``)."""
+    full ``num_epochs``). ``order_fn(items, random_state) -> items`` (a cost
+    scheduler's :meth:`~petastorm_tpu_torch.schedule.CostAwareScheduler.order_items`)
+    replaces the seeded shuffle at every reorder point, epoch starts and
+    resume pre-shuffles alike, consuming the RNG stream as the shuffle does."""
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
                  max_ventilation_queue_size=None, randomize_item_order=False,
                  random_seed=None, pre_shuffle_count=0, skip_ids_by_iteration=None,
-                 item_id_fn=None, reset_iterations=None):
+                 item_id_fn=None, reset_iterations=None, order_fn=None):
         if iterations is not None and (not isinstance(iterations, int) or iterations < 1):
             raise ValueError('iterations must be a positive integer or None, got {!r}'
                              .format(iterations))
@@ -43,9 +46,10 @@ class ConcurrentVentilator(object):
                                             or len(self._items_to_ventilate) or 1)
         self._randomize_item_order = randomize_item_order
         self._random_state = np.random.RandomState(random_seed)
+        self._order_fn = order_fn
         if randomize_item_order:
             for _ in range(pre_shuffle_count):
-                self._random_state.shuffle(self._items_to_ventilate)
+                self._reorder()
         self._skip_ids_by_iteration = {int(k): set(v)
                                        for k, v in (skip_ids_by_iteration or {}).items()}
         self._item_id_fn = item_id_fn or (lambda item: None)
@@ -70,9 +74,18 @@ class ConcurrentVentilator(object):
                                         name='petastorm-tpu-torch-ventilator')
         self._thread.start()
 
+    def _reorder(self):
+        """One epoch's reorder: ``order_fn`` when set, else the seeded shuffle
+        in place."""
+        if self._order_fn is not None:
+            self._items_to_ventilate = list(
+                self._order_fn(self._items_to_ventilate, self._random_state))
+        else:
+            self._random_state.shuffle(self._items_to_ventilate)
+
     def _ventilate(self):
         if self._randomize_item_order:
-            self._random_state.shuffle(self._items_to_ventilate)
+            self._reorder()
         while not self._stop_requested.is_set():
             if self._completed.is_set():
                 return
@@ -106,7 +119,7 @@ class ConcurrentVentilator(object):
                         self._completed.set()
                         return
                 if self._randomize_item_order:
-                    self._random_state.shuffle(self._items_to_ventilate)
+                    self._reorder()
 
     def processed_item(self):
         """Consumer feedback: one ventilated item finished."""

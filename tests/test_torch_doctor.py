@@ -1,0 +1,93 @@
+"""The port's doctor (``petastorm_tpu_torch.tools.doctor``) held against the
+JAX package's: on the CPU the store round trip is ok and the install healthy,
+every block the port has carries the JAX block's keys (the backend's, plus
+the device name), ``backend`` reports no CUDA device, ``--json`` prints one
+line, and a backend probe that hangs is reported as a timeout."""
+
+import json
+import time
+
+import pytest
+
+from petastorm_tpu.tools import doctor as jax_doctor
+from petastorm_tpu_torch.tools import doctor
+
+#: the JAX round trip's blocks that collect_report lifts to the top level
+LIFTED = ('telemetry', 'trace', 'resilience', 'autotune', 'slo', 'lineage', 'history')
+#: the JAX doctor's blocks whose planes the port lacks
+NOT_PORTED = ('lineage', 'history', 'service', 'ledger', 'topology', 'incidents', 'storage',
+              'pipecheck')
+
+
+@pytest.fixture(scope='module')
+def jax_roundtrip():
+    from petastorm_tpu.telemetry.analyze import attribute_bottleneck
+    roundtrip = jax_doctor.check_store_roundtrip()
+    blocks = {name: roundtrip.pop(name) for name in LIFTED}
+    blocks['telemetry'] = {'snapshot': blocks['telemetry'],
+                           'bottleneck': attribute_bottleneck(blocks['telemetry'])}
+    blocks['store_roundtrip'] = roundtrip
+    return blocks
+
+
+def test_json_report_healthy_with_the_jax_blocks(capsys, jax_roundtrip):
+    assert doctor.main(['--json', '--no-link']) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    report = json.loads(lines[0])
+    assert report['healthy'] is True
+    assert report['store_roundtrip']['status'] == 'ok'
+    assert report['store_roundtrip']['rows'] == 200
+    backend = report['backend']
+    assert backend['status'] == 'down' and backend['devices'] == 0
+    assert backend['platform'] is None and 'CUDA' in backend['detail']
+    assert 'link' not in report
+    for name in ('store_roundtrip', 'trace', 'resilience', 'autotune', 'slo', 'telemetry'):
+        assert set(report[name]) == set(jax_roundtrip[name]), name
+    assert set(report['telemetry']['bottleneck']) == \
+        set(jax_roundtrip['telemetry']['bottleneck'])
+    assert report['autotune']['enabled'] and 'efficiency' in report['slo']
+    assert report['trace']['events'] > 0
+    assert not set(report) & set(NOT_PORTED)
+    versions = report['versions']
+    assert set(versions) == {'python', 'numpy', 'pyarrow', 'torch', 'cuda',
+                             'petastorm_tpu_torch'}
+    assert versions['torch'] and versions['cuda'] is None
+    doctor._print_human(report)
+    human = capsys.readouterr().out
+    assert 'store roundtrip: OK' in human and 'verdict: healthy' in human
+    assert 'backend: DOWN' in human
+
+
+def test_backend_keys_cover_the_jax_probe(monkeypatch):
+    monkeypatch.setattr(jax_doctor, 'PROBE_CODE', "print('banner')\nprint('cpu 1')\n")
+    jax_up = jax_doctor.check_backend(timeout_s=30)
+    assert jax_up['status'] == 'up'
+    monkeypatch.setattr(doctor, 'PROBE_CODE',
+                        "print('banner')\nprint('cuda 1 NVIDIA H100 80GB HBM3')\n")
+    up = doctor.check_backend(timeout_s=30)
+    assert up == {'status': 'up', 'platform': 'cuda', 'devices': 1,
+                  'device_name': 'NVIDIA H100 80GB HBM3'}
+    assert set(jax_up) <= set(up)
+    monkeypatch.setattr(doctor, 'PROBE_CODE', "print('garbage')\n")
+    assert doctor.check_backend(timeout_s=30)['status'] == 'down'
+
+
+def test_backend_probe_timeout_is_reported_not_hung(monkeypatch):
+    monkeypatch.setattr(doctor, 'PROBE_CODE', 'import time\ntime.sleep(60)\n')
+    start = time.monotonic()
+    result = doctor.check_backend(timeout_s=1)
+    assert time.monotonic() - start < 30
+    assert result['status'] == 'timeout' and result['devices'] == 0
+    assert '1s' in result['detail']
+
+
+def test_link_probe_child_parses_and_fails_soft(monkeypatch):
+    monkeypatch.setattr(doctor, 'LINK_PROBE_CODE',
+                        "print('LINKPROBE_JSON ' + '{{\"dispatch_rtt_ms\": 0.02, "
+                        "\"row\": {row_bytes}, \"batch\": {batch}}}')\n")
+    assert doctor.check_link(timeout_s=30) == {'dispatch_rtt_ms': 0.02, 'row': 1024,
+                                               'batch': 1024}
+    monkeypatch.setattr(doctor, 'LINK_PROBE_CODE', "raise SystemExit('no card')\n")
+    failed = doctor.check_link(timeout_s=30)
+    assert failed['status'] == 'fail' and 'no card' in failed['detail']

@@ -18,6 +18,23 @@ PORT = os.path.join(REPO, 'petastorm_tpu_torch')
 FORBIDDEN_ROOTS = ('jax', 'flax', 'optax', 'orbax', 'petastorm_tpu')
 
 
+#: the measurement tools and the cost-aware scheduler
+SLICE_14_MODULES = ('dataset_state.py',) + tuple(
+    os.path.join(*parts) for parts in (
+        ('benchmark', 'linkprobe.py'), ('benchmark', 'throughput.py'),
+        ('benchmark', 'dummy_reader.py'), ('benchmark', 'decode_bench.py'),
+        ('benchmark', 'wire_bench.py'), ('benchmark', 'cli.py'),
+        ('telemetry', 'cost_model.py'), ('schedule', '__init__.py'),
+        ('schedule', 'cost_schedule.py'), ('tools', 'doctor.py'),
+        ('test_util', '__init__.py'), ('test_util', 'reader_mock.py')))
+#: the examples/hello_world twins, both halves
+HELLO_WORLD_TWINS = tuple(
+    ('hello_world', half, 'torch_{}.py'.format(name))
+    for half, generator in (('petastorm_dataset', 'generate_petastorm_dataset'),
+                            ('external_dataset', 'generate_external_dataset'))
+    for name in (generator, 'python_hello_world', 'pytorch_hello_world', 'hello_world'))
+
+
 def _forbidden(module):
     return module.split('.')[0] in FORBIDDEN_ROOTS
 
@@ -64,17 +81,39 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert os.path.join(REPO, 'chip_smoke.py') in files and len(files) > 20
     for twin in (('moe', 'torch_example.py'), ('converter', 'torch_converter_example.py'),
                  ('mnist', 'torch_example.py'), ('imagenet', 'torch_example.py'),
-                 ('long_context', 'torch_example.py')):
+                 ('long_context', 'torch_example.py')) + HELLO_WORLD_TWINS:
         assert os.path.join(REPO, 'examples', *twin) in files
     for module in ('converter.py', 'pytorch.py', 'utils.py', 'arrow_helpers.py',
                    'generator.py', os.path.join('etl', 'legacy.py'),
                    os.path.join('etl', 'generate_metadata.py'),
                    os.path.join('etl', 'metadata_util.py'),
-                   os.path.join('tools', 'copy_dataset.py')):
+                   os.path.join('tools', 'copy_dataset.py')) + SLICE_14_MODULES:
         assert os.path.join(PORT, module) in files
     offenders = [(os.path.relpath(path, REPO), name) for path in files
                  for name in _imports(path) if _forbidden(name)]
     assert not offenders
+
+
+def _code_imports(code):
+    """The module names a code string imports."""
+    for node in ast.walk(ast.parse(code)):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module
+
+
+def test_subprocess_code_strings_import_neither_jax_nor_the_jax_package():
+    """The doctor's backend and link probes run code strings in children: no
+    jax, no petastorm_tpu there either (the link probe's child imports the
+    port's probe)."""
+    from petastorm_tpu_torch.tools import doctor
+    link_code = doctor.LINK_PROBE_CODE.format(row_bytes=1024, batch=1024)
+    assert set(_code_imports(doctor.PROBE_CODE)) == {'torch'}
+    assert set(_code_imports(link_code)) == {'json',
+                                             'petastorm_tpu_torch.benchmark.linkprobe'}
+    for code in (doctor.PROBE_CODE, link_code):
+        assert not [name for name in _code_imports(code) if _forbidden(name)]
 
 
 _BLOCKED_RUN = textwrap.dedent('''
@@ -126,8 +165,12 @@ _BLOCKED_RUN = textwrap.dedent('''
     converter.delete()
     for twin in ('converter.torch_converter_example', 'mnist.torch_example',
                  'imagenet.torch_example', 'long_context.torch_example',
-                 'moe.torch_example'):
+                 'moe.torch_example', 'hello_world.petastorm_dataset.torch_hello_world',
+                 'hello_world.petastorm_dataset.torch_pytorch_hello_world',
+                 'hello_world.external_dataset.torch_hello_world'):
         importlib.import_module('examples.' + twin)
+    from petastorm_tpu_torch.tools import doctor
+    assert doctor.collect_report(link=False)['healthy']
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'petastorm_tpu'))
     print('MODULES', len(names), 'ROWS', rows, 'STORED', loader.stats.device_stored_batches,
