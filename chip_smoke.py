@@ -146,7 +146,21 @@ version on the card, then drives the port's two paths at full width:
   ResNet-50: both heavy rowgroups split, the plan equal to ``plan_preview``
   of the ledger, every row once and K1 once a batch (18c); the doctor with
   ``--json`` (the card up, the link block, healthy) and the CLI's
-  decode-bench and wire-bench, each in a child interpreter (18d).
+  decode-bench and wire-bench, each in a child interpreter (18d);
+- the disaggregated input service (phase 19): phase 5's store and path
+  through ``make_reader(service_url=...)`` of a ``ServiceFleet`` of
+  ``--workers`` decode workers on this host with a shared cache, results in
+  one-shot ``ptt-svc-*`` shared-memory segments (19a: every row once with
+  its label and embedding, K1 once a batch, every result through a segment
+  and none redelivered, no CUDA context in a fleet process, no segment left
+  after ``stop()``), then over TCP (19b: ``shm_results=False``, the wire's
+  bytes a batch); two readers of an MNIST store (phase 9's rows in 1 MB
+  rowgroups) at once on one fleet, each into its own eager ``MnistCNN`` (19c:
+  every ``idx`` once each, the served counts within 2x of each other when
+  the first finishes, a third reader served from the shared cache); a
+  worker SIGKILLed mid-epoch, then the dispatcher crashed mid-epoch with
+  the ledger armed (19d: every ``idx`` once in each, the new incarnation's
+  ledger replayed).
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -196,6 +210,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 import warnings
@@ -248,6 +263,8 @@ from petastorm_tpu_torch.predicates import in_pseudorandom_split
 from petastorm_tpu_torch.pytorch import DataLoader, InMemBatchedDataLoader
 from petastorm_tpu_torch.schedule import SchedulePolicy, plan_preview
 from petastorm_tpu_torch.selectors import SingleIndexSelector
+from petastorm_tpu_torch.service import ServiceFleet
+from petastorm_tpu_torch.service.service_worker import SHM_SEGMENT_PREFIX
 from petastorm_tpu_torch.telemetry import registry as telemetry_registry
 from petastorm_tpu_torch.telemetry import tracing as telemetry_tracing
 from petastorm_tpu_torch.telemetry.analyze import attribute_bottleneck
@@ -565,14 +582,18 @@ def phase_k1(batch, seed):
 
 
 def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_reader,
-                    loader_kwargs=None):
+                    loader_kwargs=None, service_url=None):
     """One epoch of the main path; returns its measurements and the (idx,
     label, embedding) it delivered. The reader (``factory``: ``make_reader``,
     or ``make_batch_reader`` for phase 16c) runs on a thread pool of
-    ``args.workers``, or on ``reader_pool``; the loader gets
-    ``loader_kwargs`` too; ``inspect(reader, loader)`` runs once the first
+    ``args.workers``, on ``reader_pool``, or through the input service at
+    ``service_url`` (phase 19); the loader gets ``loader_kwargs`` too; ``inspect(reader, loader)`` runs once the first
     batch arrived. ``first_batch_s`` is the time from the reader's
-    construction (a process pool's spawn included) to the first batch."""
+    construction (a process pool's spawn included) to the first batch;
+    ``steady_rows_per_s`` counts the rows after the first batch over the
+    window's time after it (an input service's workers import the reader
+    stack on their first item, inside the window, where a process pool's
+    spawn is not)."""
     torch.manual_seed(args.seed)
     model = ResNet50(num_classes=1000).train()
     optimizer = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
@@ -600,7 +621,8 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
         warnings.simplefilter('ignore')   # make_batch_reader on a Unischema store
         reader = factory(url, reader_pool_type='thread', workers_count=args.workers,
                          reader_pool=reader_pool, seed=args.seed,
-                         device_decode_fields=['image', 'embedding'])
+                         device_decode_fields=['image', 'embedding'],
+                         service_url=service_url)
     with reader:
         loader = TorchDataLoader(reader, batch_size=args.batch,
                                  device_transforms={'image': transform},
@@ -610,6 +632,7 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
             step_start = time.perf_counter()
             if first_batch_s is None:
                 first_batch_s = step_start - open_start
+                first_in_window_s = step_start - start
                 if inspect is not None:
                     inspect(reader, loader)
             check(tuple(batch['image'].shape) == (args.batch, crop, crop, 3)
@@ -643,6 +666,7 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
           .format(launches, steps, stats['device_stored_batches']))
     return {'steps': steps, 'rows': stats['rows'], 'wall_s': wall_s,
             'rows_per_s': stats['rows'] / wall_s,
+            'steady_rows_per_s': (stats['rows'] - args.batch) / (wall_s - first_in_window_s),
             'input_stall_fraction': stats['input_stall_fraction'],
             'step_ms_median': statistics.median(step_s) * 1e3,
             'step_ms': [s * 1e3 for s in step_s],
@@ -4012,6 +4036,295 @@ def phase_tools(tmp, args, record, card):
     return result
 
 
+# ------------------------------------------------ the input service (phase 19)
+
+#: phase 19c/d's store: phase 9's rows in 1 MB rowgroups (8 files), so that a
+#: fleet's fair share and its faults act on many work items
+SERVICE_MNIST_RGS_MB = 1
+SERVICE_MNIST_FILES = 8
+#: phase 19d's staleness window (the JAX default of 15 s is kept elsewhere; a
+#: killed worker's item comes back after this)
+SERVICE_STALE_S = 3.0
+#: phase 19d's client response timeout: a crashed dispatcher is probed after
+#: this much silence
+SERVICE_RESPONSE_TIMEOUT_S = '2.0'
+
+
+def service_segments():
+    """The one-shot result segments now in /dev/shm."""
+    return sorted(name for name in os.listdir(SHM_DIR) if name.startswith(SHM_SEGMENT_PREFIX))
+
+
+def phase_service_imagenet(tmp, args, shm_results):
+    """Phase 19a (``shm_results``) and 19b (TCP): phase 5's store and path
+    through a fleet of ``args.workers`` decode workers with a shared cache."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'imagenet')
+    what = '19a' if shm_results else '19b'
+    cuda = {}
+    start = time.perf_counter()
+    with ServiceFleet(workers=args.workers, shm_results=shm_results,
+                      cache_dir=os.path.join(tmp, 'service_cache_' + what)) as fleet:
+        fleet_start_s = time.perf_counter() - start
+        result, delivered = phase_main_path(
+            url, args, service_url=fleet.service_url,
+            inspect=lambda reader, loader: cuda.update(check_no_cuda_in_workers(fleet)))
+        state = fleet.state()
+    left = service_segments()
+    result['distinct_rows'] = check_delivered(delivered, args.seed)
+    check(result['distinct_rows'] == result['rows'] == args.rows,
+          '{}: {} distinct rows of {} delivered, {} in the store'.format(
+              what, result['distinct_rows'], result['rows'], args.rows))
+    diag = result['diagnostics']
+    items = result['items_per_epoch']
+    through = (diag['service_shm_batches'], diag['wire_batches'])
+    check(through == ((items, 0) if shm_results else (0, items))
+          and diag['service_resubmitted'] == 0 and diag['results_dropped'] == 0
+          and diag['service']['reachable'] and diag['rowgroups_quarantined'] == 0,
+          '{}: {} items, {} through segments and {} over the wire, {} redelivered (shm_fail), '
+          '{} dropped'.format(what, items, through[0], through[1], diag['service_resubmitted'],
+                              diag['results_dropped']))
+    check(not left, '{}: segments {} outlived the fleet'.format(what, left))
+    check(len(state['workers']) == args.workers and state['items_served'] == items,
+          '{}: {} workers, {} items served'.format(what, len(state['workers']),
+                                                   state['items_served']))
+    result['cuda'] = cuda
+    result['fleet_start_s'] = fleet_start_s
+    result['bytes_per_result'] = ((diag['service_shm_result_bytes']
+                                   or diag['wire_result_bytes']) / items)
+    result['phase_s'] = time.perf_counter() - phase_start
+    return result
+
+
+def service_mnist_pass(url, fleet, model, optimizer, seed=42, during=None,
+                       before=None, after=None):
+    """One epoch of ``url`` through the fleet into eager MnistCNN steps:
+    (the epoch's idx by item epoch, rows, seconds, the reader's
+    diagnostics). ``during(rows)`` runs after each work item is read,
+    ``before()`` once the reader and loader are built and ``after()`` once
+    the epoch is consumed, before the reader stops."""
+    step = mnist_step(model, optimizer)
+    with make_reader(url, service_url=fleet.service_url, shuffle_row_groups=True,
+                     seed=seed, num_epochs=1) as reader:
+        seen = observe_items(reader)
+        if during is not None:
+            observed = reader.iter_columnar
+
+            def iter_columnar(*args, **kwargs):
+                rows = 0
+                for batch in observed(*args, **kwargs):
+                    rows += batch.num_rows
+                    during(rows)
+                    yield batch
+            reader.iter_columnar = iter_columnar
+        loader = TorchDataLoader(reader, batch_size=MNIST_BATCH)
+        if before is not None:
+            before()
+        start = time.perf_counter()
+        losses = [step(batch) for batch in loader]
+        check(np.isfinite(float(losses[-1])), 'non-finite MnistCNN loss')
+        elapsed = time.perf_counter() - start
+        if after is not None:
+            after()
+        diag = reader.diagnostics
+    return seen, len(losses) * MNIST_BATCH, elapsed, diag
+
+
+def phase_service_clients(tmp, args):
+    """Phase 19c: two readers at once on one fleet, each into its own
+    MnistCNN; a third reader after them is served from the shared cache."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist_service')
+    start = time.perf_counter()
+    write_mnist_store(url, MNIST_ROWS, n_files=SERVICE_MNIST_FILES,
+                      rowgroup_size_mb=SERVICE_MNIST_RGS_MB)
+    store_s = time.perf_counter() - start
+    results, errors, at_first_finish = {}, [], []
+    # both readers start consuming together: the fair share, not the start
+    # order, decides who is served
+    barrier = threading.Barrier(2, timeout=120)
+    lock = threading.Lock()
+    with ServiceFleet(workers=args.workers,
+                      cache_dir=os.path.join(tmp, 'service_cache_19c')) as fleet:
+        def first_finish():
+            with lock:
+                if not at_first_finish:
+                    at_first_finish.append(fleet.state()['clients'])
+
+        def client(name, seed):
+            try:
+                model, optimizer, _, _ = mnist_model(seed)
+                results[name] = service_mnist_pass(url, fleet, model, optimizer,
+                                                   before=barrier.wait, after=first_finish)
+            except Exception as exc:  # noqa: BLE001 - re-raised by the check below
+                barrier.abort()
+                errors.append((name, repr(exc)))
+
+        threads = [concurrent.futures.ThreadPoolExecutor(1) for _ in range(2)]
+        futures = [pool.submit(client, name, args.seed + 3 + i)
+                   for i, (name, pool) in enumerate(zip('ab', threads))]
+        for future in futures:
+            future.result()
+        for pool in threads:
+            pool.shutdown()
+        check(not errors, '19c: {}'.format(errors))
+        model, optimizer, _, _ = mnist_model(args.seed + 5)
+        warm = service_mnist_pass(url, fleet, model, optimizer)
+    items = None
+    for name in 'ab':
+        seen, rows, elapsed, diag = results[name]
+        epoch_idx_once(seen, 1)
+        items = diag['cache_hits'] + diag['cache_misses']
+    served = sorted(client['served'] for client in at_first_finish[0]
+                    if client['served'] or client['in_flight'])
+    check(len(served) == 2 and served[0] * 2 >= served[1],
+          '19c: served counts {} when the first reader finished: not within 2x'.format(served))
+    epoch_idx_once(warm[0], 1)
+    check(warm[3]['cache_hits'] == items and warm[3]['cache_misses'] == 0,
+          '19c: the third reader had {} hits and {} misses of {} items'.format(
+              warm[3]['cache_hits'], warm[3]['cache_misses'], items))
+    return {'items_per_epoch': items, 'store_s': store_s,
+            'clients': {name: {'rows': results[name][1], 's': results[name][2],
+                               'rows_per_s': results[name][1] / results[name][2],
+                               'cache_hits': results[name][3]['cache_hits'],
+                               'busy_rejections': results[name][3]['busy_rejections']}
+                        for name in 'ab'},
+            'served_at_first_finish': served,
+            'warm': {'rows': warm[1], 's': warm[2], 'rows_per_s': warm[1] / warm[2],
+                     'cache_hits': warm[3]['cache_hits']},
+            'phase_s': time.perf_counter() - phase_start}
+
+
+def phase_service_faults(tmp, args):
+    """Phase 19d: 19c's store through one fleet with the ledger armed: a
+    worker SIGKILLed a third into one epoch, then the dispatcher crashed a
+    third into the next: every idx once in each, no duplicate, the new
+    incarnation's ledger replayed."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist_service')
+    previous = os.environ.get('PETASTORM_TPU_SERVICE_RESPONSE_TIMEOUT_S')
+    os.environ['PETASTORM_TPU_SERVICE_RESPONSE_TIMEOUT_S'] = SERVICE_RESPONSE_TIMEOUT_S
+    try:
+        with ServiceFleet(workers=args.workers, stale_timeout_s=SERVICE_STALE_S,
+                          ledger=os.path.join(tmp, 'service_ledger.bin')) as fleet:
+            model, optimizer, _, _ = mnist_model(args.seed + 6)
+            killed = []
+
+            def kill(rows):
+                if not killed and rows >= MNIST_ROWS // 3:
+                    killed.append(fleet.kill_worker(0))
+            kill_seen, kill_rows, kill_s, kill_diag = service_mnist_pass(
+                url, fleet, model, optimizer, seed=43, during=kill)
+            # a worker killed while idle holds no item, so the epoch can end
+            # before its heartbeat goes stale: wait for the reap itself
+            deadline = time.perf_counter() + 10 * SERVICE_STALE_S
+            while (fleet.state()['workers_departed'] < len(killed)
+                   and time.perf_counter() < deadline):
+                time.sleep(0.1)
+            kill_state = fleet.state()
+            crashed = []
+
+            def crash(rows):
+                if not crashed and rows >= MNIST_ROWS // 3:
+                    fleet.crash_dispatcher()
+                    crashed.append(rows)
+            crash_seen, crash_rows, crash_s, crash_diag = service_mnist_pass(
+                url, fleet, model, optimizer, seed=44, during=crash)
+            ledger = fleet.state()['ledger']
+    finally:
+        if previous is None:
+            os.environ.pop('PETASTORM_TPU_SERVICE_RESPONSE_TIMEOUT_S')
+        else:
+            os.environ['PETASTORM_TPU_SERVICE_RESPONSE_TIMEOUT_S'] = previous
+    epoch_idx_once(kill_seen, 1)
+    check(len(killed) == 1 and kill_state['workers_departed'] == 1,
+          '19d: killed {}, {} workers departed'.format(killed, kill_state['workers_departed']))
+    epoch_idx_once(crash_seen, 1)
+    check(len(crashed) == 1 and ledger['armed'] and ledger['epoch'] == 2
+          and ledger['last_replay'] == 'ok' and ledger['records_replayed'] > 0
+          and ledger['frames_dropped'] == 0,
+          '19d: crashed after {} rows; ledger {}'.format(crashed, ledger))
+    return {'kill': {'pid': killed[0], 'rows': kill_rows, 's': kill_s,
+                     'rows_per_s': kill_rows / kill_s,
+                     'items_requeued': kill_state['items_requeued'],
+                     'results_dropped': kill_diag['results_dropped']},
+            'crash': {'after_rows': crashed[0], 'rows': crash_rows, 's': crash_s,
+                      'rows_per_s': crash_rows / crash_s, 'ledger': ledger,
+                      'rejoins': crash_diag['rejoins'],
+                      'ledger_rearms': crash_diag['ledger_rearms'],
+                      'starvation_resubmits': crash_diag['starvation_resubmits'],
+                      'results_dropped': crash_diag['results_dropped']},
+            'phase_s': time.perf_counter() - phase_start}
+
+
+def service_lines(result, record, card):
+    main_path, process = record['main_path'], record['process_imagenet']
+    shm, wire = result['imagenet'], result['imagenet_wire']
+    yield ('phase 19a ImageNet path through a co-located fleet of {} workers (one-shot '
+           'segments): rows/s={:.2f} (after the first batch {:.2f}) step_ms(median)={:.2f} '
+           'input_stall_fraction={:.4f} first batch {:.3f} s (fleet up in {:.3f} s) | phase 5 '
+           'threads: rows/s={:.2f} ({:.2f}) step_ms(median)={:.2f} input_stall_fraction={:.4f} '
+           'first batch {:.3f} s | phase 13a process pool: rows/s={:.2f} ({:.2f}) '
+           'step_ms(median)={:.2f} input_stall_fraction={:.4f} spawn-to-first-batch {:.3f} s | '
+           'K1 launches {} '
+           'on {} batches, {} rows each once, {} results through segments ({:.0f} B each), '
+           'none redelivered, no segment left, worker pids {} hold no CUDA context; '
+           '{:.1f} s [{}]'.format(
+               len(shm['cuda']['worker_pids']), shm['rows_per_s'], shm['steady_rows_per_s'],
+               shm['step_ms_median'], shm['input_stall_fraction'], shm['first_batch_s'],
+               shm['fleet_start_s'], main_path['rows_per_s'], main_path['steady_rows_per_s'],
+               main_path['step_ms_median'], main_path['input_stall_fraction'],
+               main_path['first_batch_s'], process['rows_per_s'],
+               process['steady_rows_per_s'], process['step_ms_median'],
+               process['input_stall_fraction'], process['first_batch_s'],
+               shm['k1_launches'], shm['steps'], shm['distinct_rows'],
+               shm['diagnostics']['service_shm_batches'], shm['bytes_per_result'],
+               shm['cuda']['worker_pids'], shm['phase_s'], card))
+    yield ('phase 19b the same over TCP (shm_results=False): rows/s={:.2f} (after the '
+           'first batch {:.2f}) step_ms(median)={:.2f} input_stall_fraction={:.4f} first '
+           'batch {:.3f} s, {} results over the wire, '
+           '{:.0f} B a result; K1 launches {} on {} batches; {:.1f} s [{}]'.format(
+               wire['rows_per_s'], wire['steady_rows_per_s'], wire['step_ms_median'],
+               wire['input_stall_fraction'], wire['first_batch_s'],
+               wire['diagnostics']['wire_batches'], wire['bytes_per_result'],
+               wire['k1_launches'], wire['steps'], wire['phase_s'], card))
+    clients = result['clients']
+    yield ('phase 19c two MNIST readers at once on one fleet ({} items an epoch): a {:.1f} '
+           'rows/s, b {:.1f} rows/s, each idx once each; served {} when the first finished; '
+           'a third reader from the shared cache {:.1f} rows/s ({} hits) | phase 10 threads '
+           '{:.1f} rows/s (scan_stream); store written in {:.1f} s; {:.1f} s [{}]'.format(
+               clients['items_per_epoch'], clients['clients']['a']['rows_per_s'],
+               clients['clients']['b']['rows_per_s'], clients['served_at_first_finish'],
+               clients['warm']['rows_per_s'], clients['warm']['cache_hits'],
+               record['mnist_stream']['rows_per_s'], clients['store_s'],
+               clients['phase_s'], card))
+    faults = result['faults']
+    kill, crash = faults['kill'], faults['crash']
+    yield ('phase 19d worker {} SIGKILLed a third into an epoch: every idx once, {:.1f} '
+           'rows/s, {} item(s) re-queued; dispatcher crashed after {} rows: every idx once, '
+           '{:.1f} rows/s, ledger epoch {} replayed {} ({} records, {} frames dropped), '
+           'rejoins {}, ledger re-arms {}, duplicates dropped {}; {:.1f} s [{}]'.format(
+               kill['pid'], kill['rows_per_s'], kill['items_requeued'], crash['after_rows'],
+               crash['rows_per_s'], crash['ledger']['epoch'], crash['ledger']['last_replay'],
+               crash['ledger']['records_replayed'], crash['ledger']['frames_dropped'],
+               crash['rejoins'], crash['ledger_rearms'], crash['results_dropped'],
+               faults['phase_s'], card))
+    yield 'phase 19 took {:.1f} s'.format(result['phase_s'])
+
+
+def phase_service(tmp, args, record, card):
+    """Phase 19: the input service on the card (19a-19d), logged as it ends."""
+    phase_start = time.perf_counter()
+    result = {'imagenet': phase_service_imagenet(tmp, args, shm_results=True),
+              'imagenet_wire': phase_service_imagenet(tmp, args, shm_results=False),
+              'clients': phase_service_clients(tmp, args),
+              'faults': phase_service_faults(tmp, args)}
+    result['phase_s'] = time.perf_counter() - phase_start
+    for line in service_lines(result, record, card):
+        log(line)
+    return result
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -4193,6 +4506,7 @@ def main(argv=None):
             log(line)
         record['telemetry'] = phase_telemetry(tmp, args, record, card)
         record['tools'] = phase_tools(tmp, args, record, card)
+        record['service'] = phase_service(tmp, args, record, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4206,6 +4520,8 @@ def main(argv=None):
         'batch_reader_launches': record['reference_api']['batch_decode']['k1_launches'],
         'telemetry_launches': record['telemetry']['imagenet']['k1_launches'],
         'schedule_launches': record['tools']['schedule']['k1_launches'],
+        'service_launches': record['service']['imagenet']['k1_launches'],
+        'service_wire_launches': record['service']['imagenet_wire']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
                            for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
                                         'large')),

@@ -27,10 +27,11 @@ from petastorm_tpu_torch.autotune.controller import (AutotuneController,
                                                      snapshot_delta)
 from petastorm_tpu_torch.autotune.knobs import (KNOB_IDS, Knob, KnobCatalog,
                                                 build_loader_knobs,
-                                                build_reader_knobs)
+                                                build_reader_knobs,
+                                                build_service_knobs)
 from petastorm_tpu_torch.autotune.policy import AutotunePolicy, resolve_policy
 
 __all__ = ['AutotuneController', 'AutotunePolicy', 'KNOB_IDS', 'Knob',
            'KnobCatalog', 'build_loader_knobs', 'build_reader_knobs',
-           'choose_from_bottleneck', 'resolve_policy', 'setup_reader_autotune',
+           'build_service_knobs', 'choose_from_bottleneck', 'resolve_policy', 'setup_reader_autotune',
            'snapshot_delta']

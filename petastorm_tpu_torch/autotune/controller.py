@@ -1,11 +1,11 @@
 """The closed-loop controller: telemetry in, knob turns out. A copy of
-``petastorm_tpu.autotune.controller`` (without the run-history warm start and
-the service pump's ``maybe_step``, which wait with those planes).
+``petastorm_tpu.autotune.controller`` (without the run-history warm start,
+which waits with that plane).
 
 Control loop (one :meth:`AutotuneController.step` per policy window):
 
-1. **Sample** — read the cumulative goodput metric (reader rows consumed)
-   and a telemetry snapshot; the per-window deltas give
+1. **Sample** — read the cumulative goodput metric (reader rows consumed /
+   service items served) and a telemetry snapshot; the per-window deltas give
    rows/s and the window's stage histograms.
 2. **Interlock** — if any circuit breaker is *open*
    (:class:`~petastorm_tpu_torch.resilience.BreakerBoard`, and the process
@@ -33,7 +33,8 @@ configured, and stamped on the flight-recorder timeline as an
 
 The clock is injectable and :meth:`step` is public, so the whole state machine
 is unit-testable with scripted snapshots and no threads; ``start()`` wraps it
-in a daemon sampling thread for production use.
+in a daemon sampling thread for production use, and ``maybe_step()`` lets a
+host event loop (the service dispatcher pump) drive it without a thread.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from petastorm_tpu_torch.telemetry.registry import SECONDS_UNIT
 DECISION_ACTIONS = ('propose', 'commit', 'revert', 'freeze', 'unfreeze')
 
 Snapshot = Dict[str, Any]
+ChooseFn = Callable[[Snapshot, Snapshot, float, List[Knob]], Optional[str]]
 Decision = Dict[str, Any]
 
 
@@ -104,7 +106,7 @@ def choose_from_bottleneck(prev: Snapshot, cur: Snapshot, rate: float,
 
 def default_breaker_snapshot() -> Dict[str, Dict[str, Any]]:
     """The default safety-interlock source: the process-wide breaker board's
-    tripped set (the filesystem breakers)."""
+    tripped set (the filesystem and service-transport breakers)."""
     from petastorm_tpu_torch.resilience import default_board
     return default_board().snapshot(only_tripped=True)
 
@@ -129,21 +131,24 @@ class AutotuneController(object):
     """Hill-climbing knob controller over a :class:`KnobCatalog` (module doc).
 
     :param catalog: the knobs this controller may turn.
-    :param metric_fn: cumulative goodput counter (monotone; rows consumed) —
-        window deltas over the injected clock give the rate.
+    :param metric_fn: cumulative goodput counter (monotone; rows consumed /
+        items served) — window deltas over the injected clock give the rate.
     :param snapshot_fn: cumulative telemetry snapshot source (e.g.
         ``Reader.telemetry_snapshot``); None = empty snapshots (a chooser that
-        does not need telemetry still works).
+        does not need telemetry, like the service's, still works).
     :param policy: an :class:`AutotunePolicy` (default: defaults).
     :param breaker_snapshot_fn: the safety interlock's breaker view
         (``{name: breaker_dict}``); any entry with ``state == 'open'`` freezes
         the controller. Default: the process breaker board's tripped set.
     :param clock: injectable monotone clock (tests drive the loop
         deterministically).
+    :param choose_fn: ``(prev_snapshot, snapshot, rate, eligible_knobs) ->
+        knob_id or None``; default :func:`choose_from_bottleneck`.
+    :param name: controller name stamped on every decision (``reader`` /
+        ``service``).
 
-    The knob is chosen by :func:`choose_from_bottleneck`; decisions also go
-    to ``PETASTORM_TPU_TELEMETRY_JSONL`` when it names a file, each stamped
-    ``controller='reader'``.
+    Decisions also go to ``PETASTORM_TPU_TELEMETRY_JSONL`` when it names a
+    file.
     """
 
     def __init__(self, catalog: KnobCatalog,
@@ -152,7 +157,9 @@ class AutotuneController(object):
                  policy: Optional[AutotunePolicy] = None,
                  breaker_snapshot_fn: Optional[
                      Callable[[], Dict[str, Dict[str, Any]]]] = None,
-                 clock: Callable[[], float] = time.monotonic) -> None:
+                 choose_fn: Optional[ChooseFn] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 name: str = 'reader') -> None:
         self.catalog = catalog
         self.policy = policy if policy is not None else AutotunePolicy()
         self._metric_fn = metric_fn
@@ -161,7 +168,11 @@ class AutotuneController(object):
                                      if breaker_snapshot_fn is not None
                                      else default_breaker_snapshot)
         self._clock = clock
+        self._choose_fn: ChooseFn = (choose_fn if choose_fn is not None
+                                     else choose_from_bottleneck)
         self._events = logger_from_env()
+        self._name = name
+        self._next_step = 0.0
         self._lock = threading.Lock()
         self._last_time: Optional[float] = None
         self._last_metric = 0.0
@@ -228,13 +239,23 @@ class AutotuneController(object):
 
     # ------------------------------------------------------------- the loop
 
+    def maybe_step(self) -> Optional[Decision]:
+        """Window-gated :meth:`step` for host event loops (the dispatcher pump
+        calls this per tick): runs at most once per ``policy.window_s``."""
+        now = self._clock()
+        if now < self._next_step:
+            return None
+        self._next_step = now + self.policy.window_s
+        return self.step()
+
     def step(self) -> Optional[Decision]:
         """One control-loop window (module doc); returns the decision made in
         this window, or None (sampling/holding windows make no decision).
 
         Decision records are built under the controller lock but EMITTED
         (JSONL append, trace instant — blocking I/O) after it releases: a
-        slow disk behind the event log must not stall ``report()`` readers."""
+        slow disk behind the event log must not stall ``report()`` readers
+        or, on the service, the dispatch loop driving ``maybe_step()``."""
         started = time.perf_counter()
         try:
             with self._lock:
@@ -246,8 +267,8 @@ class AutotuneController(object):
             return decision
         finally:
             # plain float add: step() is serialized by its own lock for every
-            # real caller (one sampling thread), and a torn read in report()
-            # would still be a valid recent value
+            # real caller (one sampling thread / one pump), and a torn read in
+            # report() would still be a valid recent value
             self._step_seconds += time.perf_counter() - started
 
     def _step_locked(self) -> Optional[Decision]:
@@ -373,7 +394,7 @@ class AutotuneController(object):
             and (allowed is None or knob.knob_id in allowed)]
         if not eligible:
             return None
-        knob_id = choose_from_bottleneck(prev_snapshot, snapshot, rate, eligible)
+        knob_id = self._choose_fn(prev_snapshot, snapshot, rate, eligible)
         if knob_id is None or not any(k.knob_id == knob_id for k in eligible):
             return None
         knob = self.catalog.knob(knob_id)
@@ -408,7 +429,7 @@ class AutotuneController(object):
                 rate: float = 0.0, baseline: Optional[float] = None,
                 reason: str = '') -> Decision:
         decision: Decision = {
-            'window': self._windows, 'controller': 'reader',
+            'window': self._windows, 'controller': self._name,
             'action': action, 'knob': knob_id,
             'from': from_value, 'to': to_value,
             'rate_rows_per_sec': round(rate, 3), 'reason': reason}
@@ -443,7 +464,7 @@ class AutotuneController(object):
             pending = self._pending
             return {
                 'enabled': True,
-                'controller': 'reader',
+                'controller': self._name,
                 'windows': self._windows,
                 'frozen_by_breaker': self._frozen,
                 'committed': self._committed,

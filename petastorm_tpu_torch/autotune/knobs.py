@@ -11,12 +11,12 @@ shuffle-buffer fill threshold, prefetch and decode-tail depths). The
 hill-climbs over, and ``KNOB_IDS`` is the declared id catalog (the JAX
 package's fourteen ids: a snapshot's knob names mean the same in both).
 
-Builders (``build_reader_knobs`` / ``build_loader_knobs``) introspect live
-objects by duck-typing the ``set_*`` mutators, so an object without the
-mutator simply contributes no knob. The cache's knobs (``cache_bypass``,
-``cache_writable_hits``), the storage engine's and the input service's wait
-with those planes: the port's objects have none of their actuators, so none
-is built. The cost scheduler's ``schedule_interleave`` is built for a
+Builders (``build_reader_knobs`` / ``build_loader_knobs`` /
+``build_service_knobs``) introspect live objects by duck-typing the ``set_*``
+mutators, so an object without the mutator simply contributes no knob. The
+cache's knobs (``cache_bypass``, ``cache_writable_hits``) and the storage
+engine's wait with those planes: the port's objects have none of their
+actuators, so none is built. The cost scheduler's ``schedule_interleave`` is built for a
 shuffling reader armed with ``cost_schedule``.
 """
 
@@ -330,3 +330,30 @@ def build_loader_knobs(loader: Any) -> List[Knob]:
         stages=('shuffle_wait',), unit='rows', get=current, apply=apply))
     return knobs
 
+
+def build_service_knobs(scheduler: Any) -> List[Knob]:
+    """Knobs for a live service
+    :class:`~petastorm_tpu_torch.service.dispatcher.FairShareScheduler`: the
+    admission-window cap and the live per-client in-flight depth (both via
+    the scheduler's bounded setters)."""
+    knobs: List[Knob] = []
+    initial = float(scheduler.admission_window)
+    if hasattr(scheduler, 'set_admission_window'):
+        knobs.append(Knob(
+            'service_admission_window',
+            'per-client admission cap (queued + assigned) before busy',
+            minimum=1.0, maximum=max(64.0, initial * 4),
+            step=max(1.0, initial / 4), cost='cheap', stages=(),
+            unit='items',
+            get=lambda: float(scheduler.admission_window),
+            apply=lambda v: float(scheduler.set_admission_window(int(v)))))
+    if hasattr(scheduler, 'set_client_windows'):
+        knobs.append(Knob(
+            'service_client_window',
+            'live per-client in-flight depth (clamped by the admission cap)',
+            minimum=1.0, maximum=max(64.0, initial * 4),
+            step=max(1.0, initial / 4), cost='cheap', stages=(),
+            unit='items',
+            get=lambda: float(scheduler.effective_client_window()),
+            apply=lambda v: float(scheduler.set_client_windows(int(v)))))
+    return knobs

@@ -15,10 +15,13 @@ Subcommands (a first positional argument):
 - ``trace``: :mod:`~petastorm_tpu_torch.telemetry.trace_export` (a flight
   recorder capture of a read as Chrome-trace JSON);
 - ``doctor``: :mod:`~petastorm_tpu_torch.tools.doctor` (the environment
-  health report).
+  health report);
+- ``serve``: :func:`~petastorm_tpu_torch.service.fleet.serve` (an
+  input-service fleet, dispatcher and decode workers, on this host until
+  interrupted).
 
-The JAX package's ``lineage``, ``autopsy``, ``history``, ``serve``, ``chaos``
-and ``pipecheck`` wait for modules the port does not have yet: each exits 2
+The JAX package's ``lineage``, ``autopsy``, ``history``, ``chaos`` and
+``pipecheck`` wait for modules the port does not have yet: each exits 2
 with a line naming the module. Anything else is the dataset throughput
 measurement, with ``--read-method torch`` (a ``TorchDataLoader`` onto
 ``--device``, the card by default) in place of the JAX package's ``jax``.
@@ -38,6 +41,7 @@ SUBCOMMANDS = {
     'analyze': ('petastorm_tpu_torch.telemetry.analyze', 'main'),
     'trace': ('petastorm_tpu_torch.telemetry.trace_export', 'main'),
     'doctor': ('petastorm_tpu_torch.tools.doctor', 'main'),
+    'serve': ('petastorm_tpu_torch.service.fleet', 'serve'),
 }
 
 #: the JAX package's subcommands whose modules the port lacks -> that module
@@ -45,7 +49,6 @@ NOT_PORTED = {
     'lineage': 'petastorm_tpu.telemetry.lineage',
     'autopsy': 'petastorm_tpu.telemetry.incident',
     'history': 'petastorm_tpu.telemetry.history',
-    'serve': 'petastorm_tpu.service.fleet',
     'chaos': 'petastorm_tpu.test_util.chaos',
     'pipecheck': 'petastorm_tpu.analysis',
 }

@@ -56,9 +56,14 @@ sets the input-efficiency target of :meth:`Reader.efficiency_report`, and
 cost ledger (:mod:`~petastorm_tpu_torch.schedule`), and
 :meth:`Reader.cost_ledger` folds a traced read into one.
 
+``service_url=`` reads through the disaggregated input service
+(:mod:`~petastorm_tpu_torch.service`): decode runs on a shared fleet's
+workers instead of a pool in this process, and the results, their sidecars
+and the device decode tail's raw columns arrive as the process pool's do.
+
 Left for later slices, and absent from the signatures: lineage, incidents,
 run history, topology negotiation,
-``shard_seed``, the input service, the cache's bypass breaker and non-local
+``shard_seed``, the cache's bypass breaker and non-local
 filesystems (``filesystem=`` takes a local or wrapped
 ``pyarrow.fs.FileSystem``).
 """
@@ -89,6 +94,11 @@ logger = logging.getLogger(__name__)
 
 #: extra rowgroups kept in flight beyond the worker count
 _VENTILATE_EXTRA_ROWGROUPS = 2
+#: the pool-shape defaults of both factories: a ``service_url`` read names
+#: any argument that differs from them as ignored
+_POOL_SHAPE_DEFAULTS = (('reader_pool_type', 'thread'), ('workers_count', 10),
+                        ('results_queue_size', 50), ('shm_transport', None),
+                        ('item_deadline_s', None), ('heartbeat_interval_s', None))
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size=50,
@@ -106,6 +116,23 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size=50,
         return DummyPool()
     raise ValueError('Unknown reader_pool_type {!r} (expected thread/process/dummy)'
                      .format(reader_pool_type))
+
+
+def _service_pool(service_url, reader_pool, **pool_shape):
+    """The :class:`~petastorm_tpu_torch.service.service_client.ServicePool` of
+    a ``service_url`` read; the fleet defines the pool's shape, so pool-shape
+    arguments that differ from their defaults are named in a warning. An
+    unreachable dispatcher raises ``TransientIOError`` here."""
+    if reader_pool is not None:
+        raise ValueError('service_url and reader_pool are mutually exclusive — the '
+                         'service defines the pool')
+    ignored = [name for name, default in _POOL_SHAPE_DEFAULTS
+               if pool_shape[name] != default]
+    if ignored:
+        warnings.warn('service_url was supplied; ignoring pool-shape arguments {} (the '
+                      'service fleet defines its own shape)'.format(ignored))
+    from petastorm_tpu_torch.service.service_client import ServicePool
+    return ServicePool(service_url)
 
 
 def _retrying(fn, retry_policy, counter):
@@ -158,7 +185,8 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                 resume_state=None, reader_pool=None, field_overrides=None, on_error='raise',
                 retry_policy=None, shm_transport=None, item_deadline_s=None,
                 heartbeat_interval_s=None, device_decode_fields=None, trace=None,
-                metrics_port=None, slo_policy=None, autotune=None, cost_schedule=None):
+                metrics_port=None, slo_policy=None, autotune=None, cost_schedule=None,
+                service_url=None):
     """Reader for stores written with a Unischema (by this package or by
     ``petastorm_tpu``): rows decoded through the codecs.
 
@@ -248,7 +276,16 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
         read equals an unscheduled one. The run's measured stage times are
         folded into the ledger at :meth:`Reader.stop`. Not with
         ``resume_state``; :attr:`Reader.diagnostics` ``['schedule']`` reports
-        the plan.
+        the plan. A ``service_url`` read ships each item's measured cost with
+        its submit, and the dispatcher's fair-share scheduler charges it.
+    :param service_url: ``'tcp://host:port'`` of an input-service dispatcher
+        (:class:`~petastorm_tpu_torch.service.ServiceFleet`): decode runs on
+        the fleet's workers, results arrive over TCP (one-shot shared memory
+        when co-located) and ``diagnostics['service']`` holds the
+        dispatcher's state. Not with ``reader_pool``; the pool-shape
+        arguments are ignored with a warning. An unreachable dispatcher
+        raises :class:`~petastorm_tpu_torch.errors.TransientIOError` here;
+        nothing falls back to a pool in this process.
     """
     if trace is not None:
         set_trace_enabled(bool(trace))
@@ -264,6 +301,14 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings, cache_format,
                         transform_spec is not None)
+    if service_url is not None:
+        reader_pool = _service_pool(service_url, reader_pool,
+                                    reader_pool_type=reader_pool_type,
+                                    workers_count=workers_count,
+                                    results_queue_size=results_queue_size,
+                                    shm_transport=shm_transport,
+                                    item_deadline_s=item_deadline_s,
+                                    heartbeat_interval_s=heartbeat_interval_s)
     if reader_pool is None:
         reader_pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                                  shm_transport, item_deadline_s, heartbeat_interval_s)
@@ -292,7 +337,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       retry_policy=None, shm_transport=None, item_deadline_s=None,
                       heartbeat_interval_s=None, device_decode_fields=None, trace=None,
                       metrics_port=None, slo_policy=None, autotune=None,
-                      cost_schedule=None):
+                      cost_schedule=None, service_url=None):
     """Reader for any Parquet store: native columns (no codec decode; a
     ``list<int32>`` column arrives as a list of int32 arrays), one namedtuple
     of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s
@@ -309,7 +354,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     the named fields ship their raw codec payloads for the loader's device
     decode tail (as :func:`make_reader`'s do) and the other columns stay
     stored values; on a plain Parquet store it raises, since no codec says
-    what the bytes are.
+    what the bytes are. ``service_url`` reads through an input-service fleet
+    as :func:`make_reader`'s does.
     """
     if trace is not None:
         set_trace_enabled(bool(trace))
@@ -339,6 +385,14 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings, cache_format,
                         transform_spec is not None)
+    if service_url is not None:
+        reader_pool = _service_pool(service_url, reader_pool,
+                                    reader_pool_type=reader_pool_type,
+                                    workers_count=workers_count,
+                                    results_queue_size=results_queue_size,
+                                    shm_transport=shm_transport,
+                                    item_deadline_s=item_deadline_s,
+                                    heartbeat_interval_s=heartbeat_interval_s)
     if reader_pool is None:
         reader_pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                                  shm_transport, item_deadline_s, heartbeat_interval_s)
@@ -592,6 +646,10 @@ class Reader(object):
             reset_iterations=num_epochs,
             order_fn=order_fn)
         self._pool = reader_pool
+        if self._cost_scheduler is not None and hasattr(reader_pool, 'set_cost_hint_fn'):
+            # service path: each submit carries the item's measured cost, which
+            # the dispatcher's DRR charges and routes heavy items by
+            reader_pool.set_cost_hint_fn(self._cost_scheduler.cost_hint_for)
         if hasattr(reader_pool, 'check_picklable') and worker_predicate is not None:
             # every work item carries it to the worker processes
             reader_pool.check_picklable(worker_predicate, 'the predicate')

@@ -98,7 +98,8 @@ class WorkerSetup(object):
     __slots__ = ('filesystem', 'schema', 'fields_to_read', 'result_schema',
                  'transform_spec', 'batched_output', 'shuffle_rows', 'seed',
                  'partition_field_names', 'device_decode_fields', 'ngram', 'cache',
-                 'dataset_token', 'predicate_token', 'on_error', 'retry_policy')
+                 'dataset_token', '_predicate', '_predicate_key', 'on_error',
+                 'retry_policy')
 
     def __init__(self, filesystem, schema, fields_to_read, transform_spec=None,
                  batched_output=False, shuffle_rows=False, seed=None,
@@ -140,16 +141,29 @@ class WorkerSetup(object):
                 ngram.delta_threshold, ngram.timestamp_field_name,
                 ngram.timestamp_overlap).encode('utf-8')).hexdigest()[:16]
         self.dataset_token = token
-        #: the cache key's identity of the worker predicate, made once; None
-        #: bypasses the cache (no cache, or a predicate that does not pickle)
-        self.predicate_token = (None if isinstance(self.cache, NullCache)
-                                else _predicate_token(predicate))
+        # the cache key's identity of the worker predicate, made once: here
+        # with a cache, else (False) on first use after an input service's
+        # worker swapped in the fleet's shared cache
+        self._predicate = predicate
+        self._predicate_key = False
+        if not isinstance(self.cache, NullCache):
+            self._predicate_key = _predicate_token(predicate)
         read_view = schema.create_schema_view(
             [re.escape(name) for name in self.fields_to_read])
         if transform_spec is not None:
             self.result_schema = transform_schema(read_view, transform_spec)
         else:
             self.result_schema = read_view
+
+    @property
+    def predicate_token(self):
+        """The cache key's identity of the worker predicate; None bypasses the
+        cache (no cache, or a predicate that does not pickle)."""
+        if isinstance(self.cache, NullCache):
+            return None
+        if self._predicate_key is False:
+            self._predicate_key = _predicate_token(self._predicate)
+        return self._predicate_key
 
 
 class RowGroupWorker(WorkerBase):

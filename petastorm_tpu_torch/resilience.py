@@ -242,6 +242,13 @@ class QuarantineLedger:
 
 BREAKER_CLOSED, BREAKER_OPEN, BREAKER_HALF_OPEN = 'closed', 'open', 'half_open'
 
+#: ledger-replay breaker (service/ledger.py): consecutive corrupt journal
+#: replays before a restarting dispatcher DISCARDS the journal instead of
+#: replaying it — a journal that corrupts every replay must degrade the fleet
+#: to replay-from-clients, not wedge every restart on the same bad frames
+LEDGER_REPLAY_BREAKER_THRESHOLD = 2
+LEDGER_REPLAY_BREAKER_RECOVERY_S = 60.0
+
 #: transition callback: (breaker_name, old_state, new_state)
 OnBreakerTransition = Callable[[str, str, str], None]
 

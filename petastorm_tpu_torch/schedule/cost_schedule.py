@@ -15,8 +15,9 @@ to decide when each rowgroup is processed:
   work items (``row_range=(start_row, stop_row)`` through
   ``reader_worker.process``), decoded by several workers at once;
 - **route**: :meth:`CostAwareScheduler.cost_hint_for` prices a work item for
-  the JAX package's input service. The port has no service yet; the hint is
-  kept so a plan prices items as the JAX package's does.
+  the input service (:mod:`~petastorm_tpu_torch.service`): a
+  ``service_url`` reader ships the hint with each submit and the
+  dispatcher's DRR charges it.
 
 Cold start: with no persisted ledger every cost is uniform, the plan is a
 no-op and the read equals an unscheduled reader's, while the reader feeds the
@@ -36,6 +37,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+from petastorm_tpu_torch.service.wire import MAX_COST_HINT, MIN_COST_HINT
 from petastorm_tpu_torch.telemetry.cost_model import (COST_STAGES, CostLedger,
                                                 default_ledger_path,
                                                 percentile)
@@ -43,10 +45,6 @@ from petastorm_tpu_torch.telemetry.tracing import trace_enabled, trace_instant
 
 logger = logging.getLogger(__name__)
 
-#: the cost-hint clamp of the JAX package's service wire
-#: (``petastorm_tpu/service/wire.py``), whose dispatcher re-clamps with them
-MIN_COST_HINT = 0.25
-MAX_COST_HINT = 4.0
 
 #: how many recent epoch orders :meth:`CostAwareScheduler.report` retains
 _ORDER_HISTORY = 8

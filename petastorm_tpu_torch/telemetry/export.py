@@ -44,8 +44,8 @@ def sanitize_metric_name(name: str) -> str:
     return sanitized
 
 
-def _metric_name(name: str) -> str:
-    return sanitize_metric_name('{}_{}'.format(METRIC_PREFIX, name))
+def _metric_name(name: str, prefix: str = METRIC_PREFIX) -> str:
+    return sanitize_metric_name('{}_{}'.format(prefix, name))
 
 
 def _series_labels(name: str) -> Dict[str, str]:
@@ -159,6 +159,41 @@ def to_prometheus_text(snapshot: Dict[str, Any]) -> str:
         lines.append('# TYPE {} histogram'.format(metric))
         _render_histogram_series(lines, metric, hist, _series_labels(name))
     return '\n'.join(lines) + '\n'
+
+
+def to_prometheus_text_labeled(snapshots: Dict[str, Dict[str, Any]],
+                               label: str,
+                               prefix: str = METRIC_PREFIX) -> str:
+    """Render several registry snapshots as ONE exposition where every series
+    carries ``{label="<key>"}`` — the fleet scrape's per-worker block.
+
+    Unlike calling :func:`to_prometheus_text` once per snapshot, metric names
+    are grouped: each emits exactly one ``# HELP``/``# TYPE`` pair followed by
+    one series (or bucket family) per label value, because a repeated TYPE
+    line for the same metric name makes scrapers reject the exposition."""
+    members: Dict[str, Dict[str, List[str]]] = {
+        'counters': {}, 'gauges': {}, 'histograms': {}}
+    for key in sorted(snapshots):
+        snapshot = snapshots[key] or {}
+        for section, names in members.items():
+            for name in snapshot.get(section) or {}:
+                names.setdefault(name, []).append(key)
+    lines: List[str] = []
+    for section, kind in (('counters', 'counter'), ('gauges', 'gauge'),
+                          ('histograms', 'histogram')):
+        for name in sorted(members[section]):
+            metric = _metric_name(name, prefix)
+            lines.append(_help_line(metric, kind, name))
+            lines.append('# TYPE {} {}'.format(metric, kind))
+            for key in members[section][name]:
+                series = dict(_series_labels(name), **{label: key})
+                value = snapshots[key][section][name]
+                if section == 'histograms':
+                    _render_histogram_series(lines, metric, value, series)
+                else:
+                    lines.append('{}{} {}'.format(metric, _format_labels(series),
+                                                  _format_value(value)))
+    return '\n'.join(lines) + '\n' if lines else ''
 
 
 class JsonlEventLogger(object):

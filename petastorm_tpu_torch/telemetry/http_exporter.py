@@ -1,22 +1,24 @@
 """Live metrics plane: a stdlib HTTP scrape endpoint over telemetry snapshots.
-A copy of ``petastorm_tpu.telemetry.http_exporter`` without the input
-service's fleet blocks (per-worker labels and dispatcher state gauges wait
-with the service).
+A copy of ``petastorm_tpu.telemetry.http_exporter``.
 
 The SAME snapshots the reader and loader hand out are scrapeable while the
 pipeline runs, with zero new dependencies — ``http.server`` only:
 
 - ``GET /metrics`` — Prometheus text exposition
   (:func:`~petastorm_tpu_torch.telemetry.export.to_prometheus_text` over the
-  live ``snapshot_fn()``);
+  live ``snapshot_fn()``), plus the optional per-label block
+  (:func:`~petastorm_tpu_torch.telemetry.export.to_prometheus_text_labeled`)
+  and any extra pre-rendered exposition text (``extra_text_fn`` — the
+  dispatcher's per-client/per-worker state gauges ride here);
 - ``GET /healthz`` — one small JSON liveness document (``health_fn()`` merged
   over ``{"status": "ok"}``);
 - ``GET /vars`` — the raw JSON snapshot (the debug view: exactly what the
   Prometheus rendering was derived from).
 
 Attach points: ``make_reader(..., metrics_port=0)`` /
-``TorchDataLoader(..., metrics_port=0)`` serve their own pipeline snapshot.
-Port 0 binds an ephemeral port — ``start()`` returns the bound one and
+``TorchDataLoader(..., metrics_port=0)`` serve their own pipeline snapshot;
+``Dispatcher(metrics_port=...)`` / ``serve --metrics-port`` serve the
+FLEET-wide merge of every worker's heartbeat metric snapshots. Port 0 binds an ephemeral port — ``start()`` returns the bound one and
 ``url`` names the scrape target. The endpoint binds ``127.0.0.1``.
 
 The server runs on one daemon thread (``ThreadingHTTPServer``, so a slow
@@ -34,7 +36,9 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional
 
-from petastorm_tpu_torch.telemetry.export import to_prometheus_text
+from petastorm_tpu_torch.telemetry.export import (METRIC_PREFIX, escape_label_value,
+                                                  to_prometheus_text,
+                                                  to_prometheus_text_labeled)
 
 logger = logging.getLogger(__name__)
 
@@ -42,6 +46,8 @@ logger = logging.getLogger(__name__)
 PROMETHEUS_CONTENT_TYPE = 'text/plain; version=0.0.4; charset=utf-8'
 
 SnapshotFn = Callable[[], Dict[str, Any]]
+LabeledFn = Callable[[], Dict[str, Dict[str, Any]]]
+TextFn = Callable[[], str]
 
 
 class _MetricsRequestHandler(BaseHTTPRequestHandler):
@@ -96,12 +102,25 @@ class MetricsHttpServer(object):
 
     ``snapshot_fn`` returns the registry snapshot rendered at each scrape
     (evaluated fresh per request — attach the SLO-refresh side effects
-    there); ``health_fn`` extends the ``/healthz`` document."""
+    there). ``labeled_fn`` (optional) returns ``{label_value: snapshot}``
+    rendered as a per-``label`` exposition block under
+    ``petastorm_tpu_<label>`` (e.g. ``petastorm_tpu_worker_decode_*`` series
+    carrying ``{worker="3"}``) — aggregate and per-member series use
+    DISTINCT metric namespaces so PromQL ``sum()`` over the labeled family
+    never double-counts the aggregate. ``extra_text_fn`` appends
+    pre-rendered exposition text (the dispatcher's state gauges);
+    ``health_fn`` extends the ``/healthz`` document."""
 
     def __init__(self, snapshot_fn: SnapshotFn, port: int = 0,
                  host: str = '127.0.0.1',
-                 health_fn: Optional[SnapshotFn] = None) -> None:
+                 health_fn: Optional[SnapshotFn] = None,
+                 labeled_fn: Optional[LabeledFn] = None,
+                 label: str = 'worker',
+                 extra_text_fn: Optional[TextFn] = None) -> None:
         self._snapshot_fn = snapshot_fn
+        self._labeled_fn = labeled_fn
+        self._label = label
+        self._extra_text_fn = extra_text_fn
         self._requested_port = int(port)
         self._host = host
         self._health_fn = health_fn
@@ -153,8 +172,18 @@ class MetricsHttpServer(object):
     # ------------------------------------------------------------ rendering
 
     def render_metrics(self) -> str:
-        """The ``/metrics`` body."""
-        return to_prometheus_text(self._snapshot_fn())
+        """The full ``/metrics`` body: aggregate exposition + optional
+        per-label block + optional extra pre-rendered text."""
+        text = to_prometheus_text(self._snapshot_fn())
+        if self._labeled_fn is not None:
+            labeled = self._labeled_fn()
+            if labeled:
+                text += to_prometheus_text_labeled(
+                    labeled, self._label,
+                    prefix='{}_{}'.format(METRIC_PREFIX, self._label))
+        if self._extra_text_fn is not None:
+            text += self._extra_text_fn()
+        return text
 
     def render_health(self) -> Dict[str, Any]:
         """The ``/healthz`` document: ``{"status": "ok"}`` merged with the
@@ -165,8 +194,12 @@ class MetricsHttpServer(object):
         return doc
 
     def render_vars(self) -> Dict[str, Any]:
-        """The ``/vars`` document: the raw snapshot."""
-        return {'snapshot': self._snapshot_fn()}
+        """The ``/vars`` document: the raw aggregate snapshot plus the
+        per-label snapshots when a ``labeled_fn`` is attached."""
+        doc: Dict[str, Any] = {'snapshot': self._snapshot_fn()}
+        if self._labeled_fn is not None:
+            doc['labeled'] = {self._label: self._labeled_fn()}
+        return doc
 
     def __enter__(self) -> 'MetricsHttpServer':
         self.start()
@@ -175,3 +208,41 @@ class MetricsHttpServer(object):
     def __exit__(self, exc_type: Any, exc_val: Any, exc_tb: Any) -> None:
         self.stop()
 
+
+def service_state_text(state: Dict[str, Any]) -> str:
+    """Render a dispatcher ``state`` snapshot as per-client / per-worker
+    labeled gauge series: queue depth, in-flight and served counts per
+    ``{client="<name>"}``, assigned items and heartbeat age per
+    ``{worker="<id>"}`` — the scheduling-plane half of the fleet scrape
+    surface (the decode-plane half is the workers' heartbeat metric
+    snapshots)."""
+    lines = []
+
+    def gauge(metric: str, label: str, key: str, value: float) -> None:
+        name = '{}_{}'.format(METRIC_PREFIX, metric)
+        if not any(line.startswith('# TYPE {} '.format(name))
+                   for line in lines):
+            lines.append('# HELP {} petastorm_tpu service state gauge '
+                         '(docs/service.md)'.format(name))
+            lines.append('# TYPE {} gauge'.format(name))
+        lines.append('{}{{{}="{}"}} {}'.format(
+            name, label, escape_label_value(key),
+            int(value) if float(value).is_integer() else value))
+
+    for client in state.get('clients') or []:
+        key = str(client.get('name', ''))
+        gauge('service_client_queued', 'client', key,
+              float(client.get('queued', 0)))
+        gauge('service_client_in_flight', 'client', key,
+              float(client.get('in_flight', 0)))
+        gauge('service_client_served', 'client', key,
+              float(client.get('served', 0)))
+        gauge('service_client_window_size', 'client', key,
+              float(client.get('window', 0)))
+    for worker in state.get('workers') or []:
+        key = str(worker.get('worker_id', ''))
+        gauge('service_worker_assigned', 'worker', key,
+              float(worker.get('assigned', 0)))
+        gauge('service_worker_heartbeat_age_seconds', 'worker', key,
+              float(worker.get('heartbeat_age_s', 0.0)))
+    return '\n'.join(lines) + '\n' if lines else ''

@@ -19,15 +19,22 @@ checks, in order:
    (snapshot and bottleneck), ``trace``, ``resilience``, ``autotune`` and
    ``slo`` blocks are lifted to the report's top level with the JAX doctor's
    keys.
+5. **Input service**: when ``--service-url`` (or the
+   ``PETASTORM_TPU_SERVICE_URL`` env var) names an input-service dispatcher
+   (:mod:`~petastorm_tpu_torch.service`), its state: reachable? workers
+   registered? queue depth? (``report['service']``; an unreachable
+   configured service prints a WARNING — readers pointed at it will fail),
+   and its durable token ledger (``report['ledger']``: armed, epoch, last
+   replay, frames the CRC dropped).
 
 Prints a human report, or with ``--json`` one JSON line (the dict
 :func:`collect_report` returns). The exit code is 0 iff the store round trip
 passed: a CPU-only install is a healthy install, and backend or link failures
 are reported as findings.
 
-The JAX doctor's ``lineage``, ``history``, ``service``, ``ledger``,
-``topology``, ``incidents``, ``storage`` and ``pipecheck`` blocks wait for
-those planes in the port and are not in the report.
+The JAX doctor's ``lineage``, ``history``, ``topology``, ``incidents``,
+``storage`` and ``pipecheck`` blocks wait for those planes in the port and
+are not in the report.
 """
 from __future__ import annotations
 
@@ -221,7 +228,62 @@ def check_store_roundtrip(rows=200, workers=2):
             }}
 
 
-def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180):
+def check_service(service_url=None, timeout_s=2.0):
+    """Probe the input service when one is configured — ``service_url``
+    argument or the ``PETASTORM_TPU_SERVICE_URL`` env var. Returns
+    ``{'status': 'unconfigured'}`` when no URL is set, ``{'status': 'ok',
+    'workers': N, 'clients': N, 'queue_depth': N, ...}`` when the dispatcher
+    answers a state request, or ``{'status': 'unreachable', 'detail': ...}``
+    — which the human report prints as a WARNING: a reader pointed at that
+    URL will fail its hello."""
+    url = service_url or os.environ.get('PETASTORM_TPU_SERVICE_URL')
+    if not url:
+        return {'status': 'unconfigured'}
+    # tripped client-transport breakers of any ServicePool this process made
+    # (they live on the default board, as in Reader.diagnostics)
+    from petastorm_tpu_torch.resilience import default_board
+    breakers = {name: state for name, state
+                in default_board().snapshot(only_tripped=True).items()
+                if name.startswith('service:')}
+    try:
+        from petastorm_tpu_torch.service.service_client import fetch_service_state
+        state = fetch_service_state(url, timeout_s=timeout_s)
+    except Exception as exc:  # noqa: BLE001 - unreachability is the finding, not a doctor failure
+        return {'status': 'unreachable', 'service_url': url,
+                'detail': repr(exc), 'breakers': breakers}
+    workers = state.get('workers') or []
+    return {'status': 'ok', 'service_url': url,
+            'workers': len(workers),
+            'clients': len(state.get('clients') or []),
+            'queue_depth': state.get('queue_depth', 0),
+            'in_flight': state.get('in_flight', 0),
+            'busy_rejections': state.get('busy_rejections', 0),
+            'items_requeued': state.get('items_requeued', 0),
+            'workers_departed': state.get('workers_departed', 0),
+            'breakers': breakers,
+            'state': state}
+
+
+def check_ledger(service_report=None):
+    """The probed dispatcher's durable-ledger health, derived from the
+    :func:`check_service` state snapshot: ``{'status': 'unarmed'}`` when no
+    service is configured or the dispatcher runs without a ledger, else
+    journal path, ledger epoch, the last replay result (``ok`` /
+    ``corrupt`` / ``absent`` / ``discarded``) and the CRC-dropped frame
+    count — a nonzero drop count means a past restart degraded to
+    replay-from-clients."""
+    state = ((service_report or {}).get('state') or {}).get('ledger') or {}
+    if not state.get('armed'):
+        return {'status': 'unarmed'}
+    return {'status': 'ok',
+            'path': state.get('path'),
+            'epoch': state.get('epoch'),
+            'last_replay': state.get('last_replay'),
+            'frames_dropped': state.get('frames_dropped', 0),
+            'records_replayed': state.get('records_replayed', 0)}
+
+
+def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_url=None):
     """Run every check; returns the report dict (no printing)."""
     report = {'versions': check_versions()}
     report['backend'] = check_backend(timeout_s=probe_timeout_s)
@@ -254,6 +316,16 @@ def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180):
     report['autotune'] = autotune if autotune is not None else {'enabled': False}
     slo = roundtrip.pop('slo', None)
     report['slo'] = slo if slo is not None else {'evaluated': False}
+    # the service and ledger blocks: always present so --json consumers find
+    # one stable key; an unconfigured service is a healthy install
+    try:
+        report['service'] = check_service(service_url)
+    except Exception as exc:  # noqa: BLE001 - the report must always complete
+        report['service'] = {'status': 'fail', 'detail': repr(exc)}
+    try:
+        report['ledger'] = check_ledger(report['service'])
+    except Exception as exc:  # noqa: BLE001 - the report must always complete
+        report['ledger'] = {'status': 'fail', 'detail': repr(exc)}
     report['healthy'] = roundtrip.get('status') == 'ok'
     return report
 
@@ -328,6 +400,28 @@ def _print_human(report):
         decisions = autotune.get('decisions') or []
         print('  autotune: {} knob(s) catalogued, {} window(s), {} decision(s)'.format(
             len(autotune.get('knobs') or {}), autotune.get('windows', 0), len(decisions)))
+    service = report.get('service') or {}
+    if service.get('status') == 'ok':
+        print('  service: {}: {} worker(s), {} client(s), queue depth {}'.format(
+            service['service_url'], service['workers'], service['clients'],
+            service['queue_depth']))
+        if not service['workers']:
+            print('  WARNING: input service at {} has NO registered decode workers: '
+                  'readers will stall until one joins'.format(service['service_url']))
+    elif service.get('status') == 'unreachable':
+        print('  WARNING: input service at {} is UNREACHABLE ({}): readers with this '
+              'service_url will fail their hello; is the dispatcher running?'.format(
+                  service['service_url'], service.get('detail', '')))
+    ledger = report.get('ledger') or {}
+    if ledger.get('status') == 'ok':
+        print('  ledger: armed at {}: epoch {}, last replay {} ({} record(s), {} '
+              'frame(s) CRC-dropped)'.format(
+                  ledger['path'], ledger['epoch'], ledger['last_replay'],
+                  ledger['records_replayed'], ledger['frames_dropped']))
+        if ledger['frames_dropped']:
+            print('  WARNING: the dispatcher ledger dropped {} journal frame(s) on its '
+                  'last replay: a restart degraded to replay-from-clients'.format(
+                      ledger['frames_dropped']))
     print('  verdict: {}'.format('healthy' if report['healthy'] else 'BROKEN'))
 
 
@@ -342,9 +436,13 @@ def main(argv=None):
                         help='link probe subprocess timeout (seconds)')
     parser.add_argument('--no-link', action='store_true',
                         help='skip the link bandwidth probe')
+    parser.add_argument('--service-url', default=None,
+                        help='probe this input-service dispatcher (default: '
+                             'PETASTORM_TPU_SERVICE_URL when set)')
     args = parser.parse_args(argv)
     report = collect_report(probe_timeout_s=args.probe_timeout, link=not args.no_link,
-                            link_timeout_s=args.link_timeout)
+                            link_timeout_s=args.link_timeout,
+                            service_url=args.service_url)
     if args.json:
         print(json.dumps(report))
     else:

@@ -2,7 +2,9 @@
 JAX package's: on the CPU the store round trip is ok and the install healthy,
 every block the port has carries the JAX block's keys (the backend's, plus
 the device name), ``backend`` reports no CUDA device, ``--json`` prints one
-line, and a backend probe that hangs is reported as a timeout."""
+line, a backend probe that hangs is reported as a timeout, and the input
+service's ``service`` and ``ledger`` blocks read an unconfigured, a live and
+an unreachable service as the JAX doctor does."""
 
 import json
 import time
@@ -15,8 +17,7 @@ from petastorm_tpu_torch.tools import doctor
 #: the JAX round trip's blocks that collect_report lifts to the top level
 LIFTED = ('telemetry', 'trace', 'resilience', 'autotune', 'slo', 'lineage', 'history')
 #: the JAX doctor's blocks whose planes the port lacks
-NOT_PORTED = ('lineage', 'history', 'service', 'ledger', 'topology', 'incidents', 'storage',
-              'pipecheck')
+NOT_PORTED = ('lineage', 'history', 'topology', 'incidents', 'storage', 'pipecheck')
 
 
 @pytest.fixture(scope='module')
@@ -49,6 +50,8 @@ def test_json_report_healthy_with_the_jax_blocks(capsys, jax_roundtrip):
     assert report['autotune']['enabled'] and 'efficiency' in report['slo']
     assert report['trace']['events'] > 0
     assert not set(report) & set(NOT_PORTED)
+    assert report['service'] == jax_doctor.check_service() == {'status': 'unconfigured'}
+    assert report['ledger'] == jax_doctor.check_ledger(report['service']) == {'status': 'unarmed'}
     versions = report['versions']
     assert set(versions) == {'python', 'numpy', 'pyarrow', 'torch', 'cuda',
                              'petastorm_tpu_torch'}
@@ -91,3 +94,40 @@ def test_link_probe_child_parses_and_fails_soft(monkeypatch):
     monkeypatch.setattr(doctor, 'LINK_PROBE_CODE', "raise SystemExit('no card')\n")
     failed = doctor.check_link(timeout_s=30)
     assert failed['status'] == 'fail' and 'no card' in failed['detail']
+
+
+def test_service_and_ledger_blocks_of_a_live_fleet_and_an_unreachable_one(
+        tmp_path, capsys, monkeypatch):
+    """The doctor's service and ledger blocks against the JAX doctor's: a live
+    fleet (named by ``--service-url`` or ``PETASTORM_TPU_SERVICE_URL``), an
+    unreachable URL (a WARNING) and a ledger-armed dispatcher; the
+    unconfigured case is in the first test."""
+    from petastorm_tpu_torch.service import ServiceFleet
+    with ServiceFleet(workers=1) as fleet:
+        live = doctor.check_service(fleet.service_url)
+        assert live['status'] == 'ok' and live['workers'] == 1
+        assert set(live) == set(jax_doctor.check_service(fleet.service_url))
+        monkeypatch.setenv('PETASTORM_TPU_SERVICE_URL', fleet.service_url)
+        assert doctor.check_service()['workers'] == 1
+    monkeypatch.delenv('PETASTORM_TPU_SERVICE_URL')
+    asked = {}
+    monkeypatch.setattr(doctor, 'collect_report',
+                        lambda **kwargs: asked.update(kwargs) or {'healthy': True})
+    assert doctor.main(['--json', '--no-link', '--service-url', 'tcp://h:9']) == 0
+    assert asked['service_url'] == 'tcp://h:9'
+    capsys.readouterr()
+    down = doctor.check_service('tcp://127.0.0.1:1', timeout_s=0.5)
+    assert down['status'] == 'unreachable' and set(down) == set(
+        jax_doctor.check_service('tcp://127.0.0.1:1', timeout_s=0.5))
+    doctor._print_human({'versions': {k: None for k in (
+        'petastorm_tpu_torch', 'python', 'torch', 'cuda', 'pyarrow', 'numpy')},
+        'backend': {'status': 'down'}, 'store_roundtrip': {'status': 'ok', 'rows': 1,
+                                                           'rows_per_sec': 1},
+        'service': down, 'ledger': {'status': 'unarmed'}, 'healthy': True})
+    assert 'UNREACHABLE' in capsys.readouterr().out
+    with ServiceFleet(workers=0, ledger=str(tmp_path / 'ledger.bin')) as armed:
+        service = doctor.check_service(armed.service_url)
+        ledger = doctor.check_ledger(service)
+    assert ledger == jax_doctor.check_ledger(service)
+    assert ledger['status'] == 'ok' and ledger['epoch'] == 1
+    assert ledger['last_replay'] == 'absent' and ledger['frames_dropped'] == 0

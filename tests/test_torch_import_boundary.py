@@ -1,7 +1,8 @@
 """petastorm_tpu_torch, chip_smoke.py and every examples/**/torch_*.py import neither JAX (jax, flax, optax,
 orbax) nor anything of the JAX package (``petastorm_tpu`` or ``petastorm_tpu.*``; the
 port's own name shares that prefix, so matches are on whole module names), and
-neither do the process pool's spawned workers, which load no torch either."""
+neither do the process pool's spawned workers or an input-service fleet's
+decode workers, which load no torch either."""
 
 import ast
 import glob
@@ -27,6 +28,10 @@ SLICE_14_MODULES = ('dataset_state.py',) + tuple(
         ('telemetry', 'cost_model.py'), ('schedule', '__init__.py'),
         ('schedule', 'cost_schedule.py'), ('tools', 'doctor.py'),
         ('test_util', '__init__.py'), ('test_util', 'reader_mock.py')))
+#: the input service
+SLICE_15_MODULES = tuple(os.path.join('service', name) for name in (
+    '__init__.py', 'wire.py', 'ledger.py', 'dispatcher.py', 'service_worker.py',
+    'service_client.py', 'fleet.py'))
 #: the examples/hello_world twins, both halves
 HELLO_WORLD_TWINS = tuple(
     ('hello_world', half, 'torch_{}.py'.format(name))
@@ -87,7 +92,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                    'generator.py', os.path.join('etl', 'legacy.py'),
                    os.path.join('etl', 'generate_metadata.py'),
                    os.path.join('etl', 'metadata_util.py'),
-                   os.path.join('tools', 'copy_dataset.py')) + SLICE_14_MODULES:
+                   os.path.join('tools', 'copy_dataset.py')) + SLICE_14_MODULES \
+            + SLICE_15_MODULES:
         assert os.path.join(PORT, module) in files
     offenders = [(os.path.relpath(path, REPO), name) for path in files
                  for name in _imports(path) if _forbidden(name)]
@@ -268,3 +274,68 @@ def test_process_pool_workers_refuse_jax_and_load_no_torch(tmp_path):
     assert len(workers) == 2
     for report in workers:
         assert report['torch'] is False and report['refused'] == []
+
+
+def test_importing_the_service_package_loads_neither_zmq_nor_torch():
+    code = ('import sys; import petastorm_tpu_torch.service as s; '
+            'from petastorm_tpu_torch.service import ServiceFleet, ServicePool; '
+            'print(sorted(m for m in ("zmq", "torch", "jax") if m in sys.modules))')
+    result = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
+                            text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.split('\n')[-2] == '[]'
+
+
+_FLEET_RUN = textwrap.dedent('''
+    import os, sys, tempfile
+    import numpy as np
+    import torch
+    from petastorm_tpu_torch import DeviceTransform, TorchDataLoader, make_reader
+    from petastorm_tpu_torch.codecs import DctImageCodec, ScalarCodec
+    from petastorm_tpu_torch.etl.dataset_metadata import write_rows
+    from petastorm_tpu_torch.service import ServiceFleet
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    url = 'file://' + os.path.join(tempfile.mkdtemp(), 'store')
+    schema = Unischema('Fleet', [
+        UnischemaField('id', np.int64, (), ScalarCodec(), False),
+        UnischemaField('img', np.uint8, (16, 16, 3), DctImageCodec(), False)])
+    rng = np.random.RandomState(0)
+    write_rows(url, schema, [{'id': i, 'img': rng.randint(0, 255, (16, 16, 3), dtype=np.uint8)}
+                             for i in range(24)], n_files=4)
+    with ServiceFleet(workers=2) as fleet:
+        with make_reader(url, service_url=fleet.service_url,
+                         device_decode_fields=['img']) as reader:
+            loader = TorchDataLoader(reader, batch_size=6, device='cpu', device_transforms={
+                'img': DeviceTransform(crop=(8, 8))})
+            ids = sorted(int(i) for batch in loader for i in batch['id'])
+        pids = [process.pid for process in fleet.processes]
+    print('IDS', ids == list(range(24)), 'PARENT', os.getpid(), 'TORCH',
+          'torch' in sys.modules, 'WORKERS', ','.join(map(str, pids)))
+''')
+
+
+def test_fleet_workers_refuse_jax_and_load_no_torch(tmp_path):
+    """A service read into a TorchDataLoader from a parent that holds torch:
+    the fleet's two spawned decode workers (their ``PYTHONPATH`` carries the
+    parent's ``sys.path``, and with it ``sitecustomize.py``) refuse jax and
+    the JAX package, and each reports at exit that it loaded no torch."""
+    site = tmp_path / 'site'
+    reports = tmp_path / 'reports'
+    site.mkdir()
+    reports.mkdir()
+    (site / 'sitecustomize.py').write_text(_SITECUSTOMIZE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(site), REPO]),
+               BOUNDARY_REPORT_DIR=str(reports))
+    result = subprocess.run([sys.executable, '-c', _FLEET_RUN], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=240)
+    assert result.returncode == 0, result.stderr[-3000:]
+    line = [l for l in result.stdout.splitlines() if l.startswith('IDS')][-1].split()
+    assert line[1] == 'True' and line[5] == 'True'
+    parent = int(line[3])
+    pids = [int(pid) for pid in line[7].split(',')]
+    reports = {int(path.stem): json.loads(path.read_text()) for path in reports.iterdir()}
+    assert reports[parent]['torch'] is True and reports[parent]['refused'] == []
+    assert set(pids) <= set(reports)
+    for pid in pids:
+        assert reports[pid]['argv'][0].endswith('service_worker.py')
+        assert reports[pid]['torch'] is False and reports[pid]['refused'] == []

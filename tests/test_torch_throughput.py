@@ -135,7 +135,7 @@ def test_cli_throughput_and_subcommands(store, capsys):
         assert cli_main([name, 'x']) == 2
         assert module in capsys.readouterr().err
     assert set(SUBCOMMANDS) == {'wire-bench', 'decode-bench', 'costs', 'analyze', 'trace',
-                                'doctor'}
+                                'doctor', 'serve'}
 
 
 # ------------------------------------------------------- adapters and mocks
