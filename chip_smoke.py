@@ -160,14 +160,32 @@ version on the card, then drives the port's two paths at full width:
   the first finishes, a third reader served from the shared cache); a
   worker SIGKILLed mid-epoch, then the dispatcher crashed mid-epoch with
   the ledger armed (19d: every ``idx`` once in each, the new incarnation's
-  ledger replayed).
+  ledger replayed);
+- fault injection, the object-store ingest engine and the lineage plane
+  (phase 20): phase 5's store and path through
+  ``make_reader(storage_policy=..., filesystem=<the fault-injecting
+  filesystem>, lineage=..., incidents=..., history=...)`` with a few ms a
+  read, a tail on every 10th read and one failed open under
+  ``on_error='retry'`` (20a: K1 once a batch, the first decoded batch equal
+  to a plain read's bit for bit, hedges fired, a retry, a digest, a run
+  record); phase 9's store with ``shuffle_rows=True`` on the thread pool, the
+  process pool, the input service and a resumed thread reader (20b: four
+  equal order digests, ``lineage verify`` exits 0 and ``lineage diff``
+  against another seed exits with the seed's code, in child interpreters);
+  a corrupted file under ``on_error='skip'`` (20c: exactly one incident
+  bundle, the next edge rate-limited, ``autopsy`` naming its cause's exit
+  code and ``history compare`` of 20a's record against a second identical
+  run in child interpreters).
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
 path launched on it. The
 wrappers count only launches made outside a CUDA graph, so the LM graph
-phase (7b) counts its kernels in profiler traces instead: K2-K4 must each
-run once a layer and step in every replay. Each graph phase holds
+phase (7b) counts the kernel nodes of the graph it captured instead (the
+wrappers' capture counts, and the driver's ``cuGraphGetNodes``): K2-K4 must
+each be one node a layer and step, and every step a replay of the graph,
+which launches all of its nodes; profiler traces of its replays are printed
+beside that. Each graph phase holds
 the graph's first epoch or chunk of losses against an eager run of the same
 batches from the same weights. K1 is held
 bit for bit against its plain version on outputs whose memory held 0xAB
@@ -230,6 +248,14 @@ from petastorm_tpu_torch import (DeviceTransform, InMemTorchLoader, MnistCNN, NG
                                  cuda_build, make_batch_reader, make_converter,
                                  make_packing_transform, make_reader, make_torch_loader)
 from petastorm_tpu_torch.autotune import AutotunePolicy
+from petastorm_tpu_torch.resilience import RetryPolicy
+from petastorm_tpu_torch.storage import StoragePolicy, reset_storage_metrics
+from petastorm_tpu_torch.telemetry.history import COMPARE_EXIT_CODES, load_records
+from petastorm_tpu_torch.telemetry.incident import (EXIT_CODES as INCIDENT_EXIT_CODES,
+                                                    IncidentPolicy, scan_bundles)
+from petastorm_tpu_torch.telemetry.lineage import EXIT_SEED, LineagePolicy
+from petastorm_tpu_torch.test_util.fault_injection import (FaultRule, FaultSchedule,
+                                                           fault_injecting_filesystem)
 from petastorm_tpu_torch.benchmark.linkprobe import probe_link, streaming_ceiling_rows_per_sec
 from petastorm_tpu_torch.benchmark.lm_data import (FRAME_STREAM_INDEX, full_bin_rowgroups,
                                                    ragged_documents, token_rows,
@@ -996,13 +1022,16 @@ FLASH_KERNEL_NAMES = {'fwd': 'flash_fwd_kernel', 'dq': 'flash_bwd_dq_kernel',
                       'dkv': 'flash_bwd_dkv_kernel'}
 
 
-def device_breakdown(step):
+def device_breakdown(step, drop_notes=False):
     """One more step under ``torch.profiler``, outside the counted run: its
     wall time, the card's device time summed over its kernels, split into
     each flash kernel and everything else, the number of times each flash
     kernel ran on the card (``calls``: the trace's own events, so a CUDA
     graph replay's kernels count too), and the idle share (1 - device time /
-    wall time; the profiler's own cost makes it an upper bound)."""
+    wall time; the profiler's own cost makes it an upper bound). With
+    ``drop_notes`` it also returns what the exported trace says about
+    dropped or lost records (``drop_notes``: each string of the trace that
+    names a drop, an overflow or a loss)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1026,9 +1055,21 @@ def device_breakdown(step):
             event.self_device_time_total / 1e3)
     busy_ms = sum(device_ms.values())
     top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
-    return {'wall_ms': wall_ms, 'device_ms': device_ms, 'device_busy_ms': busy_ms,
-            'idle_share': 1 - busy_ms / wall_ms, 'top_kernels_ms': dict(top),
-            'calls': calls}
+    result = {'wall_ms': wall_ms, 'device_ms': device_ms, 'device_busy_ms': busy_ms,
+              'idle_share': 1 - busy_ms / wall_ms, 'top_kernels_ms': dict(top),
+              'calls': calls}
+    if drop_notes:
+        fd, path = tempfile.mkstemp(suffix='.json')
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                text = f.read()
+        finally:
+            os.unlink(path)
+        result['drop_notes'] = sorted(set(re.findall(
+            r'"[^"]{0,120}(?:[Dd]rop|[Oo]verflow|[Ll]ost )[^"]{0,120}"', text)))[:8]
+    return result
 
 
 def lm_metrics(losses, step_s, window_s, stats, tokens_per_step, flops_per_step):
@@ -1634,8 +1675,13 @@ def phase_lm_graph(tmp, seed):
     phase 7's first-batch loss limit, then a pass on a thread pool of 2 for
     the capture and one timed pass, counted: no step may launch a kernel
     outside the graph. The graph's kernels are counted in profiler traces,
-    of one replay and of one more whole pass: K2-K4 must each run
-    LM['layers'] times a step in every replay."""
+    of one replay and of one more whole pass, and read off the graph itself:
+    K2-K4 must each be LM['layers'] kernel nodes a step of the captured graph
+    (the wrappers' capture counts, and the driver's ``cuGraphGetNodes`` by
+    function name where it can name them), and every step of the pass a
+    replay of it. A replay launches every node of its graph, so the nodes
+    times the replays is what ran; the profiler's counts are printed beside
+    them with any record loss its trace reports, and are not the check."""
     path = 'file://' + os.path.join(tmp, 'tokens')   # phase 7's store
     torch.manual_seed(seed)
     model = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
@@ -1665,7 +1711,10 @@ def phase_lm_graph(tmp, seed):
     torch.cuda.reset_peak_memory_stats()
     with make_reader(path, workers_count=2, seed=seed) as reader:
         loader = TorchDataLoader(reader, batch_size=LM_BATCH)
+        for name in flash.flash_attention.captured:
+            flash.flash_attention.captured[name] = 0
         loader.scan_stream(step, chunk_batches=LM_GRAPH_CHUNK, state=(model, optimizer))
+        captured = dict(flash.flash_attention.captured)
         reset_counts()
 
         def one_pass():
@@ -1673,28 +1722,40 @@ def phase_lm_graph(tmp, seed):
                                      state=(model, optimizer))
             losses = torch.cat(aux).tolist()
             return losses
+        ((program, _, _),) = loader._scan_stream_programs.programs()
+        replays_before_pass = program.replays
         losses, wall_s = timed(one_pass)
         counts = read_counts()
         ((program, _, _),) = loader._scan_stream_programs.programs()
+        pass_replays = program.replays - replays_before_pass
+        nodes = program.kernel_nodes()
         # replays of the last chunk, outside the counted pass: the graph alone
         replay_ms = cuda_ms(program.run, reps=2, runs=3, warmup=1)
         breakdown = device_breakdown(program.run)
         replays_before = program.replays
-        traced_pass = device_breakdown(one_pass)
-        pass_replays = program.replays - replays_before
+        traced_pass = device_breakdown(one_pass, drop_notes=True)
+        traced_replays = program.replays - replays_before
     steps = len(losses)
     eager_launches = {name: counts[name] for name in FLASH_PRODUCTS}
     check(all(n == 0 for n in eager_launches.values()),
           'a graph pass launched flash kernels outside the graph: {}'.format(eager_launches))
     check(counts['dense_fallbacks'] == 0, 'attention took the dense path')
     per_replay = LM['layers'] * LM_GRAPH_CHUNK
-    check(all(n == per_replay for n in breakdown['calls'].values()),
-          'a profiled replay ran the flash kernels {} times, expected {} each (layers x '
-          'steps)'.format(breakdown['calls'], per_replay))
+    check(captured == dict.fromkeys(FLASH_PRODUCTS, per_replay),
+          'the captured graph holds {} flash kernel nodes, expected {} each (layers x '
+          'steps)'.format(captured, per_replay))
+    graph_nodes = None
+    if nodes is not None:
+        graph_nodes = {name: sum(n for kernel, n in nodes.items() if key in kernel)
+                       for name, key in FLASH_KERNEL_NAMES.items()}
+        check(graph_nodes == captured,
+              'the driver reads {} flash kernel nodes off the graph, the wrappers recorded '
+              '{}'.format(graph_nodes, captured))
     check(pass_replays * LM_GRAPH_CHUNK == steps
-          and all(n == per_replay * pass_replays for n in traced_pass['calls'].values()),
-          'a profiled pass of {} replays ran the flash kernels {} times, expected {} each'
-          .format(pass_replays, traced_pass['calls'], per_replay * pass_replays))
+          and traced_replays * LM_GRAPH_CHUNK == steps,
+          'a pass of {} steps was {} replays of {} steps (the traced pass {})'.format(
+              steps, pass_replays, LM_GRAPH_CHUNK, traced_replays))
+    ran = {name: n * pass_replays for name, n in captured.items()}
     check(all(np.isfinite(losses)), 'non-finite LM loss {}'.format(losses))
     tflops, util = mfu(transformer_train_flops_per_step(
         LM_BATCH, LM['max_len'], LM['vocab'], LM['embed'], LM['layers']), wall_s / steps)
@@ -1703,8 +1764,16 @@ def phase_lm_graph(tmp, seed):
             'step_ms': wall_s / steps * 1e3, 'model_tflops_per_s': tflops, 'mfu': util,
             'replay_ms': replay_ms, 'replay_step_ms': replay_ms / LM_GRAPH_CHUNK,
             'replay_tokens_per_s': LM_GRAPH_CHUNK * LM_BATCH * LM['max_len'] / replay_ms * 1e3,
-            'eager_launches': eager_launches, 'traced_calls': traced_pass['calls'],
-            'traced_replays': pass_replays, 'traced_calls_per_replay': breakdown['calls'],
+            'eager_launches': eager_launches, 'captured_nodes': captured,
+            'graph_nodes': graph_nodes, 'graph_kernel_nodes': sum((nodes or {}).values()),
+            'replays': pass_replays, 'ran': ran,
+            'traced_calls': traced_pass['calls'], 'traced_replays': traced_replays,
+            'traced_calls_per_replay': breakdown['calls'],
+            'traced_shortfall': {name: per_replay * traced_replays - n
+                                 for name, n in traced_pass['calls'].items()},
+            'traced_replay_shortfall': {name: per_replay - n
+                                        for name, n in breakdown['calls'].items()},
+            'profiler_drop_notes': traced_pass['drop_notes'],
             'capture_s': program.capture_s, 'first_chunk': agreement,
             'losses': losses, 'breakdown': breakdown, 'traced_pass': traced_pass,
             'peak_memory_bytes': torch.cuda.max_memory_allocated()}
@@ -1991,16 +2060,21 @@ def lm_graph_line(result, eager, card):
             'pass\'s wall over its steps, the reader\'s restart included) model '
             'TFLOP/s={:.3f} MFU={:.5f}; a replay alone {:.3f} ms = {:.3f} ms a step, '
             'tokens/s={:.1f}; capture {:.3f} s; beside phase 7 eager: tokens/s={:.1f} '
-            'step_ms(median)={:.2f}; launches outside the graph {}; flash kernels in the '
-            'traces: {} in one replay, {} in a pass of {} replays; first chunk graph vs '
+            'step_ms(median)={:.2f}; launches outside the graph {}; flash kernel nodes '
+            'of the graph {} (captured) {} (cuGraphGetNodes, of {} kernel nodes) x {} '
+            'replays = {} ran; in the profiler traces: {} in one replay, {} in a pass of '
+            '{} replays (short by {}; the trace\'s drop notes {}); first chunk graph vs '
             'eager max rel err {:.3e} (limit {:.1e}); one profiled replay: {}; one '
             'profiled pass: {}; peak_memory={:.3f} GiB [{}]'.format(
                 result['chunk_batches'], result['steps'], result['tokens_per_s'],
                 result['step_ms'], result['model_tflops_per_s'], result['mfu'],
                 result['replay_ms'], result['replay_step_ms'], result['replay_tokens_per_s'],
                 result['capture_s'], eager['tokens_per_s'], eager['step_ms_median'],
-                result['eager_launches'], result['traced_calls_per_replay'],
-                result['traced_calls'], result['traced_replays'],
+                result['eager_launches'], result['captured_nodes'], result['graph_nodes'],
+                result['graph_kernel_nodes'], result['replays'], result['ran'],
+                result['traced_calls_per_replay'], result['traced_calls'],
+                result['traced_replays'], result['traced_shortfall'],
+                result['profiler_drop_notes'],
                 result['first_chunk']['max_rel_err'], result['first_chunk']['rtol'],
                 breakdown_line(result['breakdown']), breakdown_line(result['traced_pass']),
                 result['peak_memory_bytes'] / 2 ** 30,
@@ -3963,6 +4037,13 @@ def phase_tools_cli():
     check(result['wire-bench']['arrow_shm_shm_batches'] == 12
           and result['wire-bench']['cache_warm_hits'] > 0,
           '18d: wire-bench {}'.format(result['wire-bench']))
+    storage, lineage, history = report['storage'], report['lineage'], report['history']
+    check(storage['status'] == 'ok' and storage['footer_cache_hits'] > 0
+          and lineage.get('enabled') and lineage['divergence'] == 0
+          and lineage['items_folded'] > 0 and history['status'] == 'ok'
+          and history['records'] == 1 and report['incidents']['status'] == 'ok',
+          '18d: the doctor\'s storage {}, lineage {}, history {} or incidents {} block is '
+          'not ok'.format(storage, lineage, history, report['incidents']))
     result['phase_s'] = time.perf_counter() - start
     return result
 
@@ -4009,12 +4090,22 @@ def tools_lines(tools, record, card):
                main_path['step_ms_median'], schedule['store_write_s'], schedule['phase_s'],
                card))
     yield ('phase 18d doctor --json: backend {} on {} x{} ({}), link RTT {} ms H2D {} MB/s, '
-           'store roundtrip {} at {} rows/s, healthy {} ({:.1f} s) [{}]'.format(
+           'store roundtrip {} at {} rows/s, healthy {}; storage {} (footer cache {} hits / '
+           '{} misses, {} ranges coalesced, {} hedges), lineage {} items folded, {} '
+           'divergence(s), history {} ({} record), incidents {} ({} retained) ({:.1f} s) '
+           '[{}]'.format(
                doctor['backend']['status'], doctor['backend']['platform'],
                doctor['backend']['devices'], doctor['backend']['device_name'],
                doctor_link.get('dispatch_rtt_ms'), doctor_link.get('h2d_mbytes_per_sec'),
                doctor['store_roundtrip']['status'], doctor['store_roundtrip']['rows_per_sec'],
-               doctor['healthy'], cli['doctor_s'], card))
+               doctor['healthy'], doctor['storage']['status'],
+               doctor['storage']['footer_cache_hits'],
+               doctor['storage']['footer_cache_misses'],
+               doctor['storage']['ranges_coalesced'], doctor['storage']['hedges_fired'],
+               doctor['lineage']['items_folded'], doctor['lineage']['divergence'],
+               doctor['history']['status'], doctor['history']['records'],
+               doctor['incidents']['status'], doctor['incidents']['retained'],
+               cli['doctor_s'], card))
     for name in ('decode-bench', 'wire-bench'):
         yield ('phase 18d {} (host numbers of the card machine\'s CPU, {:.1f} s): {} '
                '[{}]'.format(name, cli[name + '_s'], json.dumps(cli[name]), card))
@@ -4325,6 +4416,248 @@ def phase_service(tmp, args, record, card):
     return result
 
 
+# ------------------------------ faults, storage and the lineage plane (phase 20)
+
+#: 20a's fault schedule: every read of phase 5's files waits this long, every
+#: LINEAGE_TAIL_EVERY-th read (opens and reads counted together) this much
+#: more, and the first open of LINEAGE_FAIL_FILE fails once
+LINEAGE_READ_S = 0.003
+LINEAGE_TAIL_S = 0.1
+LINEAGE_TAIL_EVERY = 10
+LINEAGE_FAIL_FILE = 'part_00002'
+#: the CLI of the lineage, autopsy and history subcommands
+PORT_CLI = ['-m', 'petastorm_tpu_torch.benchmark.cli']
+
+
+def faulty_filesystem(state_dir):
+    """20a's fault-injecting filesystem over the local one (its trigger
+    state in ``state_dir``, fresh for each read)."""
+    return fault_injecting_filesystem(FaultSchedule(state_dir, [
+        FaultRule('part_', kind='latency', latency_s=LINEAGE_READ_S,
+                  tail_latency_s=LINEAGE_TAIL_S, tail_every_n=LINEAGE_TAIL_EVERY),
+        FaultRule(LINEAGE_FAIL_FILE, kind='fail', times=1)]))
+
+
+def armed_reader(tmp, name, history=True):
+    """``make_reader`` with 20a's planes armed: the engine through a fresh
+    faulty filesystem, retries, lineage with a manifest, incidents and (with
+    ``history``) the run history, each under ``tmp`` by ``name``."""
+    return functools.partial(
+        make_reader, storage_policy=True,
+        filesystem=faulty_filesystem(os.path.join(tmp, name + '_faults')),
+        on_error='retry', retry_policy=RetryPolicy(backoff_base_s=0.01),
+        lineage=LineagePolicy(manifest_path=os.path.join(tmp, name + '_manifest.jsonl')),
+        incidents=IncidentPolicy(home=os.path.join(tmp, name + '_incidents')),
+        history=os.path.join(tmp, 'lineage_history.bin') if history else None)
+
+
+def run_cli(argv):
+    """One subcommand of the port's CLI in a child interpreter: (exit code,
+    stdout, the end of stderr)."""
+    out = subprocess.run([sys.executable] + PORT_CLI + argv, capture_output=True, text=True,
+                         timeout=TOOL_TIMEOUT_S,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    return out.returncode, out.stdout, out.stderr[-2000:]
+
+
+def phase_lineage_imagenet(tmp, args):
+    """Phase 20a: phase 5's store and path with the storage engine, faults,
+    lineage, incidents and history armed."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'imagenet')
+    # the first decoded batch (one worker, rowgroups in order) against a
+    # plain read of phase 5's store, bit for bit
+    ours, _ = first_decoded_batches(url, armed_reader(tmp, '20a_parity', history=False), 1,
+                                    args.batch)
+    plain, _ = first_decoded_batches(url, make_reader, 1, args.batch)
+    check(len(ours) == len(plain) == 1 and same_batch(ours[0], plain[0]),
+          '20a: the first decoded batch through the engine and the faults differs from a '
+          'plain read\'s')
+    reset_storage_metrics()
+    result, delivered = phase_main_path(url, args, factory=armed_reader(tmp, '20a'))
+    result['distinct_rows'] = check_delivered(delivered, args.seed)
+    check(result['distinct_rows'] == result['rows'] == args.rows,
+          '20a: {} distinct rows of {} delivered'.format(result['distinct_rows'], result['rows']))
+    diag = result['diagnostics']
+    counters = diag['telemetry']['counters']
+    storage = {name: int(counters.get(name, 0)) for name in (
+        'storage_footer_cache_hit', 'storage_footer_cache_miss', 'storage_ranges_coalesced',
+        'storage_hedge_fired', 'storage_hedge_won')}
+    check(storage['storage_hedge_fired'] > 0 and storage['storage_footer_cache_miss'] > 0,
+          '20a: the engine\'s counters {}: no hedge fired under the tail'.format(storage))
+    check(diag['io_retries'] >= 1, '20a: the failed open was not retried ({} retries)'
+          .format(diag['io_retries']))
+    digest = diag['lineage']['order_digest']
+    check(len(digest or '') == 32 and diag['lineage']['divergence'] == 0,
+          '20a: lineage {}'.format(diag['lineage']))
+    records, dropped = load_records(os.path.join(tmp, 'lineage_history.bin'))
+    check(len(records) == 1 and dropped == 0 and records[0]['owner'] == 'reader'
+          and records[0]['rows'] == args.rows,
+          '20a: the history store holds {} record(s), {} dropped frame(s)'.format(
+              len(records), dropped))
+    result.update(storage=storage, order_digest=digest,
+                  io_retries=diag['io_retries'], incidents=diag['incidents']['bundles'],
+                  perf_regression=diag['sentinel']['alarms'],
+                  history_rows_per_s=records[0]['rows_per_sec'],
+                  parity_batches=len(ours), phase_s=time.perf_counter() - phase_start)
+    return result
+
+
+def lineage_pass(url, seed, stop_after=None, **kwargs):
+    """One epoch of phase 9's store with ``shuffle_rows=True`` and lineage
+    armed: (order digest, items); with ``stop_after``, the state after that
+    many items instead of the digest."""
+    kwargs.setdefault('lineage', LineagePolicy(manifest=False))
+    with make_reader(url, seed=seed, shuffle_rows=True, **kwargs) as reader:
+        items = 0
+        for _ in reader.iter_columnar(include_empty=True):
+            items += 1
+            if stop_after is not None and items == stop_after:
+                return reader.state_dict(), items
+        check(reader.diagnostics['lineage']['divergence'] == 0,
+              '20b: lineage divergence {}'.format(reader.diagnostics['lineage']))
+        return reader.order_digest(), items
+
+
+def phase_lineage_pools(tmp, args):
+    """Phase 20b: phase 9's store four ways with one seed; then the thread
+    run's manifest verified, and diffed against another seed's, by the CLI in
+    child interpreters."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist')
+    manifest = os.path.join(tmp, '20b_thread.jsonl')
+    digests = {}
+    digests['thread'], items = lineage_pass(url, args.seed, workers_count=args.workers,
+                                            lineage=LineagePolicy(manifest_path=manifest))
+    digests['process'], _ = lineage_pass(url, args.seed, reader_pool_type='process',
+                                         workers_count=args.workers)
+    with ServiceFleet(workers=args.workers,
+                      cache_dir=os.path.join(tmp, 'service_cache_20b')) as fleet:
+        digests['service'], _ = lineage_pass(url, args.seed, service_url=fleet.service_url)
+    state, _ = lineage_pass(url, args.seed, stop_after=max(1, items // 3),
+                            workers_count=args.workers)
+    check('lineage' in state, '20b: the thread reader\'s state has no lineage block')
+    digests['resumed'], _ = lineage_pass(url, args.seed, workers_count=args.workers,
+                                         resume_state=state)
+    check(len(set(digests.values())) == 1 and len(digests['thread']) == 32,
+          '20b: the order digests differ: {}'.format(digests))
+    verify_code, verify_out, verify_err = run_cli(['lineage', 'verify', url, '--manifest',
+                                                   manifest])
+    check(verify_code == 0, '20b: lineage verify exited {}: {} {}'.format(
+        verify_code, verify_out, verify_err))
+    other = os.path.join(tmp, '20b_other_seed.jsonl')
+    lineage_pass(url, args.seed + 1, workers_count=args.workers,
+                 lineage=LineagePolicy(manifest_path=other))
+    diff_code, diff_out, _ = run_cli(['lineage', 'diff', manifest, other])
+    check(diff_code == EXIT_SEED, '20b: lineage diff against seed {} exited {}, not the seed '
+          'attribution\'s {}: {}'.format(args.seed + 1, diff_code, EXIT_SEED, diff_out))
+    return {'items': items, 'digest': digests['thread'], 'resumed_after': max(1, items // 3),
+            'verify_exit': verify_code, 'diff_exit': diff_code,
+            'phase_s': time.perf_counter() - phase_start}
+
+
+def phase_incidents_history(tmp, args):
+    """Phase 20c: a corrupted copy of phase 9's store under
+    ``on_error='skip'`` with incidents armed; the bundle's autopsy, and a
+    ``history compare`` of 20a's record against a second identical run, in
+    child interpreters."""
+    phase_start = time.perf_counter()
+    path = os.path.join(tmp, 'mnist_corrupt')
+    shutil.copytree(os.path.join(tmp, 'mnist'), path)
+    home = os.path.join(tmp, '20c_incidents')
+    # halved at its first open (a worker's: the reader's construction opens
+    # none), so every later read of its second half fails
+    fs = fault_injecting_filesystem(FaultSchedule(os.path.join(tmp, '20c_faults'), [
+        FaultRule('part_00001', kind='corrupt', corrupt_mode='truncate', times=1)]))
+    # the reader's diagnostics are not read: their SLO evaluation of a read
+    # with no training step behind it would be a breach edge of its own
+    with make_reader('file://' + path, workers_count=args.workers, on_error='skip',
+                     filesystem=fs, incidents=IncidentPolicy(home=home)) as reader:
+        rows = sum(batch.num_rows for batch in reader.iter_columnar())
+        quarantined = len(reader.quarantine)
+        second = reader._incidents.trigger('quarantine', args={'reason': 'error'})
+        report = reader.incident_report()
+    bundles = scan_bundles(home)
+    check(quarantined >= 1 and rows < MNIST_ROWS and report['captured'] == 1
+          and len(bundles) == 1 and second is None and report['rate_limited'] >= 1,
+          '20c: {} rowgroup(s) quarantined, {} rows, incidents {}, bundles {}'.format(
+              quarantined, rows, report, bundles))
+    cause = bundles[0]['cause']
+    autopsy_code, autopsy_out, _ = run_cli(['autopsy', bundles[0]['path']])
+    check(autopsy_code == INCIDENT_EXIT_CODES[cause],
+          '20c: autopsy exited {}, the {} cause\'s code is {}: {}'.format(
+              autopsy_code, cause, INCIDENT_EXIT_CODES[cause], autopsy_out))
+    again, _ = phase_main_path('file://' + os.path.join(tmp, 'imagenet'), args,
+                               factory=armed_reader(tmp, '20c_again'))
+    store = os.path.join(tmp, 'lineage_history.bin')
+    records, _ = load_records(store)
+    compare_code, compare_out, compare_err = run_cli(['history', 'compare', store, '--json'])
+    check(len(records) == 2 and compare_code in COMPARE_EXIT_CODES.values(),
+          '20c: history compare exited {} over {} records: {} {}'.format(
+              compare_code, len(records), compare_out, compare_err))
+    verdict = json.loads(compare_out)['verdict']
+    return {'rows': rows, 'quarantined': quarantined, 'bundle': bundles[0]['bundle'],
+            'cause': cause, 'autopsy_exit': autopsy_code, 'rate_limited': report['rate_limited'],
+            'second_run_rows_per_s': again['rows_per_s'], 'compare_exit': compare_code,
+            'verdict': verdict, 'phase_s': time.perf_counter() - phase_start}
+
+
+def lineage_imagenet_line(imagenet, main_path, card):
+    return ('phase 20a ImageNet path through the storage engine over the fault-injecting '
+            'filesystem ({} ms a read, +{} ms every {}th, one failed open retried): rows/s='
+            '{:.2f} step_ms(median)={:.2f} input_stall_fraction={:.4f} first batch {:.3f} s | '
+            'phase 5: rows/s={:.2f} step_ms(median)={:.2f} input_stall_fraction={:.4f} first '
+            'batch {:.3f} s | K1 launches {} on {} batches, the first decoded batch equal to a '
+            'plain read\'s, storage {} (hedge floor {} s, max {} in flight), io_retries {}, '
+            'digest {}, incidents {}, perf_regression alarms {}, run record {:.2f} rows/s; '
+            '{:.1f} s [{}]'.format(
+                int(LINEAGE_READ_S * 1e3), int(LINEAGE_TAIL_S * 1e3), LINEAGE_TAIL_EVERY,
+                imagenet['rows_per_s'], imagenet['step_ms_median'],
+                imagenet['input_stall_fraction'], imagenet['first_batch_s'],
+                main_path['rows_per_s'], main_path['step_ms_median'],
+                main_path['input_stall_fraction'], main_path['first_batch_s'],
+                imagenet['k1_launches'], imagenet['steps'], imagenet['storage'],
+                StoragePolicy().hedge_min_s, StoragePolicy().max_in_flight,
+                imagenet['io_retries'], imagenet['order_digest'], imagenet['incidents'],
+                imagenet['perf_regression'], imagenet['history_rows_per_s'],
+                imagenet['phase_s'], card))
+
+
+def lineage_pools_line(pools, card):
+    return ('phase 20b phase 9\'s store ({} items, shuffle_rows=True): one order digest {} on '
+            'the thread pool, the process pool, the input service and a thread reader resumed '
+            'after {} items; lineage verify exit {}, lineage diff against another seed exit {}; '
+            '{:.1f} s [{}]'.format(pools['items'], pools['digest'], pools['resumed_after'],
+                                   pools['verify_exit'], pools['diff_exit'], pools['phase_s'],
+                                   card))
+
+
+def incidents_history_line(incidents, card):
+    return ('phase 20c a corrupted file under on_error=\'skip\': {} rowgroup(s) quarantined, '
+            '{} rows; one bundle {} (cause {}, autopsy exit {}), the next edge rate-limited '
+            '({}); history compare of 20a against a second run ({:.2f} rows/s): exit {}, '
+            'verdict {}; {:.1f} s [{}]'.format(
+                incidents['quarantined'], incidents['rows'], incidents['bundle'],
+                incidents['cause'], incidents['autopsy_exit'], incidents['rate_limited'],
+                incidents['second_run_rows_per_s'], incidents['compare_exit'],
+                incidents['verdict'], incidents['phase_s'], card))
+
+
+def phase_lineage_plane(tmp, args, record, card):
+    """Phase 20: faults, the storage engine and the lineage plane on the
+    card (20a-20c), each logged as it ends."""
+    phase_start = time.perf_counter()
+    result = {'imagenet': phase_lineage_imagenet(tmp, args)}
+    log(lineage_imagenet_line(result['imagenet'], record['main_path'], card))
+    result['pools'] = phase_lineage_pools(tmp, args)
+    log(lineage_pools_line(result['pools'], card))
+    result['incidents'] = phase_incidents_history(tmp, args)
+    log(incidents_history_line(result['incidents'], card))
+    result['phase_s'] = time.perf_counter() - phase_start
+    log('phase 20 took {:.1f} s'.format(result['phase_s']))
+    return result
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -4507,6 +4840,7 @@ def main(argv=None):
         record['telemetry'] = phase_telemetry(tmp, args, record, card)
         record['tools'] = phase_tools(tmp, args, record, card)
         record['service'] = phase_service(tmp, args, record, card)
+        record['lineage_plane'] = phase_lineage_plane(tmp, args, record, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4522,6 +4856,7 @@ def main(argv=None):
         'schedule_launches': record['tools']['schedule']['k1_launches'],
         'service_launches': record['service']['imagenet']['k1_launches'],
         'service_wire_launches': record['service']['imagenet_wire']['k1_launches'],
+        'lineage_plane_launches': record['lineage_plane']['imagenet']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
                            for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
                                         'large')),

@@ -1,6 +1,5 @@
 """The closed-loop controller: telemetry in, knob turns out. A copy of
-``petastorm_tpu.autotune.controller`` (without the run-history warm start,
-which waits with that plane).
+``petastorm_tpu.autotune.controller``.
 
 Control loop (one :meth:`AutotuneController.step` per policy window):
 
@@ -236,6 +235,40 @@ class AutotuneController(object):
                     logging.getLogger(__name__).debug(
                         'autotune: restoring knob %s failed', knob.knob_id,
                         exc_info=True)
+
+    def warm_start(self, knob_values: Dict[str, float]) -> Dict[str, Any]:
+        """Seed the catalog's knobs from a prior run's recorded values (the
+        knob dict of a run record, ``AutotunePolicy(warm_start=True)``). Each
+        known knob is clamped into its bounds and applied; unknown ids are
+        skipped. Every seed lands in the decision log as a ``warm_start``
+        action. Returns ``{knob_id: {'from', 'to'}}`` for the knobs that
+        moved."""
+        applied: Dict[str, Any] = {}
+        with self._lock:
+            for knob_id in sorted(knob_values):
+                if knob_id not in self.catalog:
+                    continue
+                knob = self.catalog.knob(knob_id)
+                try:
+                    old = float(knob.get())
+                    target = knob.clamp(float(knob_values[knob_id]))
+                    if target == old:
+                        continue
+                    new = float(knob.apply(target))
+                except Exception:  # noqa: BLE001 - a dead knob target must not stop the others' seeding
+                    logging.getLogger(__name__).debug(
+                        'warm start: knob %s failed to apply', knob_id, exc_info=True)
+                    continue
+                if new == old:
+                    continue   # pinned knob: apply() refused the turn
+                applied[knob_id] = {'from': old, 'to': new}
+                self._record('warm_start', knob_id=knob_id, from_value=old,
+                             to_value=new, reason='seeded from run history')
+            to_emit = self._pending_emits
+            self._pending_emits = []
+        for recorded in to_emit:
+            self._emit(recorded)
+        return applied
 
     # ------------------------------------------------------------- the loop
 

@@ -13,11 +13,13 @@ package's fourteen ids: a snapshot's knob names mean the same in both).
 
 Builders (``build_reader_knobs`` / ``build_loader_knobs`` /
 ``build_service_knobs``) introspect live objects by duck-typing the ``set_*``
-mutators, so an object without the mutator simply contributes no knob. The
-cache's knobs (``cache_bypass``, ``cache_writable_hits``) and the storage
-engine's wait with those planes: the port's objects have none of their
-actuators, so none is built. The cost scheduler's ``schedule_interleave`` is built for a
-shuffling reader armed with ``cost_schedule``.
+mutators, so an object without the mutator simply contributes no knob. A
+reader whose work runs in this process (thread or dummy pool) gets the disk
+cache's ``cache_bypass`` and, on an Arrow-IPC cache without a transform or a
+pinned hit mode, ``cache_writable_hits``; one armed with ``storage_policy``
+gets the storage engine's ``storage_fetch_window``. The cost scheduler's
+``schedule_interleave`` is built for a shuffling reader armed with
+``cost_schedule``, unless lineage is armed (the manifest froze the plan).
 """
 
 from __future__ import annotations
@@ -170,6 +172,10 @@ class KnobCatalog:
 _PRISTINE_DECODE_THREADS_ENV: Optional[str] = os.environ.get(
     'PETASTORM_TPU_DECODE_THREADS')
 
+#: the same pristine capture for the storage engine's fetch window
+_PRISTINE_FETCH_WINDOW_ENV: Optional[str] = os.environ.get(
+    'PETASTORM_TPU_STORAGE_FETCH_WINDOW')
+
 
 def _set_decode_threads(value: float) -> float:
     """Apply the decode-threads knob through its env contract
@@ -245,6 +251,36 @@ def build_reader_knobs(reader: Any) -> List[Knob]:
             get=lambda: float(decode_thread_count()),
             apply=_apply_decode_threads,
             restore=_restore_decode_threads))
+    storage_policy = getattr(reader, '_storage_policy', None)
+    if storage_policy is not None and in_process_work:
+        # the fetcher re-reads its env window every fetch, so a turn acts on
+        # the next planned rowgroup
+        from petastorm_tpu_torch.storage.fetcher import FETCH_WINDOW_ENV, fetch_window
+        storage_touched: List[bool] = []
+
+        def _apply_fetch_window(value: float) -> float:
+            storage_touched.append(True)
+            window = min(max(int(value), 1), 128)
+            os.environ[FETCH_WINDOW_ENV] = str(window)
+            return float(window)
+
+        def _restore_fetch_window() -> None:
+            if not storage_touched:
+                return
+            if _PRISTINE_FETCH_WINDOW_ENV is None:
+                os.environ.pop(FETCH_WINDOW_ENV, None)
+            else:
+                os.environ[FETCH_WINDOW_ENV] = _PRISTINE_FETCH_WINDOW_ENV
+
+        knobs.append(Knob(
+            'storage_fetch_window',
+            'parallel range-GET window of the storage ingest engine '
+            '(PETASTORM_TPU_STORAGE_FETCH_WINDOW)',
+            minimum=1.0, maximum=128.0, step=2.0, cost='moderate',
+            stages=('range_fetch',), unit='requests',
+            get=lambda: float(fetch_window(storage_policy)),
+            apply=_apply_fetch_window,
+            restore=_restore_fetch_window))
     if pool is not None and hasattr(pool, 'set_shm_slot_config'):
         knobs.append(Knob(
             'shm_slots_per_worker',
@@ -263,12 +299,25 @@ def build_reader_knobs(reader: Any) -> List[Knob]:
             get=lambda: float(pool._shm_slot_bytes),
             apply=lambda v: float(
                 pool.set_shm_slot_config(slot_bytes=int(v))[1])))
+    cache = getattr(reader, '_cache', None) if in_process_work else None
+    if cache is not None and hasattr(cache, 'set_bypass'):
+        # cache_store is not among its stages: the first epoch's stores are
+        # an investment, and a bypass chosen on them would never be undone
+        knobs.append(Knob(
+            'cache_bypass',
+            'serve direct fills instead of cache hits (0=serve, 1=bypass)',
+            minimum=0.0, maximum=1.0, step=1.0, cost='cheap',
+            stages=('cache_hit',), unit='flag',
+            get=lambda: float(bool(cache.bypass)),
+            apply=lambda v: float(cache.set_bypass(v >= 0.5))))
     scheduler = getattr(reader, '_cost_scheduler', None)
     if (scheduler is not None and hasattr(scheduler, 'set_interleave')
-            and getattr(scheduler, 'live_reorder', False)):
+            and getattr(scheduler, 'live_reorder', False)
+            and getattr(reader, '_lineage', None) is None):
         # the cost-aware interleave is a live toggle read at the next epoch's
         # reorder (splits are frozen at construction); only a reader that
-        # reorders every epoch reads it again, so only such a reader gets it
+        # reorders every epoch reads it again, so only such a reader gets it.
+        # Lineage pins it: the manifest header froze this run's plan
         knobs.append(Knob(
             'schedule_interleave',
             'cost-balanced heavy/light ventilation interleave '
@@ -277,6 +326,18 @@ def build_reader_knobs(reader: Any) -> List[Knob]:
             stages=('pool_wait', 'shuffle_wait'), unit='flag',
             get=lambda: float(bool(scheduler.interleave)),
             apply=lambda v: float(scheduler.set_interleave(v >= 0.5))))
+    if (cache is not None and hasattr(cache, 'set_writable_hits')
+            and getattr(reader, '_transform_spec', None) is None
+            and not getattr(cache, 'writable_hits_pinned', False)):
+        # a transform may mutate hit columns in place, and a pinned
+        # writable_hits is the consumer's requirement: neither is a knob
+        knobs.append(Knob(
+            'cache_writable_hits',
+            'decode cache hits writable (1) vs zero-copy read-only views (0)',
+            minimum=0.0, maximum=1.0, step=1.0, cost='cheap',
+            stages=('cache_hit',), unit='flag',
+            get=lambda: float(bool(cache.writable_hits)),
+            apply=lambda v: float(cache.set_writable_hits(v >= 0.5))))
     return knobs
 
 

@@ -1,6 +1,5 @@
 """Autotune policy: the constants of the closed control loop. A copy of
-``petastorm_tpu.autotune.policy`` without ``warm_start`` (it seeds knobs from
-the run-history store, which waits with the history plane).
+``petastorm_tpu.autotune.policy``.
 
 One frozen dataclass holds every pacing/hysteresis parameter the
 :class:`~petastorm_tpu_torch.autotune.controller.AutotuneController` consults, so a
@@ -45,6 +44,11 @@ class AutotunePolicy:
     :param knob_ids: explicit allowlist of knob ids the controller may turn;
         ``None`` = every live knob in the catalog. An empty tuple yields a
         measure-only controller (samples and reports, never actuates).
+    :param warm_start: seed the knobs from the newest same-dataset,
+        same-platform run record of the run-history store before the first
+        window (:mod:`~petastorm_tpu_torch.telemetry.history`). Needs
+        ``history`` armed on the owner; off, with a debug line, when the
+        store holds no comparable record.
     """
 
     window_s: float = 2.0
@@ -55,6 +59,7 @@ class AutotunePolicy:
     freeze_cooldown_windows: int = 2
     max_decisions: int = 64
     knob_ids: Optional[Tuple[str, ...]] = None
+    warm_start: bool = False
 
     def __post_init__(self) -> None:
         if self.window_s <= 0:

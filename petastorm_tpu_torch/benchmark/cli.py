@@ -18,11 +18,17 @@ Subcommands (a first positional argument):
   health report);
 - ``serve``: :func:`~petastorm_tpu_torch.service.fleet.serve` (an
   input-service fleet, dispatcher and decode workers, on this host until
-  interrupted).
+  interrupted);
+- ``lineage``: :mod:`~petastorm_tpu_torch.telemetry.lineage` (``record`` a
+  lineage-armed epoch, ``verify`` a manifest by dry replay, ``diff`` two
+  manifests to their first divergent step, an exit code per attribution);
+- ``autopsy``: :mod:`~petastorm_tpu_torch.telemetry.incident` (rank the
+  probable causes of one incident bundle);
+- ``history``: :mod:`~petastorm_tpu_torch.telemetry.history` (``list``,
+  ``show`` and ``compare`` the run records of a history store).
 
-The JAX package's ``lineage``, ``autopsy``, ``history``, ``chaos`` and
-``pipecheck`` wait for modules the port does not have yet: each exits 2
-with a line naming the module. Anything else is the dataset throughput
+The JAX package's ``chaos`` and ``pipecheck`` wait for modules the port
+does not have yet: each exits 2 with a line naming the module. Anything else is the dataset throughput
 measurement, with ``--read-method torch`` (a ``TorchDataLoader`` onto
 ``--device``, the card by default) in place of the JAX package's ``jax``.
 """
@@ -42,13 +48,13 @@ SUBCOMMANDS = {
     'trace': ('petastorm_tpu_torch.telemetry.trace_export', 'main'),
     'doctor': ('petastorm_tpu_torch.tools.doctor', 'main'),
     'serve': ('petastorm_tpu_torch.service.fleet', 'serve'),
+    'lineage': ('petastorm_tpu_torch.telemetry.lineage', 'main'),
+    'autopsy': ('petastorm_tpu_torch.telemetry.incident', 'main'),
+    'history': ('petastorm_tpu_torch.telemetry.history', 'main'),
 }
 
 #: the JAX package's subcommands whose modules the port lacks -> that module
 NOT_PORTED = {
-    'lineage': 'petastorm_tpu.telemetry.lineage',
-    'autopsy': 'petastorm_tpu.telemetry.incident',
-    'history': 'petastorm_tpu.telemetry.history',
     'chaos': 'petastorm_tpu.test_util.chaos',
     'pipecheck': 'petastorm_tpu.analysis',
 }

@@ -16,18 +16,22 @@ of the cap. Two value formats:
 
 An unreadable entry (truncated, corrupt) is deleted and served as a miss.
 Both keep a ``stats`` dict: ``hits``, ``misses``, ``arrow_hits``,
-``pickle_hits``, ``bytes_mmapped``, ``bytes_written`` and
-``corrupt_entries``.
+``pickle_hits``, ``bytes_mmapped``, ``bytes_written``, ``corrupt_entries``
+and ``bypass_reads``.
+
+A circuit breaker (``cache:<path>`` on the process's default
+:class:`~petastorm_tpu_torch.resilience.BreakerBoard`) counts unreadable
+entries and failed stores; once open, ``get`` bypasses the cache (direct
+fills, no read, no store, each a ``bypass_reads``) until its cooldown's
+half-open probe succeeds. The autotuner's knobs turn :meth:`set_bypass` (the
+same bypass, forced, leaving the breaker's state alone) and
+:meth:`ArrowIpcDiskCache.set_writable_hits`.
 
 Telemetry: writing a filled value is the ``cache_store`` stage, and deleting
 an unreadable entry one ``cache_corrupt`` observation (the worker times
 ``cache_hit``/``cache_miss`` around ``get``).
 
-Defined difference: the JAX package's cache also has a circuit breaker (an
-open breaker bypasses the cache) and autotuner knobs (``set_bypass``,
-``set_writable_hits``); the port has neither yet, and no ``bypass_reads``
-stat. Nothing of the
-reader removes a cache directory (the JAX caches' ``cleanup=True`` option,
+Nothing of the reader removes a cache directory (the JAX caches' ``cleanup=True`` option,
 which no reader calls either, is left out).
 """
 
@@ -54,6 +58,12 @@ _HEADER = struct.Struct('<8scQ')
 _FOOTER_MAGIC = b'PTUCRC01'
 _FOOTER = struct.Struct('<8sIQ')
 
+#: the cache breaker's defaults (the JAX package's): consecutive read or store
+#: failures before ``get`` bypasses the cache, and the cooldown before a
+#: half-open probe tries it again
+DEFAULT_CACHE_BREAKER_THRESHOLD = 5
+DEFAULT_CACHE_BREAKER_RECOVERY_S = 60.0
+
 
 class CacheBase(object):
     """Rowgroup-cache interface: ``get`` with a fill function."""
@@ -73,7 +83,8 @@ class NullCache(CacheBase):
 
 def _new_cache_stats():
     return {'hits': 0, 'misses': 0, 'arrow_hits': 0, 'pickle_hits': 0,
-            'bytes_mmapped': 0, 'bytes_written': 0, 'corrupt_entries': 0}
+            'bytes_mmapped': 0, 'bytes_written': 0, 'corrupt_entries': 0,
+            'bypass_reads': 0}
 
 
 class LocalDiskCache(CacheBase):
@@ -84,6 +95,8 @@ class LocalDiskCache(CacheBase):
     :param size_limit_bytes: total bytes before eviction starts.
     :param expected_row_size_bytes: sanity check: the limit must hold at least
         100 such rows.
+    :param breaker: the circuit breaker (default: ``cache:<path>`` on the
+        default board; each process re-registers its own).
     """
 
     #: this format's file suffix; eviction counts every known suffix, so two
@@ -91,7 +104,7 @@ class LocalDiskCache(CacheBase):
     _SUFFIX = '.pkl'
     _ALL_SUFFIXES = ('.pkl', '.arrow')
 
-    def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0):
+    def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0, breaker=None):
         if expected_row_size_bytes and size_limit_bytes < 100 * expected_row_size_bytes:
             raise ValueError('Cache size_limit_bytes={} is too small for rows of ~{} bytes'
                              .format(size_limit_bytes, expected_row_size_bytes))
@@ -104,16 +117,43 @@ class LocalDiskCache(CacheBase):
         # running byte total: one scan at the first store, then bumped per
         # store; the full rescan runs only when it crosses the limit
         self._approx_bytes = None
+        self._breaker = breaker if breaker is not None else self._default_breaker()
+        # the bypass knob: get() fills directly as under an open breaker,
+        # without touching the breaker's failure state
+        self._forced_bypass = False
+
+    def _default_breaker(self):
+        from petastorm_tpu_torch.resilience import default_board
+        return default_board().breaker(
+            'cache:{}'.format(self._path),
+            failure_threshold=DEFAULT_CACHE_BREAKER_THRESHOLD,
+            recovery_timeout_s=DEFAULT_CACHE_BREAKER_RECOVERY_S)
 
     def __getstate__(self):
-        # shipped to process-pool workers: each process keeps its own lock
+        # shipped to process-pool workers: each process keeps its own lock and
+        # breaker (states reach the reader on the batches' breaker sidecar)
         state = self.__dict__.copy()
         del state['_lock']
+        del state['_breaker']
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._lock = threading.Lock()
+        self._breaker = self._default_breaker()
+
+    @property
+    def bypass(self):
+        """True while the bypass knob routes ``get`` to direct fills."""
+        return self._forced_bypass
+
+    def set_bypass(self, flag):
+        """The bypass knob: True makes ``get`` fill directly (no read, no
+        store, each a ``bypass_reads``) without touching the breaker; False
+        serves hits and misses again. Live for in-process pools; process-pool
+        workers keep the flag they were spawned with. Returns the flag."""
+        self._forced_bypass = bool(flag)
+        return self._forced_bypass
 
     @property
     def state_home(self):
@@ -136,12 +176,19 @@ class LocalDiskCache(CacheBase):
         return value
 
     def get(self, key, fill_cache_func):
+        if self._forced_bypass or not self._breaker.allow():
+            # an open breaker (or the knob): the disk keeps failing, so the
+            # cache is routed around until the cooldown's probe passes
+            with self._lock:
+                self.stats['bypass_reads'] += 1
+            return fill_cache_func()
         file_path = self._key_path(key)
         try:
             value = self._decode_file(file_path)
             os.utime(file_path, None)   # touched: most recently used
             with self._lock:
                 self.stats['hits'] += 1
+            self._breaker.record_success()
             return value
         except FileNotFoundError:
             pass
@@ -162,14 +209,21 @@ class LocalDiskCache(CacheBase):
                 pass   # a concurrent reader may have removed it already
             with self._lock:
                 self.stats['corrupt_entries'] += 1
+            self._breaker.record_failure()
             record_stage('cache_corrupt', time.perf_counter() - delete_start)
         with self._lock:
             self.stats['misses'] += 1
         value = fill_cache_func()
         try:
             self._store(file_path, value)
+            # a store is neutral while closed (it must not reset a streak of
+            # corrupt reads); it is the recovery probe's success when half-open
+            if self._breaker.state == 'half_open':
+                self._breaker.record_success()
         except OSError:
-            # the value is in hand: a failed store must not fail the read
+            # the value is in hand: a failed store must not fail the read, but
+            # it feeds the breaker (a disk that cannot store will not serve)
+            self._breaker.record_failure()
             logger.warning('failed to store cache entry %s; serving the value uncached',
                            file_path, exc_info=True)
         return value
@@ -250,9 +304,25 @@ class ArrowIpcDiskCache(LocalDiskCache):
 
     _SUFFIX = '.arrow'
 
-    def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0, writable_hits=False):
-        super().__init__(path, size_limit_bytes, expected_row_size_bytes)
-        self.writable_hits = writable_hits
+    def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0, writable_hits=False,
+                 breaker=None):
+        super().__init__(path, size_limit_bytes, expected_row_size_bytes, breaker=breaker)
+        self._writable_hits = writable_hits
+        #: set by make_reader when ``cache_extra_settings`` names
+        #: ``writable_hits``: the consumer's requirement, not an autotuner knob
+        self.writable_hits_pinned = False
+
+    @property
+    def writable_hits(self):
+        """True when hits decode writable copies instead of read-only views."""
+        return self._writable_hits
+
+    def set_writable_hits(self, flag):
+        """The hit-mode knob: False serves hits as read-only views of the map,
+        True copies each column out writable. Live for in-process pools.
+        Returns the flag."""
+        self._writable_hits = bool(flag)
+        return self._writable_hits
 
     def _encode_value(self, value):
         from petastorm_tpu_torch.workers.serializers import columns_num_rows, encode_columnar
@@ -303,7 +373,7 @@ class ArrowIpcDiskCache(LocalDiskCache):
                 self.stats['pickle_hits'] += 1
             return value
         columns = decode_columnar(body.slice(0, ipc_len), body.slice(ipc_len),
-                                  writable=self.writable_hits)
+                                  writable=self._writable_hits)
         with self._lock:
             self.stats['arrow_hits'] += 1
             self.stats['bytes_mmapped'] += total

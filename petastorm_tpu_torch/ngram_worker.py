@@ -19,13 +19,14 @@ class NGramWindows(object):
     window is published too, to carry it). As in the JAX package, NGram
     pieces count no cache hits or misses. ``retries``, ``quarantine`` and
     ``breakers`` are :class:`~petastorm_tpu_torch.reader_worker.ColumnarBatch`'s
-    resilience fields, ``telemetry`` and ``trace`` its telemetry sidecars."""
+    resilience fields, ``telemetry``, ``trace`` and ``lineage`` its
+    sidecars."""
 
     __slots__ = ('columns', 'starts', 'item_id', 'retries', 'quarantine', 'breakers',
-                 'telemetry', 'trace')
+                 'telemetry', 'trace', 'lineage')
 
     def __init__(self, columns, starts, item_id=None, retries=0, quarantine=None,
-                 breakers=None, telemetry=None, trace=None):
+                 breakers=None, telemetry=None, trace=None, lineage=None):
         self.columns = columns
         self.starts = starts
         self.item_id = item_id
@@ -34,6 +35,7 @@ class NGramWindows(object):
         self.breakers = breakers
         self.telemetry = telemetry
         self.trace = trace
+        self.lineage = lineage
 
     def __len__(self):
         return len(self.starts)

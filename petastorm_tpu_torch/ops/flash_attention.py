@@ -34,8 +34,9 @@ Each kernel wrapper (:func:`flash_forward`, :func:`flash_bwd_dq`,
 :func:`flash_bwd_dkv`) checks its inputs, launches on the current CUDA stream
 for CUDA tensors and counts the launch in ``flash_attention.launches``
 (``{'fwd': n, 'dq': n, 'dkv': n}``). A call inside a CUDA graph capture only
-records the launch and is not counted, and a replay runs the kernels without
-calling the wrappers: a graph's launches show in a profiler trace. For CPU tensors it runs the plain
+records the launch, one kernel node of the graph, and is counted in
+``flash_attention.captured`` instead; a replay runs the graph's nodes without
+calling the wrappers. For CPU tensors it runs the plain
 PyTorch version beside it (:func:`flash_forward_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`), which the CPU tests
 and ``chip_smoke.py``'s comparisons also call directly.
@@ -329,8 +330,10 @@ def _run(symbol, counter, tensors, ints):
         status = kernel(*pointers, *ints, stream)
     if status != 0:
         raise RuntimeError('{} kernel launch failed: cudaError {}'.format(symbol, status))
-    if not torch.cuda.is_current_stream_capturing():
-        flash_attention.launches[counter] += 1   # a captured call only records the launch
+    if torch.cuda.is_current_stream_capturing():
+        flash_attention.captured[counter] += 1   # one kernel node of the captured graph
+    else:
+        flash_attention.launches[counter] += 1
 
 
 def _key_ids(segments, key_segments):
@@ -459,6 +462,9 @@ def flash_attention(q, k, v, causal=False, block_q='auto', block_k='auto'):
 #: launches of K2 ('fwd'), K3 ('dq') and K4 ('dkv') since the counts were
 #: last set to 0
 flash_attention.launches = {'fwd': 0, 'dq': 0, 'dkv': 0}
+#: kernel nodes of K2-K4 recorded into CUDA graph captures since the counts
+#: were last set to 0 (each captured call records one node; replays run them)
+flash_attention.captured = {'fwd': 0, 'dq': 0, 'dkv': 0}
 
 
 def flash_attention_segmented(q, k, v, segments, causal=False, block_q='auto',

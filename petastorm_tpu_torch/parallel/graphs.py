@@ -37,8 +37,11 @@ Capture, as PyTorch's whole-network recipe does it:
 
 The port's kernel wrappers count only the launches they make outside a
 capture: a captured call records its launch, and a replay runs the graph's
-kernels without calling any wrapper. What a replay runs shows in a profiler
-trace (``chip_smoke.py`` phase 7b counts it there).
+kernels without calling any wrapper. What a replay runs is the graph's
+kernel nodes, all of them every replay: :meth:`StepProgram.kernel_nodes`
+reads them off the captured graph through the CUDA driver
+(``cuGraphGetNodes``), by kernel function name, where this torch keeps the
+graph after capture (``CUDAGraph(keep_graph=True)``).
 """
 
 import time
@@ -186,7 +189,11 @@ class StepProgram(object):
         torch.cuda.set_rng_state(rng, self.device)
         torch.cuda.synchronize(self.device)
 
-        graph = torch.cuda.CUDAGraph()
+        try:
+            # kept after instantiation, so kernel_nodes() can read it
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+        except TypeError:   # a torch without keep_graph
+            graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.current_stream(self.device)
         first_error = []
         try:
@@ -213,6 +220,71 @@ class StepProgram(object):
         self._graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - start
+
+    def kernel_nodes(self):
+        """``{kernel function name: kernel nodes}`` of the captured graph, read
+        off the graph through the CUDA driver: what every replay launches.
+        None before the capture, or when this torch or driver cannot hand
+        out the graph or name its kernels."""
+        if self._graph is None:
+            return None
+        try:
+            raw_graph = self._graph.raw_cuda_graph()
+        except (AttributeError, RuntimeError):
+            return None
+        return graph_kernel_nodes(raw_graph)
+
+
+#: ``CU_GRAPH_NODE_TYPE_KERNEL`` of the driver API
+_KERNEL_NODE = 0
+#: byte offset of ``kern`` in ``CUDA_KERNEL_NODE_PARAMS_v2`` (func, 6 dims,
+#: shared memory bytes, padding, kernelParams, extra)
+_KERN_OFFSET = 56
+
+
+def graph_kernel_nodes(raw_graph):
+    """``{kernel function name: count}`` of the kernel nodes of the
+    ``cudaGraph_t`` at ``raw_graph`` (an int), through ``libcuda``'s
+    ``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams`` and
+    ``cuFuncGetName``/``cuKernelGetName``; None when the driver lacks them."""
+    import ctypes
+    try:
+        libcuda = ctypes.CDLL('libcuda.so.1')
+        func_name, kernel_name = libcuda.cuFuncGetName, libcuda.cuKernelGetName
+    except (OSError, AttributeError):
+        return None
+    # the v2 layout carries ``kern`` (a library kernel's node has no func)
+    node_params = (getattr(libcuda, 'cuGraphKernelNodeGetParams_v2', None)
+                   or libcuda.cuGraphKernelNodeGetParams)
+
+    def call(fn, *args):
+        status = fn(*args)
+        if status != 0:
+            raise RuntimeError('{} failed: CUresult {}'.format(fn.__name__, status))
+
+    graph = ctypes.c_void_p(raw_graph)
+    count = ctypes.c_size_t(0)
+    call(libcuda.cuGraphGetNodes, graph, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    call(libcuda.cuGraphGetNodes, graph, nodes, ctypes.byref(count))
+    params = ctypes.create_string_buffer(128)
+    names = {}
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        call(libcuda.cuGraphNodeGetType, ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != _KERNEL_NODE:
+            continue
+        call(node_params, ctypes.c_void_p(node), params)
+        func = ctypes.c_void_p.from_buffer(params, 0).value
+        name = ctypes.c_char_p()
+        if func:
+            call(func_name, ctypes.byref(name), ctypes.c_void_p(func))
+        elif ctypes.c_void_p.from_buffer(params, _KERN_OFFSET).value:
+            kern = ctypes.c_void_p.from_buffer(params, _KERN_OFFSET).value
+            call(kernel_name, ctypes.byref(name), ctypes.c_void_p(kern))
+        key = (name.value or b'').decode('utf-8', 'replace')
+        names[key] = names.get(key, 0) + 1
+    return names
 
 
 class ProgramCache(object):

@@ -60,8 +60,13 @@ the consumer loop, and over a reader built with ``autotune=`` the loader adds
 its knobs (prefetch, decode-tail depth, shuffle-buffer floor) to the
 reader's controller.
 
-Left for later slices, and absent from the signature: the incident and
-history hooks and lineage stamping.
+Over a lineage-armed reader the loader stamps each yielded batch's training
+step into the manifest (``LineageRecorder.stamp_step``). ``incidents=``
+captures an incident bundle on the loader's own SLO breach or a breaker trip
+(over a reader armed with ``incidents`` it reuses the reader's recorder), and
+``history=`` appends one ``owner: 'loader'`` run record at :meth:`stop`
+(into the reader's store unless a path is given) and arms a loader-side
+regression sentinel.
 """
 
 import collections
@@ -201,6 +206,17 @@ class TorchDataLoader(object):
     :param slo_policy: the input-efficiency SLO of :meth:`efficiency_report`
         (an :class:`~petastorm_tpu_torch.telemetry.slo.SloPolicy`, a float
         target, or None for 0.9).
+    :param incidents: True or an
+        :class:`~petastorm_tpu_torch.telemetry.incident.IncidentPolicy`: a
+        loader-level SLO breach or a breaker trip captures a bundle over the
+        merged loader and reader telemetry; a reader armed with ``incidents``
+        lends its recorder instead.
+    :param history: True, a store path or a
+        :class:`~petastorm_tpu_torch.telemetry.history.HistoryPolicy`: one
+        ``owner: 'loader'`` run record at :meth:`stop` and a regression
+        sentinel over the training loop's own series. Without a path the
+        record goes into the reader's store; True over an unarmed reader
+        warns and records nothing.
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0,
@@ -208,7 +224,7 @@ class TorchDataLoader(object):
                  drop_last=True, device=None, device_transforms=None,
                  device_buffer_depth=2, host_decode=False, mesh=None, partition_spec=None,
                  device_put=True, coalesce_fields=None, metrics_port=None,
-                 slo_policy=None):
+                 slo_policy=None, incidents=None, history=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1')
         self.reader = reader
@@ -255,6 +271,9 @@ class TorchDataLoader(object):
         self._epochs_delivered = 0
         self._delivered_by_epoch = {}
         self._scan_stream_used = False
+        # the training step each lineage manifest record lands under,
+        # cumulative across re-iterations like stats.batches
+        self._lineage_steps = 0
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == 'cuda' and device_put else None)
         self._scan_stream_programs = ProgramCache(
@@ -278,6 +297,8 @@ class TorchDataLoader(object):
             from petastorm_tpu_torch.autotune.knobs import build_loader_knobs
             for knob in build_loader_knobs(self):
                 controller.catalog.add(knob)
+        self._start_incidents(reader, incidents)
+        self._start_history(reader, history)
         # started last, so a scrape never sees a half-built loader
         if metrics_port is not None:
             from petastorm_tpu_torch.telemetry.http_exporter import MetricsHttpServer
@@ -286,6 +307,64 @@ class TorchDataLoader(object):
                 health_fn=lambda: {'batches': self.stats.batches, 'rows': self.stats.rows},
                 port=int(metrics_port))
             self._metrics_server.start()
+
+    def _start_incidents(self, reader, incidents):
+        """Reuse the reader's incident recorder (the loader's SLO edge joins
+        its triggers), or build a loader-owned one under ``incidents``."""
+        from petastorm_tpu_torch.telemetry.incident import resolve_incident_policy
+        self._incidents = getattr(reader, '_incidents', None)
+        self._owns_incidents = False
+        policy = resolve_incident_policy(incidents)
+        if policy is not None and self._incidents is None:
+            from petastorm_tpu_torch.resilience import default_board
+            from petastorm_tpu_torch.telemetry.incident import (IncidentRecorder,
+                                                                default_incident_home)
+            self._incidents = IncidentRecorder(default_incident_home(None), policy,
+                                               registry=self.telemetry)
+            self._owns_incidents = True
+            self._incidents.add_source('metrics', self.telemetry_snapshot)
+            self._incidents.add_source(
+                'slo', lambda: self._evaluate_slo(self.telemetry_snapshot()))
+            self._incidents.add_source(
+                'config', lambda: {'batch_size': self.batch_size,
+                                   'prefetch': self._prefetch,
+                                   'drop_last': self._drop_last,
+                                   'reader': type(reader).__name__})
+            default_board().observe_transitions(self._incidents.on_breaker_transition)
+        if self._incidents is not None:
+            self._slo.observe_breaches(self._on_slo_breach)
+
+    def _start_history(self, reader, history):
+        """The loader-layer historian (the reader's store unless a path is
+        given) and its regression sentinel."""
+        from petastorm_tpu_torch.telemetry.history import resolve_history_policy
+        self._history = None
+        self._history_policy = resolve_history_policy(history)
+        self._history_written = False
+        self._sentinel = None
+        if self._history_policy is None:
+            return
+        from petastorm_tpu_torch.telemetry.history import RunHistorian
+        from petastorm_tpu_torch.telemetry.sentinel import (RegressionSentinel,
+                                                            resolve_sentinel_policy)
+        history_path = (self._history_policy.path
+                        or getattr(getattr(reader, '_history', None), 'path', None))
+        if history_path is not None:
+            self._history = RunHistorian(history_path, self._history_policy,
+                                         registry=self.telemetry)
+        else:
+            warnings.warn('TorchDataLoader(history=...) has no store path: pass a path or '
+                          'HistoryPolicy(path=...), or arm the reader with '
+                          'make_reader(history=...); recording disabled for this run')
+        sentinel_policy = resolve_sentinel_policy(self._history_policy.sentinel)
+        if sentinel_policy is not None:
+            self._sentinel = RegressionSentinel(
+                sentinel_policy, owner='loader', registry=self.telemetry,
+                incidents=self._incidents,
+                dataset_token=getattr(reader, 'dataset_token', None))
+            if self._incidents is not None and getattr(reader, '_sentinel', None) is None:
+                # the bundle's 'sentinel' slot is the reader's when it has one
+                self._incidents.add_source('sentinel', self._sentinel.report)
 
     # --------------------------------------------------------------- iteration
 
@@ -337,6 +416,12 @@ class TorchDataLoader(object):
                     snapshot = self.telemetry_snapshot()
                     self._evaluate_slo(snapshot)
                     self._telemetry_jsonl.emit(snapshot, event='loader_interval')
+                elif self._sentinel is not None:
+                    # the sentinel's windows without a JSONL: one float
+                    # compare a batch between them
+                    from petastorm_tpu_torch.telemetry.slo import slo_clock
+                    if self._sentinel.due(slo_clock() - self._started_at):
+                        self._evaluate_slo(self.telemetry_snapshot())
                 last_emit = now
                 if done is not None:
                     consumer = torch.cuda.current_stream(self.device)
@@ -346,6 +431,11 @@ class TorchDataLoader(object):
                 if self._shardings is not None and self._device_put:
                     batch = self._shardings.distribute(batch)
                 self._mark_delivered(rows)
+                self._lineage_steps += 1
+                lineage = getattr(self.reader, '_lineage', None)
+                if lineage is not None:
+                    # manifest records written from here on carry this step
+                    lineage.stamp_step(self._lineage_steps)
                 yield batch
         finally:
             self._stop_event.set()
@@ -797,8 +887,12 @@ class TorchDataLoader(object):
 
     def _evaluate_slo(self, snapshot):
         from petastorm_tpu_torch.telemetry.slo import slo_clock
-        return self._slo.evaluate(snapshot, slo_clock() - self._started_at,
-                                  rows=self.stats.rows, registry=self.telemetry)
+        report = self._slo.evaluate(snapshot, slo_clock() - self._started_at,
+                                    rows=self.stats.rows, registry=self.telemetry)
+        if self._sentinel is not None:
+            self._sentinel.observe(report)
+            self._sentinel.export_gauges()
+        return report
 
     def efficiency_report(self):
         """One input-efficiency SLO evaluation over this loader's lifetime:
@@ -815,8 +909,68 @@ class TorchDataLoader(object):
         if report['efficiency'] is not None:
             gauges['slo_efficiency'] = report['efficiency']
         gauges['slo_target_efficiency'] = report['target_efficiency']
+        if self._sentinel is not None:
+            gauges.update(self._sentinel.gauges())
         snapshot['slo_history'] = report.get('history', [])
         return snapshot
+
+    def _on_slo_breach(self, report):
+        """The loader's SLO ok -> breach edge (the training loop starved):
+        one ``slo_breach`` incident."""
+        if self._incidents is not None:
+            self._incidents.trigger('slo_breach',
+                                    args={'efficiency': report.get('efficiency'),
+                                          'target': report.get('target_efficiency'),
+                                          'wait_seconds': report.get('wait_seconds'),
+                                          'layer': 'loader'})
+
+    def incident_report(self):
+        """The attached incident recorder's summary (the loader's or the
+        reader's); None when neither armed ``incidents``."""
+        if self._incidents is None:
+            return None
+        return self._incidents.report()
+
+    def _write_history_record(self):
+        """Append the ``owner: 'loader'`` run record (whole-pipeline rows/s
+        and shares), once; a run that delivered its batches never fails over
+        it."""
+        if self._history is None or self._history_written:
+            return
+        self._history_written = True
+        from petastorm_tpu_torch.telemetry.history import build_run_record, fingerprint
+        from petastorm_tpu_torch.telemetry.slo import efficiency_from_snapshot, slo_clock
+        try:
+            elapsed = slo_clock() - self._started_at
+            snapshot = self.telemetry_snapshot()
+            rows = self.stats.rows
+            build_reader_record = getattr(self.reader, 'build_history_record', None)
+            reader_record = build_reader_record() if build_reader_record is not None else None
+            fingerprints = dict((reader_record or {}).get('fingerprints', {}))
+            fingerprints['loader'] = fingerprint({
+                'batch_size': self.batch_size, 'prefetch': self._prefetch,
+                'drop_last': self._drop_last,
+                'shuffling_queue_capacity': self._shuffling_queue_capacity,
+                'device_stage': self._device_stage is not None})
+            self._history.append(build_run_record(
+                'loader', str(getattr(self.reader, 'dataset_token', 'unknown')),
+                elapsed, rows, snapshot=snapshot,
+                slo_report=efficiency_from_snapshot(snapshot, elapsed, rows=rows),
+                fingerprints=fingerprints,
+                knobs=dict((reader_record or {}).get('knobs', {})),
+                incidents=self.incident_report(),
+                quarantined=(reader_record or {}).get('quarantined', 0)))
+        except Exception:  # noqa: BLE001 - the run record is advisory
+            import logging
+            logging.getLogger(__name__).warning(
+                'could not record this run in the history store', exc_info=True)
+
+    def history_report(self):
+        """The loader-layer historian's store status; None without
+        ``history``."""
+        if self._history is None:
+            return None
+        return self._history.state()
 
     @property
     def metrics_url(self):
@@ -830,6 +984,11 @@ class TorchDataLoader(object):
     def stop(self):
         if self._metrics_server is not None:
             self._metrics_server.stop()
+        # the loader's record first: the reader's stop appends its own to the
+        # same store
+        self._write_history_record()
+        if self._owns_incidents and self._incidents is not None:
+            self._incidents.close()   # a reader-owned recorder is the reader's
         self._stop_event.set()
         self.reader.stop()
 

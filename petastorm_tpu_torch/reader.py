@@ -61,10 +61,22 @@ cost ledger (:mod:`~petastorm_tpu_torch.schedule`), and
 workers instead of a pool in this process, and the results, their sidecars
 and the device decode tail's raw columns arrive as the process pool's do.
 
-Left for later slices, and absent from the signatures: lineage, incidents,
-run history, topology negotiation,
-``shard_seed``, the cache's bypass breaker and non-local
-filesystems (``filesystem=`` takes a local or wrapped
+The JAX package's observability planes ride the reader with the same
+formats: ``storage_policy=`` reads through the object-store ingest engine
+(:mod:`~petastorm_tpu_torch.storage`; ``storage_*`` counters in
+:meth:`Reader.telemetry_snapshot`), ``lineage=`` folds the chained order
+digest and writes the batch manifest
+(:mod:`~petastorm_tpu_torch.telemetry.lineage`; :meth:`Reader.order_digest`,
+a ``lineage`` block in :meth:`Reader.state_dict`), ``incidents=`` captures
+one rate-limited evidence bundle a failure edge
+(:mod:`~petastorm_tpu_torch.telemetry.incident`) and ``history=`` appends one
+run record at :meth:`Reader.stop` and arms the regression sentinel
+(:mod:`~petastorm_tpu_torch.telemetry.history`,
+:mod:`~petastorm_tpu_torch.telemetry.sentinel`).
+
+Left for later slices, and absent from the signatures: topology negotiation
+and ``shard_seed`` (a state or manifest of a topology-armed JAX reader is
+refused), and non-local filesystems (``filesystem=`` takes a local or wrapped
 ``pyarrow.fs.FileSystem``).
 """
 
@@ -172,7 +184,11 @@ def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_est
     else:
         raise ValueError('Unknown cache_format {!r} (expected arrow-ipc/pickle)'
                          .format(cache_format))
-    return cache_cls(cache_location, cache_size_limit, cache_row_size_estimate or 0, **extra)
+    cache = cache_cls(cache_location, cache_size_limit, cache_row_size_estimate or 0, **extra)
+    if 'writable_hits' in (cache_extra_settings or {}):
+        # the caller said what its consumer needs: not an autotuner knob
+        cache.writable_hits_pinned = True
+    return cache
 
 
 def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
@@ -186,7 +202,8 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                 retry_policy=None, shm_transport=None, item_deadline_s=None,
                 heartbeat_interval_s=None, device_decode_fields=None, trace=None,
                 metrics_port=None, slo_policy=None, autotune=None, cost_schedule=None,
-                service_url=None):
+                service_url=None, storage_policy=None, lineage=None, incidents=None,
+                history=None):
     """Reader for stores written with a Unischema (by this package or by
     ``petastorm_tpu``): rows decoded through the codecs.
 
@@ -286,6 +303,26 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
         arguments are ignored with a warning. An unreachable dispatcher
         raises :class:`~petastorm_tpu_torch.errors.TransientIOError` here;
         nothing falls back to a pool in this process.
+    :param storage_policy: the object-store ingest engine: None engages it
+        only for non-local URL schemes, False never, True (the default
+        :class:`~petastorm_tpu_torch.storage.StoragePolicy`) or a policy
+        always. The workers then read planned, coalesced and hedged column
+        ranges with one footer cache a worker; ``diagnostics['storage']``.
+    :param lineage: True, a manifest path or a
+        :class:`~petastorm_tpu_torch.telemetry.lineage.LineagePolicy` folds
+        every delivered item into the chained order digest
+        (:meth:`Reader.order_digest`, equal on every pool for one seed) and
+        writes the batch manifest that ``lineage verify`` replays;
+        ``state_dict`` then carries a ``lineage`` block.
+    :param incidents: True or an
+        :class:`~petastorm_tpu_torch.telemetry.incident.IncidentPolicy`
+        captures one rate-limited evidence bundle a failure edge (breaker
+        open, watchdog reap, quarantine, shm CRC drop, SLO breach, lineage
+        divergence); :meth:`Reader.incident_report`.
+    :param history: True, a store path or a
+        :class:`~petastorm_tpu_torch.telemetry.history.HistoryPolicy` appends
+        one run record at :meth:`Reader.stop` and arms the regression
+        sentinel; :meth:`Reader.history_report`.
     """
     if trace is not None:
         set_trace_enabled(bool(trace))
@@ -322,7 +359,9 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                   device_decode_fields=device_decode_fields, on_error=on_error,
                   retry_policy=retry_policy, initial_io_retries=retries[0],
                   metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune,
-                  cost_schedule=cost_schedule)
+                  cost_schedule=cost_schedule, storage_policy=storage_policy,
+                  lineage=lineage, incidents=incidents, history=history,
+                  dataset_url=dataset_url_or_urls)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
@@ -337,7 +376,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       retry_policy=None, shm_transport=None, item_deadline_s=None,
                       heartbeat_interval_s=None, device_decode_fields=None, trace=None,
                       metrics_port=None, slo_policy=None, autotune=None,
-                      cost_schedule=None, service_url=None):
+                      cost_schedule=None, service_url=None, storage_policy=None,
+                      lineage=None, incidents=None, history=None):
     """Reader for any Parquet store: native columns (no codec decode; a
     ``list<int32>`` column arrives as a list of int32 arrays), one namedtuple
     of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s
@@ -355,7 +395,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     decode tail (as :func:`make_reader`'s do) and the other columns stay
     stored values; on a plain Parquet store it raises, since no codec says
     what the bytes are. ``service_url`` reads through an input-service fleet
-    as :func:`make_reader`'s does.
+    as :func:`make_reader`'s does; ``storage_policy``, ``lineage``,
+    ``incidents`` and ``history`` arm :func:`make_reader`'s planes.
     """
     if trace is not None:
         set_trace_enabled(bool(trace))
@@ -406,7 +447,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   device_decode_fields=device_decode_fields, on_error=on_error,
                   retry_policy=retry_policy, initial_io_retries=retries[0],
                   metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune,
-                  cost_schedule=cost_schedule)
+                  cost_schedule=cost_schedule, storage_policy=storage_policy,
+                  lineage=lineage, incidents=incidents, history=history,
+                  dataset_url=dataset_url_or_urls)
 
 
 class Reader(object):
@@ -419,7 +462,8 @@ class Reader(object):
                  shard_count=None, cache=None, transform_spec=None, resume_state=None,
                  is_batched_reader=False, device_decode_fields=None, on_error='raise',
                  retry_policy=None, initial_io_retries=0, metrics_port=None,
-                 slo_policy=None, autotune=None, cost_schedule=None):
+                 slo_policy=None, autotune=None, cost_schedule=None, storage_policy=None,
+                 lineage=None, incidents=None, history=None, dataset_url=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -457,6 +501,32 @@ class Reader(object):
         # efficiency windows run from construction on the span clock
         self._started_at = slo_clock()
         self._slo = SloTracker(resolve_slo_policy(slo_policy), jsonl=logger_from_env())
+        self._transform_spec = transform_spec
+        # the observability planes: policies resolved here, recorders built
+        # once the work plan is frozen (lineage), the pool runs (incidents)
+        # and the incident plane exists (history, whose sentinel files there)
+        from petastorm_tpu_torch.storage import resolve_storage_policy
+        from petastorm_tpu_torch.telemetry.history import resolve_history_policy
+        from petastorm_tpu_torch.telemetry.incident import resolve_incident_policy
+        from petastorm_tpu_torch.telemetry.lineage import resolve_lineage_policy
+        if dataset_url is None:
+            dataset_url = handle.path_or_paths
+        #: the store's URL (the first one of a list): the sidecars' home
+        self._state_url = str(dataset_url[0] if isinstance(dataset_url, (list, tuple))
+                              else dataset_url)
+        self._storage_policy = resolve_storage_policy(storage_policy, dataset_url)
+        self._lineage_policy = resolve_lineage_policy(lineage)
+        self._lineage = None
+        self._incident_policy = resolve_incident_policy(incidents)
+        self._incidents = None
+        self._history_policy = resolve_history_policy(history)
+        self._history = None
+        self._history_written = False
+        self._history_fingerprints = {}
+        self._sentinel = None
+        # the poll-based incident edges' last seen counts
+        self._incident_last_divergence = 0
+        self._incident_last_crc_failures = 0
         if ngram is not None:
             if is_batched_reader:
                 raise ValueError('NGram is not supported by make_batch_reader')
@@ -510,7 +580,11 @@ class Reader(object):
                             device_decode_fields=self.device_decode_fields, ngram=ngram,
                             cache=cache, dataset_path_or_paths=handle.path_or_paths,
                             predicate=worker_predicate, on_error=on_error,
-                            retry_policy=retry_policy)
+                            retry_policy=retry_policy,
+                            lineage_fingerprint_every=(
+                                self._lineage_policy.fingerprint_every
+                                if self._lineage_policy is not None else 0),
+                            storage_policy=self._storage_policy)
         self.result_schema = setup.result_schema
         #: the read's identity, the key of the disk cache and the cost ledger
         self.dataset_token = setup.dataset_token
@@ -620,6 +694,7 @@ class Reader(object):
         self._epochs_consumed = 0
         self._consumed_by_epoch = {}   # absolute epoch -> {(piece, drop)}
         self._resume_fast_forward = {}
+        self._resume_lineage = None
         iterations = num_epochs
         skip_by_iteration = None
         if resume_state is not None:
@@ -632,8 +707,13 @@ class Reader(object):
                     raise ValueError('resume_state shows all {} epochs already consumed'
                                      .format(num_epochs))
 
+        if self._lineage_policy is not None:
+            self._start_lineage(cache, items, row_groups, construction_quarantine, seed,
+                                shuffle_row_groups, num_epochs, cur_shard, shard_count,
+                                shuffle_row_drop_partitions, resume_state, skip_by_iteration)
+
         self._ventilator = ConcurrentVentilator(
-            ventilate_fn=_traced_ventilate(reader_pool.ventilate),
+            ventilate_fn=_traced_ventilate(reader_pool.ventilate, self._lineage),
             items_to_ventilate=items,
             iterations=iterations,
             max_ventilation_queue_size=reader_pool.workers_count
@@ -672,6 +752,13 @@ class Reader(object):
             from petastorm_tpu_torch.autotune.controller import setup_reader_autotune
             self._autotune = setup_reader_autotune(self, autotune_policy)
             self._autotune.start()
+        if self._incident_policy is not None:
+            self._start_incidents(cache, seed, num_epochs, shuffle_row_groups, cur_shard,
+                                  shard_count, on_error, reader_pool)
+        if self._history_policy is not None:
+            self._start_history(cache, seed, num_epochs, shuffle_row_groups, shuffle_rows,
+                                cur_shard, shard_count, on_error, reader_pool,
+                                is_batched_reader, transform_spec, autotune_policy)
         # started last, so a scrape never sees a half-built reader
         if metrics_port is not None:
             from petastorm_tpu_torch.telemetry.http_exporter import MetricsHttpServer
@@ -679,6 +766,142 @@ class Reader(object):
                 snapshot_fn=self._scrape_snapshot, health_fn=self._scrape_health,
                 port=int(metrics_port))
             self._metrics_server.start()
+
+    # ------------------------------------------------------ observability planes
+
+    def _start_lineage(self, cache, items, row_groups, construction_quarantine, seed,
+                       shuffle_row_groups, num_epochs, cur_shard, shard_count,
+                       drop_partitions, resume_state, skip_by_iteration):
+        """Build the lineage recorder and write its manifest header: the run's
+        exact reproduction record (the JAX package's keys), which ``lineage
+        verify`` replays without reading data."""
+        from petastorm_tpu_torch.dataset_state import cache_state_home
+        from petastorm_tpu_torch.telemetry.lineage import (LineageRecorder,
+                                                           build_manifest_logger,
+                                                           canonical_identity)
+        manifest_jsonl, manifest_path = build_manifest_logger(
+            self._lineage_policy, self._state_url, self.dataset_token,
+            cache_state_home(cache))
+        self._lineage = LineageRecorder(
+            self.dataset_token, self._lineage_policy, jsonl=manifest_jsonl,
+            manifest_path=manifest_path, registry=self._telemetry,
+            resume_state=self._resume_lineage)
+        header = {
+            'dataset_url': self._state_url,
+            'seed': seed,
+            'shuffle_row_groups': bool(shuffle_row_groups),
+            'num_epochs': num_epochs,
+            'pre_shuffles': self._epochs_consumed,
+            'resumed': resume_state is not None,
+            'cur_shard': cur_shard, 'shard_count': shard_count,
+            'shard_seed': None,
+            'drop_partitions': drop_partitions,
+            'items_per_epoch': len(items),
+            # what each epoch's reorder permutes, in construction order:
+            # [piece, fragment, rowgroup, row_range, drop], coerced as the
+            # deliveries fold, so replay and recording agree on types
+            'items': [[int(item['piece_index'])] + canonical_identity(
+                0, item['fragment_path'], item['row_group_id'], item.get('row_range'),
+                item['shuffle_row_drop_partition'][0])[1:] for item in items],
+            # this shard's rowgroups, for the footer-only cross-check
+            'shard_rowgroups': [
+                [str(rg.fragment_path),
+                 int(rg.row_group_id) if rg.row_group_id is not None else None,
+                 int(rg.row_group_num_rows)] for rg in row_groups],
+            'quarantined_fragments': sorted(record.fragment_path
+                                            for record in construction_quarantine),
+            'schedule': (self._cost_scheduler.plan_fingerprint()
+                         if self._cost_scheduler is not None else None),
+        }
+        if skip_by_iteration:
+            header['skip_by_iteration'] = {
+                str(k): sorted(list(item) for item in v)
+                for k, v in skip_by_iteration.items()}
+        self._lineage.write_header(header)
+
+    def _start_incidents(self, cache, seed, num_epochs, shuffle_row_groups, cur_shard,
+                         shard_count, on_error, reader_pool):
+        """Build the incident recorder: its evidence sources, and the edges it
+        subscribes to (every breaker of this process's board, the SLO
+        tracker's breach edge; the others are polled per batch)."""
+        from petastorm_tpu_torch.dataset_state import cache_state_home
+        from petastorm_tpu_torch.resilience import default_board
+        from petastorm_tpu_torch.telemetry.incident import (IncidentRecorder,
+                                                            default_incident_home)
+        self._incidents = IncidentRecorder(
+            default_incident_home(cache_state_home(cache)),
+            self._incident_policy, registry=self._telemetry)
+        self._incidents.add_source('metrics', self.telemetry_snapshot)
+        self._incidents.add_source(
+            'slo', lambda: self._evaluate_slo(self.telemetry_snapshot()))
+        self._incidents.add_source('breakers', self._breaker_evidence)
+        self._incidents.add_source('quarantine', self.quarantine.as_dicts)
+        if self._cost_scheduler is not None:
+            self._incidents.add_source('costs', self._cost_scheduler.report)
+        if self._lineage is not None:
+            self._incidents.add_source('lineage', self._lineage.report)
+        if self._autotune is not None:
+            self._incidents.add_source('autotune', self._autotune.report)
+        provenance = {
+            'dataset_url': self._state_url,
+            'dataset_token': self.dataset_token,
+            'seed': seed, 'num_epochs': num_epochs,
+            'shuffle_row_groups': bool(shuffle_row_groups),
+            'cur_shard': cur_shard, 'shard_count': shard_count,
+            'topology': None,
+            'on_error': on_error,
+            'pool': type(reader_pool).__name__,
+            'items_per_epoch': self._items_per_epoch,
+        }
+        self._incidents.add_source('config', lambda: provenance)
+        default_board().observe_transitions(self._incidents.on_breaker_transition)
+        self._slo.observe_breaches(self._on_slo_breach)
+
+    def _start_history(self, cache, seed, num_epochs, shuffle_row_groups, shuffle_rows,
+                       cur_shard, shard_count, on_error, reader_pool, is_batched_reader,
+                       transform_spec, autotune_policy):
+        """Build the run historian (one record appended at :meth:`stop`) and
+        the regression sentinel, and seed the autotuner from the last good
+        record under ``AutotunePolicy(warm_start=True)``."""
+        from petastorm_tpu_torch.dataset_state import cache_state_home
+        from petastorm_tpu_torch.telemetry.history import (RunHistorian,
+                                                           default_history_path,
+                                                           fingerprint)
+        from petastorm_tpu_torch.telemetry.sentinel import (RegressionSentinel,
+                                                            resolve_sentinel_policy)
+        history_path = (self._history_policy.path
+                        or default_history_path(self._state_url, cache_state_home(cache)))
+        if history_path is not None:
+            self._history = RunHistorian(history_path, self._history_policy,
+                                         registry=self._telemetry)
+        # the run's configuration identity, frozen now (the JAX package's keys)
+        self._history_fingerprints = {
+            'config': fingerprint({
+                'seed': seed, 'num_epochs': num_epochs,
+                'shuffle_row_groups': bool(shuffle_row_groups),
+                'shuffle_rows': bool(shuffle_rows),
+                'cur_shard': cur_shard, 'shard_count': shard_count,
+                'on_error': on_error,
+                'pool': type(reader_pool).__name__,
+                'batched': bool(is_batched_reader),
+                'transform': transform_spec is not None,
+                'device_decode_fields': sorted(self.device_decode_fields),
+                'items_per_epoch': self._items_per_epoch}),
+            'storage': (fingerprint(repr(self._storage_policy))
+                        if self._storage_policy is not None else None),
+            'schedule': (self._cost_scheduler.plan_fingerprint()
+                         if self._cost_scheduler is not None else None),
+        }
+        sentinel_policy = resolve_sentinel_policy(self._history_policy.sentinel)
+        if sentinel_policy is not None:
+            self._sentinel = RegressionSentinel(
+                sentinel_policy, owner='reader', registry=self._telemetry,
+                incidents=self._incidents, dataset_token=self.dataset_token)
+            if self._incidents is not None:
+                self._incidents.add_source('sentinel', self._sentinel.report)
+        if (self._autotune is not None and self._history is not None
+                and getattr(autotune_policy, 'warm_start', False)):
+            self._warm_start_autotune()
 
     # --------------------------------------------------------------- iteration
 
@@ -722,7 +945,7 @@ class Reader(object):
                                       len(batch.starts), item_id=batch.item_id,
                                       retries=batch.retries, quarantine=batch.quarantine,
                                       breakers=batch.breakers, telemetry=batch.telemetry,
-                                      trace=batch.trace)
+                                      trace=batch.trace, lineage=batch.lineage)
             self._note_item_consumed(batch)
             if self._resume_fast_forward and batch.item_id is not None:
                 # honour a row-path checkpoint's cursor: skip the rows already
@@ -749,11 +972,27 @@ class Reader(object):
         record = getattr(batch, 'quarantine', None)
         if record is not None:
             self.quarantine.add(record)
+            if self._incidents is not None:
+                # a reaped hang and a skipped rowgroup are distinct causes
+                self._incidents.trigger(
+                    'watchdog_reap' if record.reason == 'hang' else 'quarantine',
+                    ctx=(record.epoch, record.piece_index, record.attempts),
+                    args=record.as_dict())
         breakers = getattr(batch, 'breakers', None)
+        opened = []
         with self._accounting_lock:
             self._io_retries += getattr(batch, 'retries', 0)
             if breakers:
+                if self._incidents is not None:
+                    # worker breakers arrive as states, not callbacks: the
+                    # closed -> open edge is read against the last state seen
+                    opened = [(name, state) for name, state in breakers.items()
+                              if state.get('state') == 'open'
+                              and (self._breaker_states.get(name) or {}).get('state')
+                              != 'open']
                 self._breaker_states.update(breakers)
+        for name, state in opened:
+            self._incidents.trigger('breaker_open', args={'breaker': name, 'snapshot': state})
         stage_times = getattr(batch, 'telemetry', None)
         if stage_times:
             # additive, so a respawned worker's fresh recorder merges like any
@@ -767,9 +1006,33 @@ class Reader(object):
             # the producing thread's events land in this process's recorder,
             # keeping their pid: one dump_trace() spans every process
             merge_trace_events(trace_sidecar)
+        if self._incidents is not None:
+            # the process pool's CRC drops only ever grow: a delta is the edge
+            crc_failures = getattr(self._pool, '_shm_crc_failures', 0)
+            if crc_failures > self._incident_last_crc_failures:
+                self._incident_last_crc_failures = crc_failures
+                self._incidents.trigger('shm_crc_drop',
+                                        args={'shm_crc_failures': crc_failures})
+        if self._sentinel is not None:
+            # one float compare a batch; the evaluation runs when a window is due
+            from petastorm_tpu_torch.telemetry.slo import slo_clock
+            if self._sentinel.due(slo_clock() - self._started_at):
+                self._evaluate_slo(self.telemetry_snapshot())
         item_id = batch.item_id
         if item_id is None:
             return
+        if self._lineage is not None:
+            # one deliver a work item on every pool, folded at its
+            # ventilation-order slot
+            self._lineage.deliver(item_id, batch.num_rows or 0,
+                                  fingerprint=getattr(batch, 'lineage', None),
+                                  quarantined=record is not None)
+            if self._incidents is not None:
+                divergences = self._lineage.divergence_count
+                if divergences > self._incident_last_divergence:
+                    self._incident_last_divergence = divergences
+                    self._incidents.trigger('lineage_divergence', ctx=item_id,
+                                            args={'divergence_count': divergences})
         epoch, piece, drop = item_id
         if trace_enabled():
             # the consumer-side anchor of the rowgroup's trace, on every pool
@@ -815,6 +1078,9 @@ class Reader(object):
         self._consumed_by_epoch = {
             self._epochs_consumed + int(offset): {tuple(item) for item in ids}
             for offset, ids in state['consumed_by_epoch'].items()}
+        # the digest's chain value and pending suffix: a resumed reader folds
+        # to the digest of an uninterrupted run
+        self._resume_lineage = state.get('lineage')
         cursor = state.get('row_cursor')
         if cursor is not None:
             # the partially emitted item is not in the consumed sets, so it
@@ -827,8 +1093,8 @@ class Reader(object):
         """Snapshot of the read position, resumable through ``make_reader(...,
         resume_state=state)`` (or ``make_batch_reader``) with the same
         construction arguments. The same dict as ``petastorm_tpu``'s
-        ``Reader.state_dict`` (without its ``lineage`` and ``topology``
-        blocks).
+        ``Reader.state_dict`` (without its ``topology`` block); a
+        lineage-armed reader's carries the digest state under ``lineage``.
 
         The unit is the work item (rowgroup x drop partition): an item counts
         as consumed once all its rows were emitted (``consumed_by_epoch`` maps
@@ -849,6 +1115,9 @@ class Reader(object):
                 'split rowgroups ({} split(s)): the sub-range work-item coordinates '
                 'cannot be resumed. Checkpoint with cost_schedule disabled, or a '
                 'SchedulePolicy(split=False).'.format(self._cost_scheduler.split_count))
+        # outside the accounting lock (the recorder has its own): no deliver
+        # interleaves, since this runs on the consuming thread
+        lineage_state = self._lineage.state_dict() if self._lineage is not None else None
         cursor = None
         if isinstance(self._results_reader, _RowResultsReader):
             with self._next_lock:
@@ -868,6 +1137,8 @@ class Reader(object):
                 state['row_cursor'] = {'epoch_offset': epoch - self._epochs_consumed,
                                        'piece': piece, 'drop': drop,
                                        'next_row': next_row}
+            if lineage_state is not None:
+                state['lineage'] = lineage_state
         if self._cost_scheduler is not None:
             state['schedule'] = self._cost_scheduler.plan_fingerprint()
         return state
@@ -902,14 +1173,29 @@ class Reader(object):
         :func:`~petastorm_tpu_torch.telemetry.export.to_prometheus_text`."""
         from petastorm_tpu_torch.telemetry import merge_snapshots
         pool_registry = getattr(self._pool, 'telemetry', None)
-        if pool_registry is None:
+        storage_snapshot = None
+        if self._storage_policy is not None:
+            # the storage engine's process-local counters: all of them on
+            # in-process pools (process-pool workers keep theirs)
+            from petastorm_tpu_torch.storage import storage_metrics_snapshot
+            storage_snapshot = storage_metrics_snapshot()
+        if pool_registry is None and storage_snapshot is None:
             return self._telemetry.snapshot()
-        return merge_snapshots(self._telemetry.snapshot(), pool_registry.snapshot())
+        return merge_snapshots(self._telemetry.snapshot(),
+                               pool_registry.snapshot() if pool_registry is not None
+                               else None,
+                               storage_snapshot)
 
     def _evaluate_slo(self, snapshot):
         from petastorm_tpu_torch.telemetry.slo import slo_clock
-        return self._slo.evaluate(snapshot, slo_clock() - self._started_at,
-                                  rows=self.rows_consumed, registry=self._telemetry)
+        report = self._slo.evaluate(snapshot, slo_clock() - self._started_at,
+                                    rows=self.rows_consumed, registry=self._telemetry)
+        if self._sentinel is not None:
+            # the sentinel windows the SLO report's cumulative series; its own
+            # min_window_s keeps extra evaluations from shrinking a window
+            self._sentinel.observe(report)
+            self._sentinel.export_gauges()
+        return report
 
     def efficiency_report(self):
         """One input-efficiency SLO evaluation over this reader's lifetime:
@@ -929,6 +1215,12 @@ class Reader(object):
         if report['efficiency'] is not None:
             gauges['slo_efficiency'] = report['efficiency']
         gauges['slo_target_efficiency'] = report['target_efficiency']
+        if self._lineage is not None:
+            lineage = self._lineage.report()
+            gauges['lineage_items_folded'] = lineage['items_folded']
+            gauges['lineage_pending_items'] = lineage['pending_items']
+        if self._sentinel is not None:
+            gauges.update(self._sentinel.gauges())
         # the tracker's trailing points ride /vars (a list: the text scrape
         # ignores it)
         snapshot['slo_history'] = report.get('history', [])
@@ -987,6 +1279,109 @@ class Reader(object):
         ledger.ingest_trace(trace_snapshot(), dict(self._piece_locator))
         return ledger
 
+    def order_digest(self):
+        """The chained order digest over every item delivered so far: a hex
+        string equal on the dummy, thread, process and service pools for one
+        seed, shard and schedule, and under worker respawns. None without
+        ``lineage``."""
+        if self._lineage is None:
+            return None
+        return self._lineage.order_digest()
+
+    def _breaker_evidence(self):
+        """The incident bundle's ``breakers`` source: the workers' states
+        merged with this process's board."""
+        from petastorm_tpu_torch.resilience import default_board
+        with self._accounting_lock:
+            breakers = dict(self._breaker_states)
+        breakers.update(default_board().snapshot())
+        return breakers
+
+    def _on_slo_breach(self, report):
+        """The SLO tracker's ok -> breach edge: one ``slo_breach`` incident."""
+        if self._incidents is not None:
+            self._incidents.trigger('slo_breach',
+                                    args={'efficiency': report.get('efficiency'),
+                                          'target': report.get('target_efficiency'),
+                                          'wait_seconds': report.get('wait_seconds')})
+
+    def incident_report(self):
+        """The incident recorder's summary (captures, rate-limited triggers,
+        the retained bundles); None without ``incidents``."""
+        if self._incidents is None:
+            return None
+        return self._incidents.report()
+
+    def build_history_record(self):
+        """The run record :meth:`stop` appends: fingerprints, rows/s and
+        efficiency, stage shares, storage counters, incident and quarantine
+        counts. None without ``history``. Knob values are read live, so call
+        it before ``stop()`` restores the autotuner's knobs."""
+        if self._history_policy is None:
+            return None
+        from petastorm_tpu_torch.telemetry.history import build_run_record, fingerprint
+        from petastorm_tpu_torch.telemetry.slo import efficiency_from_snapshot, slo_clock
+        elapsed = slo_clock() - self._started_at
+        snapshot = self.telemetry_snapshot()
+        rows = self.rows_consumed
+        knobs = {}
+        try:
+            from petastorm_tpu_torch.autotune.knobs import build_reader_knobs
+            knobs = {knob.knob_id: float(knob.get()) for knob in build_reader_knobs(self)}
+        except Exception:  # noqa: BLE001 - the record is advisory; a dead knob target must not fail stop()
+            logger.debug('history: knob capture failed', exc_info=True)
+        fingerprints = dict(self._history_fingerprints)
+        fingerprints['knobs'] = fingerprint(knobs) if knobs else None
+        return build_run_record(
+            'reader', self.dataset_token, elapsed, rows, snapshot=snapshot,
+            slo_report=efficiency_from_snapshot(snapshot, elapsed, rows=rows),
+            fingerprints=fingerprints, knobs=knobs, incidents=self.incident_report(),
+            quarantined=len(self.quarantine),
+            cost_skew=(self._cost_scheduler.cost_skew()
+                       if self._cost_scheduler is not None else None))
+
+    def _warm_start_autotune(self):
+        """``AutotunePolicy(warm_start=True)``: seed the knobs from the newest
+        same-token, same-platform record before the controller's first
+        window; nothing (a debug line) when the store holds none."""
+        from petastorm_tpu_torch.telemetry.history import (last_good_record, load_records,
+                                                           run_platform)
+        try:
+            records, _dropped = load_records(self._history.path)
+            record = last_good_record(records, self.dataset_token, run_platform())
+            if record is None:
+                logger.debug('autotune warm start: no comparable run record in %s',
+                             self._history.path)
+                return
+            applied = self._autotune.warm_start(record.get('knobs') or {})
+            if applied:
+                logger.info('autotune warm start: seeded %s from the run recorded at %s',
+                            {k: v['to'] for k, v in applied.items()},
+                            record.get('recorded_unix_s'))
+        except Exception:  # noqa: BLE001 - a failed warm start means defaults, not a dead reader
+            logger.warning('autotune warm start failed; starting from defaults',
+                           exc_info=True)
+
+    def _write_history_record(self):
+        """Append this run's record (once), before the autotuner restores
+        its knobs."""
+        if self._history is None or self._history_written:
+            return
+        self._history_written = True
+        try:
+            record = self.build_history_record()
+            if record is not None:
+                self._history.append(record)
+        except Exception:  # noqa: BLE001 - a read that succeeded must not fail over its history
+            logger.warning('could not record this run in the history store', exc_info=True)
+
+    def history_report(self):
+        """The historian's store status (path, appended records, dropped
+        frames); None without ``history``."""
+        if self._history is None:
+            return None
+        return self._history.state()
+
     def autotune_report(self):
         """The autotuner's state (windows, decision log, frozen-by-breaker
         flag, knob values and bounds), or ``{'enabled': False}`` without
@@ -1012,7 +1407,10 @@ class Reader(object):
         gauges, and ``slo``, its efficiency report; ``trace``, the
         flight-recorder summary (only while tracing is armed); ``autotune``,
         the controller's report (only with ``autotune``); ``schedule``, the
-        cost scheduler's report (only with ``cost_schedule``)."""
+        cost scheduler's report (only with ``cost_schedule``); ``lineage``,
+        ``incidents``, ``history`` and ``sentinel``, each plane's report, and
+        ``storage``, the ingest engine's policy and counters (each only when
+        armed)."""
         diag = dict(getattr(self._pool, 'diagnostics', None) or {})
         with self._accounting_lock:
             diag.update({'io_retries': self._io_retries,
@@ -1043,6 +1441,26 @@ class Reader(object):
             diag['autotune'] = self._autotune.report()
         if self._cost_scheduler is not None:
             diag['schedule'] = self._cost_scheduler.report()
+        if self._lineage is not None:
+            diag['lineage'] = self._lineage.report()
+        if self._incidents is not None:
+            diag['incidents'] = self._incidents.report()
+        if self._history is not None:
+            diag['history'] = self._history.state()
+        if self._sentinel is not None:
+            diag['sentinel'] = self._sentinel.report()
+        if self._storage_policy is not None:
+            counters = snapshot.get('counters') or {}
+            diag['storage'] = {
+                'policy': {'coalesce_gap_bytes': self._storage_policy.coalesce_gap_bytes,
+                           'max_in_flight': self._storage_policy.max_in_flight,
+                           'hedge_enabled': self._storage_policy.hedge_enabled},
+                'footer_cache_hits': int(counters.get('storage_footer_cache_hit', 0)),
+                'footer_cache_misses': int(counters.get('storage_footer_cache_miss', 0)),
+                'ranges_coalesced': int(counters.get('storage_ranges_coalesced', 0)),
+                'hedges_fired': int(counters.get('storage_hedge_fired', 0)),
+                'hedges_won': int(counters.get('storage_hedge_won', 0)),
+            }
         return diag
 
     # --------------------------------------------------------------- lifecycle
@@ -1052,6 +1470,9 @@ class Reader(object):
         if self._metrics_server is not None:
             # the scrape plane goes first: a scrape must not race the teardown
             self._metrics_server.stop()
+        # the run record first: the autotuner's stop restores its knobs, and
+        # the record keeps the values the run ran with
+        self._write_history_record()
         if self._autotune is not None:
             # no knob turns once the pool starts tearing down
             self._autotune.stop()
@@ -1062,6 +1483,11 @@ class Reader(object):
                 self._cost_scheduler.persist()
             except Exception:  # noqa: BLE001 - ledger persistence is advisory
                 logger.warning('could not persist the cost ledger', exc_info=True)
+        if self._lineage is not None:
+            self._lineage.close()   # flushes the last manifest record
+        if self._incidents is not None:
+            # detaches the sources; the bundles stay on disk for the autopsy
+            self._incidents.close()
         self._pool.stop()
 
     def join(self):
@@ -1075,14 +1501,22 @@ class Reader(object):
         self.join()
 
 
-def _traced_ventilate(pool_ventilate):
+def _traced_ventilate(pool_ventilate, lineage=None):
     """A pool's ``ventilate`` that puts each item's birth on the flight
     recorder's timeline: the ``ventilate`` instant is the causal origin of a
-    rowgroup's trace. One enabled check an item while tracing is off."""
+    rowgroup's trace. One enabled check an item while tracing is off. With a
+    lineage recorder each item is also EXPECTED here: ventilation order is the
+    digest's fold order, so the digest is equal on pools whose completion
+    order is not."""
     def ventilate(**kwargs):
         if trace_enabled():
             trace_instant('ventilate', ctx=(int(kwargs.get('epoch_index', 0)),
                                             int(kwargs['piece_index']), 0))
+        if lineage is not None:
+            lineage.expect(int(kwargs.get('epoch_index', 0)), int(kwargs['piece_index']),
+                           int(kwargs['shuffle_row_drop_partition'][0]),
+                           str(kwargs.get('fragment_path', '')),
+                           kwargs.get('row_group_id'), kwargs.get('row_range'))
         pool_ventilate(**kwargs)
     return ventilate
 

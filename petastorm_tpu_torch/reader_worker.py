@@ -4,8 +4,16 @@ the compiled decode plan, serves and fills the rowgroup cache, applies the
 seeded in-rowgroup shuffle and the :class:`TransformSpec`, and publishes a
 columnar batch; NGram readers publish the piece's windows instead
 (:mod:`~petastorm_tpu_torch.ngram_worker`). A trimmed copy of
-``petastorm_tpu.reader_worker`` (the object-store ingest engine and the
-lineage fingerprints are left out).
+``petastorm_tpu.reader_worker``.
+
+With a storage policy (``make_reader(storage_policy=)``) the loads go through
+the object-store ingest engine's
+:class:`~petastorm_tpu_torch.storage.engine.RowGroupSource` (planned,
+coalesced and hedged byte ranges, one footer cache a worker) instead of
+``fragment.to_table()``; the predicate pass and the projected pass each read a
+storage column once on both paths. With ``lineage_fingerprint_every`` the
+worker hashes every N-th piece's columns into the batch's ``lineage``
+sidecar (:func:`~petastorm_tpu_torch.telemetry.lineage.content_fingerprint`).
 
 Telemetry is the JAX package's: the load, decode, shuffle and transform run
 under stage spans (``fs_open``, ``rowgroup_read``, ``decode``, ``shuffle``,
@@ -68,13 +76,16 @@ class ColumnarBatch(object):
     ``telemetry`` is the stage-span sidecar (``{stage: histogram_snapshot}``
     drained from the producing thread since its previous publish) and
     ``trace`` the flight-recorder sidecar (that thread's drained trace
-    events); both are None when empty or off."""
+    events); both are None when empty or off. ``lineage`` is the producing
+    worker's sampled content fingerprint (``{'crc32', 'fields'}``), or None
+    when this piece was not sampled."""
 
     __slots__ = ('columns', 'num_rows', 'item_id', 'cache_hit', 'retries', 'quarantine',
-                 'breakers', 'telemetry', 'trace')
+                 'breakers', 'telemetry', 'trace', 'lineage')
 
     def __init__(self, columns, num_rows, item_id=None, cache_hit=None, retries=0,
-                 quarantine=None, breakers=None, telemetry=None, trace=None):
+                 quarantine=None, breakers=None, telemetry=None, trace=None,
+                 lineage=None):
         self.columns = columns
         self.num_rows = num_rows
         self.item_id = item_id
@@ -84,6 +95,7 @@ class ColumnarBatch(object):
         self.breakers = breakers
         self.telemetry = telemetry
         self.trace = trace
+        self.lineage = lineage
 
 
 class WorkerSetup(object):
@@ -93,20 +105,27 @@ class WorkerSetup(object):
     ``batched``. ``dataset_token`` is the cache key's identity of the store
     and the read configuration. ``retry_policy`` is the one
     :func:`~petastorm_tpu_torch.resilience.resolve_retry_policy` gives for
-    ``on_error``."""
+    ``on_error``. ``lineage_fingerprint_every`` samples the content
+    fingerprint of pieces with ``piece_index % N == 0`` (0: off);
+    ``storage_policy`` is the resolved
+    :class:`~petastorm_tpu_torch.storage.StoragePolicy` (None: the
+    ``fragment.to_table()`` path)."""
 
     __slots__ = ('filesystem', 'schema', 'fields_to_read', 'result_schema',
                  'transform_spec', 'batched_output', 'shuffle_rows', 'seed',
                  'partition_field_names', 'device_decode_fields', 'ngram', 'cache',
                  'dataset_token', '_predicate', '_predicate_key', 'on_error',
-                 'retry_policy')
+                 'retry_policy', 'lineage_fingerprint_every', 'storage_policy')
 
     def __init__(self, filesystem, schema, fields_to_read, transform_spec=None,
                  batched_output=False, shuffle_rows=False, seed=None,
                  partition_field_names=(), device_decode_fields=(), ngram=None,
                  cache=None, dataset_path_or_paths=None, predicate=None,
-                 on_error='raise', retry_policy=None):
+                 on_error='raise', retry_policy=None, lineage_fingerprint_every=0,
+                 storage_policy=None):
         from petastorm_tpu_torch.resilience import resolve_retry_policy
+        self.lineage_fingerprint_every = int(lineage_fingerprint_every)
+        self.storage_policy = storage_policy
         self.on_error = on_error
         self.retry_policy = resolve_retry_policy(on_error, retry_policy)
         self.filesystem = filesystem
@@ -177,6 +196,9 @@ class RowGroupWorker(WorkerBase):
         # compiled decode plans per (field set, ship raw), kept for the
         # worker's lifetime
         self._decode_plans = {}
+        # the storage engine's footer cache: one a worker, shared by every
+        # piece of a file
+        self._metadata_cache = None
 
     def _fs(self):
         # fs_open: the setup carries a built filesystem, so this times its
@@ -263,6 +285,8 @@ class RowGroupWorker(WorkerBase):
             payload = self._quarantined(exc, item_id, fragment_path, row_group_id,
                                         retries[0])
         payload.retries = retries[0]
+        if payload.item_id is not None and setup.lineage_fingerprint_every:
+            payload.lineage = self._lineage_fingerprint(piece_index, payload)
         if setup.retry_policy is not None:
             from petastorm_tpu_torch.resilience import default_board
             payload.breakers = default_board().snapshot(only_tripped=True) or None
@@ -320,6 +344,15 @@ class RowGroupWorker(WorkerBase):
         return ColumnarBatch(columns if num_rows else {}, num_rows, item_id=item_id,
                              cache_hit=cache_hit)
 
+    def _lineage_fingerprint(self, piece_index, payload):
+        """The sampled content fingerprint of one produced payload: keyed on
+        the piece, never on worker-local counters, so every pool fingerprints
+        the same pieces."""
+        if not payload.num_rows or piece_index % self._setup.lineage_fingerprint_every:
+            return None
+        from petastorm_tpu_torch.telemetry.lineage import content_fingerprint
+        return content_fingerprint(payload.columns)
+
     def _quarantined(self, exc, item_id, fragment_path, row_group_id, retries):
         """The empty stand-in of a skipped piece, carrying its record."""
         from petastorm_tpu_torch.resilience import QuarantineRecord
@@ -344,6 +377,34 @@ class RowGroupWorker(WorkerBase):
         return [name for name in field_names
                 if name not in self._setup.partition_field_names]
 
+    def _storage_source(self, fragment_path, row_group_id):
+        """A planned :class:`~petastorm_tpu_torch.storage.engine.RowGroupSource`
+        when a storage policy is armed, else None. Built inside the retried
+        load, so footer reads and range fetches sit under the same retry and
+        breaker as a ``fragment.to_table()`` read."""
+        policy = self._setup.storage_policy
+        if policy is None:
+            return None
+        from petastorm_tpu_torch.storage.engine import RowGroupSource
+        if self._metadata_cache is None:
+            from petastorm_tpu_torch.dataset_state import cache_state_home
+            from petastorm_tpu_torch.storage.metadata_cache import MetadataCache
+            # with a disk cache the footers go next to it, shared by every
+            # worker and run that reads the store
+            self._metadata_cache = MetadataCache(
+                capacity=policy.cache_capacity,
+                disk_dir=policy.cache_dir or cache_state_home(self._setup.cache))
+        return RowGroupSource(fragment_path, self._fs(), policy, row_group_id,
+                              self._metadata_cache)
+
+    def _read_columns(self, source, fragment, columns):
+        """``columns`` of the piece, through the storage engine when armed
+        (which times ``range_fetch`` and ``rowgroup_read`` apart)."""
+        if source is not None:
+            return source.read_columns(columns)
+        with stage_span('rowgroup_read'):
+            return fragment.to_table(columns=columns)
+
     def _load_and_decode(self, fragment_path, row_group_id, partition_keys,
                          worker_predicate, shuffle_row_drop_partition, row_range=None):
         """The piece's decoded columns: the predicate's survivors (if any)
@@ -354,9 +415,10 @@ class RowGroupWorker(WorkerBase):
             table, keep = self._two_phase_load(fragment_path, row_group_id, partition_keys,
                                                worker_predicate, all_fields)
         else:
-            fragment = self._make_fragment(fragment_path, row_group_id)
-            with stage_span('rowgroup_read'):
-                table = fragment.to_table(columns=self._storage_columns(all_fields))
+            source = self._storage_source(fragment_path, row_group_id)
+            fragment = (self._make_fragment(fragment_path, row_group_id)
+                        if source is None else None)
+            table = self._read_columns(source, fragment, self._storage_columns(all_fields))
             keep = np.arange(table.num_rows)
         if row_range is not None:
             keep = keep[(keep >= int(row_range[0])) & (keep < int(row_range[1]))]
@@ -380,10 +442,11 @@ class RowGroupWorker(WorkerBase):
                    if f not in setup.schema.fields and f not in setup.partition_field_names]
         if unknown:
             raise ValueError('Predicate references unknown fields {}'.format(unknown))
-        fragment = self._make_fragment(fragment_path, row_group_id)
-        with stage_span('rowgroup_read'):
-            predicate_table = fragment.to_table(
-                columns=self._storage_columns(predicate_fields))
+        source = self._storage_source(fragment_path, row_group_id)
+        fragment = (self._make_fragment(fragment_path, row_group_id)
+                    if source is None else None)
+        predicate_table = self._read_columns(source, fragment,
+                                             self._storage_columns(predicate_fields))
         # a predicate reads decoded values, even of fields that ship raw
         predicate_columns = self._decode_table(predicate_table, partition_keys,
                                                predicate_fields, fragment_path=fragment_path,
@@ -394,14 +457,15 @@ class RowGroupWorker(WorkerBase):
         all_storage = self._storage_columns(all_fields)
         if not len(keep):
             # no survivor: an empty table of the output columns, nothing read
-            physical = fragment.physical_schema
+            physical = (source.schema_arrow() if source is not None
+                        else fragment.physical_schema)
             return (pa.table({name: pa.array([], type=physical.field(name).type)
                               for name in all_storage}), keep)
         have = set(predicate_table.column_names)
         remaining = [name for name in all_storage if name not in have]
         if remaining:
-            with stage_span('rowgroup_read'):
-                remaining_table = fragment.to_table(columns=remaining)
+            # the storage source never re-fetches the predicate's columns
+            remaining_table = self._read_columns(source, fragment, remaining)
             table = pa.table({name: (predicate_table.column(name) if name in have
                                      else remaining_table.column(name))
                               for name in all_storage})

@@ -1,7 +1,6 @@
 """Resilience primitives: retry with backoff, the transient-error classifier,
 the quarantine ledger and circuit breakers. A copy of
-``petastorm_tpu.resilience`` without its board-wide observers (the incident
-plane's hook): the same policies, the same seeded jitter and the same breaker
+``petastorm_tpu.resilience``: the same policies, the same seeded jitter and the same breaker
 transitions, each a ``breaker_transition`` instant on the flight recorder's
 timeline while tracing is armed.
 
@@ -302,6 +301,24 @@ class CircuitBreaker:
         self.__dict__.update(state)
         self._lock = threading.Lock()
 
+    def observe_transitions(self, callback: OnBreakerTransition) -> None:
+        """Attach another transition observer, chained after any callback
+        already installed, so a component watching an injected breaker does
+        not clobber its owner's wiring. Observers are process-local (dropped
+        on pickle, like ``on_transition``)."""
+        with self._lock:
+            existing = self._on_transition
+            if existing is None:
+                self._on_transition = callback
+                return
+
+            def chained(name: str, old_state: str, new_state: str,
+                        _first: OnBreakerTransition = existing,
+                        _second: OnBreakerTransition = callback) -> None:
+                _first(name, old_state, new_state)
+                _second(name, old_state, new_state)
+            self._on_transition = chained
+
     def _transition(self, new_state: str) -> None:
         # the caller holds self._lock
         old_state = self._state
@@ -419,18 +436,34 @@ class BreakerBoard:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._breakers: Dict[str, CircuitBreaker] = {}
+        self._observers: List[OnBreakerTransition] = []
 
     def breaker(self, name: str, failure_threshold: int = 5,
                 recovery_timeout_s: float = 30.0,
                 clock: Callable[[], float] = time.monotonic) -> CircuitBreaker:
-        """Get or create the breaker ``name`` (the settings apply on creation)."""
+        """Get or create the breaker ``name`` (the settings apply on creation);
+        a new breaker gets the board's observers."""
         with self._lock:
             brk = self._breakers.get(name)
+            observers = []
             if brk is None:
                 brk = CircuitBreaker(name, failure_threshold=failure_threshold,
                                      recovery_timeout_s=recovery_timeout_s, clock=clock)
                 self._breakers[name] = brk
-            return brk
+                observers = list(self._observers)
+        for callback in observers:
+            brk.observe_transitions(callback)
+        return brk
+
+    def observe_transitions(self, callback: OnBreakerTransition) -> None:
+        """Watch every transition on the board: ``callback`` is chained onto
+        each breaker registered now and onto every one created later (the
+        incident recorder's trigger hook). Observers are process-local."""
+        with self._lock:
+            self._observers.append(callback)
+            breakers = list(self._breakers.values())
+        for brk in breakers:
+            brk.observe_transitions(callback)
 
     def snapshot(self, only_tripped: bool = False) -> Dict[str, Dict[str, Any]]:
         """``{name: breaker.as_dict()}``; ``only_tripped`` leaves out breakers

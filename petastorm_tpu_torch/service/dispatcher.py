@@ -1,19 +1,18 @@
-"""The service dispatcher: fair-share broker between reader clients and
-decode workers. A copy of ``petastorm_tpu.service.dispatcher`` without the
-incident and run-history planes (``incidents=``/``history=``), which wait for
-the port's telemetry planes.
+"""The service dispatcher: fair-share broker between reader clients and decode workers.
+A copy of ``petastorm_tpu.service.dispatcher``, with its incident and run-history
+planes (``incidents=``, ``history=``).
 
-Socket topology::
+Socket topology (docs/service.md):
 
     client DEALER  <─>  ROUTER (client endpoint, ``service_url`` port)
     worker DEALER  <─>  ROUTER (worker endpoint, ``port + 1``)
 
 Clients ``hello``/``open`` (register + ship a pickled worker setup), then
 ``submit`` rowgroup work items; workers ``register`` (a
-:class:`~petastorm_tpu_torch.service.wire.WorkerDescriptor`), announce
-idleness with ``w_ready`` and receive ``work`` assignments — the same
-pull-based dispatch as the process pool, so nothing ever queues in a dead
-worker's socket buffer and every assignment is attributable.
+:class:`~petastorm_tpu_torch.service.wire.WorkerDescriptor`), announce idleness with
+``w_ready`` and receive ``work`` assignments — the same pull-based dispatch as
+the in-process pool (``workers/process_pool.py``), so nothing ever queues in a
+dead worker's socket buffer and every assignment is attributable.
 
 Scheduling is **deficit round robin** per client
 (:class:`FairShareScheduler`): each visit tops a client's deficit up by one
@@ -26,17 +25,18 @@ explicit ``busy`` reply the client backs off on, so one greedy reader can
 neither queue unboundedly nor starve the fleet.
 
 **Elastic workers**: workers join (``register``) and leave (``w_leave``, or
-just vanish) at any time. Workers stamp ``w_heartbeat`` sequence numbers,
-the dispatcher detects *change* consumer-side (no cross-process clocks), and
-a worker whose stamp stalls past its staleness window is deregistered — its
-in-flight items re-enter the owning clients' queues (attempt-bumped, so a
-stale straggler ack can never retire a redelivered item, the process pool's
-protocol). An item re-queued more than ``max_item_attempts`` times fails
-loudly to its client instead of poisoning the fleet forever.
+just vanish) at any time. Liveness rides the PR-4 watchdog model: workers
+stamp ``w_heartbeat`` sequence numbers, the dispatcher detects *change*
+consumer-side (no cross-process clocks), and a worker whose stamp stalls past
+its staleness window is deregistered — its in-flight items re-enter the owning
+clients' queues (attempt-bumped, so a stale straggler ack can never retire a
+redelivered item: the exact protocol ``process_pool.py`` uses). An item
+re-queued more than ``max_item_attempts`` times fails loudly to its client
+instead of poisoning the fleet forever.
 
 The ``state`` request returns a JSON snapshot (clients, workers, queue depths,
-fair-share debts) surfaced through ``Reader.diagnostics['service']``, the
-doctor, and the ``serve`` CLI."""
+fair-share debts) surfaced through ``Reader.diagnostics['service']``, doctor,
+and the ``petastorm-tpu-torch-throughput serve`` CLI."""
 
 from __future__ import annotations
 
@@ -51,8 +51,7 @@ import time
 from typing import Any, Callable, Deque, Dict, List, Optional, Set, Tuple
 
 from petastorm_tpu_torch.service.wire import (MAX_COST_HINT, MIN_COST_HINT,
-                                              WORKER_PORT_OFFSET, WorkerDescriptor,
-                                              WorkerMetricsUpdate, decode_cost)
+                                        WorkerDescriptor, decode_cost)
 
 logger = logging.getLogger(__name__)
 
@@ -66,7 +65,8 @@ MSG_SUBMIT, MSG_ACCEPT, MSG_BUSY = b'submit', b'accept', b'busy'
 MSG_REJOIN = b'rejoin'
 MSG_RESULT, MSG_RESULT_SHM, MSG_ERROR = b'result', b'result_shm', b'error'
 MSG_SHM_FAIL, MSG_BYE, MSG_STATE = b'shm_fail', b'bye', b'state'
-#: ledger-epoch handshake: a client probes with ``ledger_sync``; the ``ledger_state``
+#: ledger-epoch handshake (docs/service.md "Dispatcher crash with a
+#: ledger"): a client probes with ``ledger_sync``; the ``ledger_state``
 #: reply says whether this dispatcher knows the client and which ledger
 #: epoch it serves — an unknown/epoch-changed answer means the client's
 #: in-flight tokens died with the previous incarnation and must re-arm
@@ -77,8 +77,12 @@ MSG_W_READY, MSG_WORK, MSG_W_STOP = b'w_ready', b'work', b'w_stop'
 MSG_W_HEARTBEAT, MSG_W_RESULT, MSG_W_RESULT_SHM = (b'w_heartbeat', b'w_result',
                                                    b'w_result_shm')
 #: cumulative worker telemetry snapshot riding the heartbeat socket (the
-#: fleet metrics plane)
+#: fleet metrics plane — docs/observability.md "Live metrics plane")
 MSG_W_METRICS = b'w_metrics'
+#: worker-captured incident-bundle reference riding the heartbeat socket
+#: (the fleet incident plane — docs/observability.md "Incident autopsy
+#: plane")
+MSG_W_INCIDENT = b'w_incident'
 MSG_W_DONE, MSG_W_ERROR = b'w_done', b'w_error'
 MSG_W_NEED_SETUP, MSG_W_LEAVE = b'w_need_setup', b'w_leave'
 #: worker-side restart re-adoption: a ``w_ready`` from an identity this
@@ -91,7 +95,8 @@ MSG_W_REJOIN = b'w_rejoin'
 DEFAULT_ADMISSION_WINDOW = 16
 #: default DRR quantum (deficit credit per scheduling visit). Items are
 #: charged their MEASURED cost when the submit carries a cost hint from the
-#: client's cost-aware scheduler and unit cost otherwise — so with hints, a client burning
+#: client's cost-aware scheduler (docs/performance.md "Cost-aware
+#: scheduling") and unit cost otherwise — so with hints, a client burning
 #: heavy rowgroups is served proportionally fewer of them per round.
 DEFAULT_QUANTUM = 1.0
 #: clamp for submit cost hints: one pathological ledger entry must neither
@@ -105,9 +110,14 @@ MAX_ITEM_COST = MAX_COST_HINT
 #: least-loaded ready worker instead of FIFO — heavy rowgroups spread across
 #: the fleet instead of piling onto whichever worker asked first
 HEAVY_ITEM_COST = 2.0
+#: same-cause incident references landing within this window collapse into
+#: ONE fleet incident (docs/observability.md "Incident autopsy plane")
+INCIDENT_CORRELATION_WINDOW_S = 30.0
+#: bound on the correlated fleet-incident list kept in ``state()``
+MAX_FLEET_INCIDENTS = 32
 #: how long a worker's heartbeat stamp may go unchanged before it counts as
 #: departed (floored at 4x its own declared heartbeat interval, the same
-#: jitter margin the process pool's watchdog enforces)
+#: jitter margin the in-process watchdog enforces)
 DEFAULT_STALE_TIMEOUT_S = 15.0
 #: re-dispatch budget per work item across worker deaths — a rowgroup that
 #: kills every worker it lands on must fail loudly, not roam the fleet forever
@@ -116,6 +126,10 @@ DEFAULT_MAX_ITEM_ATTEMPTS = 5
 #: before the dispatcher garbage-collects its record + setups — an alive
 #: client that got collected anyway simply ``rejoin``s on its next submit
 DEFAULT_CLIENT_TTL_S = 900.0
+#: dataset token the dispatcher's run-history records are keyed by — the
+#: service serves many datasets, so its longitudinal series is keyed by the
+#: service itself, not any one dataset (telemetry/history.py)
+SERVICE_DATASET_TOKEN = 'service'
 
 
 class _ClientState(object):
@@ -320,7 +334,7 @@ class FairShareScheduler(object):
         client's queue in ventilation order (the lineage contract — the
         order is never reshuffled, only the token->worker placement moves)
         and deal tokens round-robin across sorted worker ids. Returns a
-        summary for the reshard trace event, or None when there is
+        summary for the reshard trace/incident event, or None when there is
         nothing to re-split."""
         with self._lock:
             worker_ids = sorted(w.descriptor.worker_id
@@ -347,7 +361,7 @@ class FairShareScheduler(object):
     # ------------------------------------------------------------- autotune
 
     def set_admission_window(self, value: int) -> int:
-        """Bounded runtime retune of the admission cap:
+        """Bounded runtime retune of the admission cap (docs/autotuning.md):
         new clients hello against the new cap; live clients whose window
         exceeds it are clamped down, and clients that follow the cap (hello'd
         without a window, or asked for more than the cap allows) are lifted
@@ -363,7 +377,7 @@ class FairShareScheduler(object):
 
     def set_client_windows(self, value: int) -> int:
         """Runtime retune of every live client's in-flight depth, clamped to
-        ``[1, admission_window]`` — the per-client half
+        ``[1, admission_window]`` (docs/autotuning.md) — the per-client half
         of the service autotuner. Returns the applied value."""
         with self._lock:
             value = max(1, min(int(value), self.admission_window))
@@ -419,7 +433,7 @@ class FairShareScheduler(object):
         """The client's CURRENT in-flight window — piggybacked on every
         accept/busy reply so live clients adopt dispatcher-side retuning
         (the autotune window knobs would otherwise move a limit connected
-        clients never observe)."""
+        clients never observe; docs/autotuning.md)."""
         with self._lock:
             client = self._clients.get(key)
             return client.window if client is not None else self.admission_window
@@ -947,7 +961,7 @@ class FairShareScheduler(object):
 
 def choose_service_knob(prev: Dict[str, Any], cur: Dict[str, Any],
                         rate: float, eligible: List[Any]) -> Optional[str]:
-    """The service controller's knob chooser: admission
+    """The service controller's knob chooser (docs/autotuning.md): admission
     signals instead of stage histograms. A window with fresh ``busy``
     rejections while the queue is shallow means clients are throttled below
     what the fleet could absorb — retune the live client windows; a queue deep
@@ -982,16 +996,12 @@ class Dispatcher(object):
     sends are not thread-safe); :meth:`state` reads the scheduler snapshot
     under its own lock from any thread.
 
-    ``autotune``: ``True`` or an
-    :class:`~petastorm_tpu_torch.autotune.AutotunePolicy` arms the same
-    controller core the reader uses — driven from the pump thread (no extra
-    thread), it retunes the admission window and live per-client in-flight
-    depth from the scheduler's queue-depth/``service_busy`` signals, with the
-    process breaker board as the interlock. Off (None) by default.
-    ``metrics_port`` serves the fleet-wide scrape endpoint (``/metrics``,
-    ``/healthz``, ``/vars``; 0 binds an ephemeral port, :attr:`metrics_url`
-    names it). ``ledger`` (a journal path) arms the durable token ledger
-    (:mod:`~petastorm_tpu_torch.service.ledger`)."""
+    ``autotune`` (docs/autotuning.md): ``True`` or an
+    :class:`~petastorm_tpu_torch.autotune.AutotunePolicy` arms the same controller
+    core the reader uses — driven from the pump thread (no extra thread), it
+    retunes the admission window and live per-client in-flight depth from the
+    scheduler's queue-depth/``service_busy`` signals, with the process breaker
+    board as the interlock. Off (None) by default."""
 
     def __init__(self, host: str = '127.0.0.1', port: Optional[int] = None,
                  admission_window: int = DEFAULT_ADMISSION_WINDOW,
@@ -1002,7 +1012,9 @@ class Dispatcher(object):
                  client_ttl_s: float = DEFAULT_CLIENT_TTL_S,
                  autotune: Any = None,
                  metrics_port: Optional[int] = None,
-                 ledger: Optional[str] = None) -> None:
+                 incidents: Any = None,
+                 ledger: Optional[str] = None,
+                 history: Any = None) -> None:
         self._host = host
         self._port = port
         #: durable token ledger (service/ledger.py): a journal path arms it;
@@ -1013,14 +1025,40 @@ class Dispatcher(object):
         #: set by :meth:`crash` — the pump exits WITHOUT the stop broadcast
         #: or the heartbeat drain, exactly like a SIGKILL would leave things
         self._crashed = False
-        # Fleet metrics plane: latest cumulative telemetry snapshot per
-        # worker (seq-guarded, delivered as w_metrics frames on the heartbeat
-        # socket), merged at scrape time into one fleet-wide surface. Guarded
-        # by its own lock — the pump thread writes, the scrape threads read.
+        # Fleet metrics plane (docs/observability.md "Live metrics plane"):
+        # latest cumulative telemetry snapshot per worker (seq-guarded,
+        # delivered as w_metrics frames on the heartbeat socket), merged at
+        # scrape time into one fleet-wide surface. Guarded by its own lock —
+        # the pump thread writes, the scrape threads read.
         self._metrics_port = metrics_port
         self._metrics_server: Any = None
         self._worker_metrics: Dict[int, Tuple[int, Dict[str, Any]]] = {}
         self._worker_metrics_lock = threading.Lock()
+        # Fleet incident plane (docs/observability.md "Incident autopsy
+        # plane"): the dispatcher owns its own recorder (stale-worker reaps
+        # and attempt-budget exhaustion are dispatcher-observed edges),
+        # adopts inline bundles shipped by workers as w_incident frames, and
+        # correlates same-cause references across workers into one fleet
+        # incident.
+        self._incident_recorder: Any = None
+        self._incident_registry: Any = None
+        self._worker_incident_seq: Dict[int, int] = {}
+        self._fleet_incidents: List[Dict[str, Any]] = []
+        self._incident_lock = threading.Lock()
+        from petastorm_tpu_torch.telemetry.incident import resolve_incident_policy
+        incident_policy = resolve_incident_policy(incidents)
+        if incident_policy is not None:
+            from petastorm_tpu_torch.telemetry.incident import (
+                IncidentRecorder, default_incident_home)
+            from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
+            self._incident_registry = MetricsRegistry()
+            self._incident_recorder = IncidentRecorder(
+                default_incident_home(None), incident_policy,
+                registry=self._incident_registry)
+            self._incident_recorder.add_source(
+                'service_state', lambda: self.scheduler.state())
+            self._incident_recorder.add_source(
+                'metrics', self.fleet_metrics_snapshot)
         self.scheduler = FairShareScheduler(
             admission_window=admission_window, quantum=quantum,
             stale_timeout_s=stale_timeout_s,
@@ -1038,7 +1076,7 @@ class Dispatcher(object):
         if autotune_policy is not None:
             from petastorm_tpu_torch.autotune.controller import AutotuneController
             from petastorm_tpu_torch.autotune.knobs import (KnobCatalog,
-                                                            build_service_knobs)
+                                                      build_service_knobs)
             scheduler = self.scheduler
             self._autotune = AutotuneController(
                 KnobCatalog(build_service_knobs(scheduler)),
@@ -1047,6 +1085,38 @@ class Dispatcher(object):
                 policy=autotune_policy,
                 choose_fn=choose_service_knob,
                 name='service')
+        # Longitudinal observatory (docs/observability.md "Longitudinal
+        # observatory"): one structured run record at stop() plus a live
+        # regression sentinel over the pump's items-served series. The
+        # dispatcher has no dataset home, so persisting records needs an
+        # explicit store path (``history=HistoryPolicy(path=...)`` or a
+        # path string); ``history=True`` still arms the sentinel.
+        self._history: Any = None
+        self._sentinel: Any = None
+        self._history_written = False
+        self._started_at: Optional[float] = None
+        from petastorm_tpu_torch.telemetry.history import resolve_history_policy
+        self._history_policy = resolve_history_policy(history)
+        if self._history_policy is not None:
+            from petastorm_tpu_torch.telemetry.sentinel import (
+                RegressionSentinel, resolve_sentinel_policy)
+            if self._history_policy.path:
+                from petastorm_tpu_torch.telemetry.history import RunHistorian
+                self._history = RunHistorian(
+                    self._history_policy.path,
+                    policy=self._history_policy,
+                    registry=self._incident_registry)
+            sentinel_policy = resolve_sentinel_policy(
+                self._history_policy.sentinel)
+            if sentinel_policy is not None:
+                self._sentinel = RegressionSentinel(
+                    sentinel_policy, owner='dispatcher',
+                    registry=self._incident_registry,
+                    incidents=self._incident_recorder,
+                    dataset_token=SERVICE_DATASET_TOKEN)
+                if self._incident_recorder is not None:
+                    self._incident_recorder.add_source(
+                        'sentinel', self._sentinel.report)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -1057,6 +1127,7 @@ class Dispatcher(object):
         monotonicity and the delivered-dedup set are restored before any
         client or worker frame can race them."""
         import zmq
+        from petastorm_tpu_torch.service.wire import WORKER_PORT_OFFSET
         if self._ledger_path:
             self._arm_ledger()
         self._context = zmq.Context()
@@ -1086,6 +1157,7 @@ class Dispatcher(object):
             else:
                 raise RuntimeError('could not find an adjacent free port '
                                    'pair: {!r}'.format(last_error))
+        self._started_at = time.monotonic()
         self._thread = threading.Thread(target=self._pump, daemon=True,
                                         name='petastorm-tpu-torch-dispatcher')
         self._thread.start()
@@ -1109,10 +1181,10 @@ class Dispatcher(object):
         """Open + replay the durable token ledger behind the ledger-replay
         breaker: a journal that corrupts consecutive replays must not wedge
         every restart — once the breaker opens, the journal is DISCARDED and
-        the fleet degrades to replay-from-clients (loud: an error log and the
-        open breaker), never to a wrong order."""
+        the fleet degrades to replay-from-clients (loud: incident bundle +
+        CRC drop counter), never to a wrong order."""
         from petastorm_tpu_torch.resilience import (
-            LEDGER_REPLAY_BREAKER_RECOVERY_S, LEDGER_REPLAY_BREAKER_THRESHOLD,
+            LEDGER_REPLAY_BREAKER_THRESHOLD, LEDGER_REPLAY_BREAKER_RECOVERY_S,
             default_board)
         from petastorm_tpu_torch.service.ledger import TokenLedger
         from petastorm_tpu_torch.telemetry.tracing import trace_instant
@@ -1129,6 +1201,15 @@ class Dispatcher(object):
                 'frame(s) dropped, %d record(s) recovered); degrading to '
                 'replay-from-clients', self._ledger_path,
                 replay.frames_dropped, replay.records)
+            if self._incident_registry is not None:
+                self._incident_registry.inc('ledger_frames_dropped',
+                                            replay.frames_dropped)
+            if self._incident_recorder is not None:
+                path = self._incident_recorder.trigger(
+                    'ledger_corrupt', args=replay.as_dict())
+                self._correlate_incident(
+                    None, {'bundle': path, 'kind': 'ledger_corrupt',
+                           'cause': 'corruption'})
         elif replay.result == 'ok' and replay.records:
             breaker.record_success()
         self.scheduler.adopt_replay(replay, self._ledger.epoch)
@@ -1142,8 +1223,8 @@ class Dispatcher(object):
 
     def state(self) -> Dict[str, Any]:
         """The scheduler snapshot (same dict the ``state`` request returns),
-        plus the ledger block and the ``autotune`` controller report when
-        retuning is armed."""
+        plus the ``autotune`` controller report when retuning is armed and
+        the correlated ``incidents`` view when the incident plane is."""
         state = self.scheduler.state()
         # a reply at all means the pump is live — fetch_service_state's
         # hello-probe path reports 'starting' for a bound-but-silent socket
@@ -1151,15 +1232,90 @@ class Dispatcher(object):
         state['ledger'] = self.ledger_state()
         if self._autotune is not None:
             state['autotune'] = self._autotune.report()
+        if self._incident_recorder is not None:
+            state['incidents'] = self.incidents_state()
+        if self._history is not None:
+            state['history'] = self._history.state()
+        if self._sentinel is not None:
+            state['sentinel'] = self._sentinel.report()
         return state
 
     def ledger_state(self) -> Dict[str, Any]:
-        """The durable-ledger status block for ``state()`` and the doctor:
+        """The durable-ledger status block for ``state()`` and doctor:
         armed flag, journal path/epoch, last replay result and the frames
         the CRC dropped."""
         if self._ledger is None:
             return {'armed': False}
         out: Dict[str, Any] = self._ledger.state()
+        return out
+
+    # ----------------------------------------------------- run history plane
+
+    def build_history_record(self) -> Optional[Dict[str, Any]]:
+        """The structured run record this dispatcher would append at
+        ``stop()`` (docs/observability.md "Longitudinal observatory"):
+        service config/knob fingerprints, items-served rate, incident
+        counters. None when built without ``history``. Knob values are read
+        live — call before the autotuner would restore anything."""
+        if self._history_policy is None:
+            return None
+        from petastorm_tpu_torch.telemetry.history import (build_run_record,
+                                                     fingerprint)
+        elapsed = 0.0
+        if self._started_at is not None:
+            elapsed = max(time.monotonic() - self._started_at, 0.0)
+        scheduler = self.scheduler
+        knobs: Dict[str, float] = {}
+        try:
+            from petastorm_tpu_torch.autotune.knobs import build_service_knobs
+            knobs = {knob.knob_id: float(knob.get())
+                     for knob in build_service_knobs(scheduler)}
+        except Exception:  # noqa: BLE001 - the record is advisory; a dead knob target must not fail stop()
+            logger.debug('history: service knob capture failed',
+                         exc_info=True)
+        fingerprints: Dict[str, Optional[str]] = {
+            'config': fingerprint({
+                'admission_window': scheduler.admission_window,
+                'quantum': scheduler.quantum,
+                'stale_timeout_s': scheduler.stale_timeout_s,
+                'max_item_attempts': scheduler.max_item_attempts,
+                'item_deadline_s': scheduler.item_deadline_s,
+                'client_ttl_s': scheduler.client_ttl_s,
+                'ledger': bool(self._ledger_path),
+            }),
+            'knobs': fingerprint(knobs) if knobs else None,
+        }
+        incidents: Optional[Dict[str, Any]] = None
+        if self._incident_recorder is not None:
+            incidents = self._incident_recorder.report()
+        return build_run_record(
+            'dispatcher', SERVICE_DATASET_TOKEN, elapsed,
+            int(scheduler.items_served),
+            snapshot=self.fleet_metrics_snapshot(),
+            fingerprints=fingerprints, knobs=knobs,
+            incidents=incidents)
+
+    def _write_history_record(self) -> None:
+        """Append this run's record to the longitudinal store — idempotent,
+        best-effort, skipped entirely without an explicit store path (the
+        dispatcher has no dataset home to default into)."""
+        if self._history is None or self._history_written:
+            return
+        self._history_written = True
+        try:
+            record = self.build_history_record()
+            if record is not None:
+                self._history.append(record)
+        except Exception:  # noqa: BLE001 - history is advisory; a service that served must not fail over its memory
+            logger.warning('dispatcher: could not record this run in the '
+                           'history store', exc_info=True)
+
+    def history_report(self) -> Optional[Dict[str, Any]]:
+        """The historian's store status (path, appended count, dropped
+        frames); None when built without a history store path."""
+        if self._history is None:
+            return None
+        out: Dict[str, Any] = self._history.state()
         return out
 
     # -------------------------------------------------------- metrics plane
@@ -1190,13 +1346,91 @@ class Dispatcher(object):
     def fleet_metrics_snapshot(self) -> Dict[str, Any]:
         """ONE fleet-wide registry snapshot: the scheduler's control-signal
         gauges/counters merged (additively, per worker) with every worker's
-        latest heartbeat snapshot — what ``/metrics`` renders as the
-        aggregate block."""
+        latest heartbeat snapshot — plus the dispatcher-side incident
+        counters when the incident plane is armed — what ``/metrics``
+        renders as the aggregate block (docs/observability.md "Live metrics
+        plane")."""
         from petastorm_tpu_torch.telemetry.registry import merge_snapshots
         with self._worker_metrics_lock:
             snapshots = [snapshot for _seq, snapshot
                          in self._worker_metrics.values()]
+        if self._incident_registry is not None:
+            snapshots.append(self._incident_registry.snapshot())
         return merge_snapshots(self.scheduler.autotune_snapshot(), *snapshots)
+
+    # ------------------------------------------------------- incident plane
+
+    def record_worker_incident(self, worker_id: int, seq: int,
+                               reference: Dict[str, Any]) -> None:
+        """Adopt one worker-shipped incident reference (``w_incident``):
+        unknown-worker stragglers are dropped (same guard as
+        :meth:`record_worker_metrics` — a departed worker's late frame must
+        not resurrect it), a stale ``seq`` is dropped, inline bundles are
+        materialized into the dispatcher's home, and the reference joins the
+        fleet correlation."""
+        if self._incident_recorder is None:
+            return
+        if not self.scheduler.has_worker_id(worker_id):
+            return
+        with self._incident_lock:
+            current = self._worker_incident_seq.get(worker_id)
+            if current is not None and current >= seq:
+                return
+            self._worker_incident_seq[worker_id] = seq
+        adopted = self._incident_recorder.adopt(reference)
+        if adopted is not None:
+            reference = dict(reference, bundle=adopted)
+        self._correlate_incident(worker_id, reference)
+
+    def _correlate_incident(self, worker_id: Optional[int],
+                            reference: Dict[str, Any]) -> None:
+        """Fold one incident reference into the fleet view: same-cause
+        incidents landing within the correlation window collapse into ONE
+        fleet incident spanning every reporting worker — a dataset-wide
+        storage outage reads as one event, not workers-many."""
+        cause = str(reference.get('cause') or 'unknown')
+        kind = str(reference.get('kind') or 'unknown')
+        bundle = reference.get('bundle')
+        now = time.monotonic()
+        with self._incident_lock:
+            for entry in self._fleet_incidents:
+                if (entry['cause'] == cause
+                        and now - entry['_last_monotonic']
+                        <= INCIDENT_CORRELATION_WINDOW_S):
+                    entry['count'] += 1
+                    entry['_last_monotonic'] = now
+                    if kind not in entry['kinds']:
+                        entry['kinds'].append(kind)
+                    if (worker_id is not None
+                            and worker_id not in entry['workers']):
+                        entry['workers'].append(worker_id)
+                    if bundle and len(entry['bundles']) < 8:
+                        entry['bundles'].append(str(bundle))
+                    return
+            self._fleet_incidents.append({
+                'cause': cause, 'kinds': [kind], 'count': 1,
+                'workers': [worker_id] if worker_id is not None else [],
+                'bundles': [str(bundle)] if bundle else [],
+                '_first_monotonic': now, '_last_monotonic': now})
+            del self._fleet_incidents[:-MAX_FLEET_INCIDENTS]
+
+    def incidents_state(self) -> Dict[str, Any]:
+        """The fleet incident view for ``state()``: correlated same-cause
+        groups (ages on the dispatcher's clock) plus the capture/rate-limit
+        counters and the dispatcher's retained-bundle summary."""
+        now = time.monotonic()
+        with self._incident_lock:
+            fleet = [{'cause': entry['cause'], 'kinds': list(entry['kinds']),
+                      'count': entry['count'],
+                      'workers': list(entry['workers']),
+                      'bundles': list(entry['bundles']),
+                      'first_age_s': round(now - entry['_first_monotonic'], 3),
+                      'last_age_s': round(now - entry['_last_monotonic'], 3)}
+                     for entry in self._fleet_incidents]
+        state: Dict[str, Any] = {'fleet': fleet}
+        if self._incident_recorder is not None:
+            state.update(self._incident_recorder.report())
+        return state
 
     @property
     def metrics_url(self) -> Optional[str]:
@@ -1213,12 +1447,18 @@ class Dispatcher(object):
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
+        # record BEFORE the incident recorder closes so the record's
+        # incident counters see the final capture totals, and before the
+        # pump exits so items_served is this run's true total
+        self._write_history_record()
+        if self._incident_recorder is not None:
+            self._incident_recorder.close()
         self._stop_event.set()
 
     def crash(self) -> None:
-        """Crash simulation (tests, the smoke's fault phase): stop the pump
-        WITHOUT the worker-tail drain or the ``w_stop`` broadcast — workers
-        and clients are left exactly as a SIGKILL of the dispatcher process
+        """Crash simulation (chaos harness / tests): stop the pump WITHOUT
+        the worker-tail drain or the ``w_stop`` broadcast — workers and
+        clients are left exactly as a SIGKILL of the dispatcher process
         would leave them, except the sockets can be rebound in-process. The
         ledger handle closes abruptly (no terminal record — that is the
         crash-consistency property being exercised)."""
@@ -1226,6 +1466,8 @@ class Dispatcher(object):
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
+        if self._incident_recorder is not None:
+            self._incident_recorder.close()
         self._stop_event.set()
         self.join()
         if self._ledger is not None:
@@ -1288,6 +1530,18 @@ class Dispatcher(object):
                 except Exception:  # noqa: BLE001 - the tuner must never kill the dispatch loop it tunes
                     logger.exception('dispatcher: autotune step failed; '
                                      'pump keeps dispatching')
+            if self._sentinel is not None and self._started_at is not None:
+                # items-served is the service's rows analog; between window
+                # closes this costs one float compare per pump tick
+                elapsed = time.monotonic() - self._started_at
+                if self._sentinel.due(elapsed):
+                    try:
+                        self._sentinel.observe_sample(
+                            elapsed, int(self.scheduler.items_served))
+                        self._sentinel.export_gauges()
+                    except Exception:  # noqa: BLE001 - the sentinel must never kill the dispatch loop it watches
+                        logger.exception('dispatcher: sentinel window '
+                                         'failed; pump keeps dispatching')
             self._dispatch_ready()
         if not self._crashed:
             self._drain_worker_tail()
@@ -1295,9 +1549,9 @@ class Dispatcher(object):
 
     def _drain_worker_tail(self) -> None:
         """Final heartbeat-socket drain before the stop broadcast: a worker
-        mid-metrics ship when stop lands would otherwise lose those frames
-        AND look like a straggler to the fleet reaper. Bounded — shutdown
-        must not hang on a chatty socket."""
+        mid-``w_incident`` (or mid-metrics) ship when stop lands would
+        otherwise lose those frames AND look like a straggler to the fleet
+        reaper. Bounded — shutdown must not hang on a chatty socket."""
         import zmq
         deadline = time.monotonic() + 0.25
         while time.monotonic() < deadline:
@@ -1334,8 +1588,8 @@ class Dispatcher(object):
                 self._client_socket.send_multipart(
                     [identity, MSG_REJOIN, frames[2]])
                 return
-            # optional 6th frame: the client scheduler's measured-cost hint;
-            # absent => 1.0,
+            # optional 6th frame: the client scheduler's measured-cost hint
+            # (docs/performance.md "Cost-aware scheduling"); absent => 1.0,
             # the historical uniform unit cost
             cost = decode_cost(bytes(frames[5])) if len(frames) >= 6 else 1.0
             token = self.scheduler.submit(identity, bytes(frames[2]),
@@ -1417,9 +1671,16 @@ class Dispatcher(object):
                                      int(bytes(frames[3])))
             return
         if kind == MSG_W_METRICS and len(frames) >= 3:
+            from petastorm_tpu_torch.service.wire import WorkerMetricsUpdate
             update = WorkerMetricsUpdate.from_bytes(bytes(frames[2]))
             self.record_worker_metrics(update.worker_id, update.seq,
                                        update.snapshot)
+            return
+        if kind == MSG_W_INCIDENT and len(frames) >= 3:
+            from petastorm_tpu_torch.service.wire import WorkerIncidentUpdate
+            incident = WorkerIncidentUpdate.from_bytes(bytes(frames[2]))
+            self.record_worker_incident(incident.worker_id, incident.seq,
+                                        incident.reference)
             return
         if kind == MSG_W_RESULT and len(frames) >= 4:
             token = int(bytes(frames[2]))
@@ -1490,6 +1751,14 @@ class Dispatcher(object):
             'service dispatcher: attempt budget exhausted'))
         self._client_socket.send_multipart(
             [client_key, MSG_ERROR, client_token, blob])
+        if self._incident_recorder is not None:
+            path = self._incident_recorder.trigger(
+                'service_poison_item',
+                args={'max_item_attempts': self.scheduler.max_item_attempts})
+            if path is not None:
+                self._correlate_incident(
+                    None, {'bundle': path, 'kind': 'service_poison_item',
+                           'cause': 'hang'})
 
     def _depart_worker(self, key: bytes, reason: str) -> None:
         worker_id = self.scheduler.worker_id_of(key)
@@ -1498,6 +1767,18 @@ class Dispatcher(object):
             # (Prometheus convention: absent, not frozen-forever)
             with self._worker_metrics_lock:
                 self._worker_metrics.pop(worker_id, None)
+            with self._incident_lock:
+                self._worker_incident_seq.pop(worker_id, None)
+        if self._incident_recorder is not None and reason == 'went stale':
+            # the dispatcher-side watchdog edge: a worker stopped stamping
+            # (SIGKILL, hang, network partition) and its items re-queue
+            path = self._incident_recorder.trigger(
+                'watchdog_reap',
+                args={'worker_id': worker_id, 'reason': reason})
+            if path is not None:
+                self._correlate_incident(
+                    worker_id, {'bundle': path, 'kind': 'watchdog_reap',
+                                'cause': 'hang'})
         failed = self.scheduler.remove_worker(key)
         if failed:
             logger.error('dispatcher: %d item(s) exhausted their attempt '
@@ -1511,7 +1792,9 @@ class Dispatcher(object):
     def _note_reshard(self, reason: str) -> None:
         """Re-split undelivered work after an elastic worker-set change and
         make the decision observable: a ``reshard`` trace instant on the
-        flight recorder and a log line."""
+        flight recorder plus an incident-correlatable event — repeated
+        membership churn then reads as ONE scheduling-skew incident, not
+        scattered log lines."""
         summary = self.scheduler.reshard(reason)
         if summary is None:
             return
@@ -1520,6 +1803,11 @@ class Dispatcher(object):
         logger.info('dispatcher: resharded %d undelivered item(s) across %d '
                     'worker(s) (%s)', summary['undelivered'],
                     summary['workers'], reason)
+        if self._incident_recorder is not None:
+            path = self._incident_recorder.trigger('reshard', args=summary)
+            self._correlate_incident(
+                None, {'bundle': path, 'kind': 'reshard',
+                       'cause': 'scheduling-skew'})
 
     def _check_stale(self) -> None:
         now = time.monotonic()

@@ -1,6 +1,5 @@
 """Single-host service runner: one dispatcher plus N spawned decode workers.
-A copy of ``petastorm_tpu.service.fleet`` without ``incidents=`` and
-``history=`` (those planes are not in the port yet).
+A copy of ``petastorm_tpu.service.fleet``.
 
 :class:`ServiceFleet` is how the service is started — by the
 ``petastorm-tpu-torch-throughput serve`` CLI and by the tests: it runs a
@@ -57,7 +56,16 @@ class ServiceFleet(object):
     ephemeral port — ``dispatcher.metrics_url`` names it). ``ledger`` (True
     or an explicit journal path) arms the dispatcher's durable token ledger,
     which lets :meth:`crash_dispatcher` restart the dispatcher mid-epoch
-    without re-delivering retired work or losing in-flight items."""
+    without re-delivering retired work or losing in-flight items.
+    ``incidents`` (True or an
+    :class:`~petastorm_tpu_torch.telemetry.incident.IncidentPolicy`) arms the
+    incident plane fleet-wide: every worker captures bundles locally and
+    ships their references on its heartbeat socket, and the dispatcher adopts
+    and correlates them. ``history`` (True, a store path or a
+    :class:`~petastorm_tpu_torch.telemetry.history.HistoryPolicy`) makes the
+    dispatcher append one run record at stop (True: under the cache
+    directory, or a private temporary one) and watch its items-served rate
+    with the regression sentinel."""
 
     def __init__(self, workers: int = 2, host: str = '127.0.0.1',
                  port: Optional[int] = None,
@@ -73,13 +81,17 @@ class ServiceFleet(object):
                  client_ttl_s: float = DEFAULT_CLIENT_TTL_S,
                  autotune: Any = None,
                  metrics_port: Optional[int] = None,
-                 ledger: Any = None) -> None:
+                 incidents: Any = None,
+                 ledger: Any = None,
+                 history: Any = None) -> None:
         self._initial_workers = workers
         self._cache_dir = cache_dir
         self._cache_size_limit = cache_size_limit
         self._shm_results = shm_results
         self._heartbeat_interval_s = heartbeat_interval_s
+        self._incidents = incidents
         self._ledger_path = self._resolve_ledger(ledger)
+        self._history_policy = self._resolve_history(history)
         # the dispatcher's construction arguments, kept so crash_dispatcher
         # can rebuild an identical incarnation on the same port
         self._dispatcher_kwargs: Dict[str, Any] = dict(
@@ -88,7 +100,8 @@ class ServiceFleet(object):
             max_item_attempts=max_item_attempts,
             item_deadline_s=item_deadline_s, client_ttl_s=client_ttl_s,
             autotune=autotune, metrics_port=metrics_port,
-            ledger=self._ledger_path)
+            incidents=incidents, ledger=self._ledger_path,
+            history=self._history_policy)
         self.dispatcher = Dispatcher(**self._dispatcher_kwargs)
         self.processes: List[subprocess.Popen] = []
         self._next_worker_id = 0
@@ -107,6 +120,28 @@ class ServiceFleet(object):
             prefix='petastorm-tpu-torch-ledger-')
         os.makedirs(home, exist_ok=True)
         return default_ledger_path(home)
+
+    def _resolve_history(self, history: Any) -> Any:
+        """None/False: off; a path (or a policy with one) passes through;
+        True or a path-less policy gets a store under the cache directory (a
+        private temporary one when the fleet has none)."""
+        import dataclasses
+        from petastorm_tpu_torch.telemetry.history import (HISTORY_BASENAME,
+                                                           resolve_history_policy)
+        policy = resolve_history_policy(history)
+        if policy is None or policy.path:
+            return policy
+        home = self._cache_dir or tempfile.mkdtemp(prefix='petastorm-tpu-torch-history-')
+        os.makedirs(home, exist_ok=True)
+        return dataclasses.replace(policy, path=os.path.join(home, HISTORY_BASENAME))
+
+    @property
+    def history_path(self) -> Optional[str]:
+        """The run-history store path (None without ``history``)."""
+        if self._history_policy is None:
+            return None
+        path: Optional[str] = self._history_policy.path
+        return path
 
     # ------------------------------------------------------------ lifecycle
 
@@ -146,6 +181,7 @@ class ServiceFleet(object):
             'parent_pid': os.getpid(),
             'cache_dir': self._cache_dir,
             'cache_size_limit': self._cache_size_limit,
+            'incidents': self._incidents,
         }
         fd, path = tempfile.mkstemp(suffix='.petastorm-tpu-torch-service-worker')
         try:
@@ -296,6 +332,15 @@ def serve(argv: Optional[List[str]] = None) -> int:
                              'token lifecycle to PATH (bare --ledger uses '
                              'the cache dir) so a restarted dispatcher '
                              'resumes mid-epoch')
+    parser.add_argument('--incidents', action='store_true',
+                        help='arm the fleet-wide incident plane: workers capture '
+                             'bundles on failure edges and ship references to '
+                             'the dispatcher, which correlates them in state()')
+    parser.add_argument('--history', nargs='?', const=True, default=None,
+                        metavar='PATH',
+                        help='record one run record a dispatcher life to PATH '
+                             '(bare --history uses the cache dir) and watch the '
+                             'items-served rate with the regression sentinel')
     parser.add_argument('--state-interval', type=float, default=30.0,
                         help='seconds between state summaries (0 = quiet)')
     parser.add_argument('--json', action='store_true',
@@ -308,7 +353,8 @@ def serve(argv: Optional[List[str]] = None) -> int:
         cache_dir=args.cache_dir, cache_size_limit=args.cache_size_limit,
         shm_results=not args.no_shm, admission_window=args.admission_window,
         item_deadline_s=args.item_deadline_s, autotune=args.autotune,
-        metrics_port=args.metrics_port, ledger=args.ledger)
+        metrics_port=args.metrics_port, incidents=args.incidents or None,
+        ledger=args.ledger, history=args.history)
     url = fleet.start()
     print('petastorm_tpu_torch input service running at {} ({} worker(s); '
           'workers register on port {}). Point readers at '

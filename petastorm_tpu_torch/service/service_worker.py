@@ -1,6 +1,5 @@
 """Stateless decode worker for the disaggregated input service. A copy of
-``petastorm_tpu.service.service_worker`` over the port's reader worker,
-without the incident plane (no ``w_incident`` frames yet).
+``petastorm_tpu.service.service_worker`` over the port's reader worker.
 
 Entry point executed inside each service worker process, started as
 ``python -m petastorm_tpu_torch.service.service_worker <bootstrap>``: connect a
@@ -58,7 +57,8 @@ import time
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from petastorm_tpu_torch.service.wire import (ShmResultDescriptor, WorkerDescriptor,
-                                              WorkerMetricsUpdate, host_token)
+                                              WorkerIncidentUpdate, WorkerMetricsUpdate,
+                                              host_token)
 # the process pool's worker helpers: the parent watch, the pickler of user
 # objects by name and the pickled error of a failed item
 from petastorm_tpu_torch.workers.process_worker_main import (_error_blob, _watch_parent,
@@ -84,13 +84,18 @@ _REGISTER_TIMEOUT_MS = 2000
 
 def _heartbeat_loop(stop_event: threading.Event, context: Any, endpoint: str,
                     worker_id: int, interval_s: float,
-                    metrics_snapshot_fn: Callable[[], Dict[str, Any]]) -> None:
+                    metrics_snapshot_fn: Callable[[], Dict[str, Any]],
+                    incident_refs_fn: Optional[Callable[[], List[Dict[str, Any]]]] = None
+                    ) -> None:
     """Stamp liveness on a PRIVATE DEALER socket (ZMQ sockets are not
     thread-safe — the main thread owns the work socket). Dropped sends are
     fine: the dispatcher only needs *some* stamp to land inside its (much
     longer) staleness window. Every ``_METRICS_EVERY_N_BEATS`` stamps the
     same socket also carries the worker's cumulative telemetry snapshot as a
-    ``w_metrics`` frame — best-effort like the stamps."""
+    ``w_metrics`` frame — best-effort like the stamps. Each beat also drains
+    ``incident_refs_fn`` (the references of the bundles the worker's incident
+    recorder captured since the last beat) and ships each as a ``w_incident``
+    frame."""
     import zmq
     socket = context.socket(zmq.DEALER)
     socket.setsockopt(zmq.SNDHWM, 8)
@@ -106,6 +111,14 @@ def _heartbeat_loop(stop_event: threading.Event, context: Any, endpoint: str,
                     zmq.NOBLOCK)
             except Exception:  # noqa: BLE001 - liveness must never kill a worker
                 pass
+            if incident_refs_fn is not None:
+                try:
+                    for reference in incident_refs_fn():
+                        update = WorkerIncidentUpdate(worker_id, seq, reference)
+                        socket.send_multipart([b'w_incident', update.to_bytes()],
+                                              zmq.NOBLOCK)
+                except Exception:  # noqa: BLE001 - the incident plane must never kill a worker
+                    pass
             if seq % _METRICS_EVERY_N_BEATS != 1:
                 continue
             try:
@@ -267,6 +280,7 @@ def main(bootstrap_path: str) -> None:
     socket = context.socket(zmq.DEALER)
     heartbeat_stop = threading.Event()
     heartbeat_thread: Optional[threading.Thread] = None
+    incident_recorder: Any = None
     shm_publisher: Optional[_ShmPublisher] = None
     # One try/finally over registration and the work loop: an uncaught
     # error must still close the socket and terminate the context, or
@@ -294,11 +308,32 @@ def main(bootstrap_path: str) -> None:
         from petastorm_tpu_torch.telemetry.tracing import set_dispatch_attempt
         worker_metrics = MetricsRegistry()
 
+        # the incident plane, when the fleet arms it: bundles are captured
+        # here on this worker's own edges (a breaker opening, a quarantined
+        # rowgroup) and the heartbeat thread ships their references
+        incident_refs_fn: Optional[Callable[[], List[Dict[str, Any]]]] = None
+        incidents = bootstrap.get('incidents')
+        if incidents:
+            from petastorm_tpu_torch.resilience import default_board
+            from petastorm_tpu_torch.telemetry.incident import (IncidentRecorder,
+                                                                default_incident_home,
+                                                                resolve_incident_policy)
+            # one subdirectory a worker: co-located workers must not race
+            # each other's bundle sequence numbers
+            home = os.path.join(default_incident_home(cache_dir),
+                                'worker-{}'.format(worker_id))
+            incident_recorder = IncidentRecorder(home, resolve_incident_policy(incidents),
+                                                 registry=worker_metrics)
+            incident_recorder.add_source('metrics', worker_metrics.snapshot)
+            incident_recorder.add_source('breakers', default_board().snapshot)
+            default_board().observe_transitions(incident_recorder.on_breaker_transition)
+            incident_refs_fn = incident_recorder.drain_references
+
         if heartbeat_interval_s > 0:
             heartbeat_thread = threading.Thread(
                 target=_heartbeat_loop,
                 args=(heartbeat_stop, context, endpoint, worker_id,
-                      heartbeat_interval_s, worker_metrics.snapshot),
+                      heartbeat_interval_s, worker_metrics.snapshot, incident_refs_fn),
                 daemon=True)
             heartbeat_thread.start()
 
@@ -314,6 +349,15 @@ def main(bootstrap_path: str) -> None:
             stage_times = getattr(result, 'telemetry', None)
             if stage_times:
                 worker_metrics.merge_stage_times(stage_times)
+            if incident_recorder is not None:
+                record = getattr(result, 'quarantine', None)
+                if record is not None:
+                    # the reader's split: a reaped hang and a skipped rowgroup
+                    # are distinct causes
+                    incident_recorder.trigger(
+                        'watchdog_reap' if record.reason == 'hang' else 'quarantine',
+                        ctx=(record.epoch, record.piece_index, record.attempts),
+                        args=record.as_dict())
             with stage_span('serialize'):
                 frames = current_serializer[0].serialize(result)
             if shm_publisher is not None and current_colocated[0]:
@@ -417,6 +461,8 @@ def main(bootstrap_path: str) -> None:
         heartbeat_stop.set()
         if heartbeat_thread is not None:
             heartbeat_thread.join(timeout=2 * heartbeat_interval_s + 1)
+        if incident_recorder is not None:
+            incident_recorder.close()
         if shm_publisher is not None:
             shm_publisher.close()
         socket.close(linger=1000)

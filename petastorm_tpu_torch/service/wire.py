@@ -23,9 +23,10 @@ holds what is shared and structural:
   as ``w_metrics`` frames; the dispatcher keeps the latest per worker
   (``seq``-guarded) and merges them at scrape time, so a dropped update loses
   freshness, never data.
-- :class:`WorkerIncidentUpdate` — the ``w_incident`` body of the JAX
-  package's incident plane, kept so the formats stay complete; the port's
-  workers send none yet (the port has no incident plane).
+- :class:`WorkerIncidentUpdate` — the incident-plane piggyback: the
+  reference of one bundle a worker captured, riding its heartbeat socket as a
+  ``w_incident`` frame (inline bundle bytes when small), which the dispatcher
+  adopts into its own home.
 
 Every descriptor serializes via ``to_bytes``/``from_bytes`` JSON specs."""
 

@@ -30,6 +30,17 @@ process-pool workers import the worker side):
 - :mod:`~petastorm_tpu_torch.telemetry.analyze` — bottleneck attribution: rank
   stages by time share, map the top stage to the knob that moves it
   (``python -m petastorm_tpu_torch.telemetry.analyze``).
+- :mod:`~petastorm_tpu_torch.telemetry.cost_model` — the per-rowgroup cost
+  ledger the cost-aware scheduler plans from.
+- :mod:`~petastorm_tpu_torch.telemetry.lineage` — the chained order digest,
+  the batch manifest and its dry-replay verifier and differ
+  (``make_reader(lineage=)``).
+- :mod:`~petastorm_tpu_torch.telemetry.incident` — rate-limited evidence
+  bundles at failure edges and their autopsy (``incidents=``).
+- :mod:`~petastorm_tpu_torch.telemetry.history` /
+  :mod:`~petastorm_tpu_torch.telemetry.sentinel` — the CRC-framed run
+  history with its compare engine, and the live regression sentinel
+  (``history=``).
 
 Entry points on the pipeline objects: ``Reader.telemetry_snapshot()`` /
 ``Reader.diagnostics['telemetry']`` and ``TorchDataLoader.telemetry_snapshot()``.
@@ -37,9 +48,6 @@ Entry points on the pipeline objects: ``Reader.telemetry_snapshot()`` /
 ``PETASTORM_TPU_TELEMETRY_JSONL=<path>`` streams periodic snapshots from the
 loader. The environment switches are the JAX package's names and arm both
 packages; each package keeps its own in-process state.
-
-Left for later: the cost model, lineage, incident, history and sentinel
-modules of the JAX package.
 """
 
 from petastorm_tpu_torch.telemetry.registry import (Counter, Gauge,  # noqa: F401

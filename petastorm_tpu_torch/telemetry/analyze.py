@@ -107,9 +107,7 @@ _KNOBS: Dict[str, Any] = {
                  'overlaps the train step, or shrink the augment chain.'),
     # ------------------------------------------------------ input service
     # Service-backed readers surface their pressure as COUNTERS/GAUGES, not
-    # stage histograms — these entries feed the counter advisories below. The
-    # port has no input service yet; a JAX package snapshot read through this
-    # module still gets the same advice.
+    # stage histograms — these entries feed the counter advisories below.
     'service_busy': ('raise the admission window or add decode workers',
                      'The dispatcher rejected submits with busy: the '
                      'per-client in-flight window is full. If the queue is '

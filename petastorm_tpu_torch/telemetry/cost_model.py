@@ -74,9 +74,8 @@ class CostLedger(object):
 
     Entries are keyed ``'<fragment_path>#<row_group_id>'`` and hold per-stage
     ``{count, sum_s, max_s}`` plus per-field ``{count, sum_s}`` decode costs.
-    A ``range_fetch`` span (the JAX package's storage engine; the port has
-    no such engine yet, but loads and merges ledgers that carry it) folds its
-    per-fetch totals into an optional ``fetch`` cell per entry: ``{bytes,
+    A ``range_fetch`` span (the storage engine,
+    :mod:`~petastorm_tpu_torch.storage`) folds its per-fetch totals into an optional ``fetch`` cell per entry: ``{bytes,
     ranges, hedges_fired, hedges_won, sum_s, count}``.
     All mutation is additive, so ledgers merge across runs, processes and
     re-dispatched attempts exactly like histogram snapshots do."""

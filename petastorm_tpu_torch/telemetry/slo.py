@@ -36,10 +36,11 @@ timeline. Surfaces: ``Reader.efficiency_report()`` /
 from __future__ import annotations
 
 import collections
+import logging
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Deque, Dict, Optional
+from typing import Any, Callable, Deque, Dict, Optional
 
 from petastorm_tpu_torch.telemetry import registry as _registry
 from petastorm_tpu_torch.telemetry import tracing as _tracing
@@ -151,15 +152,23 @@ class SloTracker(object):
     HISTORY_SIZE = 32
 
     def __init__(self, policy: Optional[SloPolicy] = None,
-                 jsonl: Optional[JsonlEventLogger] = None) -> None:
+                 jsonl: Optional[JsonlEventLogger] = None,
+                 on_breach: Optional[Callable[[Dict[str, Any]], None]] = None) -> None:
         self.policy = policy if policy is not None else SloPolicy()
         self._jsonl = jsonl
+        self._on_breach = on_breach
         self._lock = threading.Lock()
         self._breaches = 0
         self._evaluations = 0
         self._in_breach = False
         self._history: Deque[Dict[str, Any]] = collections.deque(
             maxlen=self.HISTORY_SIZE)
+
+    def observe_breaches(self, callback: Callable[[Dict[str, Any]], None]) -> None:
+        """Attach (or replace) the ok→breach edge observer: called once a
+        transition with the evaluation report, outside the tracker lock (the
+        incident recorder's ``slo_breach`` trigger)."""
+        self._on_breach = callback
 
     @property
     def breaches(self) -> int:
@@ -246,6 +255,11 @@ class SloTracker(object):
                                       'target': target,
                                       'wait_seconds': report['wait_seconds'],
                                       'elapsed_s': report['elapsed_s']})
+            if self._on_breach is not None:
+                try:
+                    self._on_breach(dict(report))
+                except Exception:  # noqa: BLE001 - an observer must not break evaluation
+                    logging.getLogger(__name__).exception('slo breach observer failed')
         return report
 
 

@@ -24,10 +24,9 @@ and the serialize/slot-wait stages recorded by the process-pool worker main land
 on the same thread that publishes the next batch (they ride one item late —
 still the same process total).
 
-The catalog keeps the names of planes the port does not have yet (the storage
-engine's ``range_fetch``/``range_hedge``, the ``service_*``, ``lineage_*``,
-``incidents_*``, ``storage_*`` and ``history_*`` counters): nothing in the
-port records them.
+The catalog keeps the names of the one plane the port does not have yet
+(the ``topology_*`` counters and the ``host_reshard`` instant): nothing in
+the port records them.
 """
 
 from __future__ import annotations
@@ -70,9 +69,9 @@ STAGES = (
                       # flight-recorder timeline only (never a histogram),
                       # and only while tracing is armed
     'range_fetch',    # one planned multi-range fetch of a rowgroup's column
-                      # chunks (the storage engine; not in the port yet)
+                      # chunks (storage/fetcher.py)
     'range_hedge',    # lifetime of one hedged duplicate GET, win or lose
-                      # (the storage engine; not in the port yet)
+                      # (storage/fetcher.py)
 )
 
 #: stages whose span ENVELOPES other recorded stages (cache_miss wraps
@@ -223,13 +222,17 @@ class StageRecorder(object):
 _process_recorder = StageRecorder()
 
 
-def record_stage(stage: str, seconds: float) -> None:
+def record_stage(stage: str, seconds: float,
+                 trace_args: Optional[Dict[str, Any]] = None) -> None:
     """Record one observation into the process-wide stage recorder (and, when
     the flight recorder is armed, a matching trace event back-dated by the
-    measured duration)."""
+    measured duration). ``trace_args`` rides only the trace event, never the
+    histogram: the storage engine puts each fetch's byte, range and hedge
+    totals there."""
     _process_recorder.record(stage, seconds)
     if _tracing.trace_enabled():
-        _tracing.trace_complete(stage, time.perf_counter() - seconds, seconds)
+        _tracing.trace_complete(stage, time.perf_counter() - seconds, seconds,
+                                args=trace_args)
 
 
 def drain_stage_times() -> Optional[Dict[str, Dict[str, Any]]]:

@@ -14,11 +14,12 @@ checks, in order:
    ceiling it implies for 1 KiB rows.
 4. **Store round trip**: a small store written to a temp dir through the
    codec and metadata path, read back with ``make_reader`` on the thread
-   pool (``on_error='retry'``, the flight recorder and a long-window
-   autotuner armed), every row checked, rows/s reported; its ``telemetry``
-   (snapshot and bottleneck), ``trace``, ``resilience``, ``autotune`` and
-   ``slo`` blocks are lifted to the report's top level with the JAX doctor's
-   keys.
+   pool (``on_error='retry'``, the flight recorder, a long-window
+   autotuner, manifest-less lineage and a temporary history store armed),
+   every row checked, rows/s reported; its ``telemetry`` (snapshot and
+   bottleneck), ``trace``, ``resilience``, ``autotune``, ``slo``,
+   ``lineage`` and ``history`` blocks are lifted to the report's top level
+   with the JAX doctor's keys.
 5. **Input service**: when ``--service-url`` (or the
    ``PETASTORM_TPU_SERVICE_URL`` env var) names an input-service dispatcher
    (:mod:`~petastorm_tpu_torch.service`), its state: reachable? workers
@@ -26,15 +27,20 @@ checks, in order:
    configured service prints a WARNING — readers pointed at it will fail),
    and its durable token ledger (``report['ledger']``: armed, epoch, last
    replay, frames the CRC dropped).
+6. **Incidents**: the retained bundles of the default incident home
+   (``PETASTORM_TPU_INCIDENT_HOME``), newest first (``report['incidents']``).
+7. **Storage**: a read of a small local store with the object-store ingest
+   engine force-armed: footer-cache hits and misses, ranges coalesced,
+   hedges fired and won (``report['storage']``; a hedge-win rate above 50%
+   prints a WARNING).
 
 Prints a human report, or with ``--json`` one JSON line (the dict
 :func:`collect_report` returns). The exit code is 0 iff the store round trip
 passed: a CPU-only install is a healthy install, and backend or link failures
 are reported as findings.
 
-The JAX doctor's ``lineage``, ``history``, ``topology``, ``incidents``,
-``storage`` and ``pipecheck`` blocks wait for those planes in the port and
-are not in the report.
+The JAX doctor's ``topology`` and ``pipecheck`` blocks wait for those planes
+in the port and are not in the report.
 """
 from __future__ import annotations
 
@@ -159,7 +165,7 @@ def check_link(reference_row_bytes=1024, reference_batch=1024, timeout_s=180):
 def check_store_roundtrip(rows=200, workers=2):
     """Write a store (scalar and ndarray codecs) to a temp dir, read it back
     through ``make_reader``, check every row, report rows/s and the reader's
-    telemetry, trace, resilience, autotune and SLO views."""
+    telemetry, trace, resilience, autotune, SLO, lineage and history views."""
     import numpy as np
     import pyarrow as pa
 
@@ -168,6 +174,7 @@ def check_store_roundtrip(rows=200, workers=2):
     from petastorm_tpu_torch.etl.dataset_metadata import write_rows
     from petastorm_tpu_torch.reader import make_reader
     from petastorm_tpu_torch.telemetry import tracing
+    from petastorm_tpu_torch.telemetry.lineage import LineagePolicy
     from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
     schema = Unischema('DoctorSchema', [
@@ -188,8 +195,12 @@ def check_store_roundtrip(rows=200, workers=2):
             start = time.perf_counter()
             seen = []
             # on_error='retry' probes the resilience path; the autotuner's
-            # window outlasts the read, so it wires up and turns no knob
+            # window outlasts the read, so it wires up and turns no knob;
+            # lineage folds a digest without a manifest file, and the run
+            # record goes into a store in the temp dir
+            hist_path = os.path.join(tmp, 'run_history.bin')
             with make_reader(url, workers_count=workers, num_epochs=1, on_error='retry',
+                             lineage=LineagePolicy(manifest=False), history=hist_path,
                              autotune=AutotunePolicy(window_s=3600.0)) as reader:
                 for row in reader:
                     seen.append(int(row.idx))
@@ -201,7 +212,10 @@ def check_store_roundtrip(rows=200, workers=2):
                 trace = reader.trace_summary()
                 autotune = reader.autotune_report()
                 slo = reader.efficiency_report()
+                lineage = diag.get('lineage')
+                sentinel = diag.get('sentinel')
             elapsed = time.perf_counter() - start
+            history = check_history(hist_path, sentinel)
     finally:
         tracing.set_trace_enabled(trace_was_enabled)
         if not trace_was_enabled:
@@ -219,6 +233,8 @@ def check_store_roundtrip(rows=200, workers=2):
             'trace': trace,
             'autotune': autotune,
             'slo': slo,
+            'lineage': lineage,
+            'history': history,
             'resilience': {
                 'breakers': diag.get('breakers', {}),
                 'workers_hung_reaped': diag.get('workers_hung_reaped', 0),
@@ -226,6 +242,83 @@ def check_store_roundtrip(rows=200, workers=2):
                 'cache_corrupt_entries': diag.get('cache', {}).get('corrupt_entries', 0),
                 'rowgroups_quarantined': diag.get('rowgroups_quarantined', 0),
             }}
+
+
+def check_history(path, sentinel=None):
+    """Replay the round trip's run-history store: records, frames the CRC
+    dropped (a torn append the store healed around), the newest record's
+    rows/s and platform, and whether the sentinel was armed."""
+    from petastorm_tpu_torch.telemetry.history import load_records
+    records, dropped = load_records(path)
+    block = {'status': 'ok' if records and not dropped else 'degraded',
+             'records': len(records), 'frames_dropped': dropped,
+             'sentinel_armed': bool(sentinel)}
+    if records:
+        block['rows_per_sec'] = records[-1].get('rows_per_sec')
+        block['platform'] = records[-1].get('platform')
+    return block
+
+
+def check_incidents(home=None):
+    """The retained bundles of the incident home (newest first): names,
+    trigger kinds and ranked causes, without opening their evidence."""
+    from petastorm_tpu_torch.telemetry.incident import default_incident_home, scan_bundles
+    home = home or default_incident_home(None)
+    bundles = scan_bundles(home)
+    return {'status': 'ok', 'home': home, 'retained': len(bundles),
+            'bundles': bundles[:8]}
+
+
+def check_storage(rows=64, workers=1):
+    """A read of a small local store with the object-store ingest engine
+    force-armed (two epochs, so the second hits the footer cache), and the
+    engine's counters. On a healthy local disk hedges should almost never
+    fire; the human report warns when more than half of those that fire win."""
+    import numpy as np
+    import pyarrow as pa
+
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.etl.dataset_metadata import write_rows
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.storage import reset_storage_metrics, storage_metrics_snapshot
+    from petastorm_tpu_torch.telemetry.registry import (set_telemetry_enabled,
+                                                        telemetry_enabled)
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    schema = Unischema('DoctorStorageSchema', [
+        UnischemaField('idx', np.int64, (), ScalarCodec(pa.int64()), False),
+        UnischemaField('val', np.float64, (), ScalarCodec(pa.float64()), False),
+    ])
+    was_enabled = telemetry_enabled()
+    set_telemetry_enabled(True)   # the counters follow the telemetry switch
+    reset_storage_metrics()       # this probe's reads only
+    try:
+        with tempfile.TemporaryDirectory(prefix='petastorm_tpu_torch_doctor_') as tmp:
+            url = 'file://' + tmp
+            write_rows(url, schema, ({'idx': i, 'val': float(i)} for i in range(rows)),
+                       rowgroup_size_mb=1)
+            seen = []
+            with make_reader(url, workers_count=workers, num_epochs=2,
+                             storage_policy=True) as reader:
+                for row in reader:
+                    seen.append(int(row.idx))
+        counters = storage_metrics_snapshot().get('counters', {})
+    finally:
+        set_telemetry_enabled(was_enabled)
+        reset_storage_metrics()   # the probe's counts stay out of real reads
+    if sorted(set(seen)) != list(range(rows)):
+        return {'status': 'fail',
+                'detail': 'engine-armed read returned {} distinct rows, expected {}'
+                          .format(len(set(seen)), rows)}
+    fired = int(counters.get('storage_hedge_fired', 0))
+    won = int(counters.get('storage_hedge_won', 0))
+    return {'status': 'ok',
+            'footer_cache_hits': int(counters.get('storage_footer_cache_hit', 0)),
+            'footer_cache_misses': int(counters.get('storage_footer_cache_miss', 0)),
+            'ranges_coalesced': int(counters.get('storage_ranges_coalesced', 0)),
+            'hedges_fired': fired,
+            'hedges_won': won,
+            'hedge_win_rate': round(won / fired, 3) if fired else 0.0}
 
 
 def check_service(service_url=None, timeout_s=2.0):
@@ -316,6 +409,11 @@ def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_ur
     report['autotune'] = autotune if autotune is not None else {'enabled': False}
     slo = roundtrip.pop('slo', None)
     report['slo'] = slo if slo is not None else {'evaluated': False}
+    lineage = roundtrip.pop('lineage', None)
+    report['lineage'] = lineage if lineage is not None else {'enabled': False}
+    history = roundtrip.pop('history', None)
+    report['history'] = history if history is not None else {
+        'status': 'unprobed', 'records': 0, 'frames_dropped': 0, 'sentinel_armed': False}
     # the service and ledger blocks: always present so --json consumers find
     # one stable key; an unconfigured service is a healthy install
     try:
@@ -326,6 +424,14 @@ def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_ur
         report['ledger'] = check_ledger(report['service'])
     except Exception as exc:  # noqa: BLE001 - the report must always complete
         report['ledger'] = {'status': 'fail', 'detail': repr(exc)}
+    try:
+        report['incidents'] = check_incidents()
+    except Exception as exc:  # noqa: BLE001 - the report must always complete
+        report['incidents'] = {'status': 'fail', 'detail': repr(exc)}
+    try:
+        report['storage'] = check_storage()
+    except Exception as exc:  # noqa: BLE001 - the report must always complete
+        report['storage'] = {'status': 'fail', 'detail': repr(exc)}
     report['healthy'] = roundtrip.get('status') == 'ok'
     return report
 
@@ -422,6 +528,44 @@ def _print_human(report):
             print('  WARNING: the dispatcher ledger dropped {} journal frame(s) on its '
                   'last replay: a restart degraded to replay-from-clients'.format(
                       ledger['frames_dropped']))
+    lineage = report.get('lineage') or {}
+    if lineage.get('enabled'):
+        print('  lineage: digest {}... over {} item(s), {} pending, {} divergence(s)'.format(
+            (lineage.get('order_digest') or '')[:12], lineage.get('items_folded', 0),
+            lineage.get('pending_items', 0), lineage.get('divergence', 0)))
+        if lineage.get('divergence'):
+            print('  WARNING: sample-lineage verification FAILED {} time(s) (last: {})'
+                  .format(lineage.get('divergence'),
+                          (lineage.get('last_divergence') or {}).get('reason')))
+    history = report.get('history') or {}
+    if history.get('status') != 'unprobed':
+        print('  history: {} run record(s) replayed ({} CRC-dropped frame(s)); sentinel {}'
+              .format(history.get('records', 0), history.get('frames_dropped', 0),
+                      'armed' if history.get('sentinel_armed') else 'unarmed'))
+        if history.get('frames_dropped'):
+            print('  WARNING: the run-history store dropped torn frame(s): an append '
+                  'was interrupted and the store healed around it')
+    incidents = report.get('incidents') or {}
+    if incidents.get('retained'):
+        newest = (incidents.get('bundles') or [{}])[0]
+        print('  WARNING: {} incident bundle(s) retained in {} (newest: {}, {}, cause {}); '
+              'run `petastorm-tpu-torch-throughput autopsy <bundle>`'.format(
+                  incidents.get('retained'), incidents.get('home'),
+                  newest.get('bundle'), newest.get('kind'), newest.get('cause')))
+    storage = report.get('storage') or {}
+    if storage.get('status') == 'ok':
+        print('  storage engine: footer cache {} hit(s) / {} miss(es), {} range(s) '
+              'coalesced, {} hedge(s) fired / {} won'.format(
+                  storage.get('footer_cache_hits', 0), storage.get('footer_cache_misses', 0),
+                  storage.get('ranges_coalesced', 0), storage.get('hedges_fired', 0),
+                  storage.get('hedges_won', 0)))
+        if storage.get('hedges_fired', 0) and storage.get('hedge_win_rate', 0.0) > 0.5:
+            print('  WARNING: hedge-win rate is {:.0%}: storage is tail-heavy enough '
+                  'that hedges routinely beat the primary'.format(
+                      storage.get('hedge_win_rate', 0.0)))
+    elif storage:
+        print('  storage engine: FAIL ({}): the force-armed probe read errored'.format(
+            storage.get('detail', 'unknown')))
     print('  verdict: {}'.format('healthy' if report['healthy'] else 'BROKEN'))
 
 

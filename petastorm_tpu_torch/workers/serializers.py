@@ -130,7 +130,7 @@ class ArrowIpcSerializer(object):
     :class:`~petastorm_tpu_torch.reader_worker.ColumnarBatch` travels as
     ``[b'A', ipc_stream, pickled_sidecar]`` (:func:`encode_columnar`, with
     ``item_id``, ``cache_hit``, ``retries``, ``quarantine``, ``breakers`` and
-    the ``telemetry`` and ``trace`` sidecars in the metadata); anything else, an
+    the ``telemetry``, ``trace`` and ``lineage`` sidecars in the metadata); anything else, an
     :class:`~petastorm_tpu_torch.ngram_worker.NGramWindows` for one, as one
     pickle. Receiving copies every column into ordinary writable arrays, so no
     array outlives the slot or frame it was read from."""
@@ -152,6 +152,7 @@ class ArrowIpcSerializer(object):
             'breakers': obj.breakers,
             'telemetry': obj.telemetry,
             'trace': obj.trace,
+            'lineage': obj.lineage,
         }
         ipc_buf, sidecar = encode_columnar(obj.columns, obj.num_rows, meta_extra)
         return [_MARKER_ARROW, ipc_buf, sidecar]
@@ -174,4 +175,4 @@ class ArrowIpcSerializer(object):
                              quarantine=(QuarantineRecord(**quarantine)
                                          if quarantine is not None else None),
                              breakers=meta['breakers'], telemetry=meta['telemetry'],
-                             trace=meta['trace'])
+                             trace=meta['trace'], lineage=meta.get('lineage'))

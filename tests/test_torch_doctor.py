@@ -17,7 +17,7 @@ from petastorm_tpu_torch.tools import doctor
 #: the JAX round trip's blocks that collect_report lifts to the top level
 LIFTED = ('telemetry', 'trace', 'resilience', 'autotune', 'slo', 'lineage', 'history')
 #: the JAX doctor's blocks whose planes the port lacks
-NOT_PORTED = ('lineage', 'history', 'topology', 'incidents', 'storage', 'pipecheck')
+NOT_PORTED = ('topology', 'pipecheck')
 
 
 @pytest.fixture(scope='module')
@@ -43,8 +43,15 @@ def test_json_report_healthy_with_the_jax_blocks(capsys, jax_roundtrip):
     assert backend['status'] == 'down' and backend['devices'] == 0
     assert backend['platform'] is None and 'CUDA' in backend['detail']
     assert 'link' not in report
-    for name in ('store_roundtrip', 'trace', 'resilience', 'autotune', 'slo', 'telemetry'):
+    for name in ('store_roundtrip', 'trace', 'resilience', 'autotune', 'slo', 'telemetry',
+                 'lineage', 'history'):
         assert set(report[name]) == set(jax_roundtrip[name]), name
+    assert report['lineage']['enabled'] and report['lineage']['divergence'] == 0
+    assert report['history']['status'] == 'ok' and report['history']['records'] == 1
+    assert set(report['storage']) == set(jax_doctor.check_storage())
+    assert report['storage']['status'] == 'ok'
+    assert report['storage']['footer_cache_hits'] > 0
+    assert set(report['incidents']) == set(jax_doctor.check_incidents())
     assert set(report['telemetry']['bottleneck']) == \
         set(jax_roundtrip['telemetry']['bottleneck'])
     assert report['autotune']['enabled'] and 'efficiency' in report['slo']

@@ -32,6 +32,13 @@ SLICE_14_MODULES = ('dataset_state.py',) + tuple(
 SLICE_15_MODULES = tuple(os.path.join('service', name) for name in (
     '__init__.py', 'wire.py', 'ledger.py', 'dispatcher.py', 'service_worker.py',
     'service_client.py', 'fleet.py'))
+#: fault injection, the storage engine and the lineage plane
+SLICE_16_MODULES = (os.path.join('test_util', 'fault_injection.py'),) + tuple(
+    os.path.join('storage', name) for name in (
+        '__init__.py', 'range_planner.py', 'metadata_cache.py', 'fetcher.py',
+        'engine.py')) + tuple(
+    os.path.join('telemetry', name) for name in (
+        'lineage.py', 'incident.py', 'history.py', 'sentinel.py'))
 #: the examples/hello_world twins, both halves
 HELLO_WORLD_TWINS = tuple(
     ('hello_world', half, 'torch_{}.py'.format(name))
@@ -93,7 +100,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                    os.path.join('etl', 'generate_metadata.py'),
                    os.path.join('etl', 'metadata_util.py'),
                    os.path.join('tools', 'copy_dataset.py')) + SLICE_14_MODULES \
-            + SLICE_15_MODULES:
+            + SLICE_15_MODULES + SLICE_16_MODULES:
         assert os.path.join(PORT, module) in files
     offenders = [(os.path.relpath(path, REPO), name) for path in files
                  for name in _imports(path) if _forbidden(name)]
@@ -156,10 +163,13 @@ _BLOCKED_RUN = textwrap.dedent('''
                                                              dtype=np.uint8),
                               'vec': rng.randn(8).astype(np.float32)} for i in range(12)])
     with make_reader(url, reader_pool_type='thread', workers_count=2,
-                     device_decode_fields=['img', 'vec']) as reader:
+                     device_decode_fields=['img', 'vec'], storage_policy=True,
+                     lineage=True, seed=1) as reader:
         loader = TorchDataLoader(reader, batch_size=4, device='cpu', device_transforms={
             'img': DeviceTransform(crop=(8, 8), random_flip=True)})
         rows = sum(int(batch['label'].shape[0]) for batch in loader)
+        digest = reader.order_digest()
+        footers = reader.diagnostics['storage']['footer_cache_misses']
     import pyarrow as pa
     from petastorm_tpu_torch.converter import make_converter
     from petastorm_tpu_torch.pytorch import BatchedDataLoader, DataLoader
@@ -180,13 +190,14 @@ _BLOCKED_RUN = textwrap.dedent('''
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'petastorm_tpu'))
     print('MODULES', len(names), 'ROWS', rows, 'STORED', loader.stats.device_stored_batches,
-          'ADAPTER', adapter_rows, 'LEAKED', leaked)
+          'ADAPTER', adapter_rows, 'DIGEST', digest, 'FOOTERS', footers, 'LEAKED', leaked)
 ''')
 
 
 def test_port_imports_and_runs_an_epoch_with_jax_blocked():
     """A fresh interpreter (the test process already holds jax) with jax and
-    petastorm_tpu refused imports every port module and runs one CPU epoch."""
+    petastorm_tpu refused imports every port module and runs one CPU epoch,
+    with the storage engine and the lineage plane armed."""
     env = dict(os.environ, PYTHONPATH=REPO)
     result = subprocess.run([sys.executable, '-c', _BLOCKED_RUN], cwd=REPO, env=env,
                             capture_output=True, text=True, timeout=240)
@@ -196,6 +207,7 @@ def test_port_imports_and_runs_an_epoch_with_jax_blocked():
     assert int(fields[1]) > 20
     assert fields[3] == '12' and fields[5] == '3'
     assert fields[7] == '20'
+    assert len(fields[9]) == 32 and int(fields[11]) > 0
     assert line.endswith('LEAKED []')
 
 

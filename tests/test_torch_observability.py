@@ -102,7 +102,7 @@ def test_process_pool_sidecars_match_the_jax_process_pool(store, armed):
 
 
 def test_a_respawned_workers_recorder_merges_additively(store, tmp_path):
-    from petastorm_tpu.test_util.fault_injection import (FaultRule, FaultSchedule,
+    from petastorm_tpu_torch.test_util.fault_injection import (FaultRule, FaultSchedule,
                                                          fault_injecting_filesystem)
     target = os.path.basename(sorted(glob.glob(
         os.path.join(store[len('file://'):], '**', '*.parquet'), recursive=True))[3])

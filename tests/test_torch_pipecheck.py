@@ -41,7 +41,7 @@ def test_the_port_is_clean_under_the_jax_analyzer():
 def test_get_results_during_join_answers_at_once(tmp_path):
     """The worker sleeps 3 s in its rowgroup open, so ``join``'s drain lasts
     until it wakes; ``get_results`` meanwhile must not wait for the lock."""
-    from petastorm_tpu.test_util.fault_injection import (FaultRule, FaultSchedule,
+    from petastorm_tpu_torch.test_util.fault_injection import (FaultRule, FaultSchedule,
                                                          fault_injecting_filesystem)
     from petastorm_tpu_torch.codecs import ScalarCodec
     from petastorm_tpu_torch.etl.dataset_metadata import write_rows

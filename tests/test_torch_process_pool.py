@@ -3,7 +3,7 @@ package's readers on the same seeded stores: one worker gives the JAX process
 pool's row order, two workers the same rows (rows, a batch reader with a
 ``TransformSpec``, NGram windows, the local-disk cache); ``on_error='skip'``
 quarantines a corrupt file as the JAX reader does; faults injected through the
-JAX package's ``fault_injecting_filesystem`` are retried, respawned or
+port's ``fault_injecting_filesystem`` are retried, respawned or
 quarantined; loader and JAX states resume a process-pool reader; the pool falls
 back to frames when ``/dev/shm`` is too small and raises, naming the object,
 when a user object cannot reach its workers.
@@ -67,7 +67,7 @@ def _gone(pool):
 
 
 def _faulty_fs(tmp_path, rules):
-    from petastorm_tpu.test_util.fault_injection import (FaultSchedule,
+    from petastorm_tpu_torch.test_util.fault_injection import (FaultSchedule,
                                                          fault_injecting_filesystem)
     return fault_injecting_filesystem(FaultSchedule(str(tmp_path / 'faults'), rules))
 
@@ -194,7 +194,7 @@ def test_skip_quarantines_a_corrupt_file_as_jax_does(tmp_path, damage):
     zeroed file of the same size (the index still matches) in the worker, and
     its record crosses the process pool's wire."""
     from petastorm_tpu import make_reader as jax_make_reader
-    from petastorm_tpu.test_util.fault_injection import corrupt_file
+    from petastorm_tpu_torch.test_util.fault_injection import corrupt_file
     url = _write_store(tmp_path / 'store')
     target = _part_files(url)[2]
     if damage == 'truncated':
@@ -218,7 +218,7 @@ def test_skip_quarantines_a_corrupt_file_as_jax_does(tmp_path, damage):
 
 
 def test_a_transient_open_fault_is_retried(store, tmp_path):
-    from petastorm_tpu.test_util.fault_injection import FaultRule
+    from petastorm_tpu_torch.test_util.fault_injection import FaultRule
     target = os.path.basename(_part_files(store)[3])
     with make_reader(store, reader_pool_type='process', workers_count=2, on_error='retry',
                      retry_policy=RetryPolicy(**FAST_RETRIES),
@@ -231,7 +231,7 @@ def test_a_transient_open_fault_is_retried(store, tmp_path):
 
 
 def test_a_killed_worker_is_respawned_and_each_row_arrives_once(store, tmp_path):
-    from petastorm_tpu.test_util.fault_injection import FaultRule
+    from petastorm_tpu_torch.test_util.fault_injection import FaultRule
     target = os.path.basename(_part_files(store)[3])
     with make_reader(store, reader_pool_type='process', workers_count=2,
                      shuffle_row_groups=False,
@@ -246,7 +246,7 @@ def test_a_killed_worker_is_respawned_and_each_row_arrives_once(store, tmp_path)
 
 
 def test_a_death_past_the_respawn_budget_fails_the_read(store, tmp_path):
-    from petastorm_tpu.test_util.fault_injection import FaultRule
+    from petastorm_tpu_torch.test_util.fault_injection import FaultRule
     from petastorm_tpu_torch.workers import WorkerTerminationError
     from petastorm_tpu_torch.workers.process_pool import ProcessPool
     target = os.path.basename(_part_files(store)[3])
@@ -262,7 +262,7 @@ def test_a_death_past_the_respawn_budget_fails_the_read(store, tmp_path):
 def test_a_stopped_worker_is_reaped_by_its_stale_heartbeat(store, tmp_path):
     """A SIGSTOPped worker stamps no heartbeat into its ring word: the
     staleness reap kills it, and its replacement redoes its item."""
-    from petastorm_tpu.test_util.fault_injection import FaultRule
+    from petastorm_tpu_torch.test_util.fault_injection import FaultRule
     from petastorm_tpu_torch.workers.process_pool import ProcessPool
     target = os.path.basename(_part_files(store)[3])
     pool = ProcessPool(2, heartbeat_interval_s=0.1, hang_timeout_s=1.0)
@@ -281,7 +281,7 @@ def test_a_hung_rowgroup_is_quarantined_under_the_item_deadline(store, tmp_path)
     """The hang sleeps in the worker (heartbeats keep coming): the item
     deadline reaps the worker and, under 'skip', quarantines the rowgroup with
     reason 'hang' instead of dispatching it again."""
-    from petastorm_tpu.test_util.fault_injection import FaultRule
+    from petastorm_tpu_torch.test_util.fault_injection import FaultRule
     target = _part_files(store)[3]
     with make_reader(store, reader_pool_type='process', workers_count=2,
                      shuffle_row_groups=False, on_error='skip', item_deadline_s=3.0,
@@ -301,7 +301,7 @@ def test_a_loader_state_after_a_respawn_resumes_to_the_rest_of_the_epoch(store, 
     """The loader's delivery-exact state, taken after a worker was killed and
     respawned, resumes a new process-pool reader to exactly the rows not yet
     delivered."""
-    from petastorm_tpu.test_util.fault_injection import FaultRule
+    from petastorm_tpu_torch.test_util.fault_injection import FaultRule
     from petastorm_tpu_torch import TorchDataLoader
     target = os.path.basename(_part_files(store)[1])
     kwargs = dict(reader_pool_type='process', workers_count=2, seed=4,

@@ -629,7 +629,7 @@ def test_two_concurrent_readers_and_the_shared_cache(service_store, fleet):
 
 @pytest.mark.faultinject
 def test_worker_sigkill_mid_item_loses_zero_rows(service_store, tmp_path):
-    from petastorm_tpu.test_util.fault_injection import (FaultRule, FaultSchedule,
+    from petastorm_tpu_torch.test_util.fault_injection import (FaultRule, FaultSchedule,
                                                          fault_injecting_filesystem)
     target = os.path.basename(_part_files(service_store['root'])[3])
     sched = FaultSchedule(tmp_path / 'faults', [FaultRule(target, kind='kill', times=1)])
@@ -653,7 +653,7 @@ def test_quarantine_parity_with_the_thread_pool_and_jax(service_store, tmp_path)
     serve the poisoned rowgroup without touching the faulty filesystem)."""
     from petastorm_tpu import make_reader as jax_make_reader
     from petastorm_tpu.resilience import RetryPolicy as JaxRetryPolicy
-    from petastorm_tpu.test_util.fault_injection import (FaultRule, FaultSchedule,
+    from petastorm_tpu_torch.test_util.fault_injection import (FaultRule, FaultSchedule,
                                                          fault_injecting_filesystem)
     target = os.path.basename(_part_files(service_store['root'])[2])
 

@@ -134,8 +134,13 @@ def test_cli_throughput_and_subcommands(store, capsys):
     for name, module in sorted(NOT_PORTED.items()):
         assert cli_main([name, 'x']) == 2
         assert module in capsys.readouterr().err
+    assert set(NOT_PORTED) == {'chaos', 'pipecheck'}
     assert set(SUBCOMMANDS) == {'wire-bench', 'decode-bench', 'costs', 'analyze', 'trace',
-                                'doctor', 'serve'}
+                                'doctor', 'serve', 'lineage', 'autopsy', 'history'}
+    # the ported planes' subcommands dispatch: a missing manifest or bundle is
+    # their own error exit, not the not-ported 2 with a module name
+    assert cli_main(['lineage', 'diff', '/nonexistent/a', '/nonexistent/b']) == 2
+    assert 'lineage diff' in capsys.readouterr().out
 
 
 # ------------------------------------------------------- adapters and mocks
