@@ -175,7 +175,22 @@ version on the card, then drives the port's two paths at full width:
   a corrupted file under ``on_error='skip'`` (20c: exactly one incident
   bundle, the next edge rate-limited, ``autopsy`` naming its cause's exit
   code and ``history compare`` of 20a's record against a second identical
-  run in child interpreters).
+  run in child interpreters);
+- remote storage, the topology plane and the chaos harness (phase 21):
+  phase 5's store copied into fsspec's ``memory`` filesystem and read on
+  phase 5's path through ``make_reader('memory:///...')``, plain and with
+  ``storage_policy=StoragePolicy()`` (21a: every row once, K1 once a batch,
+  the engine's footer and coalescing counters), then phase 9's store through
+  ``local:///`` on the process pool, each worker rebuilding the filesystem
+  from its factory (the same rows and order digest as the ``file://``
+  read); phase 9's store as 1, 2 and 4 simulated topology-armed hosts, one
+  after another (21b: one composed global digest), two hosts stopped
+  mid-epoch and merged by ``restore_across_topology`` onto one host that
+  resumes into eager ``MnistCNN`` steps on the card (every row once, the
+  undisturbed digest), and ``chaos --hosts 2 --kill-host`` in a child; the
+  CLI's ``chaos`` over a ledger-armed fleet with the dispatcher and a worker
+  killed, the client silenced and a ledger frame corrupted (21c: exit 0, no
+  card work).
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -253,7 +268,7 @@ from petastorm_tpu_torch.storage import StoragePolicy, reset_storage_metrics
 from petastorm_tpu_torch.telemetry.history import COMPARE_EXIT_CODES, load_records
 from petastorm_tpu_torch.telemetry.incident import (EXIT_CODES as INCIDENT_EXIT_CODES,
                                                     IncidentPolicy, scan_bundles)
-from petastorm_tpu_torch.telemetry.lineage import EXIT_SEED, LineagePolicy
+from petastorm_tpu_torch.telemetry.lineage import EXIT_SEED, LineagePolicy, load_manifest
 from petastorm_tpu_torch.test_util.fault_injection import (FaultRule, FaultSchedule,
                                                            fault_injecting_filesystem)
 from petastorm_tpu_torch.benchmark.linkprobe import probe_link, streaming_ceiling_rows_per_sec
@@ -282,6 +297,9 @@ from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_l
 from petastorm_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
 from petastorm_tpu_torch.ops.sharded_moe import sharded_moe_ffn
 from petastorm_tpu_torch.parallel import loader as loader_module
+from petastorm_tpu_torch.parallel.checkpoint import restore_across_topology
+from petastorm_tpu_torch.parallel.topology import (TopologyPolicy, compose_global_digest,
+                                                   policy_from_state)
 from petastorm_tpu_torch.parallel.mesh import (PartitionSpec, initialize_distributed,
                                                make_mesh, mesh_shard_info)
 from petastorm_tpu_torch.parallel.pipeline import blocks_stage_fn, make_pipeline, microbatch
@@ -4658,6 +4676,282 @@ def phase_lineage_plane(tmp, args, record, card):
     return result
 
 
+#: phase 21a's bucket in fsspec's in-process memory filesystem
+REMOTE_ROOT = '/smoke21'
+#: phase 21b's simulated host counts
+TOPOLOGY_HOSTS = (1, 2, 4)
+#: phase 21c's staleness window and client silence window (19d's)
+CHAOS_STALE_S = '3'
+CHAOS_PARTITION_S = '0.5'
+
+
+def copy_to_memory(path, root):
+    """Every file of the store at ``path`` into fsspec's memory filesystem
+    under ``root``; returns the bytes copied."""
+    import fsspec
+    memory = fsspec.filesystem('memory')
+    copied = 0
+    for directory, _, names in os.walk(path):
+        for name in names:
+            full = os.path.join(directory, name)
+            with open(full, 'rb') as f:
+                data = f.read()
+            memory.pipe(root + '/' + os.path.relpath(full, path), data)
+            copied += len(data)
+    return copied
+
+
+def storage_counters(diagnostics):
+    counters = diagnostics['telemetry']['counters']
+    return {name: int(counters.get(name, 0)) for name in (
+        'storage_footer_cache_hit', 'storage_footer_cache_miss', 'storage_ranges_coalesced',
+        'storage_hedge_fired', 'storage_hedge_won')}
+
+
+def idx_and_digest(url, seed, **kwargs):
+    """One epoch of a store of phase 9's schema with lineage armed (no
+    manifest): the ``idx`` values in delivery order and the order digest."""
+    with make_reader(url, seed=seed, shuffle_rows=True,
+                     lineage=LineagePolicy(manifest=False), **kwargs) as reader:
+        idx = [np.asarray(batch.columns['idx']) for batch in reader.iter_columnar()]
+        check(reader.diagnostics['lineage']['divergence'] == 0,
+              '21a: lineage divergence {}'.format(reader.diagnostics['lineage']))
+        return np.concatenate(idx), reader.order_digest()
+
+
+def phase_remote_imagenet(tmp, args):
+    """Phase 21a: phase 5's store copied into fsspec's memory filesystem and
+    read through ``make_reader('memory:///...')`` on phase 5's path, once
+    without and once with the storage engine; then phase 9's store through
+    ``local:///`` on the process pool against the ``file://`` read."""
+    phase_start = time.perf_counter()
+    root = REMOTE_ROOT + '/imagenet'
+    copied = copy_to_memory(os.path.join(tmp, 'imagenet'), root)
+    url = 'memory://' + root
+    result = {'copied_bytes': copied}
+    for name, policy in (('plain', False), ('engine', StoragePolicy())):
+        reset_storage_metrics()
+        run, delivered = phase_main_path(
+            url, args, factory=functools.partial(make_reader, storage_policy=policy))
+        run['distinct_rows'] = check_delivered(delivered, args.seed)
+        check(run['distinct_rows'] == run['rows'] == args.rows,
+              '21a {}: {} distinct rows of {} delivered'.format(name, run['distinct_rows'],
+                                                                run['rows']))
+        run['storage'] = storage_counters(run['diagnostics'])
+        result[name] = run
+    check(result['engine']['storage']['storage_footer_cache_miss'] > 0
+          and 'storage' in result['engine']['diagnostics']
+          and 'storage' not in result['plain']['diagnostics'],
+          '21a: the engine ran {} with the policy, {} without'.format(
+              result['engine']['storage'], result['plain']['storage']))
+    mnist = os.path.join(tmp, 'mnist')
+    local_idx, local_digest = idx_and_digest('local://' + mnist, args.seed,
+                                             reader_pool_type='process',
+                                             workers_count=args.workers)
+    file_idx, file_digest = idx_and_digest('file://' + mnist, args.seed,
+                                           workers_count=args.workers)
+    check(np.array_equal(np.sort(local_idx), np.arange(MNIST_ROWS))
+          and np.array_equal(np.sort(file_idx), np.arange(MNIST_ROWS)),
+          '21a: local:/// delivered {} idx values ({} distinct), file:// {}'.format(
+              len(local_idx), len(np.unique(local_idx)), len(file_idx)))
+    check(local_digest == file_digest and len(local_digest) == 32,
+          '21a: the local:/// process-pool digest {} differs from file://\'s {}'.format(
+              local_digest, file_digest))
+    result.update(local_digest=local_digest, local_rows=len(local_idx),
+                  phase_s=time.perf_counter() - phase_start)
+    return result
+
+
+def topology_host_read(url, seed, policy, manifest, stop_halfway=False):
+    """One simulated host's epoch of phase 9's store (the dummy pool, so a
+    popped batch is one consumed item), or with ``stop_halfway`` half of its
+    shard's items: (idx values, state)."""
+    idx, batches = [], 0
+    with make_reader(url, reader_pool_type='dummy', seed=seed,
+                     lineage=LineagePolicy(manifest_path=manifest), topology=policy) as reader:
+        stop_after = max(1, reader.items_per_epoch // 2) if stop_halfway else None
+        for batch in reader.iter_columnar():
+            idx.append(np.asarray(batch.columns['idx']))
+            batches += 1
+            if batches == stop_after:
+                break
+        state = reader.state_dict()
+    return (np.concatenate(idx) if idx else np.zeros(0, np.int64)), state
+
+
+def phase_topology(tmp, args):
+    """Phase 21b: phase 9's store as 1, 2 and 4 simulated hosts (one journal
+    each pod, hosts run one after another); then two hosts stopped halfway
+    through their shards, their states merged onto one host with
+    ``restore_across_topology`` and the rest trained into eager MnistCNN
+    steps on the card; then ``chaos --hosts 2 --kill-host`` in a child."""
+    phase_start = time.perf_counter()
+    url = 'file://' + os.path.join(tmp, 'mnist')
+    work = os.path.join(tmp, '21b')
+    os.makedirs(work)
+    digests = {}
+    for hosts in TOPOLOGY_HOSTS:
+        manifests, idx = [], []
+        journal = os.path.join(work, 'journal{}.bin'.format(hosts))
+        for index in range(hosts):
+            manifest = os.path.join(work, 'pod{}_host{}.jsonl'.format(hosts, index))
+            part, _ = topology_host_read(url, args.seed, TopologyPolicy(
+                journal_path=journal, process_index=index, process_count=hosts), manifest)
+            manifests.append(manifest)
+            idx.append(part)
+        composed = compose_global_digest(manifests)
+        check(np.array_equal(np.sort(np.concatenate(idx)), np.arange(MNIST_ROWS))
+              and composed['duplicates'] == [] and composed['rows'] == MNIST_ROWS,
+              '21b: {} hosts delivered {} rows, duplicates {}'.format(
+                  hosts, composed['rows'], composed['duplicates']))
+        digests[hosts] = composed['digest'].hex()
+    check(len(set(digests.values())) == 1,
+          '21b: the composed digests differ by host count: {}'.format(digests))
+    # two hosts stop mid-epoch; one host resumes the rest on the card
+    saved, states, manifests = [], [], []
+    for index in range(2):
+        manifest = os.path.join(work, 'stopped_host{}.jsonl'.format(index))
+        part, state = topology_host_read(url, args.seed, TopologyPolicy(
+            journal_path=os.path.join(work, 'journal_stop.bin'), process_index=index,
+            process_count=2), manifest, stop_halfway=True)
+        saved.append(part)
+        states.append(state)
+        manifests.append(manifest)
+    merged = restore_across_topology(states, 1)
+    check(len(merged) == 1 and merged[0]['topology']['process_count'] == 1,
+          '21b: the merge gave {}'.format(merged))
+    resumed_manifest = os.path.join(work, 'resumed.jsonl')
+    model, optimizer, _, _ = mnist_model(args.seed)
+    step = mnist_step(model, optimizer)
+    resumed, losses = [], []
+    with make_reader(url, workers_count=args.workers, seed=args.seed,
+                     topology=policy_from_state(merged[0], os.path.join(work, 'journal1.bin')),
+                     resume_state=merged[0],
+                     lineage=LineagePolicy(manifest_path=resumed_manifest)) as reader:
+        # the last partial batch too: every row of the rest is trained on
+        loader = TorchDataLoader(reader, batch_size=MNIST_BATCH, drop_last=False)
+        start = time.perf_counter()
+        for batch in loader:
+            check(batch['image'].device.type == 'cuda', '21b: the batch is not on the card')
+            resumed.append(batch['idx'].cpu().numpy())
+            losses.append(step(batch))
+        last = float(losses[-1])
+        resume_s = time.perf_counter() - start
+        resume_rows = loader.stats.as_dict()['rows']
+    every = np.concatenate(saved + resumed)
+    check(len(every) == MNIST_ROWS and np.array_equal(np.sort(every), np.arange(MNIST_ROWS)),
+          '21b: saved and resumed parts delivered {} idx values, {} distinct'.format(
+              len(every), len(np.unique(every))))
+    check(np.isfinite(last), '21b: non-finite MnistCNN loss {}'.format(last))
+    restored = compose_global_digest(manifests + [resumed_manifest])
+    check(restored['digest'].hex() == digests[1] and restored['duplicates'] == [],
+          '21b: the restored run\'s digest {} differs from the undisturbed {}'.format(
+              restored['digest'].hex(), digests[1]))
+    check(load_manifest(resumed_manifest)[-1]['header']['topology']['process_count'] == 1,
+          '21b: the resumed manifest carries no one-host topology header')
+    chaos_code, chaos_out, chaos_err = run_cli(['chaos', url, '--hosts', '2', '--kill-host',
+                                                '--seed', str(args.seed),
+                                                '--workdir', os.path.join(work, 'chaos')])
+    check(chaos_code == 0 and 'SURVIVED' in chaos_out,
+          '21b: chaos --hosts 2 --kill-host exited {}: {} {}'.format(chaos_code, chaos_out,
+                                                                   chaos_err))
+    return {'digests': digests, 'saved_rows': int(sum(len(p) for p in saved)),
+            'resumed_rows': resume_rows, 'resumed_batches': len(losses), 'last_loss': last,
+            'resume_rows_per_s': resume_rows / resume_s, 'restored_digest':
+            restored['digest'].hex(), 'chaos_exit': chaos_code,
+            'chaos_line': chaos_out.strip().splitlines()[-1],
+            'phase_s': time.perf_counter() - phase_start}
+
+
+def phase_control_chaos(tmp, args):
+    """Phase 21c: the CLI's ``chaos`` in a child interpreter on phase 9's
+    store over a ledger-armed fleet of ``--workers``: the dispatcher killed
+    (a ledger frame corrupted first), a worker SIGKILLed, the client
+    silenced; 19d's shortened staleness and silence windows. No card work."""
+    phase_start = time.perf_counter()
+    previous = os.environ.get('PETASTORM_TPU_SERVICE_RESPONSE_TIMEOUT_S')
+    os.environ['PETASTORM_TPU_SERVICE_RESPONSE_TIMEOUT_S'] = SERVICE_RESPONSE_TIMEOUT_S
+    try:
+        code, out, err = run_cli(['chaos', 'file://' + os.path.join(tmp, 'mnist'),
+                                  '--workers', str(args.workers), '--seed', str(args.seed),
+                                  '--stale-timeout-s', CHAOS_STALE_S,
+                                  '--partition-s', CHAOS_PARTITION_S, '--corrupt-ledger',
+                                  '--workdir', os.path.join(tmp, '21c'), '--json'])
+    finally:
+        if previous is None:
+            os.environ.pop('PETASTORM_TPU_SERVICE_RESPONSE_TIMEOUT_S', None)
+        else:
+            os.environ['PETASTORM_TPU_SERVICE_RESPONSE_TIMEOUT_S'] = previous
+    check(code == 0, '21c: chaos exited {}: {} {}'.format(code, out[-2000:], err))
+    verdict = json.loads(out)
+    check(verdict['rows_chaos'] == verdict['rows_baseline'] == MNIST_ROWS
+          and verdict['verify_exit_code'] == 0 and verdict['diff_exit_code'] == 0
+          and len(verdict['fired']) == 4 and verdict['ledger']['frames_dropped'] >= 1,
+          '21c: verdict {}'.format(verdict))
+    return {'rows': verdict['rows_chaos'], 'fired': [(rule['kind'], rule['row'])
+                                                     for rule in verdict['fired']],
+            'verify_exit': verdict['verify_exit_code'], 'diff_exit': verdict['diff_exit_code'],
+            'frames_dropped': verdict['ledger']['frames_dropped'],
+            'phase_s': time.perf_counter() - phase_start}
+
+
+def remote_imagenet_line(remote, main_path, card):
+    plain, engine = remote['plain'], remote['engine']
+    return ('phase 21a ImageNet path from memory:/// ({} B in fsspec\'s memory filesystem): '
+            'plain rows/s={:.2f} step_ms(median)={:.2f} input_stall_fraction={:.4f} first '
+            'batch {:.3f} s; with the storage engine rows/s={:.2f} step_ms(median)={:.2f} '
+            'input_stall_fraction={:.4f} first batch {:.3f} s, storage {} | phase 5: rows/s='
+            '{:.2f} step_ms(median)={:.2f} input_stall_fraction={:.4f} first batch {:.3f} s | '
+            'K1 launches {} and {} on {} and {} batches | phase 9\'s store through local:/// '
+            'on the process pool: {} rows, digest {} equal to file://\'s; {:.1f} s [{}]'.format(
+                remote['copied_bytes'], plain['rows_per_s'], plain['step_ms_median'],
+                plain['input_stall_fraction'], plain['first_batch_s'], engine['rows_per_s'],
+                engine['step_ms_median'], engine['input_stall_fraction'],
+                engine['first_batch_s'], engine['storage'], main_path['rows_per_s'],
+                main_path['step_ms_median'], main_path['input_stall_fraction'],
+                main_path['first_batch_s'], plain['k1_launches'], engine['k1_launches'],
+                plain['steps'], engine['steps'], remote['local_rows'], remote['local_digest'],
+                remote['phase_s'], card))
+
+
+def topology_line(topology, card):
+    return ('phase 21b topology plane on phase 9\'s store: composed digests at {} hosts {}; '
+            '2 hosts stopped halfway through their shards ({} rows), merged by '
+            'restore_across_topology onto 1 host and resumed into MnistCNN on the card: {} '
+            'rows in {} batches at {:.2f} rows/s, loss {:.4f}, every row once, digest {} equal '
+            'to the undisturbed read\'s; chaos --hosts 2 --kill-host exit {} ({}); {:.1f} s '
+            '[{}]'.format(list(topology['digests']), sorted(set(topology['digests'].values())),
+                          topology['saved_rows'], topology['resumed_rows'],
+                          topology['resumed_batches'], topology['resume_rows_per_s'],
+                          topology['last_loss'], topology['restored_digest'],
+                          topology['chaos_exit'], topology['chaos_line'], topology['phase_s'],
+                          card))
+
+
+def control_chaos_line(chaos, card):
+    return ('phase 21c control-plane chaos on phase 9\'s store (no card work; staleness {} s, '
+            'client silence {} s): {} rows exact, fired {}, ledger frames dropped {}, lineage '
+            'verify exit {}, diff exit {}; {:.1f} s [{}]'.format(
+                CHAOS_STALE_S, SERVICE_RESPONSE_TIMEOUT_S, chaos['rows'], chaos['fired'],
+                chaos['frames_dropped'], chaos['verify_exit'], chaos['diff_exit'],
+                chaos['phase_s'], card))
+
+
+def phase_remote_topology(tmp, args, record, card):
+    """Phase 21: remote storage, the topology plane and the chaos harness
+    (21a-21c), each logged as it ends."""
+    phase_start = time.perf_counter()
+    result = {'imagenet': phase_remote_imagenet(tmp, args)}
+    log(remote_imagenet_line(result['imagenet'], record['main_path'], card))
+    result['topology'] = phase_topology(tmp, args)
+    log(topology_line(result['topology'], card))
+    result['chaos'] = phase_control_chaos(tmp, args)
+    log(control_chaos_line(result['chaos'], card))
+    result['phase_s'] = time.perf_counter() - phase_start
+    log('phase 21 took {:.1f} s'.format(result['phase_s']))
+    return result
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -4841,6 +5135,7 @@ def main(argv=None):
         record['tools'] = phase_tools(tmp, args, record, card)
         record['service'] = phase_service(tmp, args, record, card)
         record['lineage_plane'] = phase_lineage_plane(tmp, args, record, card)
+        record['remote_topology'] = phase_remote_topology(tmp, args, record, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4857,6 +5152,9 @@ def main(argv=None):
         'service_launches': record['service']['imagenet']['k1_launches'],
         'service_wire_launches': record['service']['imagenet_wire']['k1_launches'],
         'lineage_plane_launches': record['lineage_plane']['imagenet']['k1_launches'],
+        'remote_launches': record['remote_topology']['imagenet']['plain']['k1_launches'],
+        'remote_engine_launches':
+            record['remote_topology']['imagenet']['engine']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
                            for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
                                         'large')),

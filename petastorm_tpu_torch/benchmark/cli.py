@@ -25,10 +25,14 @@ Subcommands (a first positional argument):
 - ``autopsy``: :mod:`~petastorm_tpu_torch.telemetry.incident` (rank the
   probable causes of one incident bundle);
 - ``history``: :mod:`~petastorm_tpu_torch.telemetry.history` (``list``,
-  ``show`` and ``compare`` the run records of a history store).
+  ``show`` and ``compare`` the run records of a history store);
+- ``chaos``: :mod:`~petastorm_tpu_torch.test_util.chaos` (an epoch under
+  seeded control-plane injuries against a ledger-armed fleet, or with
+  ``--hosts N`` simulated topology-armed hosts with a host killed or
+  joined; exit 0 only when rows and digests are exact).
 
-The JAX package's ``chaos`` and ``pipecheck`` wait for modules the port
-does not have yet: each exits 2 with a line naming the module. Anything else is the dataset throughput
+The JAX package's ``pipecheck`` waits for the port of its static analyzer:
+it exits 2 with a line naming the module. Anything else is the dataset throughput
 measurement, with ``--read-method torch`` (a ``TorchDataLoader`` onto
 ``--device``, the card by default) in place of the JAX package's ``jax``.
 """
@@ -51,11 +55,11 @@ SUBCOMMANDS = {
     'lineage': ('petastorm_tpu_torch.telemetry.lineage', 'main'),
     'autopsy': ('petastorm_tpu_torch.telemetry.incident', 'main'),
     'history': ('petastorm_tpu_torch.telemetry.history', 'main'),
+    'chaos': ('petastorm_tpu_torch.test_util.chaos', 'main'),
 }
 
 #: the JAX package's subcommands whose modules the port lacks -> that module
 NOT_PORTED = {
-    'chaos': 'petastorm_tpu.test_util.chaos',
     'pipecheck': 'petastorm_tpu.analysis',
 }
 

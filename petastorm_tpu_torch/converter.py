@@ -1,5 +1,5 @@
-"""Dataset converter: an in-memory table -> a cached Parquet store -> torch
-loaders. The counterpart of ``petastorm_tpu.converter``.
+"""Dataset converter: an in-memory table or a Spark DataFrame -> a cached
+Parquet store -> torch loaders. The counterpart of ``petastorm_tpu.converter``.
 
 :func:`make_converter` takes a ``pyarrow.Table`` (or a pandas DataFrame, where
 pandas imports) and writes it once under a parent cache directory, in a
@@ -8,21 +8,29 @@ computes the same way, so one table gives one store directory in both
 packages and either can reuse the other's store. A store counts only once its
 ``_SUCCESS`` marker exists: a directory without one is a crashed conversion
 and is removed first. Stores are deleted by :meth:`DatasetConverter.delete`
-or at interpreter exit.
+or at interpreter exit. A pyspark DataFrame is written by Spark's executors
+into a new directory there, then given the store metadata (a Unischema
+inferred from the files), so ``make_reader`` reads it too; one query plan
+converts once a session (``DataFrame.semanticHash``). pyspark is imported
+only when a DataFrame's module already did.
 
 :meth:`DatasetConverter.make_torch_loader` is the counterpart of
 ``make_jax_loader`` (a :class:`~petastorm_tpu_torch.parallel.loader.TorchDataLoader`
 over ``make_batch_reader``), and :meth:`DatasetConverter.make_torch_dataloader`
 yields the reference API's
-:class:`~petastorm_tpu_torch.pytorch.BatchedDataLoader`. Spark DataFrames and
-``make_tf_dataset`` are not supported yet.
+:class:`~petastorm_tpu_torch.pytorch.BatchedDataLoader`, and
+:meth:`DatasetConverter.make_tf_dataset` a ``tf.data`` pipeline over
+:func:`~petastorm_tpu_torch.tf_utils.make_petastorm_dataset` (tensorflow
+imported when it is called).
 """
 
 import atexit
 import hashlib
 import logging
 import os
+import sys
 import time
+import uuid
 import warnings
 
 logger = logging.getLogger(__name__)
@@ -46,26 +54,23 @@ atexit.register(_cleanup_all)
 
 
 def _is_spark_dataframe(df):
-    return any(cls.__module__.startswith('pyspark.sql')
-               and cls.__name__ == 'DataFrame' for cls in type(df).__mro__)
+    # a Spark DataFrame exists only once pyspark.sql was imported
+    sql = sys.modules.get('pyspark.sql')
+    return sql is not None and isinstance(df, sql.DataFrame)
 
 
 def _to_arrow_table(df):
     import pyarrow as pa
     if isinstance(df, pa.Table):
         return df
-    if _is_spark_dataframe(df):
-        raise TypeError('Spark DataFrames are not supported by petastorm_tpu_torch yet; '
-                        'convert with petastorm_tpu.converter.make_converter, or pass a '
-                        'pyarrow.Table')
     try:
         import pandas as pd
     except ImportError:
         pd = None
     if pd is not None and isinstance(df, pd.DataFrame):
         return pa.Table.from_pandas(df, preserve_index=False)
-    raise TypeError('Unsupported dataframe type {!r}: pass a pyarrow.Table or a pandas '
-                    'DataFrame'.format(type(df)))
+    raise TypeError('Unsupported dataframe type {!r}: pass a pyarrow.Table, a pandas '
+                    'DataFrame, or a pyspark DataFrame'.format(type(df)))
 
 
 def _table_fingerprint(table):
@@ -115,6 +120,15 @@ class DatasetConverter(object):
             reader.join()
             raise
 
+    def make_tf_dataset(self, batch_size=32, shuffle_row_count=None, prefetch=None,
+                        **reader_kwargs):
+        """A context manager yielding a ``tf.data`` pipeline over
+        ``make_batch_reader`` of the store: unbatch, shuffle (with
+        ``shuffle_row_count``), batch, prefetch (``tf.data.AUTOTUNE`` by
+        default); the reader stops on exit."""
+        return _TfDatasetContextManager(self, batch_size, shuffle_row_count, prefetch,
+                                        reader_kwargs)
+
     def make_torch_dataloader(self, batch_size=32, shuffling_queue_capacity=0, device=None,
                               **reader_kwargs):
         """A context manager yielding a
@@ -157,6 +171,38 @@ class DatasetConverter(object):
                            'the materialized files may linger',
                            self.cache_dir_url, exc_info=True)
         _active_converters.pop(self.cache_dir_url, None)
+        # a deleted store is never served to a later conversion of its plan
+        for key, converter in list(_spark_plan_converters.items()):
+            if converter is self:
+                del _spark_plan_converters[key]
+
+
+class _TfDatasetContextManager(object):
+    def __init__(self, converter, batch_size, shuffle_row_count, prefetch, reader_kwargs):
+        self._converter = converter
+        self._batch_size = batch_size
+        self._shuffle = shuffle_row_count
+        self._prefetch = prefetch
+        self._reader_kwargs = reader_kwargs
+        self._reader = None
+
+    def __enter__(self):
+        import tensorflow as tf
+        from petastorm_tpu_torch.reader import make_batch_reader
+        from petastorm_tpu_torch.tf_utils import make_petastorm_dataset
+        self._converter._check_shard_args(self._reader_kwargs)
+        _wait_file_available(self._converter.file_urls)
+        self._reader = make_batch_reader(self._converter.file_urls, **self._reader_kwargs)
+        dataset = make_petastorm_dataset(self._reader).unbatch()
+        if self._shuffle:
+            dataset = dataset.shuffle(self._shuffle)
+        dataset = dataset.batch(self._batch_size)
+        return dataset.prefetch(self._prefetch if self._prefetch is not None
+                                else tf.data.AUTOTUNE)
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self._reader.stop()
+        self._reader.join()
 
 
 class _TorchLoaderContextManager(object):
@@ -215,7 +261,13 @@ def make_converter(df, parent_cache_dir_url=None, rowgroup_size_mb=32, compressi
     """Materialize ``df`` (a ``pyarrow.Table``, or a pandas DataFrame) as a
     Parquet store under ``parent_cache_dir_url`` (default
     ``$PETASTORM_TPU_CONVERTER_CACHE_DIR``) and return a
-    :class:`DatasetConverter`. The same content reuses the cached store."""
+    :class:`DatasetConverter`. The same content reuses the cached store. A
+    pyspark DataFrame is written by Spark (parquet block size
+    ``rowgroup_size_mb``) and reused for the same query plan in this
+    session."""
+    if _is_spark_dataframe(df):
+        return _make_converter_spark(df, _parent_cache_dir(parent_cache_dir_url),
+                                     rowgroup_size_mb)
     import pyarrow as pa
     table = _to_arrow_table(df)
     parent = _parent_cache_dir(parent_cache_dir_url)
@@ -250,4 +302,39 @@ def make_converter(df, parent_cache_dir_url=None, rowgroup_size_mb=32, compressi
                        _MIN_RECOMMENDED_FILE_BYTES)
     converter = DatasetConverter(cache_dir, files, table.num_rows)
     _active_converters[cache_dir] = converter
+    return converter
+
+
+#: live Spark-branch converters by query-plan hash: dedup within this session
+#: only, since a plan hash names the query, not the data it read
+_spark_plan_converters = {}
+
+
+def _make_converter_spark(df, parent, rowgroup_size_mb):
+    """The Spark DataFrame branch: the executors write the Parquet files (the
+    data need not fit this process), then the store metadata (a Unischema
+    inferred from those files, and the rowgroup index) is embedded through
+    :func:`~petastorm_tpu_torch.etl.dataset_metadata.materialize_dataset`, so
+    the store is a full one, as the table branch's is."""
+    try:
+        plan_key = df.semanticHash()
+    except Exception:  # noqa: BLE001 - best effort; None turns the dedup off
+        plan_key = None
+    if plan_key is not None and plan_key in _spark_plan_converters:
+        converter = _spark_plan_converters[plan_key]
+        logger.info('Converter reuse (same spark plan this session): %s',
+                    converter.cache_dir_url)
+        return converter
+    cache_dir = '{}/{}'.format(parent, uuid.uuid4().hex)
+    df.write.option('parquet.block.size', rowgroup_size_mb << 20).parquet(cache_dir)
+    from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, open_dataset
+    from petastorm_tpu_torch.unischema import Unischema
+    schema = Unischema.from_arrow_schema(open_dataset(cache_dir).arrow_dataset.schema)
+    with materialize_dataset(cache_dir, schema):
+        pass   # the executors wrote the files; leaving embeds the metadata
+    files = sorted(f.path for f in open_dataset(cache_dir).arrow_dataset.get_fragments())
+    converter = DatasetConverter(cache_dir, files, df.count())
+    _active_converters[cache_dir] = converter
+    if plan_key is not None:
+        _spark_plan_converters[plan_key] = converter
     return converter

@@ -20,7 +20,8 @@ import pyarrow.dataset as pads
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError
-from petastorm_tpu_torch.fs_utils import get_filesystem_and_path_or_paths, path_exists
+from petastorm_tpu_torch.fs_utils import (as_arrow_filesystem,
+                                          get_filesystem_and_path_or_paths, path_exists)
 from petastorm_tpu_torch.unischema import Unischema, dict_to_encoded_row
 
 logger = logging.getLogger(__name__)
@@ -84,11 +85,15 @@ class DatasetHandle(object):
         return [name for name in partitioning.schema.names if name not in data_names]
 
 
-def open_dataset(dataset_url_or_urls, filesystem=None):
+def open_dataset(dataset_url_or_urls, storage_options=None, filesystem=None):
     """Resolve URL(s) and open a pyarrow dataset with hive-partition discovery
     (``_``/``.``-prefixed files such as ``_common_metadata`` are skipped),
-    through ``filesystem`` when given."""
-    fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls, filesystem)
+    through ``filesystem`` when given, else the URL's own (an fsspec one built
+    with ``storage_options`` for a remote scheme)."""
+    fs, path_or_paths = get_filesystem_and_path_or_paths(
+        dataset_url_or_urls, storage_options=storage_options, filesystem=filesystem)
+    # the handle's filesystem feeds Arrow C++: an HA proxy is unwrapped here
+    fs = as_arrow_filesystem(fs)
     arrow_dataset = pads.dataset(path_or_paths, filesystem=fs,
                                  format='parquet', partitioning='hive')
     return DatasetHandle(fs, path_or_paths, arrow_dataset)
@@ -164,11 +169,15 @@ def write_table_files(filesystem, path, arrow_schema, batches,
 
 
 def write_rows(dataset_url, schema, rows, rowgroup_size_mb=DEFAULT_ROW_GROUP_SIZE_MB,
-               rows_per_file=None, n_files=None, file_prefix='part', compression='snappy'):
+               rows_per_file=None, n_files=None, storage_options=None, filesystem=None,
+               file_prefix='part', compression='snappy'):
     """Encode ``rows`` (list of dicts) and write a Parquet store with the
     embedded metadata. ``compression`` is any pyarrow Parquet codec."""
-    with materialize_dataset(dataset_url, schema):
-        fs, path = get_filesystem_and_path_or_paths(dataset_url)
+    with materialize_dataset(dataset_url, schema, storage_options=storage_options,
+                             filesystem=filesystem):
+        fs, path = get_filesystem_and_path_or_paths(dataset_url,
+                                                    storage_options=storage_options,
+                                                    filesystem=filesystem)
         fs.create_dir(path, recursive=True)
         table = rows_to_arrow_table(schema, rows)
         if rows_per_file is None:
@@ -180,12 +189,13 @@ def write_rows(dataset_url, schema, rows, rowgroup_size_mb=DEFAULT_ROW_GROUP_SIZ
 
 
 @contextmanager
-def materialize_dataset(dataset_url, schema):
+def materialize_dataset(dataset_url, schema, storage_options=None, filesystem=None):
     """Context manager around Parquet-writing code; on exit, embeds the
     Unischema and rowgroup index into ``_common_metadata`` and checks that the
     store reads back."""
     yield
-    handle = open_dataset(dataset_url)
+    handle = open_dataset(dataset_url, storage_options=storage_options,
+                          filesystem=filesystem)
     row_groups_map = _scan_row_groups_per_file(handle)
     metadata = {
         UNISCHEMA_JSON_KEY: json.dumps(schema.to_json_dict()).encode('utf-8'),
@@ -195,7 +205,8 @@ def materialize_dataset(dataset_url, schema):
              for rel, entry in row_groups_map.items()}).encode('utf-8'),
     }
     write_dataset_metadata(handle, metadata)
-    if not load_row_groups(open_dataset(dataset_url)):
+    if not load_row_groups(open_dataset(dataset_url, storage_options=storage_options,
+                                        filesystem=filesystem)):
         raise MetadataError('Materialization verification failed: no rowgroups found '
                             'under {!r}'.format(dataset_url))
 
@@ -314,9 +325,10 @@ def get_schema(handle):
         .format(handle.root_path, UNISCHEMA_JSON_KEY, LEGACY_UNISCHEMA_PICKLE_KEY))
 
 
-def get_schema_from_dataset_url(dataset_url_or_urls, filesystem=None):
+def get_schema_from_dataset_url(dataset_url_or_urls, storage_options=None, filesystem=None):
     """:func:`get_schema` of the store at ``dataset_url_or_urls``."""
-    return get_schema(open_dataset(dataset_url_or_urls, filesystem=filesystem))
+    return get_schema(open_dataset(dataset_url_or_urls, storage_options=storage_options,
+                                   filesystem=filesystem))
 
 
 def infer_or_load_unischema(handle):

@@ -17,11 +17,15 @@ from petastorm_tpu_torch.unischema import Unischema
 ROWGROUPS_INDEX_KEY = b'petastorm_tpu.rowgroups_index.v1'
 
 
-def build_rowgroup_index(dataset_url, indexers):
+def build_rowgroup_index(dataset_url, indexers, storage_options=None, filesystem=None):
     """Scan every rowgroup, feed each indexer the decoded values of its
     columns with the rowgroup's piece index (its position in
-    ``load_row_groups``), and store the indexes in ``_common_metadata``."""
-    handle = dataset_metadata.open_dataset(normalize_dataset_url_or_urls(dataset_url))
+    ``load_row_groups``), and store the indexes in ``_common_metadata``. The
+    store is opened through ``filesystem``, or its URL's own filesystem
+    (built with ``storage_options`` for a remote scheme)."""
+    handle = dataset_metadata.open_dataset(normalize_dataset_url_or_urls(dataset_url),
+                                           storage_options=storage_options,
+                                           filesystem=filesystem)
     try:
         schema = dataset_metadata.get_schema(handle)
     except MetadataError:

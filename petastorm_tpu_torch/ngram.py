@@ -13,6 +13,8 @@ arrays ``{field: (num_windows, length, *shape)}``, the form the loaders
 upload (the window is the batch axis).
 """
 
+import re
+
 import numpy as np
 
 from petastorm_tpu_torch.unischema import UnischemaField, match_unischema_fields
@@ -99,6 +101,11 @@ class NGram(object):
         if ts_name not in names:
             names.append(ts_name)
         return names
+
+    def get_schema_at_timestep(self, schema, key):
+        """The view of ``schema`` holding the fields of timestep ``key``."""
+        names = [n for n in self.get_field_names_at_timestep(key) if n in schema.fields]
+        return schema.create_schema_view([re.escape(n) for n in names])
 
     # -------------------------------------------------------------- formation
 

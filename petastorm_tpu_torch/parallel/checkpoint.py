@@ -25,8 +25,11 @@ item holds, so either package's saved position resumes the other's reader).
 A step is written under a temporary name and renamed into place with one
 ``os.replace``: a save that fails leaves the previous steps whole.
 
-Cross-topology restore (``restore_across_topology``) waits for the port of
-the topology plane.
+Cross-topology restore (save on 4 hosts, resume on 2): collect every host's
+restored ``loader_state['reader']`` and re-deal them with
+:func:`restore_across_topology`; each merged state pins the new host's
+identity and shard assignment, so the resumed hosts cover exactly the
+unconsumed rest whatever their count.
 """
 
 import json
@@ -42,6 +45,27 @@ _LOADER_KEY = 'input_pipeline'
 _MODEL_FILE = _MODEL_KEY + '.pt'
 _LOADER_FILE = _LOADER_KEY + '.json'
 _TMP_PREFIX = '.tmp-'
+
+
+def restore_across_topology(reader_states, new_count):
+    """Re-deal a whole pod's saved reader states onto ``new_count`` hosts.
+
+    ``reader_states`` is every old host's ``loader_state['reader']`` (all of
+    them: a partial pod cannot prove coverage). Returns one merged reader
+    state per NEW host; feed state ``i`` to new host ``i`` as::
+
+        from petastorm_tpu_torch.parallel.topology import policy_from_state
+        state = merged[rank]
+        reader = make_reader(url, ...,
+                             topology=policy_from_state(state, journal_path),
+                             resume_state=state)
+
+    A bridge over
+    :func:`petastorm_tpu_torch.parallel.topology.merge_topology_states`,
+    which refuses mid-batch cursors, mismatched epochs and states not saved
+    by a topology-armed reader."""
+    from petastorm_tpu_torch.parallel.topology import merge_topology_states
+    return merge_topology_states(reader_states, new_count)
 
 
 def _check_json_roundtrip(loader_state):

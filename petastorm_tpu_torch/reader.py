@@ -29,9 +29,8 @@ Checkpointing is the JAX package's: :meth:`Reader.state_dict` records the
 consumed work items per epoch (and a row or window cursor on the row and
 NGram paths), and ``resume_state=`` continues from it. The state's keys and
 values are those of ``petastorm_tpu``'s, so a state saved by either package
-resumes a reader of the other, apart from the ``lineage`` and ``topology``
-blocks, which the port never writes (it has neither plane) and refuses to
-resume.
+resumes a reader of the other, its ``lineage`` and ``topology`` blocks
+included.
 
 Resilience is the JAX package's (:mod:`~petastorm_tpu_torch.resilience`):
 ``on_error='retry'`` retries transient IO failures of dataset open, rowgroup
@@ -74,21 +73,33 @@ run record at :meth:`Reader.stop` and arms the regression sentinel
 (:mod:`~petastorm_tpu_torch.telemetry.history`,
 :mod:`~petastorm_tpu_torch.telemetry.sentinel`).
 
-Left for later slices, and absent from the signatures: topology negotiation
-and ``shard_seed`` (a state or manifest of a topology-armed JAX reader is
-refused), and non-local filesystems (``filesystem=`` takes a local or wrapped
-``pyarrow.fs.FileSystem``).
+Stores live where the JAX package's do (:mod:`~petastorm_tpu_torch.fs_utils`):
+local paths and ``file://``, ``hdfs://`` through the namenode resolver with
+HA failover (``hdfs_driver`` is the reference API's argument), and every
+other scheme through fsspec with ``storage_options`` (``s3://``, ``gs://``,
+``memory:///`` and ``local:///`` in tests). Workers receive a picklable
+:class:`~petastorm_tpu_torch.fs_utils.FilesystemFactory`, not a live
+filesystem. ``shard_seed`` shuffles the rowgroups before the static
+``cur_shard``/``shard_count`` split, and ``topology=`` replaces that split by
+the negotiated shard map of :mod:`~petastorm_tpu_torch.parallel.topology`
+(a durable membership journal, re-deals after a host leaves, a ``topology``
+block in :meth:`Reader.state_dict` for
+:func:`~petastorm_tpu_torch.parallel.checkpoint.restore_across_topology`).
 """
 
 import logging
 import threading
 import warnings
 
+import numpy as np
+
 from petastorm_tpu_torch import decode_engine
 from petastorm_tpu_torch.cache import ArrowIpcDiskCache, LocalDiskCache, NullCache
 from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError
 from petastorm_tpu_torch.etl import dataset_metadata
-from petastorm_tpu_torch.fs_utils import normalize_dataset_url_or_urls
+from petastorm_tpu_torch.fs_utils import (GivenFilesystemFactory, check_hdfs_driver,
+                                          make_filesystem_factory,
+                                          normalize_dataset_url_or_urls)
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader_worker import (ColumnarBatch, RowGroupWorker, WorkerSetup,
                                                hang_stand_in_factory)
@@ -195,15 +206,16 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                 workers_count=10, results_queue_size=50, seed=None, shuffle_rows=False,
                 shuffle_row_groups=True, shuffle_row_drop_partitions=1, predicate=None,
                 rowgroup_selector=None, num_epochs=1, cur_shard=None, shard_count=None,
-                cache_type='null', cache_location=None, cache_size_limit=None,
-                cache_row_size_estimate=None, cache_extra_settings=None,
-                cache_format='arrow-ipc', transform_spec=None, filesystem=None,
-                resume_state=None, reader_pool=None, field_overrides=None, on_error='raise',
+                shard_seed=None, cache_type='null', cache_location=None,
+                cache_size_limit=None, cache_row_size_estimate=None,
+                cache_extra_settings=None, cache_format='arrow-ipc', transform_spec=None,
+                storage_options=None, filesystem=None, resume_state=None, reader_pool=None,
+                field_overrides=None, hdfs_driver='libhdfs', on_error='raise',
                 retry_policy=None, shm_transport=None, item_deadline_s=None,
                 heartbeat_interval_s=None, device_decode_fields=None, trace=None,
                 metrics_port=None, slo_policy=None, autotune=None, cost_schedule=None,
                 service_url=None, storage_policy=None, lineage=None, incidents=None,
-                history=None):
+                history=None, topology=None):
     """Reader for stores written with a Unischema (by this package or by
     ``petastorm_tpu``): rows decoded through the codecs.
 
@@ -232,6 +244,9 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
     :param num_epochs: passes over the data; None = forever.
     :param cur_shard: with ``shard_count``, read only rowgroups ``i`` with
         ``i % shard_count == cur_shard``.
+    :param shard_seed: with ``cur_shard``, shuffle the rowgroups with this
+        seed before the modulo split, so each shard draws from the whole
+        store.
     :param cache_type: ``'null'`` or ``'local-disk'`` (decoded rowgroups kept
         under ``cache_location``, at most ``cache_size_limit`` bytes;
         ``cache_row_size_estimate`` sanity-checks the limit,
@@ -242,12 +257,16 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
     :param transform_spec: a :class:`~petastorm_tpu_torch.transform.TransformSpec`
         applied on the workers (one row dict at a time, or the rowgroup's
         columns with ``batched=True``).
-    :param filesystem: a ``pyarrow.fs.FileSystem`` (local, or wrapping one)
-        to read through instead of the local filesystem.
+    :param storage_options: options of the fsspec filesystem a remote URL
+        (``s3://``, ``gs://``, ``memory:///``, ...) is read through.
+    :param filesystem: a ``pyarrow.fs.FileSystem`` to read through instead
+        of the URL's own.
     :param resume_state: a :meth:`Reader.state_dict` (or a loader's) to
         continue from; the other arguments must be those of the saved reader.
     :param field_overrides: :class:`UnischemaField`s replacing same-named
         stored fields for this read.
+    :param hdfs_driver: the reference API's HDFS driver; ``pyarrow.fs`` has
+        libhdfs only, and ``'libhdfs3'`` warns.
     :param on_error: ``'raise'`` (the first failure ends the read),
         ``'retry'`` (transient IO failures are retried under ``retry_policy``,
         then raised) or ``'skip'`` (as ``'retry'``, then the rowgroup is
@@ -323,13 +342,25 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
         :class:`~petastorm_tpu_torch.telemetry.history.HistoryPolicy` appends
         one run record at :meth:`Reader.stop` and arms the regression
         sentinel; :meth:`Reader.history_report`.
+    :param topology: True, a membership journal path or a
+        :class:`~petastorm_tpu_torch.parallel.topology.TopologyPolicy`
+        replaces ``cur_shard``/``shard_count`` by a shard map negotiated from
+        the process identity (``PETASTORM_TPU_PROCESS_INDEX``/``_COUNT``, else
+        an initialized ``torch.distributed`` group) and recorded in a durable
+        journal (next to a local store, else ``TopologyPolicy(journal_path=)``);
+        after a host leaves, the survivors re-deal only the rowgroups not yet
+        delivered, and the hosts' lineage digests compose to one global
+        digest. Not with ``cur_shard``/``shard_count``/``shard_seed`` or
+        ``cost_schedule``.
     """
     if trace is not None:
         set_trace_enabled(bool(trace))
+    check_hdfs_driver(hdfs_driver)
     retry_policy = resolve_retry_policy(on_error, retry_policy)
     retries = [0]
     dataset_url_or_urls = normalize_dataset_url_or_urls(dataset_url_or_urls)
     handle = _retrying(lambda: dataset_metadata.open_dataset(dataset_url_or_urls,
+                                                             storage_options=storage_options,
                                                              filesystem=filesystem),
                        retry_policy, retries)
     schema = dataset_metadata.get_schema(handle)
@@ -355,29 +386,32 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   predicate=predicate, rowgroup_selector=rowgroup_selector,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
-                  cache=cache, transform_spec=transform_spec, resume_state=resume_state,
+                  shard_seed=shard_seed, cache=cache, transform_spec=transform_spec,
+                  resume_state=resume_state,
                   device_decode_fields=device_decode_fields, on_error=on_error,
                   retry_policy=retry_policy, initial_io_retries=retries[0],
                   metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune,
                   cost_schedule=cost_schedule, storage_policy=storage_policy,
                   lineage=lineage, incidents=incidents, history=history,
-                  dataset_url=dataset_url_or_urls)
+                  dataset_url=dataset_url_or_urls, storage_options=storage_options,
+                  filesystem=filesystem, topology=topology)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='thread',
                       workers_count=10, results_queue_size=50, seed=None,
                       shuffle_rows=False, shuffle_row_groups=True,
                       shuffle_row_drop_partitions=1, predicate=None, num_epochs=1,
-                      cur_shard=None, shard_count=None, cache_type='null',
-                      cache_location=None, cache_size_limit=None,
+                      cur_shard=None, shard_count=None, shard_seed=None,
+                      cache_type='null', cache_location=None, cache_size_limit=None,
                       cache_row_size_estimate=None, cache_extra_settings=None,
-                      cache_format='arrow-ipc', transform_spec=None, filesystem=None,
-                      resume_state=None, reader_pool=None, on_error='raise',
+                      cache_format='arrow-ipc', transform_spec=None, storage_options=None,
+                      filesystem=None, resume_state=None, reader_pool=None,
+                      hdfs_driver='libhdfs', on_error='raise',
                       retry_policy=None, shm_transport=None, item_deadline_s=None,
                       heartbeat_interval_s=None, device_decode_fields=None, trace=None,
                       metrics_port=None, slo_policy=None, autotune=None,
                       cost_schedule=None, service_url=None, storage_policy=None,
-                      lineage=None, incidents=None, history=None):
+                      lineage=None, incidents=None, history=None, topology=None):
     """Reader for any Parquet store: native columns (no codec decode; a
     ``list<int32>`` column arrives as a list of int32 arrays), one namedtuple
     of column arrays per rowgroup batch. The arguments are :func:`make_reader`'s
@@ -396,14 +430,18 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     stored values; on a plain Parquet store it raises, since no codec says
     what the bytes are. ``service_url`` reads through an input-service fleet
     as :func:`make_reader`'s does; ``storage_policy``, ``lineage``,
-    ``incidents`` and ``history`` arm :func:`make_reader`'s planes.
+    ``incidents``, ``history`` and ``topology`` arm :func:`make_reader`'s
+    planes, and ``storage_options``, ``hdfs_driver`` and ``shard_seed`` are
+    its arguments.
     """
     if trace is not None:
         set_trace_enabled(bool(trace))
+    check_hdfs_driver(hdfs_driver)
     retry_policy = resolve_retry_policy(on_error, retry_policy)
     retries = [0]
     dataset_url_or_urls = normalize_dataset_url_or_urls(dataset_url_or_urls)
     handle = _retrying(lambda: dataset_metadata.open_dataset(dataset_url_or_urls,
+                                                             storage_options=storage_options,
                                                              filesystem=filesystem),
                        retry_policy, retries)
     stored_schema = None
@@ -442,14 +480,16 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
-                  shard_count=shard_count, cache=cache, transform_spec=transform_spec,
+                  shard_count=shard_count, shard_seed=shard_seed, cache=cache,
+                  transform_spec=transform_spec,
                   resume_state=resume_state, is_batched_reader=True,
                   device_decode_fields=device_decode_fields, on_error=on_error,
                   retry_policy=retry_policy, initial_io_retries=retries[0],
                   metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune,
                   cost_schedule=cost_schedule, storage_policy=storage_policy,
                   lineage=lineage, incidents=incidents, history=history,
-                  dataset_url=dataset_url_or_urls)
+                  dataset_url=dataset_url_or_urls, storage_options=storage_options,
+                  filesystem=filesystem, topology=topology)
 
 
 class Reader(object):
@@ -463,11 +503,26 @@ class Reader(object):
                  is_batched_reader=False, device_decode_fields=None, on_error='raise',
                  retry_policy=None, initial_io_retries=0, metrics_port=None,
                  slo_policy=None, autotune=None, cost_schedule=None, storage_policy=None,
-                 lineage=None, incidents=None, history=None, dataset_url=None):
+                 lineage=None, incidents=None, history=None, dataset_url=None,
+                 shard_seed=None, storage_options=None, filesystem=None, topology=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
             raise ValueError('cur_shard must be in [0, shard_count)')
+        # the topology plane: the policy now, the HostTopology once the
+        # filtered rowgroup list exists (its deal covers exactly that list)
+        from petastorm_tpu_torch.parallel.topology import resolve_topology_policy
+        self._topology = None
+        topology_policy = resolve_topology_policy(topology)
+        if topology_policy is not None:
+            if cur_shard is not None or shard_seed is not None:
+                raise ValueError('topology= and static cur_shard/shard_count/shard_seed '
+                                 'are mutually exclusive: the topology plane negotiates '
+                                 'the shard map')
+            if cost_schedule is not None:
+                raise ValueError('topology= is not compatible with cost_schedule: a '
+                                 're-planned interleave would shift the global item '
+                                 'coordinates a reshard re-deals')
         ngram = schema_fields if isinstance(schema_fields, NGram) else None
         if predicate is not None and ngram is not None:
             raise ValueError('Predicates are not supported together with NGram')
@@ -509,6 +564,9 @@ class Reader(object):
         from petastorm_tpu_torch.telemetry.history import resolve_history_policy
         from petastorm_tpu_torch.telemetry.incident import resolve_incident_policy
         from petastorm_tpu_torch.telemetry.lineage import resolve_lineage_policy
+        # a reader built from a handle alone ships the handle's filesystem
+        ship_filesystem = filesystem if filesystem is not None else (
+            handle.filesystem if dataset_url is None else None)
         if dataset_url is None:
             dataset_url = handle.path_or_paths
         #: the store's URL (the first one of a list): the sidecars' home
@@ -573,7 +631,15 @@ class Reader(object):
         for name in sorted(self.device_decode_fields):
             decode_engine.validate_device_field(schema.fields[name])
 
-        setup = WorkerSetup(handle.filesystem, schema, fields_to_read,
+        # the workers rebuild the filesystem (the URL's, or the caller's own
+        # pickled with the factory); under a retrying on_error policy the
+        # resolution retries too
+        if ship_filesystem is not None:
+            filesystem_factory = GivenFilesystemFactory(ship_filesystem)
+        else:
+            filesystem_factory = make_filesystem_factory(self._state_url, storage_options,
+                                                         retry_policy=retry_policy)
+        setup = WorkerSetup(filesystem_factory, schema, fields_to_read,
                             transform_spec=transform_spec, batched_output=is_batched_reader,
                             shuffle_rows=shuffle_rows, seed=seed,
                             partition_field_names=partition_names,
@@ -625,17 +691,21 @@ class Reader(object):
         if partition_predicate is not None:
             row_groups = [rg for rg in row_groups
                           if partition_predicate.do_include(dict(rg.partition_keys))]
-        if cur_shard is not None:
-            row_groups = [rg for i, rg in enumerate(row_groups)
-                          if i % shard_count == cur_shard]
+        if topology_policy is not None:
+            row_groups = self._negotiate_topology(topology_policy, row_groups, cache)
+        else:
+            row_groups = self._partition_row_groups(row_groups, cur_shard, shard_count,
+                                                    shard_seed)
         if not row_groups:
             raise NoDataAvailableError(
                 'No rowgroups available for shard {} of {}. Use fewer shards or more '
-                'files.'.format(cur_shard, shard_count))
-        #: the shard configuration a checkpoint must match on resume (the JAX
-        #: package's keys; the port has no shard_seed and no topology plane)
+                'files.'.format(
+                    self._topology.process_index if self._topology else cur_shard,
+                    self._topology.process_count if self._topology else shard_count))
+        #: the shard configuration a checkpoint must match on resume
         self._shard_config = {'cur_shard': cur_shard, 'shard_count': shard_count,
-                              'shard_seed': None, 'topology': False}
+                              'shard_seed': shard_seed,
+                              'topology': self._topology is not None}
         items = [{'piece_index': piece_index,
                   'fragment_path': rg.fragment_path,
                   'row_group_id': rg.row_group_id,
@@ -710,7 +780,8 @@ class Reader(object):
         if self._lineage_policy is not None:
             self._start_lineage(cache, items, row_groups, construction_quarantine, seed,
                                 shuffle_row_groups, num_epochs, cur_shard, shard_count,
-                                shuffle_row_drop_partitions, resume_state, skip_by_iteration)
+                                shard_seed, shuffle_row_drop_partitions, resume_state,
+                                skip_by_iteration)
 
         self._ventilator = ConcurrentVentilator(
             ventilate_fn=_traced_ventilate(reader_pool.ventilate, self._lineage),
@@ -767,10 +838,46 @@ class Reader(object):
                 port=int(metrics_port))
             self._metrics_server.start()
 
+    # --------------------------------------------------------------- sharding
+
+    @staticmethod
+    def _partition_row_groups(row_groups, cur_shard, shard_count, shard_seed):
+        """The static split: rowgroups ``i % shard_count == cur_shard``, after a
+        ``shard_seed`` shuffle when given (the JAX package's order)."""
+        if cur_shard is None:
+            return list(row_groups)
+        indexed = list(enumerate(row_groups))
+        if shard_seed is not None:
+            np.random.RandomState(shard_seed).shuffle(indexed)
+        return [rg for index, (_, rg) in enumerate(indexed) if index % shard_count == cur_shard]
+
+    def _negotiate_topology(self, policy, row_groups, cache):
+        """Join the membership journal and return this host's rowgroups: the
+        deal over GLOBAL indices of the filtered list (generation 0 equals the
+        static modulo split), or the policy's pinned assignment."""
+        from petastorm_tpu_torch.dataset_state import cache_state_home
+        from petastorm_tpu_torch.parallel.topology import (HostTopology,
+                                                           default_topology_journal_path)
+        journal_path = policy.journal_path or default_topology_journal_path(
+            self._state_url, cache_state_home(cache))
+        if journal_path is None:
+            raise ValueError('topology= needs a membership journal on shared storage, but '
+                             'this dataset has no local state home (remote store, no '
+                             'cache): pass TopologyPolicy(journal_path=...)')
+        self._topology = HostTopology(policy, journal_path, len(row_groups),
+                                      registry=self._telemetry)
+        bad = [i for i in self._topology.assignment if not 0 <= i < len(row_groups)]
+        if bad:
+            self._topology.close()
+            raise ValueError('topology assignment names global rowgroup indices {} outside '
+                             'this dataset\'s {} filtered rowgroup(s): the policy was dealt '
+                             'against another dataset or filter'.format(bad, len(row_groups)))
+        return [row_groups[i] for i in self._topology.assignment]
+
     # ------------------------------------------------------ observability planes
 
     def _start_lineage(self, cache, items, row_groups, construction_quarantine, seed,
-                       shuffle_row_groups, num_epochs, cur_shard, shard_count,
+                       shuffle_row_groups, num_epochs, cur_shard, shard_count, shard_seed,
                        drop_partitions, resume_state, skip_by_iteration):
         """Build the lineage recorder and write its manifest header: the run's
         exact reproduction record (the JAX package's keys), which ``lineage
@@ -794,7 +901,7 @@ class Reader(object):
             'pre_shuffles': self._epochs_consumed,
             'resumed': resume_state is not None,
             'cur_shard': cur_shard, 'shard_count': shard_count,
-            'shard_seed': None,
+            'shard_seed': shard_seed,
             'drop_partitions': drop_partitions,
             'items_per_epoch': len(items),
             # what each epoch's reorder permutes, in construction order:
@@ -813,6 +920,10 @@ class Reader(object):
             'schedule': (self._cost_scheduler.plan_fingerprint()
                          if self._cost_scheduler is not None else None),
         }
+        if self._topology is not None:
+            # the negotiated identity and shard map, only when armed: a static
+            # recording keeps the header the JAX package writes for it
+            header['topology'] = self._topology.header()
         if skip_by_iteration:
             header['skip_by_iteration'] = {
                 str(k): sorted(list(item) for item in v)
@@ -842,13 +953,26 @@ class Reader(object):
             self._incidents.add_source('lineage', self._lineage.report)
         if self._autotune is not None:
             self._incidents.add_source('autotune', self._autotune.report)
+        if self._topology is not None:
+            self._incidents.add_source('topology', self._topology.report)
+            # construction-time edges: a corrupt membership journal, and a
+            # reader that came up as a reshard survivor
+            if self._topology.frames_dropped:
+                self._incidents.trigger('ledger_corrupt', args={
+                    'journal': self._topology.journal.path,
+                    'frames_dropped': self._topology.frames_dropped, 'plane': 'topology'})
+            if self._topology.generation > 0:
+                self._incidents.trigger('host_reshard', args={
+                    'generation': self._topology.generation,
+                    'host_id': self._topology.host_id,
+                    'assignment': list(self._topology.assignment)})
         provenance = {
             'dataset_url': self._state_url,
             'dataset_token': self.dataset_token,
             'seed': seed, 'num_epochs': num_epochs,
             'shuffle_row_groups': bool(shuffle_row_groups),
             'cur_shard': cur_shard, 'shard_count': shard_count,
-            'topology': None,
+            'topology': self._topology.header() if self._topology is not None else None,
             'on_error': on_error,
             'pool': type(reader_pool).__name__,
             'items_per_epoch': self._items_per_epoch,
@@ -1038,6 +1162,10 @@ class Reader(object):
             # the consumer-side anchor of the rowgroup's trace, on every pool
             trace_instant('rowgroup_consumed', ctx=(epoch, piece, 0),
                           args={'rows': batch.num_rows})
+        if self._topology is not None:
+            # journaled under its global rowgroup index: what a reshard
+            # subtracts to re-deal only the undelivered rest
+            self._topology.note_progress(epoch, piece, drop)
         cache_hit = getattr(batch, 'cache_hit', None)
         with self._accounting_lock:
             self._rows_consumed += batch.num_rows
@@ -1063,11 +1191,26 @@ class Reader(object):
             raise ValueError(
                 'resume_state was captured under shard config {!r}, but this reader is '
                 'configured with {!r}; resuming would silently replay the wrong row '
-                'stream. Rebuild with the original sharding'
-                .format(saved_shard, self._shard_config))
-        if state.get('topology') is not None:
-            raise ValueError('resume_state was captured by a topology-armed reader; the '
-                             'port has no topology plane to restore it through')
+                'stream. Rebuild with the original sharding, or restore across '
+                'topologies via petastorm_tpu_torch.parallel.topology.'
+                'merge_topology_states'.format(saved_shard, self._shard_config))
+        saved_topology = state.get('topology')
+        if saved_topology is not None:
+            if self._topology is None:
+                raise ValueError(
+                    'resume_state was captured by a topology-armed reader (identity '
+                    '{}/{}), but this reader is static-sharded: restore through '
+                    'make_reader(topology=...) (see topology.policy_from_state)'.format(
+                        saved_topology.get('process_index'),
+                        saved_topology.get('process_count')))
+            if list(saved_topology.get('assignment') or []) != \
+                    list(self._topology.assignment):
+                raise ValueError(
+                    'resume_state was dealt assignment {!r}, but this reader negotiated '
+                    '{!r}: re-deal the checkpoint with topology.merge_topology_states '
+                    'before resuming on a changed topology'.format(
+                        saved_topology.get('assignment'),
+                        list(self._topology.assignment)))
         if state['items_per_epoch'] != self._items_per_epoch:
             raise ValueError(
                 'resume_state was captured from a reader with {} work items per epoch, '
@@ -1093,8 +1236,11 @@ class Reader(object):
         """Snapshot of the read position, resumable through ``make_reader(...,
         resume_state=state)`` (or ``make_batch_reader``) with the same
         construction arguments. The same dict as ``petastorm_tpu``'s
-        ``Reader.state_dict`` (without its ``topology`` block); a
-        lineage-armed reader's carries the digest state under ``lineage``.
+        ``Reader.state_dict``: a lineage-armed reader's carries the digest
+        state under ``lineage``, a topology-armed one's its identity and
+        global assignment under ``topology`` (what
+        :func:`~petastorm_tpu_torch.parallel.topology.merge_topology_states`
+        re-deals onto another host count).
 
         The unit is the work item (rowgroup x drop partition): an item counts
         as consumed once all its rows were emitted (``consumed_by_epoch`` maps
@@ -1132,6 +1278,8 @@ class Reader(object):
                     for epoch, ids in self._consumed_by_epoch.items()},
                 'shard_config': dict(self._shard_config),
             }
+            if self._topology is not None:
+                state['topology'] = self._topology.state_block()
             if cursor is not None:
                 (epoch, piece, drop), next_row = cursor
                 state['row_cursor'] = {'epoch_offset': epoch - self._epochs_consumed,
@@ -1408,9 +1556,9 @@ class Reader(object):
         flight-recorder summary (only while tracing is armed); ``autotune``,
         the controller's report (only with ``autotune``); ``schedule``, the
         cost scheduler's report (only with ``cost_schedule``); ``lineage``,
-        ``incidents``, ``history`` and ``sentinel``, each plane's report, and
-        ``storage``, the ingest engine's policy and counters (each only when
-        armed)."""
+        ``incidents``, ``history``, ``sentinel`` and ``topology``, each plane's
+        report, and ``storage``, the ingest engine's policy and counters (each
+        only when armed)."""
         diag = dict(getattr(self._pool, 'diagnostics', None) or {})
         with self._accounting_lock:
             diag.update({'io_retries': self._io_retries,
@@ -1449,6 +1597,8 @@ class Reader(object):
             diag['history'] = self._history.state()
         if self._sentinel is not None:
             diag['sentinel'] = self._sentinel.report()
+        if self._topology is not None:
+            diag['topology'] = self._topology.report()
         if self._storage_policy is not None:
             counters = snapshot.get('counters') or {}
             diag['storage'] = {
@@ -1488,6 +1638,9 @@ class Reader(object):
         if self._incidents is not None:
             # detaches the sources; the bundles stay on disk for the autopsy
             self._incidents.close()
+        if self._topology is not None:
+            # a clean leave, so survivors re-deal without waiting out the lease
+            self._topology.close()
         self._pool.stop()
 
     def join(self):

@@ -99,7 +99,10 @@ class ColumnarBatch(object):
 
 
 class WorkerSetup(object):
-    """Per-reader configuration shared by every worker. ``batched_output``
+    """Per-reader configuration shared by every worker. ``filesystem_factory``
+    is a picklable zero-argument callable that builds the store's filesystem
+    in each worker (:class:`~petastorm_tpu_torch.fs_utils.FilesystemFactory`).
+    ``batched_output``
     marks the batch reader: it emits stored values without codec decode, and
     its transform ``func`` takes a ``DataFrame`` unless the spec is
     ``batched``. ``dataset_token`` is the cache key's identity of the store
@@ -111,13 +114,13 @@ class WorkerSetup(object):
     :class:`~petastorm_tpu_torch.storage.StoragePolicy` (None: the
     ``fragment.to_table()`` path)."""
 
-    __slots__ = ('filesystem', 'schema', 'fields_to_read', 'result_schema',
+    __slots__ = ('filesystem_factory', 'schema', 'fields_to_read', 'result_schema',
                  'transform_spec', 'batched_output', 'shuffle_rows', 'seed',
                  'partition_field_names', 'device_decode_fields', 'ngram', 'cache',
                  'dataset_token', '_predicate', '_predicate_key', 'on_error',
                  'retry_policy', 'lineage_fingerprint_every', 'storage_policy')
 
-    def __init__(self, filesystem, schema, fields_to_read, transform_spec=None,
+    def __init__(self, filesystem_factory, schema, fields_to_read, transform_spec=None,
                  batched_output=False, shuffle_rows=False, seed=None,
                  partition_field_names=(), device_decode_fields=(), ngram=None,
                  cache=None, dataset_path_or_paths=None, predicate=None,
@@ -128,7 +131,7 @@ class WorkerSetup(object):
         self.storage_policy = storage_policy
         self.on_error = on_error
         self.retry_policy = resolve_retry_policy(on_error, retry_policy)
-        self.filesystem = filesystem
+        self.filesystem_factory = filesystem_factory
         self.schema = schema
         self.fields_to_read = list(fields_to_read)
         self.transform_spec = transform_spec
@@ -201,12 +204,10 @@ class RowGroupWorker(WorkerBase):
         self._metadata_cache = None
 
     def _fs(self):
-        # fs_open: the setup carries a built filesystem, so this times its
-        # first resolution in this worker (one span a worker, as the JAX
-        # worker's filesystem factory records)
+        # fs_open: one span a (re)connection of this worker
         if self._filesystem is None:
             with stage_span('fs_open'):
-                self._filesystem = self._setup.filesystem
+                self._filesystem = self._setup.filesystem_factory()
         return self._filesystem
 
     def _publish(self, payload):
@@ -253,6 +254,9 @@ class RowGroupWorker(WorkerBase):
 
             def on_retry(attempt, exc, delay):
                 retries[0] += 1
+                # a broken connection is not reused: the next attempt
+                # reconnects through the (retrying) factory
+                self._filesystem = None
                 logger.warning('Transient IO failure on piece %s (%s rg %s), attempt %d: '
                                '%s; retrying in %.3fs', piece_index, fragment_path,
                                row_group_id, attempt, exc, delay)

@@ -1,8 +1,9 @@
 """Sample-lineage audit plane: provable determinism, batch provenance, and
 first-divergence diagnosis. A copy of ``petastorm_tpu.telemetry.lineage``:
 the same identities, digests and manifest format, so either package
-verifies and diffs the other's manifests. A manifest recorded under a
-negotiated topology (the JAX package's ``parallel/topology.py``) is refused.
+verifies and diffs the other's manifests, those recorded under a negotiated
+topology (:mod:`~petastorm_tpu_torch.parallel.topology`) included: ``lineage
+diff`` attributes a changed shard map or reshard generation to ``topology``.
 
 The pipeline PROMISES "same seed + any topology => same sample order"; this
 module is the instrument that proves it and pinpoints where two runs diverge
@@ -710,15 +711,6 @@ def _topology_of(header: Mapping[str, Any]) -> Any:
     return json.loads(json.dumps(topology, sort_keys=True))
 
 
-def _refuse_topology(header: Optional[Mapping[str, Any]], path: str) -> None:
-    """A manifest recorded under a negotiated topology (the JAX package's
-    ``parallel/topology.py``) is refused: the port has no topology plane to
-    replay its shard map through."""
-    if header is not None and header.get('topology') is not None:
-        raise ValueError('{} was recorded by a topology-armed reader; the port has '
-                         'no topology plane to replay its shard map'.format(path))
-
-
 def verify_manifest(manifest_path: str,
                     dataset_url: Optional[str] = None) -> Dict[str, Any]:
     """The dry replay verifier: prove a recorded run's order digest from
@@ -735,7 +727,6 @@ def verify_manifest(manifest_path: str,
     segments = load_manifest(manifest_path)
     segment = segments[-1]
     header = segment['header']
-    _refuse_topology(header, manifest_path)
     if header is None:
         return {'ok': False, 'reason': 'no_header',
                 'detail': 'manifest holds records but no header (rotated '
@@ -828,18 +819,13 @@ def _check_dataset_rowgroups(dataset_url: str,
     mismatch description or None."""
     from petastorm_tpu_torch.etl import dataset_metadata
     from petastorm_tpu_torch.fs_utils import normalize_dataset_url_or_urls
+    from petastorm_tpu_torch.reader import Reader
     shard = _shard_config(header)
-    if shard['shard_seed'] is not None:
-        raise ValueError('the manifest was recorded with shard_seed={!r}; the '
-                         'port shards by rowgroup index only and cannot '
-                         're-derive that enumeration'.format(shard['shard_seed']))
     handle = dataset_metadata.open_dataset(
         normalize_dataset_url_or_urls(dataset_url))
     row_groups = dataset_metadata.load_row_groups(handle)
-    # the reader's modulo sharding (make_reader's cur_shard/shard_count)
-    sharded = [rg for index, rg in enumerate(row_groups)
-               if shard['cur_shard'] is None
-               or index % shard['shard_count'] == shard['cur_shard']]
+    sharded = Reader._partition_row_groups(row_groups, shard['cur_shard'],
+                                           shard['shard_count'], shard['shard_seed'])
     live = [[rg.fragment_path, rg.row_group_id, rg.row_group_num_rows]
             for rg in sharded]
     recorded = [list(row) for row in header['shard_rowgroups']]
@@ -872,8 +858,6 @@ def diff_manifests(path_a: str, path_b: str) -> Dict[str, Any]:
     distinct per attribution (:data:`ATTRIBUTION_EXIT_CODES`)."""
     seg_a = load_manifest(path_a)[-1]
     seg_b = load_manifest(path_b)[-1]
-    _refuse_topology(seg_a['header'], path_a)
-    _refuse_topology(seg_b['header'], path_b)
     header_a = seg_a['header'] or {}
     header_b = seg_b['header'] or {}
     items_a = manifest_items(seg_a)

@@ -22,13 +22,15 @@ logger = logging.getLogger(__name__)
 
 
 def copy_dataset(source_url, target_url, field_regex=None, not_null_fields=None,
-                 rowgroup_size_mb=32, rows_per_file=None, overwrite=False):
+                 rowgroup_size_mb=32, rows_per_file=None, storage_options=None,
+                 overwrite=False):
     """Copy the store at ``source_url`` (written by either package or by the
     reference petastorm) to ``target_url``: only the fields matching
     ``field_regex`` (a list of regexes) when given, only the rows whose
     ``not_null_fields`` are all set. A non-empty target is refused unless
-    ``overwrite``, which deletes it first. Returns the rows written."""
-    source = dataset_metadata.open_dataset(source_url)
+    ``overwrite``, which deletes it first. ``storage_options`` go to the
+    fsspec filesystems of remote URLs. Returns the rows written."""
+    source = dataset_metadata.open_dataset(source_url, storage_options=storage_options)
     schema = dataset_metadata.infer_or_load_unischema(source)
     if field_regex:
         fields = match_unischema_fields(schema, field_regex)
@@ -43,7 +45,8 @@ def copy_dataset(source_url, target_url, field_regex=None, not_null_fields=None,
         expr = ~pc.field(field_name).is_null()
         filter_expr = expr if filter_expr is None else (filter_expr & expr)
 
-    target_fs, target_path = get_filesystem_and_path_or_paths(target_url)
+    target_fs, target_path = get_filesystem_and_path_or_paths(
+        target_url, storage_options=storage_options)
     if path_exists(target_fs, target_path):
         infos = target_fs.get_file_info(pa_fs.FileSelector(target_path,
                                                            allow_not_found=True))
@@ -54,7 +57,8 @@ def copy_dataset(source_url, target_url, field_regex=None, not_null_fields=None,
         if infos:
             delete_path(target_fs, target_path)
 
-    with dataset_metadata.materialize_dataset(target_url, schema):
+    with dataset_metadata.materialize_dataset(target_url, schema,
+                                              storage_options=storage_options):
         target_fs.create_dir(target_path, recursive=True)
         scanner = pads.Scanner.from_dataset(source.arrow_dataset, columns=column_names,
                                             filter=filter_expr)

@@ -33,14 +33,19 @@ checks, in order:
    engine force-armed: footer-cache hits and misses, ranges coalesced,
    hedges fired and won (``report['storage']``; a hedge-win rate above 50%
    prints a WARNING).
+8. **Topology**: when ``--topology-journal`` (or the
+   ``PETASTORM_TPU_TOPOLOGY_JOURNAL`` env var) names a membership journal of
+   :mod:`~petastorm_tpu_torch.parallel.topology`, its replay: generation,
+   members, stale leases (a WARNING: a host crashed without a leave record)
+   and frames the CRC dropped (a WARNING) (``report['topology']``).
 
 Prints a human report, or with ``--json`` one JSON line (the dict
 :func:`collect_report` returns). The exit code is 0 iff the store round trip
 passed: a CPU-only install is a healthy install, and backend or link failures
 are reported as findings.
 
-The JAX doctor's ``topology`` and ``pipecheck`` blocks wait for those planes
-in the port and are not in the report.
+The JAX doctor's ``pipecheck`` block waits for the port of the static
+analyzer and is not in the report.
 """
 from __future__ import annotations
 
@@ -376,7 +381,32 @@ def check_ledger(service_report=None):
             'records_replayed': state.get('records_replayed', 0)}
 
 
-def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_url=None):
+def check_topology(journal_path=None):
+    """Replay the membership journal named by ``journal_path`` or the
+    ``PETASTORM_TPU_TOPOLOGY_JOURNAL`` env var: ``{'status': 'unarmed'}``
+    when none is named, ``{'status': 'absent', ...}`` when the file does not
+    exist yet, else the replayed view: generation, members, stale leases
+    (hosts whose lease expired without a leave: reshard candidates),
+    delivered items, reshards and the frames the CRC dropped."""
+    path = journal_path or os.environ.get('PETASTORM_TPU_TOPOLOGY_JOURNAL')
+    if not path:
+        return {'status': 'unarmed'}
+    from petastorm_tpu_torch.parallel.topology import replay_topology_journal
+    replay = replay_topology_journal(path)
+    if replay.result == 'absent':
+        return {'status': 'absent', 'path': path}
+    return {'status': replay.result, 'path': path,
+            'generation': replay.generation,
+            'members': sorted(replay.members),
+            'stale_leases': replay.stale_leases(time.time()),
+            'delivered': len(replay.delivered),
+            'resharded': replay.resharded,
+            'frames_dropped': replay.frames_dropped,
+            'records': replay.records}
+
+
+def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_url=None,
+                   topology_journal=None):
     """Run every check; returns the report dict (no printing)."""
     report = {'versions': check_versions()}
     report['backend'] = check_backend(timeout_s=probe_timeout_s)
@@ -424,6 +454,12 @@ def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_ur
         report['ledger'] = check_ledger(report['service'])
     except Exception as exc:  # noqa: BLE001 - the report must always complete
         report['ledger'] = {'status': 'fail', 'detail': repr(exc)}
+    # always present, as the service's blocks are; an unarmed topology is a
+    # healthy install
+    try:
+        report['topology'] = check_topology(topology_journal)
+    except Exception as exc:  # noqa: BLE001 - the report must always complete
+        report['topology'] = {'status': 'fail', 'detail': repr(exc)}
     try:
         report['incidents'] = check_incidents()
     except Exception as exc:  # noqa: BLE001 - the report must always complete
@@ -545,6 +581,26 @@ def _print_human(report):
         if history.get('frames_dropped'):
             print('  WARNING: the run-history store dropped torn frame(s): an append '
                   'was interrupted and the store healed around it')
+    topology = report.get('topology') or {}
+    if topology.get('status') in ('ok', 'corrupt'):
+        print('  topology: journal {}: generation {}, {} member(s), {} item(s) journaled '
+              'delivered, {} reshard(s)'.format(
+                  topology.get('path'), topology.get('generation'),
+                  len(topology.get('members') or []), topology.get('delivered', 0),
+                  topology.get('resharded', 0)))
+        if topology.get('stale_leases'):
+            print('  WARNING: topology member(s) with EXPIRED leases and no leave record: '
+                  '{}: they look crashed or partitioned; survivors should reshard their '
+                  'undelivered rest (`petastorm-tpu-torch-throughput chaos --hosts N '
+                  '--kill-host` rehearses exactly this)'.format(
+                      ', '.join(sorted(topology.get('stale_leases')))))
+        if topology.get('frames_dropped'):
+            print('  WARNING: the membership journal dropped {} torn frame(s) on replay: '
+                  'a past append was interrupted; membership resumed from the intact '
+                  'prefix'.format(topology.get('frames_dropped')))
+    elif topology.get('status') == 'absent':
+        print('  topology: journal {} configured but not created yet: no topology-armed '
+              'reader has opened it'.format(topology.get('path')))
     incidents = report.get('incidents') or {}
     if incidents.get('retained'):
         newest = (incidents.get('bundles') or [{}])[0]
@@ -583,10 +639,14 @@ def main(argv=None):
     parser.add_argument('--service-url', default=None,
                         help='probe this input-service dispatcher (default: '
                              'PETASTORM_TPU_SERVICE_URL when set)')
+    parser.add_argument('--topology-journal', default=None,
+                        help='replay this membership journal (default: '
+                             'PETASTORM_TPU_TOPOLOGY_JOURNAL when set)')
     args = parser.parse_args(argv)
     report = collect_report(probe_timeout_s=args.probe_timeout, link=not args.no_link,
                             link_timeout_s=args.link_timeout,
-                            service_url=args.service_url)
+                            service_url=args.service_url,
+                            topology_journal=args.topology_journal)
     if args.json:
         print(json.dumps(report))
     else:

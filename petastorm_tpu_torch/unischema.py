@@ -310,3 +310,33 @@ def _default_encode(field, value):
     if isinstance(value, np.generic):
         return value.item()
     return value
+
+
+def decode_row(row_dict, schema):
+    """Decode one encoded row dict back to numpy values through the codecs
+    (``petastorm_tpu.unischema.decode_row``); names outside ``schema`` pass
+    through unchanged."""
+    from petastorm_tpu_torch.errors import DecodeFieldError
+    decoded = {}
+    for name, value in row_dict.items():
+        field = schema.fields.get(name)
+        if field is None or value is None:
+            decoded[name] = value
+            continue
+        try:
+            if field.codec is not None:
+                decoded[name] = field.codec.decode(field, value)
+            elif field.numpy_dtype is Decimal:
+                decoded[name] = value if isinstance(value, Decimal) else Decimal(str(value))
+            elif field.shape == () and np.dtype(field.numpy_dtype).kind not in ('U', 'S', 'O'):
+                decoded[name] = np.dtype(field.numpy_dtype).type(value)
+            elif field.shape != ():
+                dtype = np.dtype(field.numpy_dtype)
+                decoded[name] = np.asarray(
+                    value, dtype=object if dtype.kind in ('U', 'S', 'O') else dtype)
+            else:
+                decoded[name] = value
+        except Exception as exc:
+            raise DecodeFieldError('Failed to decode field {!r}: {}'.format(name, exc),
+                                   field_name=name) from exc
+    return decoded

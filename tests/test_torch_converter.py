@@ -1,7 +1,7 @@
 """The port's converter against ``petastorm_tpu.converter`` on the same Arrow
 tables: the same fingerprint directory, stores that read back equal through
 the other package, the cache, the environment variable, ``delete``, partial
-stores, refused inputs, and loader batches equal to the JAX converter's. All
+stores, refused inputs, the Spark branch, and loader batches equal to the JAX converter's. All
 comparisons are exact."""
 
 import os
@@ -115,12 +115,41 @@ def test_partial_store_is_removed(cache_dir):
     converter.delete()
 
 
-def test_unknown_type_and_spark_frame_refused(cache_dir):
+def test_unknown_type_and_spark_frame_refused(cache_dir, monkeypatch):
+    """An unknown type is refused; a Spark DataFrame (a stub of pyspark.sql
+    whose writer writes real Parquet) now converts through the Spark branch,
+    to a store with the metadata make_reader needs."""
+    import sys
+    import types
     with pytest.raises(TypeError, match='Unsupported dataframe type'):
         make_converter([1, 2, 3], parent_cache_dir_url=cache_dir)
-    spark_frame = type('DataFrame', (), {'__module__': 'pyspark.sql.dataframe'})()
-    with pytest.raises(TypeError, match='Spark DataFrames are not supported'):
-        make_converter(spark_frame, parent_cache_dir_url=cache_dir)
+    sql = types.ModuleType('pyspark.sql')
+    sql.DataFrame = type('DataFrame', (), {})
+    monkeypatch.setitem(sys.modules, 'pyspark.sql', sql)
+    table = pa.table({'id': np.arange(12, dtype=np.int64)})
+
+    class Writer(object):
+        def option(self, key, value):
+            return self
+
+        def parquet(self, path):
+            import pyarrow.parquet as pq
+            os.makedirs(path)
+            pq.write_table(table, os.path.join(path, 'part-0.parquet'))
+
+    frame = type('Frame', (sql.DataFrame,), {'write': Writer(), 'count': lambda self: 12,
+                                            'semanticHash': lambda self: 7})()
+    converter = make_converter(frame, parent_cache_dir_url=cache_dir)
+    try:
+        assert len(converter) == 12
+        assert make_converter(frame, parent_cache_dir_url=cache_dir) is converter
+        from petastorm_tpu_torch import make_reader
+        with make_reader(converter.cache_dir_url, reader_pool_type='dummy',
+                         shuffle_row_groups=False) as reader:
+            assert [int(row.id) for row in reader] == list(range(12))
+    finally:
+        converter.delete()
+    assert 7 not in port_converter._spark_plan_converters
 
 
 def test_pandas_frame_accepted(cache_dir):

@@ -17,7 +17,7 @@ from petastorm_tpu_torch.tools import doctor
 #: the JAX round trip's blocks that collect_report lifts to the top level
 LIFTED = ('telemetry', 'trace', 'resilience', 'autotune', 'slo', 'lineage', 'history')
 #: the JAX doctor's blocks whose planes the port lacks
-NOT_PORTED = ('topology', 'pipecheck')
+NOT_PORTED = ('pipecheck',)
 
 
 @pytest.fixture(scope='module')
@@ -59,6 +59,7 @@ def test_json_report_healthy_with_the_jax_blocks(capsys, jax_roundtrip):
     assert not set(report) & set(NOT_PORTED)
     assert report['service'] == jax_doctor.check_service() == {'status': 'unconfigured'}
     assert report['ledger'] == jax_doctor.check_ledger(report['service']) == {'status': 'unarmed'}
+    assert report['topology'] == jax_doctor.check_topology() == {'status': 'unarmed'}
     versions = report['versions']
     assert set(versions) == {'python', 'numpy', 'pyarrow', 'torch', 'cuda',
                              'petastorm_tpu_torch'}

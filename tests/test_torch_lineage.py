@@ -5,7 +5,7 @@ reorder buffer and divergence accounting, the port reader's
 drop partitioning on every pool, digest continuity through ``state_dict``
 (a JAX state with a ``lineage`` block resumes in the port), the loader's step
 stamps, and ``verify_manifest``/``diff_manifests`` giving the JAX results on
-manifests either package wrote."""
+manifests either package wrote, topology-armed ones included."""
 
 import json
 import os
@@ -278,16 +278,29 @@ def test_cli_record_and_verify_in_a_child_interpreter(store, tmp_path):
     assert verify.returncode == 0 and 'OK' in verify.stdout
 
 
-def test_a_topology_header_is_refused(tmp_path):
-    path = str(tmp_path / 'topo.jsonl')
-    with open(path, 'w') as f:
-        f.write(json.dumps({'event': 'lineage_header', 'seed': 1, 'items': [],
-                            'topology': {'process_count': 2}}) + '\n')
-    with pytest.raises(ValueError, match='topology'):
-        port_lineage.verify_manifest(path)
-    with pytest.raises(ValueError, match='topology'):
-        port_lineage.diff_manifests(path, path)
-    assert port_lineage.main(['diff', path, path]) == port_lineage.EXIT_ERROR
+def test_a_topology_header_is_refused(store, tmp_path):
+    """Once refused, now read: manifests of topology-armed JAX readers (one
+    host, and host 0 of two) verify in the port, and the port's diff pins
+    their divergence on ``topology`` as the JAX diff does."""
+    from petastorm_tpu.parallel.topology import TopologyPolicy as JaxTopologyPolicy
+    paths = []
+    for count in (1, 2):
+        path = str(tmp_path / 'topo{}.jsonl'.format(count))
+        policy = JaxTopologyPolicy(journal_path=str(tmp_path / 'j{}.bin'.format(count)),
+                                   process_index=0, process_count=count)
+        with pt.make_reader(store, reader_pool_type='dummy', seed=3,
+                            lineage=jax_lineage.LineagePolicy(manifest_path=path),
+                            topology=policy) as reader:
+            for _ in reader.iter_columnar():
+                pass
+        paths.append(path)
+    for path in paths:
+        assert port_lineage.verify_manifest(path) == jax_lineage.verify_manifest(path)
+        assert port_lineage.verify_manifest(path)['exit_code'] == port_lineage.EXIT_OK
+    ours = port_lineage.diff_manifests(*paths)
+    assert ours == jax_lineage.diff_manifests(*paths)
+    assert ours['attribution'] == 'topology'
+    assert port_lineage.main(['diff'] + paths) == port_lineage.EXIT_TOPOLOGY
 
 
 def test_attribution_exit_codes_match_jax():

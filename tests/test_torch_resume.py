@@ -2,7 +2,7 @@
 the JAX package: the cases of ``tests/test_checkpoint.py`` that apply to the
 port, ``Reader.state_dict()`` and ``TorchDataLoader.state_dict()`` equal to
 ``petastorm_tpu``'s dicts at the same point (apart from the ``lineage`` and
-``topology`` blocks, which the port never writes), and a JAX state resuming
+``topology`` blocks, armed in neither reader here), and a JAX state resuming
 a port reader to exactly the rows the JAX reader's resume delivers."""
 
 import time
@@ -194,7 +194,9 @@ def test_resume_state_mismatch_rejected(store):
     with pytest.raises(ValueError, match='shard config'):
         make_reader(store, reader_pool_type='dummy', cur_shard=0, shard_count=2,
                     resume_state=state)
-    with pytest.raises(ValueError, match='topology'):
+    # a topology state resumes only a topology-armed reader, as in the JAX
+    # package (cross-topology restore goes through merge_topology_states)
+    with pytest.raises(ValueError, match='topology-armed reader .* static-sharded'):
         make_reader(store, reader_pool_type='dummy',
                     resume_state=dict(state, topology={'assignment': [0, 1]}))
 
