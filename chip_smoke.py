@@ -190,7 +190,17 @@ version on the card, then drives the port's two paths at full width:
   undisturbed digest), and ``chaos --hosts 2 --kill-host`` in a child; the
   CLI's ``chaos`` over a ledger-armed fleet with the dispatcher and a worker
   killed, the client silenced and a ledger frame corrupted (21c: exit 0, no
-  card work).
+  card work);
+- the static data-plane analyzer (phase 22, host only, each run in a child
+  interpreter that refuses JAX and the JAX package): ``python -m
+  petastorm_tpu_torch.analysis --json`` over the installed port (22a: exit
+  0, every ``.py`` file of the port, no finding, every ``pipecheck:
+  disable`` directive honoured, a call graph of more than 1,665 functions;
+  its seconds printed), the same over a copy of the port whose worker sends
+  ``('result_v2', ...)`` in place of ``('result_shm', ...)`` (22b: exit 1,
+  exactly the two protocol findings naming both kinds), and the throughput
+  CLI's ``pipecheck`` (22c: exit 0); phase 18d also requires the doctor's
+  ``pipecheck`` block to be ok with no finding.
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -4056,6 +4066,9 @@ def phase_tools_cli():
           and result['wire-bench']['cache_warm_hits'] > 0,
           '18d: wire-bench {}'.format(result['wire-bench']))
     storage, lineage, history = report['storage'], report['lineage'], report['history']
+    pipecheck = report['pipecheck']
+    check(pipecheck['status'] == 'ok' and pipecheck['findings'] == 0,
+          '18d: the doctor\'s pipecheck block is {}'.format(pipecheck))
     check(storage['status'] == 'ok' and storage['footer_cache_hits'] > 0
           and lineage.get('enabled') and lineage['divergence'] == 0
           and lineage['items_folded'] > 0 and history['status'] == 'ok'
@@ -4110,7 +4123,8 @@ def tools_lines(tools, record, card):
     yield ('phase 18d doctor --json: backend {} on {} x{} ({}), link RTT {} ms H2D {} MB/s, '
            'store roundtrip {} at {} rows/s, healthy {}; storage {} (footer cache {} hits / '
            '{} misses, {} ranges coalesced, {} hedges), lineage {} items folded, {} '
-           'divergence(s), history {} ({} record), incidents {} ({} retained) ({:.1f} s) '
+           'divergence(s), history {} ({} record), incidents {} ({} retained); pipecheck {} '
+           '({} files, {} findings, {} suppressed, {} call-graph functions) ({:.1f} s) '
            '[{}]'.format(
                doctor['backend']['status'], doctor['backend']['platform'],
                doctor['backend']['devices'], doctor['backend']['device_name'],
@@ -4123,7 +4137,9 @@ def tools_lines(tools, record, card):
                doctor['lineage']['items_folded'], doctor['lineage']['divergence'],
                doctor['history']['status'], doctor['history']['records'],
                doctor['incidents']['status'], doctor['incidents']['retained'],
-               cli['doctor_s'], card))
+               doctor['pipecheck']['status'], doctor['pipecheck']['files'],
+               doctor['pipecheck']['findings'], doctor['pipecheck']['suppressed'],
+               doctor['pipecheck']['callgraph_functions'], cli['doctor_s'], card))
     for name in ('decode-bench', 'wire-bench'):
         yield ('phase 18d {} (host numbers of the card machine\'s CPU, {:.1f} s): {} '
                '[{}]'.format(name, cli[name + '_s'], json.dumps(cli[name]), card))
@@ -4444,7 +4460,7 @@ LINEAGE_TAIL_S = 0.1
 LINEAGE_TAIL_EVERY = 10
 LINEAGE_FAIL_FILE = 'part_00002'
 #: the CLI of the lineage, autopsy and history subcommands
-PORT_CLI = ['-m', 'petastorm_tpu_torch.benchmark.cli']
+PORT_CLI = 'petastorm_tpu_torch.benchmark.cli'
 
 
 def faulty_filesystem(state_dir):
@@ -4469,11 +4485,30 @@ def armed_reader(tmp, name, history=True):
         history=os.path.join(tmp, 'lineage_history.bin') if history else None)
 
 
-def run_cli(argv):
-    """One subcommand of the port's CLI in a child interpreter: (exit code,
-    stdout, the end of stderr)."""
-    out = subprocess.run([sys.executable] + PORT_CLI + argv, capture_output=True, text=True,
-                         timeout=TOOL_TIMEOUT_S,
+#: a child interpreter that refuses JAX and the JAX package (whole module
+#: names: ``petastorm_tpu_torch`` is not ``petastorm_tpu``), then runs
+#: ``python -m <argv[1]> <argv[2:]>``
+REFUSING_RUNNER = (
+    "import importlib.abc, runpy, sys\n"
+    "class Refuse(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+    "                                  'petastorm_tpu'):\n"
+    "            raise ImportError('phase 22 refuses ' + name)\n"
+    "        return None\n"
+    "sys.meta_path.insert(0, Refuse())\n"
+    "module = sys.argv[1]\n"
+    "sys.argv = [module] + sys.argv[2:]\n"
+    "runpy.run_module(module, run_name='__main__', alter_sys=True)\n")
+
+
+def run_cli(argv, module=PORT_CLI, refuse_jax=False):
+    """``python -m module argv`` (by default a subcommand of the port's CLI)
+    in a child interpreter, one that refuses JAX with ``refuse_jax``: (exit
+    code, stdout, the end of stderr)."""
+    launcher = ['-c', REFUSING_RUNNER] if refuse_jax else ['-m']
+    out = subprocess.run([sys.executable] + launcher + [module] + argv, capture_output=True,
+                         text=True, timeout=TOOL_TIMEOUT_S,
                          cwd=os.path.dirname(os.path.abspath(__file__)))
     return out.returncode, out.stdout, out.stderr[-2000:]
 
@@ -4952,6 +4987,97 @@ def phase_remote_topology(tmp, args, record, card):
     return result
 
 
+# ------------------------------------------- the static analyzer (phase 22)
+
+#: the port's analyzer, run as ``python -m``
+ANALYZER = 'petastorm_tpu_torch.analysis'
+#: the port's call graph before its analyzer joined it (120 files)
+PORT_CALLGRAPH_BEFORE = 1665
+PIPECHECK_DIRECTIVE = re.compile(r'#\s*pipecheck:\s*disable=[A-Za-z0-9_,-]+\s*--\s*\S')
+#: 22b's rename in the port's worker
+RESULT_SHM_SEND = "channel.send(('result_shm', current['token'], descriptor.to_bytes()))"
+
+
+def port_sources(root):
+    """The port's ``.py`` files as the analyzer walks them, and the
+    suppression directives with a reason among them."""
+    files, directives = 0, 0
+    for directory, dirs, names in os.walk(root):
+        dirs[:] = [d for d in dirs if d != '__pycache__' and not d.startswith('.')]
+        for name in names:
+            if name.endswith('.py'):
+                files += 1
+                with open(os.path.join(directory, name), encoding='utf-8') as f:
+                    directives += len(PIPECHECK_DIRECTIVE.findall(f.read()))
+    return files, directives
+
+
+def phase_static_analysis(tmp, card):
+    """Phase 22: the port's pipecheck on the card machine's Python, in child
+    interpreters that refuse JAX (22a the installed port, 22b a copy with a
+    renamed pipe kind, 22c the throughput CLI's ``pipecheck``). No card work."""
+    phase_start = time.perf_counter()
+    port = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'petastorm_tpu_torch')
+    files, directives = port_sources(port)
+    start = time.perf_counter()
+    code, out, err = run_cli(['--json'], module=ANALYZER, refuse_jax=True)
+    seconds = time.perf_counter() - start
+    check(code == 0, '22a: pipecheck over the port exited {}: {} {}'.format(
+        code, out[-2000:], err))
+    report = json.loads(out)
+    check(report['files'] == files and report['finding_count'] == 0
+          and report['suppressed'] == directives >= 2
+          and report['callgraph_functions'] > PORT_CALLGRAPH_BEFORE,
+          '22a: {} files (the port has {}), {} findings, {} suppressed ({} directives), {} '
+          'call-graph functions'.format(report['files'], files, report['finding_count'],
+                                        report['suppressed'], directives,
+                                        report['callgraph_functions']))
+    result = {'files': report['files'], 'suppressed': report['suppressed'],
+              'callgraph_functions': report['callgraph_functions'], 'seconds': seconds,
+              'rule_seconds': report['rule_seconds']}
+    log('phase 22a pipecheck over the installed port (JAX refused): exit 0, {} files, 0 '
+        'findings, {} suppressed of {} directives, {} call-graph functions; {:.3f} s, rules '
+        '{} [{}]'.format(files, report['suppressed'], directives,
+                         report['callgraph_functions'], seconds,
+                         json.dumps(report['rule_seconds'], sort_keys=True), card))
+
+    copy_root = os.path.join(tmp, '22b', 'petastorm_tpu_torch')
+    shutil.copytree(port, copy_root, ignore=shutil.ignore_patterns('__pycache__', '_build'))
+    worker = os.path.join(copy_root, 'workers', 'process_worker_main.py')
+    with open(worker, encoding='utf-8') as f:
+        text = f.read()
+    check(RESULT_SHM_SEND in text, '22b: the worker no longer sends {}'.format(RESULT_SHM_SEND))
+    with open(worker, 'w', encoding='utf-8') as f:
+        f.write(text.replace(RESULT_SHM_SEND, RESULT_SHM_SEND.replace("'result_shm'",
+                                                                      "'result_v2'")))
+    start = time.perf_counter()
+    code, out, err = run_cli(['--json', copy_root], module=ANALYZER, refuse_jax=True)
+    seconds_b = time.perf_counter() - start
+    check(code == 1, '22b: pipecheck over the mutated copy exited {}: {}'.format(code, err))
+    mutated = json.loads(out)
+    texts = [finding['message'] for finding in mutated['findings']]
+    check(mutated['by_rule'] == {'protocol-conformance': 2}
+          and any("'result_v2' is sent" in text for text in texts)
+          and any("'result_shm' is dispatched on" in text for text in texts),
+          '22b: findings {}'.format(mutated['findings']))
+    result['mutated'] = {'findings': mutated['findings'], 'seconds': seconds_b}
+    log('phase 22b pipecheck over a copy of the port whose worker sends \'result_v2\': exit 1, '
+        '{}; {:.3f} s [{}]'.format(['{path}:{line}'.format(**finding)
+                                    for finding in mutated['findings']], seconds_b, card))
+
+    start = time.perf_counter()
+    code, out, err = run_cli(['pipecheck'], refuse_jax=True)
+    seconds_c = time.perf_counter() - start
+    check(code == 0 and 'pipecheck: clean' in out,
+          '22c: the CLI\'s pipecheck exited {}: {} {}'.format(code, out[-2000:], err))
+    result['cli'] = {'line': out.strip().splitlines()[-1], 'seconds': seconds_c}
+    log('phase 22c petastorm_tpu_torch.benchmark.cli pipecheck: exit 0, "{}"; {:.3f} s '
+        '[{}]'.format(result['cli']['line'], seconds_c, card))
+    result['phase_s'] = time.perf_counter() - phase_start
+    log('phase 22 took {:.1f} s'.format(result['phase_s']))
+    return result
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -5136,6 +5262,7 @@ def main(argv=None):
         record['service'] = phase_service(tmp, args, record, card)
         record['lineage_plane'] = phase_lineage_plane(tmp, args, record, card)
         record['remote_topology'] = phase_remote_topology(tmp, args, record, card)
+        record['static_analysis'] = phase_static_analysis(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -29,10 +29,12 @@ Subcommands (a first positional argument):
 - ``chaos``: :mod:`~petastorm_tpu_torch.test_util.chaos` (an epoch under
   seeded control-plane injuries against a ledger-armed fleet, or with
   ``--hosts N`` simulated topology-armed hosts with a host killed or
-  joined; exit 0 only when rows and digests are exact).
+  joined; exit 0 only when rows and digests are exact);
+- ``pipecheck``: :mod:`~petastorm_tpu_torch.analysis` (the static data-plane
+  analyzer over the installed package or the given paths; exit 0 clean, 1
+  findings, 2 usage).
 
-The JAX package's ``pipecheck`` waits for the port of its static analyzer:
-it exits 2 with a line naming the module. Anything else is the dataset throughput
+Every subcommand of the JAX package's CLI has its port. Anything else is the dataset throughput
 measurement, with ``--read-method torch`` (a ``TorchDataLoader`` onto
 ``--device``, the card by default) in place of the JAX package's ``jax``.
 """
@@ -56,12 +58,12 @@ SUBCOMMANDS = {
     'autopsy': ('petastorm_tpu_torch.telemetry.incident', 'main'),
     'history': ('petastorm_tpu_torch.telemetry.history', 'main'),
     'chaos': ('petastorm_tpu_torch.test_util.chaos', 'main'),
+    'pipecheck': ('petastorm_tpu_torch.analysis.cli', 'main'),
 }
 
-#: the JAX package's subcommands whose modules the port lacks -> that module
-NOT_PORTED = {
-    'pipecheck': 'petastorm_tpu.analysis',
-}
+#: the JAX package's subcommands whose modules the port lacks -> that module;
+#: empty: every one has its port
+NOT_PORTED = {}
 
 
 def main(argv=None):

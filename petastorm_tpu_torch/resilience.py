@@ -36,6 +36,12 @@ from petastorm_tpu_torch.telemetry import tracing as _tracing
 #: on_error modes accepted by make_reader / make_batch_reader
 ON_ERROR_MODES: Tuple[str, ...] = ('raise', 'retry', 'skip')
 
+#: declared ``QuarantineRecord.reason`` values: the registry every
+#: construction site must draw from (the port's pipecheck,
+#: protocol-conformance): ledger consumers (doctor, dashboards) dispatch on
+#: these strings, so an undeclared reason is a silent new failure class
+QUARANTINE_REASONS: Tuple[str, ...] = ('error', 'hang')
+
 
 def check_on_error(on_error: str) -> str:
     """Validate an ``on_error`` mode."""

@@ -38,14 +38,16 @@ checks, in order:
    :mod:`~petastorm_tpu_torch.parallel.topology`, its replay: generation,
    members, stale leases (a WARNING: a host crashed without a leave record)
    and frames the CRC dropped (a WARNING) (``report['topology']``).
+9. **Static analysis**: the port's pipecheck
+   (:mod:`~petastorm_tpu_torch.analysis`) over the installed package: does
+   it still satisfy its own data-plane invariants (pipe and ZMQ kinds,
+   telemetry names, the ratchet)? (``report['pipecheck']``; findings print
+   a WARNING and never make the install unhealthy).
 
 Prints a human report, or with ``--json`` one JSON line (the dict
 :func:`collect_report` returns). The exit code is 0 iff the store round trip
 passed: a CPU-only install is a healthy install, and backend or link failures
 are reported as findings.
-
-The JAX doctor's ``pipecheck`` block waits for the port of the static
-analyzer and is not in the report.
 """
 from __future__ import annotations
 
@@ -405,6 +407,26 @@ def check_topology(journal_path=None):
             'records': replay.records}
 
 
+def check_pipecheck():
+    """Run the port's pipecheck static analysis over the installed package
+    (docs/static-analysis.md) and summarize: ``{'status': 'ok'|'findings',
+    'findings': N, 'suppressed': M, 'files': F, 'callgraph_functions': G,
+    'by_rule': {...}, 'first': <first finding or None>}``.
+
+    Static findings mean the installed code has drifted from its own
+    data-plane invariants: a WARNING in the human report, not an
+    install-health failure."""
+    from petastorm_tpu_torch.analysis import run_pipecheck
+    report = run_pipecheck()
+    return {'status': 'ok' if report.clean else 'findings',
+            'findings': len(report.findings),
+            'suppressed': report.suppressed,
+            'files': report.files,
+            'callgraph_functions': report.callgraph_functions,
+            'by_rule': report.by_rule(),
+            'first': report.findings[0].format() if report.findings else None}
+
+
 def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_url=None,
                    topology_journal=None):
     """Run every check; returns the report dict (no printing)."""
@@ -444,6 +466,12 @@ def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_ur
     history = roundtrip.pop('history', None)
     report['history'] = history if history is not None else {
         'status': 'unprobed', 'records': 0, 'frames_dropped': 0, 'sentinel_armed': False}
+    # the static-analysis block: always present; a failure of the analyzer
+    # itself is reported, never fatal to the doctor
+    try:
+        report['pipecheck'] = check_pipecheck()
+    except Exception as exc:  # noqa: BLE001 - the report must always complete
+        report['pipecheck'] = {'status': 'fail', 'detail': repr(exc)}
     # the service and ledger blocks: always present so --json consumers find
     # one stable key; an unconfigured service is a healthy install
     try:
@@ -470,6 +498,27 @@ def collect_report(probe_timeout_s=60, link=True, link_timeout_s=180, service_ur
         report['storage'] = {'status': 'fail', 'detail': repr(exc)}
     report['healthy'] = roundtrip.get('status') == 'ok'
     return report
+
+
+def pipecheck_line(pipecheck):
+    """The human report's line for a ``check_pipecheck`` block (None for no
+    block)."""
+    if pipecheck.get('status') == 'ok':
+        return ('  pipecheck: clean: {} files, {} call-graph function(s), '
+                '{} suppression(s) honored (docs/static-analysis.md)'.format(
+                    pipecheck.get('files', 0), pipecheck.get('callgraph_functions', 0),
+                    pipecheck.get('suppressed', 0)))
+    if pipecheck.get('status') == 'findings':
+        return ('  WARNING: pipecheck found {} data-plane invariant violation(s) ({}); '
+                'first: {}; run `petastorm-tpu-torch-pipecheck` for the full list'.format(
+                    pipecheck.get('findings', 0),
+                    ', '.join('{}={}'.format(rule, count) for rule, count
+                              in sorted(pipecheck.get('by_rule', {}).items())),
+                    pipecheck.get('first')))
+    if pipecheck:
+        return '  pipecheck: FAIL ({}): the analyzer itself errored'.format(
+            pipecheck.get('detail', 'unknown'))
+    return None
 
 
 def _print_human(report):
@@ -622,6 +671,9 @@ def _print_human(report):
     elif storage:
         print('  storage engine: FAIL ({}): the force-armed probe read errored'.format(
             storage.get('detail', 'unknown')))
+    line = pipecheck_line(report.get('pipecheck') or {})
+    if line is not None:
+        print(line)
     print('  verdict: {}'.format('healthy' if report['healthy'] else 'BROKEN'))
 
 

@@ -17,6 +17,10 @@ connection. Messages are pickled tuples:
   ``('result_shm', token, descriptor)``, ``('done', token, attempt)``,
   ``('error', token, pickled_error)`` and ``('heartbeat', seq)``.
 
+A kind the worker does not know (from a newer pool) is ignored, as the JAX
+worker ignores one. The port's pipecheck matches these kinds between the two
+files (``petastorm_tpu_torch.analysis``, protocol-conformance).
+
 Dispatch is pull-based: the worker sends ``ready``, gets one item, publishes
 its result and acks it with ``done``. With the ring attached a result is
 written into one of this worker's slots and only its descriptor is sent; with
@@ -189,6 +193,8 @@ def main(bootstrap_path, fd):
                 if ring_writer is not None:
                     ring_writer.release(message[1])
                 continue
+            if kind != 'work':
+                continue  # unknown kind from a newer pool: ignore
             _, token, blob, current['shm'], attempt = message
             current['token'] = token
             set_dispatch_attempt(attempt)

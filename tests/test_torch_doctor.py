@@ -1,7 +1,8 @@
 """The port's doctor (``petastorm_tpu_torch.tools.doctor``) held against the
 JAX package's: on the CPU the store round trip is ok and the install healthy,
 every block the port has carries the JAX block's keys (the backend's, plus
-the device name), ``backend`` reports no CUDA device, ``--json`` prints one
+the device name), ``backend`` reports no CUDA device, the ``pipecheck``
+block of the port's analyzer is there and clean, ``--json`` prints one
 line, a backend probe that hangs is reported as a timeout, and the input
 service's ``service`` and ``ledger`` blocks read an unconfigured, a live and
 an unreachable service as the JAX doctor does."""
@@ -16,8 +17,12 @@ from petastorm_tpu_torch.tools import doctor
 
 #: the JAX round trip's blocks that collect_report lifts to the top level
 LIFTED = ('telemetry', 'trace', 'resilience', 'autotune', 'slo', 'lineage', 'history')
-#: the JAX doctor's blocks whose planes the port lacks
-NOT_PORTED = ('pipecheck',)
+#: the JAX doctor's blocks whose planes the port lacks: none since the port's
+#: static analyzer gave it its ``pipecheck`` block
+NOT_PORTED = ()
+#: the keys of the JAX doctor's ``check_pipecheck`` block
+PIPECHECK_KEYS = {'status', 'findings', 'suppressed', 'files', 'callgraph_functions',
+                  'by_rule', 'first'}
 
 
 @pytest.fixture(scope='module')
@@ -57,6 +62,12 @@ def test_json_report_healthy_with_the_jax_blocks(capsys, jax_roundtrip):
     assert report['autotune']['enabled'] and 'efficiency' in report['slo']
     assert report['trace']['events'] > 0
     assert not set(report) & set(NOT_PORTED)
+    pipecheck = report['pipecheck']
+    assert set(pipecheck) == PIPECHECK_KEYS
+    assert pipecheck['status'] == 'ok' and pipecheck['findings'] == 0
+    assert pipecheck['by_rule'] == {} and pipecheck['first'] is None
+    assert pipecheck['suppressed'] == 2 and pipecheck['files'] > 120
+    assert pipecheck['callgraph_functions'] > 1665
     assert report['service'] == jax_doctor.check_service() == {'status': 'unconfigured'}
     assert report['ledger'] == jax_doctor.check_ledger(report['service']) == {'status': 'unarmed'}
     assert report['topology'] == jax_doctor.check_topology() == {'status': 'unarmed'}
@@ -68,6 +79,7 @@ def test_json_report_healthy_with_the_jax_blocks(capsys, jax_roundtrip):
     human = capsys.readouterr().out
     assert 'store roundtrip: OK' in human and 'verdict: healthy' in human
     assert 'backend: DOWN' in human
+    assert 'pipecheck: clean: {} files'.format(pipecheck['files']) in human
 
 
 def test_backend_keys_cover_the_jax_probe(monkeypatch):

@@ -131,12 +131,18 @@ def test_cli_throughput_and_subcommands(store, capsys):
                      '--in-process', '-d', 'torch', '--device', 'cpu',
                      '--torch-batch-size', '4']) == 0
     assert 'samples/sec' in capsys.readouterr().out
-    for name, module in sorted(NOT_PORTED.items()):
-        assert cli_main([name, 'x']) == 2
-        assert module in capsys.readouterr().err
-    assert set(NOT_PORTED) == {'pipecheck'}
+    # every subcommand of the JAX package's CLI has its port now
+    assert NOT_PORTED == {}
     assert set(SUBCOMMANDS) == {'wire-bench', 'decode-bench', 'costs', 'analyze', 'trace',
-                                'doctor', 'serve', 'lineage', 'autopsy', 'history', 'chaos'}
+                                'doctor', 'serve', 'lineage', 'autopsy', 'history', 'chaos',
+                                'pipecheck'}
+    assert SUBCOMMANDS['pipecheck'] == ('petastorm_tpu_torch.analysis.cli', 'main')
+    # pipecheck dispatches to the port's analyzer: its usage error is 2 on
+    # stderr under its own name, its --list-rules the rule catalog
+    assert cli_main(['pipecheck', '--rules', 'no-such-rule']) == 2
+    assert 'pipecheck: unknown rule' in capsys.readouterr().err
+    assert cli_main(['pipecheck', '--list-rules']) == 0
+    assert 'protocol-conformance' in capsys.readouterr().out
     # the ported planes' subcommands dispatch: a missing manifest or bundle is
     # their own error exit, not the not-ported 2 with a module name
     assert cli_main(['lineage', 'diff', '/nonexistent/a', '/nonexistent/b']) == 2
