@@ -200,7 +200,21 @@ version on the card, then drives the port's two paths at full width:
   ``('result_v2', ...)`` in place of ``('result_shm', ...)`` (22b: exit 1,
   exactly the two protocol findings naming both kinds), and the throughput
   CLI's ``pipecheck`` (22c: exit 0); phase 18d also requires the doctor's
-  ``pipecheck`` block to be ok with no finding.
+  ``pipecheck`` block to be ok with no finding;
+- composed parallelism (phase 23) on a one-rank NCCL group (a file store of
+  its own, destroyed after the phase): ``graft_entry.dryrun_multichip(1)``,
+  the twin of ``__graft_entry__.py``'s dry run, every parallelism family at
+  one rank with the float32 K2-K4 (head_dim 64) in its two rings, 7 launches
+  each (23a); phase 7's store -> ``make_reader`` sharded by the mesh's
+  'data' coordinate -> ``TorchDataLoader(batch_size=2, mesh=('data', 'seq',
+  'model') of 1 x 1 x 1, partition_spec={'tokens': P('data', 'seq')})`` ->
+  ``TensorParallelLM`` of phase 7's model (each block's MLP cut over
+  'model' through f and g, causal ring attention over 'seq'), Adam, 1 + 8
+  steps: the first batch's loss and gradient norm within ``LM_LOSS_RTOL``
+  / ``LM_GRAD_NORM_RTOL`` of phase 7's uncomposed model on the same weights
+  and rows, K2-K4 layers x steps each, step time, tokens/s and the idle
+  share beside phase 7's (23b). One card runs one rank: the composed
+  meshes across ranks are held by the CPU tests.
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -239,6 +253,7 @@ and last ``{"ok": true, "device": {...}}``. The full record is also written to
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import functools
 import gc
@@ -255,6 +270,7 @@ import sys
 import tempfile
 import threading
 import time
+import unittest.mock
 import urllib.request
 import warnings
 import zlib
@@ -294,6 +310,7 @@ from petastorm_tpu_torch.benchmark.throughput import reader_throughput
 from petastorm_tpu_torch.codecs import CompressedNdarrayCodec, DctImageCodec, ScalarCodec
 from petastorm_tpu_torch.etl import dataset_metadata
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
+from petastorm_tpu_torch.graft_entry import COMBO_STEPS, dryrun_multichip
 from petastorm_tpu_torch.models.moe import (MoETransformerLM, moe_aux_total, moe_drop_fractions,
                                             switch_routing)
 from petastorm_tpu_torch.models.moe import _capacity as moe_capacity
@@ -313,6 +330,8 @@ from petastorm_tpu_torch.parallel.topology import (TopologyPolicy, compose_globa
 from petastorm_tpu_torch.parallel.mesh import (PartitionSpec, initialize_distributed,
                                                make_mesh, mesh_shard_info)
 from petastorm_tpu_torch.parallel.pipeline import blocks_stage_fn, make_pipeline, microbatch
+from petastorm_tpu_torch.parallel import tensor_parallel
+from petastorm_tpu_torch.parallel.tensor_parallel import TensorParallelLM
 from petastorm_tpu_torch.predicates import in_pseudorandom_split
 from petastorm_tpu_torch.pytorch import DataLoader, InMemBatchedDataLoader
 from petastorm_tpu_torch.schedule import SchedulePolicy, plan_preview
@@ -868,7 +887,9 @@ def flash_cases(seed):
     modes at a small shape (the fifth, the keys' segment ids apart from the
     queries', is what a ring's off-diagonal blocks run); causal,
     segmented-causal and key segments also at the LM path's shape, which is
-    phase 14c's ring shape."""
+    phase 14c's ring shape; and float32 causal at the shapes of phase 23a's
+    one-rank rings (the dry run's phase 1, [2, 8, 4, 64], and phase 5,
+    [2, 8, 2, 64]: under one tile)."""
     heads = LM['heads']
     d = LM['embed'] // heads
     t_main = LM['max_len']
@@ -883,6 +904,9 @@ def flash_cases(seed):
         'key_segments_f32': (2, 320, 2, 64, False, torch.float32,
                              short_segments(2, 320, seed + 3), short_segments(2, 320, seed + 4)),
         'd64_ragged_t': (2, 200, 4, 64, True, bf16, None),
+        # phase 23a's rings at one rank: graft_entry's phases 1 and 5
+        'causal_f32_d64_dryrun_h4': (2, 8, 4, 64, True, torch.float32, None),
+        'causal_f32_d64_dryrun_h2': (2, 8, 2, 64, True, torch.float32, None),
         'd64_ragged_t_noncausal': (1, 77, 2, 64, False, bf16, None),
         'causal_main': (LM_BATCH, t_main, heads, d, True, bf16, None),
         'segmented_causal_main': (LM_BATCH, t_main, heads, d, True, bf16,
@@ -1014,11 +1038,13 @@ def first_batch_parity(model, loss_with):
     return result
 
 
-def train_lm(batches, optimizer, steps, step_loss):
-    """``steps`` Adam steps on ``batches`` with ``step_loss(batch)``, the first
-    a warm-up; returns per-step losses and times (a step's time starts after
-    its batch arrived), and the wall time of the steps after the warm-up,
-    their batch fetches included."""
+def train_lm(batches, optimizer, steps, step_loss, step=None):
+    """``steps`` Adam steps on ``batches`` with ``step_loss(batch)`` (or
+    ``step(batch) -> loss``, a whole step), the first a warm-up; returns
+    per-step losses and times (a step's time starts after its batch
+    arrived), and the wall time of the steps after the warm-up, their batch
+    fetches included."""
+    step = step or functools.partial(adam_step, optimizer, step_loss)
     losses, step_s = [], []
     batches = iter(batches)
     window_start = None
@@ -1027,7 +1053,7 @@ def train_lm(batches, optimizer, steps, step_loss):
             window_start = time.perf_counter()
         batch = next(batches)
         start = time.perf_counter()
-        losses.append(adam_step(optimizer, step_loss, batch))
+        losses.append(step(batch))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - start)
     return [float(x) for x in losses], step_s, time.perf_counter() - window_start
@@ -1139,6 +1165,7 @@ def phase_lm(tmp, seed):
         tokens = first['tokens']
         parity = first_batch_parity(model, lambda kernels: next_token_loss(
             model(tokens, attention_fn=causal_flash if kernels else causal_dense), tokens))
+        allocated_before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         losses, step_s, window_s = train_lm(
@@ -1153,7 +1180,7 @@ def phase_lm(tmp, seed):
     fallbacks = counts['dense_fallbacks']
     result = lm_metrics(losses, step_s, window_s, stats, LM_BATCH * LM['max_len'], flops)
     result.update(first_batch=parity, launches=launches, dense_fallbacks=fallbacks,
-                  counts=counts, breakdown=breakdown)
+                  counts=counts, breakdown=breakdown, allocated_before_bytes=allocated_before)
     expected = LM['layers'] * result['steps_run']
     check(all(n == expected for n in launches.values()),
           'flash kernels launched {} times, expected {} each (layers x steps)'
@@ -5078,6 +5105,285 @@ def phase_static_analysis(tmp, card):
     return result
 
 
+# ----------------------------------------------- composed parallelism (phase 23)
+
+def composed_dryrun():
+    """23a: ``graft_entry.dryrun_multichip(1)`` on the card over the group
+    that phase 23 started: every family's code path at one rank; phases 1
+    and 5 run their rings on the float32 K2-K4 at head_dim 64, one call a
+    ring forward and one of K3 and K4 a backward (phase 1 one step, phase 5
+    COMBO_STEPS). It prints the JAX script's OK line itself."""
+    reset_counts()
+    start = time.perf_counter()
+    values = dryrun_multichip(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = read_counts()
+    expected = 1 + COMBO_STEPS
+    check(all(counts[name] == expected for name in FLASH_PRODUCTS)
+          and counts['dense_fallbacks'] == 0,
+          '23a: the dry run launched {}, expected K2-K4 {} times each'.format(counts, expected))
+    check(values['mesh'] == (1, 1, 1), '23a: mesh {}'.format(values['mesh']))
+    return {'s': seconds, 'counts': counts,
+            'launches': {name: counts[name] for name in FLASH_PRODUCTS},
+            'losses': {name: values[name]['loss']
+                       for name in ('dp_sp_tp', 'pp_dp', 'ep_dp', 'pp_tp_dp')},
+            'carry': values['scan_epochs']['carry'],
+            'combo_losses': values['dp_sp_ep']['losses']}
+
+
+def labelled(label, fn):
+    """``fn`` run inside ``record_function(label)``."""
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return call
+
+
+def host_breakdown(step, top=8):
+    """One more step under ``torch.profiler`` with its host ops and the
+    card's memory, outside any counted run. ``step(marks)`` opens regions
+    named ``step.*`` and appends ``(name, bytes allocated)`` to ``marks``.
+    Returns the step's wall ms; each region's host time (its thread's
+    time inside it, children included; a region opened several times is
+    summed); the ``top`` autograd nodes by host time; the ``top`` ops by
+    self host time with their counts; the allocated bytes at each mark and
+    the step's peak above what was allocated when it began; and the
+    ``top`` ops by the device memory they allocated and did not free."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    marks = []
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 profile_memory=True) as prof:
+        start = time.perf_counter()
+        step(marks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    peak = torch.cuda.max_memory_allocated() - before
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    node = 'autograd::engine::evaluate_function: '
+
+    def memory(event):
+        return getattr(event, 'self_device_memory_usage',
+                       getattr(event, 'self_cuda_memory_usage', 0)) or 0
+
+    nodes = sorted((e for e in events if e.key.startswith(node)),
+                   key=lambda e: -e.cpu_time_total)[:top]
+    ops = sorted((e for e in events if not e.key.startswith(('step.', node))),
+                 key=lambda e: -e.self_cpu_time_total)[:top]
+    by_memory = sorted(events, key=lambda e: -memory(e))[:top]
+    return {'wall_ms': wall_ms,
+            'regions_ms': {e.key[5:]: e.cpu_time_total / 1e3 for e in events
+                           if e.key.startswith('step.')},
+            'region_counts': {e.key[5:]: e.count for e in events if e.key.startswith('step.')},
+            'backward_nodes_ms': {e.key[len(node):][:48]: e.cpu_time_total / 1e3
+                                  for e in nodes},
+            'top_ops_self_ms': {e.key[:48]: [e.self_cpu_time_total / 1e3, e.count]
+                                for e in ops},
+            'allocated_bytes': {'start': before, **{name: n - before for name, n in marks}},
+            'peak_above_start_bytes': peak,
+            'memory_by_op_bytes': {e.key[:48]: memory(e) for e in by_memory if memory(e) > 0}}
+
+
+def composed_host_traces(composed, optimizer, state, local):
+    """23b's host trace: one composed step and one step of phase 7's
+    uncomposed model (rebuilt from ``state``, the same initial weights, with
+    its own Adam after one untraced warm-up step) on the same batch, each
+    under :func:`host_breakdown`, with the same regions: forward and loss,
+    attention (the ring, or the flash call), backward, the gradients'
+    reduction (composed only) and the optimizer; in the composed step also
+    f, g, ``next_token_targets`` and ``sum_over``."""
+    plain = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash,
+                          generator=torch.Generator(), **LM)
+    plain.load_state_dict(state)
+    plain_optimizer = torch.optim.Adam(plain.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                                       eps=1e-8)
+    attention = labelled('step.attention', causal_flash)
+
+    def plain_step(marks):
+        plain_optimizer.zero_grad(set_to_none=True)
+        with torch.profiler.record_function('step.forward+loss'):
+            loss = next_token_loss(plain(local, attention_fn=attention), local)
+        marks.append(('after_forward', torch.cuda.memory_allocated()))
+        with torch.profiler.record_function('step.backward'):
+            loss.backward()
+        marks.append(('after_backward', torch.cuda.memory_allocated()))
+        with torch.profiler.record_function('step.optimizer'):
+            plain_optimizer.step()
+
+    def composed_step(marks):
+        optimizer.zero_grad(set_to_none=True)
+        with torch.profiler.record_function('step.forward+loss'):
+            share, _ = composed.loss(local)
+        marks.append(('after_forward', torch.cuda.memory_allocated()))
+        with torch.profiler.record_function('step.backward'):
+            share.backward()
+        marks.append(('after_backward', torch.cuda.memory_allocated()))
+        with torch.profiler.record_function('step.reduce_gradients'):
+            composed.reduce_gradients()
+        with torch.profiler.record_function('step.optimizer'):
+            optimizer.step()
+
+    plain_step([])
+    with contextlib.ExitStack() as stack:
+        for label, name in (('step.attention', 'ring_attention'), ('step.f', 'copy_to_group'),
+                            ('step.g', 'reduce_from_group'),
+                            ('step.next_token_targets', 'next_token_targets'),
+                            ('step.sum_over', 'sum_over')):
+            stack.enter_context(unittest.mock.patch.object(
+                tensor_parallel, name, labelled(label, getattr(tensor_parallel, name))))
+        composed_trace = host_breakdown(composed_step)
+    return {'composed': composed_trace, 'uncomposed': host_breakdown(plain_step)}
+
+
+def composed_grad_norm(model):
+    """The gradient norm of a model at one rank (every piece is the whole)."""
+    return float(torch.sqrt(sum((p.grad.float() ** 2).sum() for p in model.parameters())))
+
+
+def phase_composed_lm(tmp, seed):
+    """23b: phase 7's store -> make_reader sharded by the mesh's 'data'
+    coordinate -> TorchDataLoader(batch_size=LM_BATCH, mesh=('data', 'seq',
+    'model') of 1 x 1 x 1, P('data', 'seq')) -> TensorParallelLM of phase 7's
+    model and weights (each block's MLP cut over 'model' through f and g,
+    causal ring attention over 'seq': one flash call a layer at one rank),
+    Adam, one warm-up and LM_STEPS timed steps. The first batch's loss and
+    gradient norm are held against phase 7's uncomposed model with the
+    kernels on the same weights and rows."""
+    path = 'file://' + os.path.join(tmp, 'tokens')   # phase 7's store
+    mesh = make_mesh(('data', 'seq', 'model'), (1, 1, 1))
+    torch.manual_seed(seed)
+    plain = TransformerLM(dtype=torch.bfloat16, attention_fn=causal_flash, **LM)
+    state = {name: value.detach().cpu().clone() for name, value in plain.state_dict().items()}
+    composed = TensorParallelLM(copy.deepcopy(plain), mesh)
+    optimizer = torch.optim.Adam(composed.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                                 eps=1e-8)
+
+    def step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        share, loss = composed.loss(batch['tokens'].to_local())
+        share.backward()
+        composed.reduce_gradients()
+        optimizer.step()
+        return loss
+
+    cur_shard, shard_count = mesh_shard_info(mesh, 'data')
+    flops = transformer_train_flops_per_step(LM_BATCH, LM['max_len'], LM['vocab'],
+                                             LM['embed'], LM['layers'])
+    with make_reader(path, workers_count=2, seed=seed, cur_shard=cur_shard,
+                     shard_count=shard_count) as reader:
+        loader = TorchDataLoader(reader, batch_size=LM_BATCH, shuffling_queue_capacity=16,
+                                 seed=3, drop_last=True, mesh=mesh,
+                                 partition_spec={'tokens': PartitionSpec('data', 'seq')})
+        batches = iter(loader)
+        first = next(batches)
+        tokens = first['tokens']
+        local = tokens.to_local()
+        check(isinstance(tokens, DTensor) and local.device.type == 'cuda'
+              and tuple(tokens.shape) == tuple(local.shape) == (LM_BATCH, LM['max_len'])
+              and local.dtype == torch.int32,
+              '23b: the batch is not an int32 DTensor on cuda of [{}, {}]: {} {} {}'.format(
+                  LM_BATCH, LM['max_len'], type(tokens).__name__, local.device,
+                  tuple(tokens.shape)))
+        composed.zero_grad(set_to_none=True)
+        share, _ = composed.loss(local)
+        share.backward()
+        composed.reduce_gradients()
+        loss, norm = float(share.detach()), composed_grad_norm(composed)
+        composed.zero_grad(set_to_none=True)
+        plain_loss, plain_norm = loss_and_grad_norm(
+            plain, lambda: next_token_loss(plain(local), local))
+        del plain
+        parity = {'loss': loss, 'uncomposed_loss': plain_loss, 'grad_norm': norm,
+                  'uncomposed_grad_norm': plain_norm,
+                  'loss_rel_err': abs(loss - plain_loss) / abs(plain_loss),
+                  'grad_norm_rel_err': abs(norm - plain_norm) / abs(plain_norm),
+                  'loss_rtol': LM_LOSS_RTOL, 'grad_norm_rtol': LM_GRAD_NORM_RTOL}
+        check(np.isfinite([loss, plain_loss, norm, plain_norm]).all()
+              and parity['loss_rel_err'] <= LM_LOSS_RTOL
+              and parity['grad_norm_rel_err'] <= LM_GRAD_NORM_RTOL,
+              '23b: the composed first batch differs from phase 7\'s model: {}'.format(parity))
+        allocated_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, window_s = train_lm(itertools.chain([first], batches), optimizer,
+                                            LM_STEPS + 1, None, step)
+        counts = read_counts()
+        stats = loader.stats.as_dict()
+        result = lm_metrics(losses, step_s, window_s, stats, LM_BATCH * LM['max_len'], flops)
+        breakdown = device_breakdown(lambda: step(first))
+        host = composed_host_traces(composed, optimizer, state, local)
+    launches = {name: counts[name] for name in FLASH_PRODUCTS}
+    expected = LM['layers'] * result['steps_run']
+    check(all(n == expected for n in launches.values()) and counts['dense_fallbacks'] == 0,
+          '23b: flash kernels launched {}, expected {} each (layers x steps)'.format(
+              counts, expected))
+    check(all(n == LM['layers'] for n in breakdown['calls'].values()),
+          '23b: a profiled step ran the flash kernels {} times, expected {} each'.format(
+              breakdown['calls'], LM['layers']))
+    check(all(np.isfinite(losses)), '23b: non-finite loss {}'.format(losses))
+    result.update(first_batch=parity, launches=launches, counts=counts, breakdown=breakdown,
+                  host=host, allocated_before_bytes=allocated_before)
+    return result
+
+
+def phase_composed(tmp, seed, lm, card):
+    """Phase 23 on a one-rank NCCL group (a file store of its own in the
+    run's temporary directory, destroyed at the end): 23a the dry run, 23b
+    the composed dp + sp + tp flash LM. One card runs one rank, so every
+    exchange is of one rank: the composed meshes across ranks are held by
+    the CPU tests."""
+    start = time.perf_counter()
+    check(initialize_distributed(init_method='file://' + os.path.join(tmp, 'phase23_store'),
+                                 world_size=1, rank=0),
+          'a process group was already up before phase 23')
+    try:
+        result = {'dryrun': composed_dryrun(), 'lm': phase_composed_lm(tmp, seed)}
+    finally:
+        dist.destroy_process_group()
+    result['phase_s'] = time.perf_counter() - start
+    dry, comp = result['dryrun'], result['lm']
+    log('phase 23a dryrun_multichip(1) over NCCL (meshes of one rank, float32, the rings\' '
+        'blocks the fp32 K2-K4 at head_dim 64): {:.3f} s; launches {}; losses {}; scan_epochs '
+        'carry {:.1f}; dp+sp+ep {} Adam losses {:.4f}->{:.4f} [{}]'.format(
+            dry['s'], dry['launches'], {k: round(v, 5) for k, v in dry['losses'].items()},
+            dry['carry'], COMBO_STEPS, dry['combo_losses'][0], dry['combo_losses'][-1],
+            card))
+    log('phase 23b composed dp+sp+tp flash LM (TensorParallelLM on mesh data x seq x model '
+        '= 1 x 1 x 1, TorchDataLoader P(data, seq), [{}x{}] bf16): {} steps (1 warm-up): '
+        'tokens/s={:.1f} step_ms(median)={:.2f} model TFLOP/s={:.3f} MFU={:.5f} '
+        'peak_memory={:.3f} GiB input_stall_fraction={:.4f} losses {:.4f}->{:.4f} launches '
+        '{}; first batch vs phase 7\'s model {}; one profiled step: {}; beside phase 7: '
+        'tokens/s={:.1f} step_ms(median)={:.2f} idle share {:.4f}; phase 23 took {:.1f} s '
+        '[{}]'.format(
+            LM_BATCH, LM['max_len'], comp['steps_run'], comp['tokens_per_s'],
+            comp['step_ms_median'], comp['model_tflops_per_s'], comp['mfu'],
+            comp['peak_memory_bytes'] / 2 ** 30, comp['input_stall_fraction'],
+            comp['losses'][0], comp['losses'][-1], comp['launches'],
+            {key: round(value, 7) for key, value in comp['first_batch'].items()},
+            breakdown_line(comp['breakdown']), lm['tokens_per_s'], lm['step_ms_median'],
+            lm['breakdown']['idle_share'], result['phase_s'], card))
+    log('phase 23b memory: peak {:.3f} GiB over {:.3f} GiB allocated before its timed window; '
+        'phase 7\'s peak {:.3f} GiB over {:.3f} GiB [{}]'.format(
+            comp['peak_memory_bytes'] / 2 ** 30, comp['allocated_before_bytes'] / 2 ** 30,
+            lm['peak_memory_bytes'] / 2 ** 30, lm['allocated_before_bytes'] / 2 ** 30, card))
+    for name, trace in comp['host'].items():
+        log('phase 23b host trace, {} step: wall {:.3f} ms; regions (host ms) {}; counts {}; '
+            'backward nodes {}; top ops by self host ms [ms, count] {}; allocated above the '
+            'start {}; peak above the start {} B; device memory kept by op {} [{}]'.format(
+                name, trace['wall_ms'],
+                {k: round(v, 3) for k, v in trace['regions_ms'].items()},
+                trace['region_counts'],
+                {k: round(v, 3) for k, v in trace['backward_nodes_ms'].items()},
+                {k: [round(v[0], 3), v[1]] for k, v in trace['top_ops_self_ms'].items()},
+                trace['allocated_bytes'], trace['peak_above_start_bytes'],
+                trace['memory_by_op_bytes'], card))
+    return result
+
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -5263,6 +5569,7 @@ def main(argv=None):
         record['lineage_plane'] = phase_lineage_plane(tmp, args, record, card)
         record['remote_topology'] = phase_remote_topology(tmp, args, record, card)
         record['static_analysis'] = phase_static_analysis(tmp, card)
+        record['composed'] = phase_composed(tmp, args.seed, record['lm'], card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5311,6 +5618,8 @@ def main(argv=None):
             'twin_launches': record['reference_api']['twins']['long_context']['launches'][
                 counter],
             'telemetry_launches': record['telemetry']['lm']['launches'][counter],
+            'dryrun_launches': record['composed']['dryrun']['launches'][counter],
+            'composed_launches': record['composed']['lm']['launches'][counter],
             'max_abs_err': flash_errors(flash_result, labels),
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
             'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],

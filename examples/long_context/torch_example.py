@@ -5,8 +5,8 @@ The loader's batches are ``DTensor`` s over a ``('data', 'seq')`` mesh
 (``make_mesh``; ``--data-axis`` sets the data dimension, the sequence
 dimension takes the other ranks) with ``PartitionSpec('data')``: the reader
 is sharded by the data coordinate, so the ranks along ``'seq'`` hold the same
-whole rows (the JAX example's ``PartitionSpec('data', 'seq')`` slices the
-host's rows; ``DTensor.from_local`` takes this rank's rows as they are).
+whole rows, which ``ring_attention_sharded`` cuts itself (the JAX example's
+``PartitionSpec('data', 'seq')`` would hand each rank its slice instead).
 ``TransformerLM`` trains with ``ring_attention_sharded`` over ``'seq'`` as its
 attention: each rank computes attention over its own sequence shard, the K/V
 blocks rotating round the ring, and each block is the flash kernels (K2-K4 on

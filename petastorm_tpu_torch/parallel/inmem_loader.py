@@ -239,7 +239,8 @@ class InMemTorchLoader(object):
             idx = perm[start:start + self.batch_size]
             batch = {name: np.ascontiguousarray(col[idx]) for name, col in self._columns.items()}
             if self._device_put:
-                batch = self._shardings.distribute(upload_columns(batch, self.device))
+                batch = self._shardings.distribute(upload_columns(
+                    self._shardings.local_columns(batch), self.device))
             yield batch
 
     # -- whole epochs as one program ----------------------------------------------------

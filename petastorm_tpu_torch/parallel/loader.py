@@ -34,7 +34,10 @@ With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``), each field of a
 batch is a ``DTensor`` made by ``DTensor.from_local`` from this rank's rows
 with the placements of ``partition_spec`` (:class:`FieldShardings`): no
 collective runs in the input path, as ``make_array_from_process_local_data``
-runs none in the JAX loader. ``batch_size`` counts this rank's rows. The
+runs none in the JAX loader. A mesh dimension that shards a later dimension
+of a field (``'seq'`` of ``PartitionSpec('data', 'seq')``) cuts this rank's
+rows to its coordinate's slice of that dimension, as that function slices a
+host's rows. ``batch_size`` counts this rank's rows. The
 reader decides which rows a rank holds: shard it by the coordinate of the
 mesh dimension that splits the batch
 (:func:`~petastorm_tpu_torch.parallel.mesh.mesh_shard_info`), not by the
@@ -429,7 +432,7 @@ class TorchDataLoader(object):
                     for tensor in batch.values():
                         tensor.record_stream(consumer)
                 if self._shardings is not None and self._device_put:
-                    batch = self._shardings.distribute(batch)
+                    batch = self._shardings.distribute(batch, cut=self._device_decoded())
                 self._mark_delivered(rows)
                 self._lineage_steps += 1
                 lineage = getattr(self.reader, '_lineage', None)
@@ -548,6 +551,9 @@ class TorchDataLoader(object):
             self._put((columns, rows, None), out_queue, stop_event)
             return
         stage = self._device_stage
+        if self._shardings is not None:
+            # this rank's piece of each field, cut before the upload
+            columns = self._shardings.local_columns(columns, skip=self._device_decoded())
         recipe = None
         prepare_s = 0.0
         if stage is not None and not stage.host_mode:
@@ -568,6 +574,11 @@ class TorchDataLoader(object):
             if waited:
                 self.observe_traced('d2d_wait', waited)
         self._put((batch, rows, done), out_queue, stop_event)
+
+    def _device_decoded(self):
+        """The columns decoded on the device: their pieces are cut there."""
+        stage = self._device_stage
+        return frozenset() if stage is None or stage.host_mode else stage.passthrough_names
 
     def _finish(self, columns, stage, recipe, prepare_s=0.0):
         """Upload, then run the decode tail, on the current stream. ``h2d``
@@ -682,6 +693,8 @@ class TorchDataLoader(object):
 
         def run_chunk(columns, n_batches, chunk_index):
             usable = n_batches * batch_size
+            if self._shardings is not None:
+                columns = self._shardings.local_columns(columns)
             if seed is not None:
                 perm = np.random.RandomState((seed + chunk_index) % (2 ** 31)).permutation(usable)
                 columns = {name: col[:usable][perm] for name, col in columns.items()}
@@ -1034,16 +1047,44 @@ class FieldShardings(object):
                           'fields fall back to the default batch-axis sharding'
                           .format(sorted(unused), sorted(field_names)))
 
-    def distribute(self, batch):
+    def local(self, name, rows):
+        """This rank's piece of field ``name`` from its rows (a numpy array
+        or a tensor): each dimension after the first that a mesh dimension
+        shards is cut to the rank's coordinate along it (the first is the
+        reader's). A view; ``rows`` itself when nothing is cut."""
+        from torch.distributed.tensor import Shard
+        for mesh_dim, placement in enumerate(self.placements(name)):
+            count = self.mesh.size(mesh_dim)
+            if isinstance(placement, Shard) and placement.dim > 0 and count > 1:
+                if rows.shape[placement.dim] % count:
+                    raise ValueError('field {} dimension {} of size {} does not split into {} '
+                                     'shards'.format(name, placement.dim,
+                                                     rows.shape[placement.dim], count))
+                size = rows.shape[placement.dim] // count
+                start = self.mesh.get_local_rank(mesh_dim) * size
+                rows = rows[(slice(None),) * placement.dim + (slice(start, start + size),)]
+        return rows
+
+    def local_columns(self, columns, skip=frozenset()):
+        """:meth:`local` of every column but those named in ``skip``: the
+        host's rows cut before the upload, so a rank copies only its piece."""
+        return {name: col if name in skip else self.local(name, col)
+                for name, col in columns.items()}
+
+    def distribute(self, batch, cut=frozenset()):
         """``{name: DTensor}`` from this rank's ``{name: tensor}``: no
         collective (``run_check=False``), so also inside a CUDA graph
-        capture. The first call checks the spec's keys."""
+        capture. The fields are this rank's pieces already (cut on the host
+        by :meth:`local_columns`) but those named in ``cut``, which are cut
+        here (the fields decoded on the device). The first call checks the
+        spec's keys."""
         from torch.distributed.tensor import DTensor
         if not self._checked:
             self._checked = True
             self.check_unused(batch.keys())
-        return {name: DTensor.from_local(tensor, self.mesh, self.placements(name),
-                                         run_check=False)
+        return {name: DTensor.from_local(
+                    self.local(name, tensor) if name in cut else tensor, self.mesh,
+                    self.placements(name), run_check=False)
                 for name, tensor in batch.items()}
 
 

@@ -46,6 +46,8 @@ SLICE_18_MODULES = tuple(os.path.join('analysis', name) for name in (
     os.path.join('analysis', 'rules', name) for name in (
         '__init__.py', 'protocol.py', 'telemetry_names.py', 'clock.py', 'exceptions.py',
         'locks.py', 'lifecycle.py', 'determinism.py', 'journal.py', 'ratchet.py'))
+#: the composed-parallelism slice (the twin of __graft_entry__.py)
+SLICE_19_MODULES = ('graft_entry.py', os.path.join('parallel', 'tensor_parallel.py'))
 #: the examples/hello_world twins, both halves
 HELLO_WORLD_TWINS = tuple(
     ('hello_world', half, 'torch_{}.py'.format(name))
@@ -107,7 +109,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                    os.path.join('etl', 'generate_metadata.py'),
                    os.path.join('etl', 'metadata_util.py'),
                    os.path.join('tools', 'copy_dataset.py')) + SLICE_14_MODULES \
-            + SLICE_15_MODULES + SLICE_16_MODULES + SLICE_18_MODULES:
+            + SLICE_15_MODULES + SLICE_16_MODULES + SLICE_18_MODULES + SLICE_19_MODULES:
         assert os.path.join(PORT, module) in files
     offenders = [(os.path.relpath(path, REPO), name) for path in files
                  for name in _imports(path) if _forbidden(name)]

@@ -12,7 +12,8 @@ tests/test_pipeline.py:
 - pp + ep: a Switch-routed expert FFN (sharded_moe_ffn, its all-to-all over
   'expert') inside each stage on a ('stage', 'expert') mesh;
 - pp x tp x dp on a ('stage', 'data', 'model') mesh of 2 x 1 x 2: a
-  tensor-parallel MLP inside each stage (hidden dimension over 'model');
+  tensor-parallel MLP inside each stage (hidden dimension over 'model',
+  through parallel.tensor_parallel's copy_to_group and reduce_from_group);
 - the guards: no stage dimension, a params_spec that does not shard dim 0
   over 'stage', a stage that changes shape, no stages, an uneven
   microbatch split.
@@ -100,39 +101,6 @@ def _inputs():
 
 # ------------------------------------------------------------------ the ranks
 
-class _ReduceFromModel(torch.autograd.Function):
-    """Sum of the tensor-parallel partial outputs; the gradient passes as it
-    is (every model rank holds the same output)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
-class _CopyToModel(torch.autograd.Function):
-    """The input of the tensor-parallel MLP: as it is forward, the partial
-    gradients of the model ranks summed backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        import torch.distributed as dist
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
 def _raises(fn):
     try:
         fn()
@@ -143,22 +111,14 @@ def _raises(fn):
 
 def _local_stage_params(stacked, mesh, params_spec=None):
     """This rank's piece of a stacked dict, as ``shard_map`` hands it to the
-    JAX ``local_fn``: dim 0 indexed by the rank's ``'stage'`` coordinate (and
-    dropped), every other dim that ``params_spec`` (None, one spec or a dict
-    of specs) names cut to the rank's coordinate of its mesh dimensions."""
+    JAX ``local_fn``: ``shard_by_spec`` of each leaf (dim 0 over ``'stage'``
+    when ``params_spec``, None, one spec or a dict of specs, gives none), the
+    stages dimension dropped."""
+    from petastorm_tpu_torch.parallel.tensor_parallel import shard_by_spec
     out = {}
     for name, leaf in stacked.items():
         spec = params_spec.get(name) if isinstance(params_spec, dict) else params_spec
-        piece = leaf[mesh.get_local_rank('stage')]
-        for dim, entry in enumerate(tuple(spec or ('stage',))[1:]):
-            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
-            index, count = 0, 1
-            for axis in axes:
-                index = index * mesh[axis].size() + mesh.get_local_rank(axis)
-                count *= mesh[axis].size()
-            size = piece.shape[dim] // count
-            piece = piece.narrow(dim, index * size, size)
-        out[name] = piece.contiguous().clone()
+        out[name] = shard_by_spec(leaf, spec or ('stage',), mesh)[0].contiguous().clone()
     return out
 
 
@@ -174,6 +134,7 @@ def _worker(rank, world, store, workdir):
                                                        stack_stage_params,
                                                        stage_partition_specs,
                                                        unstack_stage_params)
+    from petastorm_tpu_torch.parallel.tensor_parallel import copy_to_group, reduce_from_group
     init_world(rank, world, store)
     raw = dict(np.load(os.path.join(workdir, 'inputs.npz')))
     inputs = {k: torch.from_numpy(v) for k, v in raw.items()}
@@ -263,8 +224,8 @@ def _worker(rank, world, store, workdir):
                                        specs))
 
     def tp_stage(p, mb):
-        h = gelu(_CopyToModel.apply(mb, model) @ p['w1'])
-        return mb + _ReduceFromModel.apply(h @ p['w2'], model)
+        h = gelu(copy_to_group(mb, model) @ p['w1'])
+        return mb + reduce_from_group(h @ p['w2'], model)
     pipe = make_pipeline(tp_stage, mesh, params_spec=specs)
     ys = pipe(params, inputs['tp_xs'])
     (ys ** 2).sum().backward()
