@@ -214,7 +214,16 @@ version on the card, then drives the port's two paths at full width:
   / ``LM_GRAD_NORM_RTOL`` of phase 7's uncomposed model on the same weights
   and rows, K2-K4 layers x steps each, step time, tokens/s and the idle
   share beside phase 7's (23b). One card runs one rank: the composed
-  meshes across ranks are held by the CPU tests.
+  meshes across ranks are held by the CPU tests;
+- the Arrow predicate pushdown (phase 24): phase 5's store and path with a
+  worker predicate keeping the rows of 500 of the 1000 labels, about half:
+  ``in_set`` (24a, compiled to ``pyarrow.compute.is_in`` on the stored
+  column, no decode) and the same condition as ``in_lambda`` (24b, the
+  decoded path), then both again in the other order. Each must keep exactly
+  the rows whose stored label is in the set, in the same order (the lineage
+  order digest), with K1 once a batch; rows/s, step time, stall, first
+  batch and the workers' ``decode`` span of each are printed, and (24c) the
+  two masks alone on the host over the store's rowgroups.
 
 Each path (and each half of phase 11) runs with the launch counts set to 0
 just before it and read just after, and fails unless every kernel of the
@@ -332,7 +341,8 @@ from petastorm_tpu_torch.parallel.mesh import (PartitionSpec, initialize_distrib
 from petastorm_tpu_torch.parallel.pipeline import blocks_stage_fn, make_pipeline, microbatch
 from petastorm_tpu_torch.parallel import tensor_parallel
 from petastorm_tpu_torch.parallel.tensor_parallel import TensorParallelLM
-from petastorm_tpu_torch.predicates import in_pseudorandom_split
+from petastorm_tpu_torch import decode_engine
+from petastorm_tpu_torch.predicates import in_lambda, in_pseudorandom_split, in_set
 from petastorm_tpu_torch.pytorch import DataLoader, InMemBatchedDataLoader
 from petastorm_tpu_torch.schedule import SchedulePolicy, plan_preview
 from petastorm_tpu_torch.selectors import SingleIndexSelector
@@ -655,13 +665,15 @@ def phase_k1(batch, seed):
 
 
 def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_reader,
-                    loader_kwargs=None, service_url=None):
+                    loader_kwargs=None, service_url=None, reader_kwargs=None):
     """One epoch of the main path; returns its measurements and the (idx,
     label, embedding) it delivered. The reader (``factory``: ``make_reader``,
     or ``make_batch_reader`` for phase 16c) runs on a thread pool of
     ``args.workers``, on ``reader_pool``, or through the input service at
-    ``service_url`` (phase 19); the loader gets ``loader_kwargs`` too; ``inspect(reader, loader)`` runs once the first
-    batch arrived. ``first_batch_s`` is the time from the reader's
+    ``service_url`` (phase 19), with ``reader_kwargs`` too (phase 24's
+    predicates); the loader gets ``loader_kwargs`` too; ``inspect(reader, loader)`` runs once the first
+    batch arrived. ``decode_span`` is the workers' summed ``decode`` stage
+    (seconds and spans) from the reader's telemetry. ``first_batch_s`` is the time from the reader's
     construction (a process pool's spawn included) to the first batch;
     ``steady_rows_per_s`` counts the rows after the first batch over the
     window's time after it (an input service's workers import the reader
@@ -695,7 +707,7 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
         reader = factory(url, reader_pool_type='thread', workers_count=args.workers,
                          reader_pool=reader_pool, seed=args.seed,
                          device_decode_fields=['image', 'embedding'],
-                         service_url=service_url)
+                         service_url=service_url, **(reader_kwargs or {}))
     with reader:
         loader = TorchDataLoader(reader, batch_size=args.batch,
                                  device_transforms={'image': transform},
@@ -729,6 +741,7 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
         stats = loader.stats.as_dict()
         diagnostics = reader.diagnostics
         items_per_epoch = reader.items_per_epoch
+        decode = reader.telemetry_snapshot().get('histograms', {}).get('decode', {})
     launches = counts['stored_copy']
     steps = len(losses)
     losses = [float(x) for x in losses]
@@ -746,7 +759,9 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
             'peak_memory_bytes': torch.cuda.max_memory_allocated(),
             'losses': losses, 'k1_launches': launches, 'counts': counts,
             'first_batch_s': first_batch_s, 'items_per_epoch': items_per_epoch,
-            'diagnostics': diagnostics}, delivered
+            'diagnostics': diagnostics,
+            'decode_span': {'s': float(decode.get('sum', 0.0)),
+                            'count': int(decode.get('count', 0))}}, delivered
 
 
 def check_delivered(delivered, seed):
@@ -5384,6 +5399,148 @@ def phase_composed(tmp, seed, lm, card):
     return result
 
 
+# ------------------------------------------------------ phase 24: pushdown
+
+#: the labels phase 24 keeps: half of the 1000 classes, about half the rows
+PUSHDOWN_LABELS = frozenset(range(500))
+PUSHDOWN_MIN_STEPS = 3
+
+
+def keep_pushdown_label(label):
+    """Phase 24b's predicate: ``label in PUSHDOWN_LABELS`` as a Python function,
+    which the pushdown cannot compile."""
+    return label in PUSHDOWN_LABELS
+
+
+def pushdown_run(url, args, predicate, compiled):
+    """Phase 5's main path with ``predicate``, lineage armed, and the worker's
+    ``compile_predicate`` results appended to ``compiled``."""
+    original = decode_engine.compile_predicate
+
+    def recording(*a, **kw):
+        result = original(*a, **kw)
+        compiled.append(result)
+        return result
+
+    run_args = argparse.Namespace(**dict(vars(args), min_steps=PUSHDOWN_MIN_STEPS))
+    with unittest.mock.patch.object(decode_engine, 'compile_predicate', recording):
+        result, delivered = phase_main_path(
+            url, run_args, reader_kwargs={'predicate': predicate,
+                                          'lineage': LineagePolicy(manifest=False)})
+    lineage = result['diagnostics']['lineage']
+    check(lineage['divergence'] == 0, '24: lineage divergence {}'.format(lineage))
+    result['order_digest'] = lineage['order_digest']
+    result['rows_folded'] = lineage['rows_folded']
+    result['items_folded'] = lineage['items_folded']
+    idx = [int(i) for batch_idx, _, _ in delivered for i in batch_idx.cpu().numpy()]
+    labels = [int(v) for _, batch_labels, _ in delivered for v in batch_labels.cpu().numpy()]
+    result['delivered_idx'] = idx
+    return result, labels
+
+
+def mask_times(path, schema, predicates, reps=5):
+    """The predicate's mask alone on the host, summed over the store's
+    rowgroups (median of ``reps`` a rowgroup): the compiled pushdown on the
+    stored ``label`` column against the decoded path (the column's decode
+    plan, then ``evaluate_predicate_mask``); the masks must be equal."""
+    compiled = decode_engine.compile_predicate(predicates['pushdown'], schema)
+    plan = decode_engine.compile_decode_plan(schema, ['label'])
+
+    def decoded(table):
+        return decode_engine.evaluate_predicate_mask(
+            predicates['decoded'], plan.execute(table), table.num_rows)
+
+    totals = {'pushdown': 0.0, 'decoded': 0.0}
+    rowgroups = 0
+    for name in sorted(os.listdir(path)):
+        if not name.endswith('.parquet'):
+            continue
+        parquet = pq.ParquetFile(os.path.join(path, name))
+        for rowgroup in range(parquet.num_row_groups):
+            table = parquet.read_row_group(rowgroup, columns=['label'])
+            rowgroups += 1
+            check(np.array_equal(compiled.evaluate(table), decoded(table)),
+                  '24: the pushdown mask differs from the decoded one')
+            for key, fn in (('pushdown', compiled.evaluate), ('decoded', decoded)):
+                times = []
+                for _ in range(reps):
+                    start = time.perf_counter()
+                    fn(table)
+                    times.append(time.perf_counter() - start)
+                totals[key] += statistics.median(times)
+    return {'rowgroups': rowgroups, 'pushdown_ms': totals['pushdown'] * 1e3,
+            'decoded_ms': totals['decoded'] * 1e3}
+
+
+def phase_pushdown(tmp, args, card):
+    """Phase 24: phase 5's store and path with a worker predicate that keeps
+    about half the rows: 24a ``in_set`` over ``label`` (the Arrow pushdown,
+    ``pyarrow.compute.is_in`` on the stored column, no decode), 24b the same
+    condition as ``in_lambda`` (the decoded path), then the two again in the
+    other order. All keep the rows the store's own labels say, in the same
+    order (the lineage order digest), with K1 once a batch. 24c times the
+    two masks alone on the host."""
+    phase_start = time.perf_counter()
+    path = os.path.join(tmp, 'imagenet')
+    url = 'file://' + path
+    table = pq.read_table(path, columns=['idx', 'label'])
+    want = {int(i) for i, label in zip(table.column('idx').to_pylist(),
+                                        table.column('label').to_pylist())
+            if label in PUSHDOWN_LABELS}
+    check(want == {i for i in range(args.rows) if label_of(i, args.seed) in PUSHDOWN_LABELS},
+          '24: the store\'s labels differ from the ones it was written with')
+    predicates = {'pushdown': in_set(PUSHDOWN_LABELS, 'label'),
+                  'decoded': in_lambda(['label'], keep_pushdown_label)}
+    schema = imagenet_schema(args.image)
+    check(isinstance(decode_engine.compile_predicate(predicates['pushdown'], schema),
+                     decode_engine.CompiledPredicate)
+          and decode_engine.compile_predicate(predicates['decoded'], schema) is None,
+          '24: in_set must compile to a CompiledPredicate and in_lambda must not')
+    runs = {}
+    for name, again in (('pushdown', ''), ('decoded', ''), ('decoded', '_again'),
+                        ('pushdown', '_again')):
+        compiled = []
+        result, labels = pushdown_run(url, args, predicates[name], compiled)
+        runs[name + again] = result
+        check(compiled and all(
+            isinstance(c, decode_engine.CompiledPredicate) if name == 'pushdown'
+            else c is None for c in compiled),
+            '24 {}: the workers compiled {}'.format(name, [type(c).__name__ for c in compiled]))
+        result['compiled'] = len(compiled)
+        idx = result.pop('delivered_idx')
+        del result['diagnostics']
+        check(len(set(idx)) == len(idx) == result['steps'] * args.batch
+              and set(idx) <= want and all(label in PUSHDOWN_LABELS for label in labels),
+              '24 {}: delivered rows outside the kept set or repeated'.format(name))
+        check(result['rows_folded'] == len(want)
+              and result['steps'] == len(want) // args.batch >= PUSHDOWN_MIN_STEPS,
+              '24 {}: the reader kept {} rows in {} steps, the store has {} with a kept '
+              'label'.format(name, result['rows_folded'], result['steps'], len(want)))
+    digests = {(run['order_digest'], run['items_folded']) for run in runs.values()}
+    check(len(digests) == 1, '24: the pushdown and the decoded path differ in order: {}'
+          .format({name: run['order_digest'] for name, run in runs.items()}))
+    masks = mask_times(path, schema, predicates)
+    result = {'kept_rows': len(want), 'runs': runs, 'masks': masks,
+              'phase_s': time.perf_counter() - phase_start}
+    for tag, name in (('24a', 'pushdown'), ('24b', 'decoded'), ('24b', 'decoded_again'),
+                      ('24a', 'pushdown_again')):
+        run = runs[name]
+        log('phase {} {} (make_reader(predicate={}) over phase 5\'s store, 4 threads, '
+            'TorchDataLoader(batch_size={}) -> K1 -> ResNet-50 bf16): {} of {} rows kept, '
+            '{} steps (1 warm-up): rows/s={:.2f} step_ms(median)={:.2f} '
+            'input_stall_fraction={:.4f} first_batch_s={:.3f} workers\' decode span '
+            '{:.4f} s over {} spans; K1 launches {}; order digest {} [{}]'.format(
+                tag, name, 'in_set' if name.startswith('pushdown') else 'in_lambda',
+                args.batch, run['rows_folded'], args.rows, run['steps'], run['rows_per_s'],
+                run['step_ms_median'], run['input_stall_fraction'], run['first_batch_s'],
+                run['decode_span']['s'], run['decode_span']['count'], run['k1_launches'],
+                run['order_digest'], card))
+    log('phase 24c the masks alone on the host over the store\'s {} rowgroups (median of 5 '
+        'a rowgroup, summed): pushdown {:.4f} ms, decoded path {:.4f} ms; phase 24 took '
+        '{:.1f} s [{}]'.format(masks['rowgroups'], masks['pushdown_ms'], masks['decoded_ms'],
+                               result['phase_s'], card))
+    return result
+
 def build_kernels():
     """Build and load every entry point of every kernel source, one thread
     and one nvcc call per source, all started together; returns the seconds
@@ -5570,6 +5727,7 @@ def main(argv=None):
         record['remote_topology'] = phase_remote_topology(tmp, args, record, card)
         record['static_analysis'] = phase_static_analysis(tmp, card)
         record['composed'] = phase_composed(tmp, args.seed, record['lm'], card)
+        record['pushdown'] = phase_pushdown(tmp, args, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5589,6 +5747,8 @@ def main(argv=None):
         'remote_launches': record['remote_topology']['imagenet']['plain']['k1_launches'],
         'remote_engine_launches':
             record['remote_topology']['imagenet']['engine']['k1_launches'],
+        'pushdown_launches': record['pushdown']['runs']['pushdown']['k1_launches'],
+        'pushdown_decoded_launches': record['pushdown']['runs']['decoded']['k1_launches'],
         'max_abs_err': max(k1[case]['max_abs_err']
                            for case in ('edge', 'edge_host_table', 'offset_sweep', 'main',
                                         'large')),

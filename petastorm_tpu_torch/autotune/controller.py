@@ -47,7 +47,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional
 from petastorm_tpu_torch.autotune.knobs import Knob, KnobCatalog
 from petastorm_tpu_torch.autotune.policy import AutotunePolicy
 from petastorm_tpu_torch.telemetry import tracing as _tracing
-from petastorm_tpu_torch.telemetry.export import logger_from_env
+from petastorm_tpu_torch.telemetry.export import JsonlEventLogger, logger_from_env
 from petastorm_tpu_torch.telemetry.registry import SECONDS_UNIT
 
 #: decision actions the controller can record (the JSONL ``action`` field)
@@ -143,11 +143,12 @@ class AutotuneController(object):
         deterministically).
     :param choose_fn: ``(prev_snapshot, snapshot, rate, eligible_knobs) ->
         knob_id or None``; default :func:`choose_from_bottleneck`.
+    :param event_logger: the
+        :class:`~petastorm_tpu_torch.telemetry.export.JsonlEventLogger` every
+        decision is emitted to (default: the one
+        ``PETASTORM_TPU_TELEMETRY_JSONL`` names, if any).
     :param name: controller name stamped on every decision (``reader`` /
         ``service``).
-
-    Decisions also go to ``PETASTORM_TPU_TELEMETRY_JSONL`` when it names a
-    file.
     """
 
     def __init__(self, catalog: KnobCatalog,
@@ -158,6 +159,7 @@ class AutotuneController(object):
                      Callable[[], Dict[str, Dict[str, Any]]]] = None,
                  choose_fn: Optional[ChooseFn] = None,
                  clock: Callable[[], float] = time.monotonic,
+                 event_logger: Optional[JsonlEventLogger] = None,
                  name: str = 'reader') -> None:
         self.catalog = catalog
         self.policy = policy if policy is not None else AutotunePolicy()
@@ -169,7 +171,7 @@ class AutotuneController(object):
         self._clock = clock
         self._choose_fn: ChooseFn = (choose_fn if choose_fn is not None
                                      else choose_from_bottleneck)
-        self._events = logger_from_env()
+        self._events = event_logger if event_logger is not None else logger_from_env()
         self._name = name
         self._next_step = 0.0
         self._lock = threading.Lock()

@@ -10,12 +10,13 @@ filesystem, no pools), all on the host:
   rowgroup worker runs) against the per-cell fallback (``decode_column`` and a
   stack), and their ratio ``<codec>_speedup``. Where the engine gives an
   array, it must equal the fallback's.
-- **predicate masks**: the port has no Arrow predicate pushdown (a defined
-  difference of the port). So the ``pushdown_*`` keys time the port's own
-  compiled mask, :func:`~petastorm_tpu_torch.decode_engine.evaluate_predicate_mask`
-  of an ``in_set`` over the decoded column (one vectorized call), against the
-  per-row dict loop, and ``pushdown_split_speedup`` the same for
-  ``in_pseudorandom_split``. The masks must be equal.
+- **predicate pushdown**: the ``pushdown_*`` keys time the compiled
+  ``in_set`` mask (:func:`~petastorm_tpu_torch.decode_engine.compile_predicate`,
+  ``evaluate`` on the pre-decode Arrow table) against the per-row dict loop
+  over the decoded column, and ``pushdown_split_speedup``
+  :func:`~petastorm_tpu_torch.decode_engine.evaluate_predicate_mask` of an
+  ``in_pseudorandom_split`` (one vectorized call) against its row loop. The
+  masks must be equal.
 
 Image columns are dominated by ``cv2.imdecode``; their engine rate scales with
 the GIL-released decode fan-out (``PETASTORM_TPU_DECODE_THREADS``), recorded
@@ -137,13 +138,12 @@ def codec_kernel_bench(rows: int = _DEFAULT_ROWS,
 
 
 def pushdown_bench(rows: int = _DEFAULT_ROWS * 10) -> Dict[str, float]:
-    """The compiled ``in_set`` mask over the decoded int64 column against the
-    per-row dict loop, and the same for a string-keyed
-    ``in_pseudorandom_split`` (the port evaluates every predicate on decoded
-    columns: these keys keep the JAX package's names)."""
+    """Compiled predicate mask vs the decoded per-row dict loop, over an int64
+    ``in_set`` and an ``in_pseudorandom_split``."""
     import pyarrow as pa
     from petastorm_tpu_torch.codecs import ScalarCodec
     from petastorm_tpu_torch.decode_engine import (compile_decode_plan,
+                                                   compile_predicate,
                                                    evaluate_predicate_mask)
     from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_set
     from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -153,9 +153,10 @@ def pushdown_bench(rows: int = _DEFAULT_ROWS * 10) -> Dict[str, float]:
     table = pa.table({'label': pa.array(
         rng.randint(0, 100, size=rows).tolist(), type=pa.int64())})
     predicate = in_set({1, 5, 12, 77}, 'label')
+    compiled = compile_predicate(predicate, schema)
+    assert compiled is not None
+    pushdown_s, mask = _best_rate(lambda: compiled.evaluate(table))
     decoded = compile_decode_plan(schema, ['label']).execute(table)
-    pushdown_s, mask = _best_rate(
-        lambda: evaluate_predicate_mask(predicate, decoded, rows))
 
     def python_rows() -> np.ndarray:
         out = np.zeros(rows, dtype=bool)

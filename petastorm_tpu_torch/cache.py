@@ -50,6 +50,8 @@ from petastorm_tpu_torch.telemetry.spans import record_stage, stage_span
 
 logger = logging.getLogger(__name__)
 
+MB = 1 << 20
+
 #: Arrow-IPC entry header: magic, mode byte ('A' columnar / 'P' pickle),
 #: uint64-LE length of the IPC stream (0 in pickle mode)
 _ARROW_MAGIC = b'PTUAC001'
@@ -97,6 +99,8 @@ class LocalDiskCache(CacheBase):
         100 such rows.
     :param breaker: the circuit breaker (default: ``cache:<path>`` on the
         default board; each process re-registers its own).
+    :param shards: accepted for petastorm's signature and unused (entries
+        live in 256 subdirectories whatever it says).
     """
 
     #: this format's file suffix; eviction counts every known suffix, so two
@@ -104,7 +108,8 @@ class LocalDiskCache(CacheBase):
     _SUFFIX = '.pkl'
     _ALL_SUFFIXES = ('.pkl', '.arrow')
 
-    def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0, breaker=None):
+    def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0, breaker=None,
+                 shards=None):
         if expected_row_size_bytes and size_limit_bytes < 100 * expected_row_size_bytes:
             raise ValueError('Cache size_limit_bytes={} is too small for rows of ~{} bytes'
                              .format(size_limit_bytes, expected_row_size_bytes))
@@ -305,7 +310,7 @@ class ArrowIpcDiskCache(LocalDiskCache):
     _SUFFIX = '.arrow'
 
     def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0, writable_hits=False,
-                 breaker=None):
+                 breaker=None, shards=None):
         super().__init__(path, size_limit_bytes, expected_row_size_bytes, breaker=breaker)
         self._writable_hits = writable_hits
         #: set by make_reader when ``cache_extra_settings`` names
@@ -372,8 +377,8 @@ class ArrowIpcDiskCache(LocalDiskCache):
             with self._lock:
                 self.stats['pickle_hits'] += 1
             return value
-        columns = decode_columnar(body.slice(0, ipc_len), body.slice(ipc_len),
-                                  writable=self._writable_hits)
+        columns, _ = decode_columnar(body.slice(0, ipc_len), body.slice(ipc_len),
+                                     writable=self._writable_hits)
         with self._lock:
             self.stats['arrow_hits'] += 1
             self.stats['bytes_mmapped'] += total

@@ -423,6 +423,31 @@ class CompressedNdarrayCodec(FieldCodec):
         with np.load(BytesIO(bytes(value)), allow_pickle=False) as data:
             return np.ascontiguousarray(data['arr'])
 
+    def decode_column(self, unischema_field, values):
+        """Every cell inflates through ONE raw zlib call, and each distinct
+        npy header is parsed once; a cell the fast path cannot represent
+        (Fortran order, object dtype, a size that disagrees with its header,
+        an unknown container) decodes through :meth:`decode`."""
+        header_cache = {}
+        out = []
+        for blob in values:
+            if blob is None:
+                out.append(None)
+                continue
+            payload = _npz_npy_payload(blob)
+            meta = None if payload is None else _cached_npy_meta(payload, header_cache)
+            if meta is not None:
+                shape, fortran, dtype, offset = meta
+                count = int(np.prod(shape, dtype=np.int64))
+                if not fortran and not dtype.hasobject and \
+                        len(payload) - offset == count * dtype.itemsize:
+                    # .copy() keeps decode()'s writable-array contract
+                    out.append(np.frombuffer(payload, dtype=dtype, count=count,
+                                             offset=offset).reshape(shape).copy())
+                    continue
+            out.append(self.decode(unischema_field, blob))
+        return out
+
     def decode_arrow_column(self, unischema_field, arrow_col):
         return self.decode_column(unischema_field, _column_blobs(arrow_col))
 

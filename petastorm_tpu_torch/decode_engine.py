@@ -4,33 +4,45 @@ per field set (a trimmed copy of ``petastorm_tpu.decode_engine``).
 Kept: the decode plan with its partition / ship-raw / codec / shaped-list /
 native kernels, the ship-raw contract of the device decode tail (the
 ``RAW_*`` constants and the DCT, npy and deflate ship-raw kernels), and the
-``stack_if_uniform`` / ``arrow_to_numpy`` helpers, and
+``stack_if_uniform`` / ``arrow_to_numpy`` helpers, the Arrow predicate
+pushdown (:func:`compile_predicate` lowers ``in_set`` / ``in_negate`` /
+``in_reduce(all|any)`` / ``in_pseudorandom_split`` over scalar, non-partition
+fields into a mask evaluator on the pre-decode predicate table:
+``pyarrow.compute.is_in`` with no decode for exact-match leaves, the
+predicate's array mode over one lazily decoded column otherwise), and
 :func:`evaluate_predicate_mask`, which evaluates any predicate over its
-decoded columns (the built-in classes in one vectorized call). The JAX
-package's Arrow pushdown (``compile_predicate``) is not copied: it gives the
-same masks, and no measured workload gains from it yet.
+decoded columns (the built-in classes in one vectorized call): the worker's
+path when ``compile_predicate`` returns None.
 """
 
 from __future__ import annotations
 
+import logging
 import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Set, Tuple)
 
 import numpy as np
+import pyarrow as pa
 
 from petastorm_tpu_torch.codecs import (CompressedNdarrayCodec, DctImageCodec,
-                                        NdarrayCodec, _cached_npy_meta,
+                                        NdarrayCodec, ScalarCodec, _cached_npy_meta,
                                         _column_blobs, _npz_raw_member)
 from petastorm_tpu_torch.errors import DecodeFieldError
 from petastorm_tpu_torch.predicates import (PredicateBase, in_intersection, in_negate,
                                             in_pseudorandom_split, in_reduce, in_set)
 from petastorm_tpu_torch.telemetry import tracing as _tracing
 
+logger = logging.getLogger(__name__)
+
 #: decoded columns of one rowgroup: ``{field_name: ndarray | list}``
 Columns = Dict[str, Any]
 
 #: one compiled per-field kernel: ``(table, partition_keys, num_rows) -> column``
 FieldKernel = Callable[[Any, Mapping[str, Any], int], Any]
+
+#: one compiled predicate node: ``(table, lazy_decoded_columns) -> (n,) bool mask``
+_MaskFn = Callable[[Any, Any], np.ndarray]
 
 
 def stack_if_uniform(values: Sequence[Any], field: Any) -> Any:
@@ -349,6 +361,201 @@ def compile_decode_plan(schema: Any, field_names: Sequence[str],
         else:
             kernels.append((name, _native_kernel(name)))
     return DecodePlan(kernels)
+
+
+# ------------------------------------------------------ predicate pushdown
+
+#: per-dtype-kind python value types ``pyarrow.compute.is_in`` matches with
+#: exactly the same semantics as the per-row ``value in set`` path. The
+#: families must AGREE: Arrow silently encodes str<->bytes across
+#: string/binary columns (selecting rows the Python path rejects), and floats
+#: widen — both stay on the decoded numpy mirror instead.
+_EXACT_MATCH_TYPES_BY_KIND = {
+    'i': (bool, int, np.integer, np.bool_),
+    'u': (bool, int, np.integer, np.bool_),
+    'b': (bool, int, np.integer, np.bool_),
+    'U': (str,),
+    'S': (bytes,),
+}
+
+
+class _LazyDecodedColumns:
+    """Decode-on-demand view over the predicate table: a leaf that evaluates as
+    an Arrow compute kernel never pays for decoding its column — only the
+    numpy-mode leaves (and in-band arrow-cast fallbacks) pull values through
+    their single-column plan, at most once each."""
+
+    __slots__ = ('_plans', '_table', '_cache')
+
+    def __init__(self, plans: Mapping[str, DecodePlan], table: Any) -> None:
+        self._plans = plans
+        self._table = table
+        self._cache: Columns = {}
+
+    def __getitem__(self, name: str) -> Any:
+        if name not in self._cache:
+            self._cache[name] = self._plans[name].execute(self._table)[name]
+        return self._cache[name]
+
+
+class CompiledPredicate:
+    """A worker predicate lowered to a whole-rowgroup mask evaluator.
+
+    :meth:`evaluate` produces the same boolean keep mask as looping
+    ``predicate.do_include(row)`` over every row, but runs directly on the
+    pre-decode Arrow predicate table: exact-match leaves evaluate as
+    ``pyarrow.compute`` kernels with NO decode at all, and the remaining
+    leaves decode only their own column through the compiled plan before
+    running the predicate's vectorized array mode."""
+
+    __slots__ = ('fields', '_mask_fn', '_decode_plans', 'description')
+
+    def __init__(self, fields: Set[str], mask_fn: _MaskFn,
+                 decode_plans: Mapping[str, DecodePlan], description: str) -> None:
+        #: field names the predicate reads
+        self.fields = fields
+        self._mask_fn = mask_fn
+        self._decode_plans = decode_plans
+        #: compile summary, e.g. ``'is_in(label)'`` — shows up in debug logs
+        self.description = description
+
+    def evaluate(self, table: Any) -> np.ndarray:
+        """Predicate table -> ``(n,)`` bool keep mask (bit-identical to the
+        per-row Python path)."""
+        decoded = _LazyDecodedColumns(self._decode_plans, table)
+        mask = np.asarray(self._mask_fn(table, decoded), dtype=bool)
+        if mask.shape != (table.num_rows,):
+            raise ValueError('Compiled predicate {} produced mask of shape {}, '
+                             'expected ({},)'.format(self.description, mask.shape,
+                                                     table.num_rows))
+        return mask
+
+
+def _field_eligible(schema: Any, name: str, partition_field_names: Set[str]) -> bool:
+    """Pushdown operates on scalar storage columns only: the field must exist,
+    be declared scalar, carry at most a ScalarCodec, and not be a partition key
+    (partition constants never reach the predicate table)."""
+    if name in partition_field_names:
+        return False
+    field = schema.fields.get(name)
+    if field is None or field.shape != ():
+        return False
+    return field.codec is None or isinstance(field.codec, ScalarCodec)
+
+
+def _vectorized_leaf(predicate: PredicateBase, name: str) -> _MaskFn:
+    """Leaf evaluated through the predicate's own vectorized array mode over the
+    decoded column — exact equivalence by construction."""
+
+    def mask_fn(table: Any, decoded: Any) -> np.ndarray:
+        return np.asarray(predicate.do_include({name: decoded[name]}), dtype=bool)
+    return mask_fn
+
+
+def _in_set_leaf(predicate: in_set, name: str, use_arrow: bool) -> _MaskFn:
+    """``in_set`` leaf: ``pyarrow.compute.is_in`` on the raw storage column when
+    the match is exact under Arrow casting; the decoded ``np.isin`` array mode
+    otherwise (floats, datetimes, mixed sets)."""
+    values = sorted(predicate.inclusion_values, key=repr)
+
+    def mask_fn(table: Any, decoded: Any) -> np.ndarray:
+        if use_arrow:
+            import pyarrow.compute as pc
+            col = table.column(name)
+            try:
+                value_set = pa.array(values, type=col.type)
+                mask = pc.fill_null(pc.is_in(col, value_set=value_set), False)
+                return np.asarray(mask.to_numpy(zero_copy_only=False), dtype=bool)
+            except (pa.ArrowInvalid, pa.ArrowTypeError,
+                    pa.ArrowNotImplementedError, OverflowError):
+                # value set not castable to the storage type (pa.array raises
+                # OverflowError, not an Arrow error, for out-of-C-range ints):
+                # the numpy mirror below gives the per-row answer
+                # (everything-False included)
+                logger.debug('is_in pushdown fell back to numpy for field %r',
+                             name, exc_info=True)
+        return np.asarray(predicate.do_include({name: decoded[name]}), dtype=bool)
+    return mask_fn
+
+
+def _compile_node(predicate: PredicateBase, schema: Any,
+                  partition_field_names: Set[str],
+                  numpy_fields: Set[str]) -> Optional[Tuple[_MaskFn, str]]:
+    """Recursively lower one predicate node; None = not compilable (caller must
+    use the per-row fallback for the WHOLE predicate)."""
+    kind = type(predicate)
+    if kind is in_negate:
+        child = _compile_node(predicate.predicate, schema, partition_field_names,
+                              numpy_fields)
+        if child is None:
+            return None
+        child_fn, child_desc = child
+
+        def negate_fn(table: Any, decoded: Any) -> np.ndarray:
+            return ~child_fn(table, decoded)
+        return negate_fn, 'not({})'.format(child_desc)
+    if kind is in_reduce:
+        if predicate.reduce_func not in (all, any):
+            return None
+        children = [_compile_node(p, schema, partition_field_names, numpy_fields)
+                    for p in predicate.predicates]
+        if any(c is None for c in children):
+            return None
+        child_fns = [fn for fn, _ in children if fn is not None]
+        reducer = np.logical_and.reduce if predicate.reduce_func is all \
+            else np.logical_or.reduce
+        op_name = 'all' if predicate.reduce_func is all else 'any'
+
+        def reduce_fn(table: Any, decoded: Any) -> np.ndarray:
+            return np.asarray(reducer([fn(table, decoded) for fn in child_fns]),
+                              dtype=bool)
+        return reduce_fn, '{}({})'.format(
+            op_name, ', '.join(desc for _, desc in children if desc))
+    if kind is in_set:
+        name = predicate.predicate_field
+        if not _field_eligible(schema, name, partition_field_names):
+            return None
+        field = schema.fields[name]
+        values = predicate.inclusion_values
+        exact_types = _EXACT_MATCH_TYPES_BY_KIND.get(
+            np.dtype(field.numpy_dtype).kind)
+        use_arrow = (exact_types is not None and len(values) > 0
+                     and all(isinstance(v, exact_types) for v in values))
+        # decoded column always compiled in: it is the value source for the
+        # numpy mode AND the in-band fallback when the arrow cast fails
+        numpy_fields.add(name)
+        return _in_set_leaf(predicate, name, use_arrow), 'is_in({})'.format(name)
+    if kind is in_pseudorandom_split:
+        name = predicate.predicate_field
+        if not _field_eligible(schema, name, partition_field_names):
+            return None
+        numpy_fields.add(name)
+        return _vectorized_leaf(predicate, name), 'split({})'.format(name)
+    return None
+
+
+def compile_predicate(predicate: PredicateBase, schema: Any,
+                      partition_field_names: Any = (),
+                      decode: bool = True) -> Optional[CompiledPredicate]:
+    """Lower a worker predicate into a :class:`CompiledPredicate`, or None when
+    any node is outside the compilable set (``in_lambda``, custom subclasses,
+    non-scalar/partition fields, exotic reduce functions) — the caller then
+    keeps the decoded per-row path, so unknown predicates always still work."""
+    partition_names = set(partition_field_names)
+    numpy_fields: Set[str] = set()
+    compiled = _compile_node(predicate, schema, partition_names, numpy_fields)
+    if compiled is None:
+        return None
+    mask_fn, description = compiled
+    # single-column plans, decoded lazily: a numpy-mode leaf reads values
+    # through the same kernels the row path uses (value equivalence by
+    # construction); an arrow-mode leaf never touches them
+    decode_plans = {name: compile_decode_plan(schema, [name],
+                                              partition_field_names=(),
+                                              decode=decode)
+                    for name in numpy_fields}
+    fields = {f for f in predicate.get_fields()}
+    return CompiledPredicate(fields, mask_fn, decode_plans, description)
 
 
 # ----------------------------------------------- vectorized row-mode masks

@@ -47,19 +47,29 @@ class TransientIOError(PetastormTpuError, OSError):
     retry path."""
 
 
+class WorkerHangError(PetastormTpuError):
+    """A pool worker held an item past ``item_deadline_s`` without a result
+    and the watchdog reaped it. Under ``on_error='skip'`` the item is
+    quarantined with ``reason='hang'`` instead; this type names that failure
+    where a strict consumer turns ledger entries back into exceptions."""
+
+
 class QuarantinedRowGroupError(PetastormTpuError):
     """A rowgroup exhausted its error budget under ``on_error='skip'`` and was
     left out of the stream. Raised only by
     :meth:`~petastorm_tpu_torch.resilience.QuarantineLedger.raise_if_any`
     (strict post-epoch validation), with the first record's ``piece_index``,
-    ``fragment_path``, ``row_group_id`` and ``attempts``."""
+    ``fragment_path``, ``row_group_id`` and ``attempts``; ``cause`` is the
+    final underlying exception, when there is one."""
 
     def __init__(self, message: str, piece_index: Optional[int] = None,
                  fragment_path: Optional[str] = None,
                  row_group_id: Optional[int] = None,
-                 attempts: Optional[int] = None) -> None:
+                 attempts: Optional[int] = None,
+                 cause: Optional[BaseException] = None) -> None:
         super().__init__(message)
         self.piece_index = piece_index
         self.fragment_path = fragment_path
         self.row_group_id = row_group_id
         self.attempts = attempts
+        self.cause = cause

@@ -74,6 +74,11 @@ class DatasetHandle(object):
         return self.path_or_paths
 
     @property
+    def schema(self):
+        """The pyarrow dataset's (physical) schema."""
+        return self.arrow_dataset.schema
+
+    @property
     def partition_field_names(self):
         partitioning = getattr(self.arrow_dataset, 'partitioning', None)
         if partitioning is None or partitioning.schema is None:
@@ -173,7 +178,8 @@ def write_rows(dataset_url, schema, rows, rowgroup_size_mb=DEFAULT_ROW_GROUP_SIZ
                file_prefix='part', compression='snappy'):
     """Encode ``rows`` (list of dicts) and write a Parquet store with the
     embedded metadata. ``compression`` is any pyarrow Parquet codec."""
-    with materialize_dataset(dataset_url, schema, storage_options=storage_options,
+    with materialize_dataset(dataset_url, schema, rowgroup_size_mb=rowgroup_size_mb,
+                             storage_options=storage_options,
                              filesystem=filesystem):
         fs, path = get_filesystem_and_path_or_paths(dataset_url,
                                                     storage_options=storage_options,
@@ -189,10 +195,12 @@ def write_rows(dataset_url, schema, rows, rowgroup_size_mb=DEFAULT_ROW_GROUP_SIZ
 
 
 @contextmanager
-def materialize_dataset(dataset_url, schema, storage_options=None, filesystem=None):
+def materialize_dataset(dataset_url, schema, rowgroup_size_mb=DEFAULT_ROW_GROUP_SIZE_MB,
+                        storage_options=None, filesystem=None):
     """Context manager around Parquet-writing code; on exit, embeds the
     Unischema and rowgroup index into ``_common_metadata`` and checks that the
-    store reads back."""
+    store reads back. ``rowgroup_size_mb`` is petastorm's argument and unused
+    here: the body sizes its own rowgroups (:func:`write_rows` takes it)."""
     yield
     handle = open_dataset(dataset_url, storage_options=storage_options,
                           filesystem=filesystem)

@@ -172,6 +172,31 @@ class NGram(object):
             out[name] = np.asarray(col)[idx]
         return out
 
+    def form_ngram(self, rows):
+        """petastorm's row-dict API: ``rows`` (a list of row dicts in
+        timestamp order) -> a list of windows ``{offset: row dict of that
+        timestep's fields}``, the windows :meth:`form_ngram_columnar` starts."""
+        if not rows:
+            return []
+        timestamps = np.asarray([row[self.timestamp_field_name] for row in rows])
+        base_key = min(self._fields.keys())
+        windows = []
+        for start in self.form_ngram_columnar(timestamps):
+            window = {}
+            for key in self._fields:
+                wanted = set(self.get_field_names_at_timestep(key))
+                row = rows[start + key - base_key]
+                window[key] = {name: row[name] for name in row if name in wanted}
+            windows.append(window)
+        return windows
+
+    def make_namedtuples(self, window, schema=None):
+        """A :meth:`form_ngram` window ``{offset: row dict}`` -> ``{offset:
+        namedtuple}`` (fields in sorted order; ``schema`` is petastorm's
+        argument and unused)."""
+        return {key: _timestep_namedtuple(tuple(sorted(row)))(**row)
+                for key, row in window.items()}
+
     def window_plan(self, column_names):
         """Precompute the per-timestep emission plan for a given set of available
         columns: ``[(offset, row_position, field_names, namedtuple_cls), ...]``. The

@@ -47,11 +47,15 @@ class NGramWindows(object):
 
 
 def process_ngram_piece(worker, piece_index, fragment_path, row_group_id, partition_keys,
-                        shuffle_row_drop_partition, epoch_index=0, with_retry=None):
+                        shuffle_row_drop_partition, epoch_index=0, with_retry=None,
+                        worker_predicate=None):
     """Decode one rowgroup piece and form its windows: an :class:`NGramWindows`
     (possibly of no window) tagged with the piece's item id. ``with_retry``
-    runs the load under the reader's retry policy."""
+    runs the load under the reader's retry policy. A ``worker_predicate``
+    raises ``NotImplementedError``: NGram windows take no predicate."""
     from petastorm_tpu_torch.reader_worker import _take
+    if worker_predicate is not None:
+        raise NotImplementedError('Predicates are not supported together with NGram')
     setup = worker._setup
     ngram = setup.ngram
 

@@ -142,7 +142,7 @@ class InMemTorchLoader(object):
         rows = 0
         try:
             for columns, n, _ in iter_reader_chunks(reader):
-                chunks.append(sanitize_columns(columns, self._pad_ragged))
+                chunks.append(sanitize_columns(columns, self._pad_ragged, self._device_put))
                 rows += n
                 if rows >= cap:
                     if rows_capacity is None:

@@ -540,7 +540,8 @@ class TorchDataLoader(object):
                 self.observe_traced('device_decode', time.perf_counter() - decode_start,
                                     start_pc=decode_start)
             passthrough = stage.passthrough_names
-        out = sanitize_columns(columns, self._pad_ragged, passthrough=passthrough)
+        out = sanitize_columns(columns, self._pad_ragged, self._device_put,
+                               passthrough=passthrough)
         self.observe_traced('collate', time.perf_counter() - collate_start,
                             start_pc=collate_start)
         return out
@@ -1229,11 +1230,13 @@ def _rows_to_columns(rows):
     return columns
 
 
-def sanitize_columns(columns, pad_ragged, passthrough=frozenset()):
+def sanitize_columns(columns, pad_ragged, device_put=True, passthrough=frozenset()):
     """Make host columns uploadable: datetimes -> int64 ns, ragged fields padded
     per ``pad_ragged`` (adding an int32 ``<field>_len`` column), strings and
-    objects rejected with the field named. Columns in ``passthrough`` (raw
-    payloads pending device decode, and their auxiliaries) pass untouched."""
+    objects rejected with the field named when ``device_put`` (the batch goes
+    to the device), kept as they are otherwise. Columns in ``passthrough``
+    (raw payloads pending device decode, and their auxiliaries) pass
+    untouched."""
     out = {}
     for name, col in columns.items():
         if name in passthrough:
@@ -1252,9 +1255,11 @@ def sanitize_columns(columns, pad_ragged, passthrough=frozenset()):
         if col.dtype.kind == 'M':
             out[name] = col.astype('datetime64[ns]').astype(np.int64)
         elif col.dtype.kind in ('U', 'S', 'O'):
-            raise ValueError('Field {!r} has dtype {} which has no tensor '
-                             'representation; drop it via schema_fields'
-                             .format(name, col.dtype))
+            if device_put:
+                raise ValueError('Field {!r} has dtype {} which has no tensor '
+                                 'representation; drop it via schema_fields or use '
+                                 'device_put=False'.format(name, col.dtype))
+            out[name] = col
         else:
             out[name] = np.ascontiguousarray(col)
     return out

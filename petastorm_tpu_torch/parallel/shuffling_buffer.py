@@ -44,7 +44,30 @@ def _num_rows(columns):
     return 0
 
 
-class NoopShufflingBuffer(object):
+class ShufflingBufferBase(object):
+    """The columnar shuffling-buffer interface: ``add_many`` columns in,
+    ``retrieve`` rows out."""
+
+    def add_many(self, columns):
+        raise NotImplementedError()
+
+    def retrieve(self, n):
+        """A dict of columns with ``n`` rows (fewer only after ``finish``)."""
+        raise NotImplementedError()
+
+    @property
+    def size(self):
+        raise NotImplementedError()
+
+    def can_retrieve(self, n):
+        raise NotImplementedError()
+
+    def finish(self):
+        """No more adds; drain whatever remains."""
+        raise NotImplementedError()
+
+
+class NoopShufflingBuffer(ShufflingBufferBase):
     """FIFO pass-through: a deque of parts and a read cursor into the head part."""
 
     def __init__(self):
@@ -94,7 +117,7 @@ class NoopShufflingBuffer(object):
         self._finished = True
 
 
-class RandomShufflingBuffer(object):
+class RandomShufflingBuffer(ShufflingBufferBase):
     """Random-order buffer with a decorrelation floor: holds up to
     ``shuffling_buffer_capacity`` rows; a retrieve must leave at least
     ``min_after_retrieve`` rows behind (until ``finish``). Each retrieve samples
@@ -120,6 +143,11 @@ class RandomShufflingBuffer(object):
         self._parts.append(columns)
         self._alive.append(np.arange(n))
         self._size += n
+
+    def can_add(self):
+        """True while the buffer holds fewer rows than its capacity and is
+        not finished."""
+        return self._size < self._capacity and not self._finished
 
     def retrieve(self, n):
         """A dict of columns with ``n`` rows (fewer only after ``finish``)."""

@@ -393,7 +393,7 @@ def make_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type='threa
                   metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune,
                   cost_schedule=cost_schedule, storage_policy=storage_policy,
                   lineage=lineage, incidents=incidents, history=history,
-                  dataset_url=dataset_url_or_urls, storage_options=storage_options,
+                  dataset_url_or_urls=dataset_url_or_urls, storage_options=storage_options,
                   filesystem=filesystem, topology=topology)
 
 
@@ -482,29 +482,43 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   predicate=predicate, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, shard_seed=shard_seed, cache=cache,
                   transform_spec=transform_spec,
-                  resume_state=resume_state, is_batched_reader=True,
+                  resume_state=resume_state, is_batched_reader=True, decode=False,
                   device_decode_fields=device_decode_fields, on_error=on_error,
                   retry_policy=retry_policy, initial_io_retries=retries[0],
                   metrics_port=metrics_port, slo_policy=slo_policy, autotune=autotune,
                   cost_schedule=cost_schedule, storage_policy=storage_policy,
                   lineage=lineage, incidents=incidents, history=history,
-                  dataset_url=dataset_url_or_urls, storage_options=storage_options,
+                  dataset_url_or_urls=dataset_url_or_urls, storage_options=storage_options,
                   filesystem=filesystem, topology=topology)
 
 
 class Reader(object):
     """Schedules work items through a worker pool, iterates the results and
-    accounts for every item consumed."""
+    accounts for every item consumed. Without ``handle`` it opens the store
+    at ``dataset_url_or_urls``, and without ``schema`` it takes the one the
+    store's Arrow schema gives, as the JAX ``Reader`` does; ``decode=False``
+    (``make_batch_reader``'s) emits stored values without codec decode."""
 
-    def __init__(self, handle, schema, reader_pool, schema_fields=None, seed=None,
+    def __init__(self, handle=None, schema=None, reader_pool=None, schema_fields=None, seed=None,
                  shuffle_rows=False, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=None, transform_spec=None, resume_state=None,
                  is_batched_reader=False, device_decode_fields=None, on_error='raise',
                  retry_policy=None, initial_io_retries=0, metrics_port=None,
                  slo_policy=None, autotune=None, cost_schedule=None, storage_policy=None,
-                 lineage=None, incidents=None, history=None, dataset_url=None,
-                 shard_seed=None, storage_options=None, filesystem=None, topology=None):
+                 lineage=None, incidents=None, history=None, dataset_url_or_urls=None,
+                 shard_seed=None, storage_options=None, filesystem=None, topology=None,
+                 decode=True):
+        if reader_pool is None:
+            raise ValueError('Reader needs a reader_pool (make_reader builds one)')
+        if handle is None:
+            if dataset_url_or_urls is None:
+                raise ValueError('Reader needs a handle or dataset_url_or_urls')
+            handle = dataset_metadata.open_dataset(dataset_url_or_urls,
+                                                   storage_options=storage_options,
+                                                   filesystem=filesystem)
+        if schema is None:
+            schema = Unischema.from_arrow_schema(handle.arrow_dataset.schema)
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -566,13 +580,14 @@ class Reader(object):
         from petastorm_tpu_torch.telemetry.lineage import resolve_lineage_policy
         # a reader built from a handle alone ships the handle's filesystem
         ship_filesystem = filesystem if filesystem is not None else (
-            handle.filesystem if dataset_url is None else None)
-        if dataset_url is None:
-            dataset_url = handle.path_or_paths
+            handle.filesystem if dataset_url_or_urls is None else None)
+        if dataset_url_or_urls is None:
+            dataset_url_or_urls = handle.path_or_paths
         #: the store's URL (the first one of a list): the sidecars' home
-        self._state_url = str(dataset_url[0] if isinstance(dataset_url, (list, tuple))
-                              else dataset_url)
-        self._storage_policy = resolve_storage_policy(storage_policy, dataset_url)
+        self._state_url = str(dataset_url_or_urls[0]
+                              if isinstance(dataset_url_or_urls, (list, tuple))
+                              else dataset_url_or_urls)
+        self._storage_policy = resolve_storage_policy(storage_policy, dataset_url_or_urls)
         self._lineage_policy = resolve_lineage_policy(lineage)
         self._lineage = None
         self._incident_policy = resolve_incident_policy(incidents)
@@ -641,6 +656,7 @@ class Reader(object):
                                                          retry_policy=retry_policy)
         setup = WorkerSetup(filesystem_factory, schema, fields_to_read,
                             transform_spec=transform_spec, batched_output=is_batched_reader,
+                            decode=decode,
                             shuffle_rows=shuffle_rows, seed=seed,
                             partition_field_names=partition_names,
                             device_decode_fields=self.device_decode_fields, ngram=ngram,
@@ -1312,6 +1328,13 @@ class Reader(object):
 
     # --------------------------------------------------------------- telemetry
 
+    @property
+    def telemetry(self):
+        """The reader's own :class:`~petastorm_tpu_torch.telemetry.MetricsRegistry`
+        (the workers' sidecar stage times merge here); :meth:`telemetry_snapshot`
+        adds the pool's."""
+        return self._telemetry
+
     def telemetry_snapshot(self):
         """One JSON-safe telemetry snapshot covering every process: the
         reader's registry (with the workers' stage times) merged with the
@@ -1645,6 +1668,10 @@ class Reader(object):
 
     def join(self):
         self._pool.join()
+
+    def cleanup(self):
+        """petastorm's reader API: nothing to release beyond :meth:`stop` and
+        :meth:`join`."""
 
     def __enter__(self):
         return self

@@ -102,11 +102,10 @@ class WorkerSetup(object):
     """Per-reader configuration shared by every worker. ``filesystem_factory``
     is a picklable zero-argument callable that builds the store's filesystem
     in each worker (:class:`~petastorm_tpu_torch.fs_utils.FilesystemFactory`).
-    ``batched_output``
-    marks the batch reader: it emits stored values without codec decode, and
-    its transform ``func`` takes a ``DataFrame`` unless the spec is
-    ``batched``. ``dataset_token`` is the cache key's identity of the store
-    and the read configuration. ``retry_policy`` is the one
+    ``batched_output`` marks the batch reader: its transform ``func`` takes a
+    ``DataFrame`` unless the spec is ``batched``; ``decode=False`` (the batch
+    reader's) emits stored values without codec decode. ``dataset_token`` is
+    the cache key's identity of the store and the read configuration. ``retry_policy`` is the one
     :func:`~petastorm_tpu_torch.resilience.resolve_retry_policy` gives for
     ``on_error``. ``lineage_fingerprint_every`` samples the content
     fingerprint of pieces with ``piece_index % N == 0`` (0: off);
@@ -115,7 +114,7 @@ class WorkerSetup(object):
     ``fragment.to_table()`` path)."""
 
     __slots__ = ('filesystem_factory', 'schema', 'fields_to_read', 'result_schema',
-                 'transform_spec', 'batched_output', 'shuffle_rows', 'seed',
+                 'transform_spec', 'batched_output', 'decode', 'shuffle_rows', 'seed',
                  'partition_field_names', 'device_decode_fields', 'ngram', 'cache',
                  'dataset_token', '_predicate', '_predicate_key', 'on_error',
                  'retry_policy', 'lineage_fingerprint_every', 'storage_policy')
@@ -125,7 +124,7 @@ class WorkerSetup(object):
                  partition_field_names=(), device_decode_fields=(), ngram=None,
                  cache=None, dataset_path_or_paths=None, predicate=None,
                  on_error='raise', retry_policy=None, lineage_fingerprint_every=0,
-                 storage_policy=None):
+                 storage_policy=None, decode=True):
         from petastorm_tpu_torch.resilience import resolve_retry_policy
         self.lineage_fingerprint_every = int(lineage_fingerprint_every)
         self.storage_policy = storage_policy
@@ -136,6 +135,7 @@ class WorkerSetup(object):
         self.fields_to_read = list(fields_to_read)
         self.transform_spec = transform_spec
         self.batched_output = batched_output
+        self.decode = decode
         self.shuffle_rows = shuffle_rows
         self.seed = seed
         self.partition_field_names = set(partition_field_names)
@@ -152,7 +152,7 @@ class WorkerSetup(object):
              str(field.codec.to_config()) if field.codec is not None else 'none')
             for name, field in schema.fields.items() if name in self.fields_to_read]
         token = derive_dataset_token(dataset_path_or_paths, self.fields_to_read,
-                                     not batched_output, transform_spec is not None,
+                                     decode, transform_spec is not None,
                                      field_specs, self.device_decode_fields)
         if ngram is not None:
             # an NGram entry holds the window starts this NGram formed
@@ -277,7 +277,7 @@ class RowGroupWorker(WorkerBase):
                 payload = process_ngram_piece(self, piece_index, fragment_path,
                                               row_group_id, partition_keys,
                                               shuffle_row_drop_partition, epoch_index,
-                                              with_retry)
+                                              with_retry, worker_predicate=worker_predicate)
             else:
                 payload = self._process_rows(item_id, fragment_path, row_group_id,
                                              partition_keys, worker_predicate,
@@ -438,7 +438,10 @@ class RowGroupWorker(WorkerBase):
                         worker_predicate, all_fields):
         """Read the predicate's columns, evaluate it, then read only the other
         columns (each storage column is read once); returns the full table and
-        the indices of the rows kept. The predicate evaluates on its decoded
+        the indices of the rows kept. A predicate that
+        :func:`~petastorm_tpu_torch.decode_engine.compile_predicate` lowers
+        evaluates on the pre-decode Arrow table (``pyarrow.compute.is_in`` for
+        exact-match sets, no decode); any other evaluates on its decoded
         columns (:func:`~petastorm_tpu_torch.decode_engine.evaluate_predicate_mask`)."""
         setup = self._setup
         predicate_fields = sorted(worker_predicate.get_fields())
@@ -451,12 +454,20 @@ class RowGroupWorker(WorkerBase):
                     if source is None else None)
         predicate_table = self._read_columns(source, fragment,
                                              self._storage_columns(predicate_fields))
-        # a predicate reads decoded values, even of fields that ship raw
-        predicate_columns = self._decode_table(predicate_table, partition_keys,
-                                               predicate_fields, fragment_path=fragment_path,
-                                               ship_raw=False)
-        mask = self._evaluate_predicate(worker_predicate, predicate_columns,
-                                        predicate_table.num_rows)
+        compiled = decode_engine.compile_predicate(
+            worker_predicate, setup.schema,
+            partition_field_names=setup.partition_field_names, decode=setup.decode)
+        if compiled is not None:
+            with stage_span('decode'):
+                mask = compiled.evaluate(predicate_table)
+        else:
+            # a predicate reads decoded values, even of fields that ship raw
+            predicate_columns = self._decode_table(predicate_table, partition_keys,
+                                                   predicate_fields,
+                                                   fragment_path=fragment_path,
+                                                   ship_raw=False)
+            mask = self._evaluate_predicate(worker_predicate, predicate_columns,
+                                            predicate_table.num_rows)
         keep = np.nonzero(mask)[0]
         all_storage = self._storage_columns(all_fields)
         if not len(keep):
@@ -503,7 +514,7 @@ class RowGroupWorker(WorkerBase):
             plan = decode_engine.compile_decode_plan(
                 setup.schema, list(field_names),
                 partition_field_names=setup.partition_field_names,
-                decode=not setup.batched_output, device_decode_fields=device_fields)
+                decode=setup.decode, device_decode_fields=device_fields)
             self._decode_plans[key] = plan
         with stage_span('decode'):
             return plan.execute(table, partition_keys or {}, fragment_path=fragment_path)

@@ -446,15 +446,18 @@ class BreakerBoard:
 
     def breaker(self, name: str, failure_threshold: int = 5,
                 recovery_timeout_s: float = 30.0,
-                clock: Callable[[], float] = time.monotonic) -> CircuitBreaker:
-        """Get or create the breaker ``name`` (the settings apply on creation);
-        a new breaker gets the board's observers."""
+                clock: Callable[[], float] = time.monotonic,
+                on_transition: Optional[OnBreakerTransition] = None) -> CircuitBreaker:
+        """Get or create the breaker ``name`` (the settings and
+        ``on_transition`` apply on creation); a new breaker gets the board's
+        observers."""
         with self._lock:
             brk = self._breakers.get(name)
             observers = []
             if brk is None:
                 brk = CircuitBreaker(name, failure_threshold=failure_threshold,
-                                     recovery_timeout_s=recovery_timeout_s, clock=clock)
+                                     recovery_timeout_s=recovery_timeout_s, clock=clock,
+                                     on_transition=on_transition)
                 self._breakers[name] = brk
                 observers = list(self._observers)
         for callback in observers:
@@ -478,6 +481,11 @@ class BreakerBoard:
             breakers = dict(self._breakers)
         return {name: brk.as_dict() for name, brk in breakers.items()
                 if not only_tripped or brk.tripped}
+
+    def reset(self) -> None:
+        """Drop every registered breaker (the board's observers stay)."""
+        with self._lock:
+            self._breakers.clear()
 
 
 _default_board = BreakerBoard()

@@ -45,15 +45,18 @@ def sanitize_metric_name(name: str) -> str:
 
 
 def _metric_name(name: str, prefix: str = METRIC_PREFIX) -> str:
-    return sanitize_metric_name('{}_{}'.format(prefix, name))
+    return sanitize_metric_name('{}_{}'.format(prefix, name) if prefix else name)
 
 
-def _series_labels(name: str) -> Dict[str, str]:
-    """The label set every series of this metric carries: a ``raw_name``
-    label whenever the metric id itself is not already a legal Prometheus
-    name (``.``/``-``/spaces, a leading digit) — the original id must stay
-    queryable after sanitization."""
-    return {'raw_name': name} if sanitize_metric_name(name) != name else {}
+def _series_labels(name: str, labels: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+    """The label set every series of this metric carries: the caller's
+    ``labels`` plus a ``raw_name`` label whenever the metric id itself is
+    not already a legal Prometheus name (``.``/``-``/spaces, a leading
+    digit) — the original id must stay queryable after sanitization."""
+    out = dict(labels or {})
+    if sanitize_metric_name(name) != name:
+        out['raw_name'] = name
+    return out
 
 
 def _format_labels(labels: Dict[str, str]) -> str:
@@ -125,7 +128,8 @@ def _render_histogram_series(lines: List[str], metric: str,
                                         int(hist.get('count', 0))))
 
 
-def to_prometheus_text(snapshot: Dict[str, Any]) -> str:
+def to_prometheus_text(snapshot: Dict[str, Any], prefix: str = METRIC_PREFIX,
+                       labels: Optional[Dict[str, str]] = None) -> str:
     """Render a registry snapshot in the Prometheus text exposition format.
 
     Every metric emits a ``# HELP``/``# TYPE`` pair. Histograms emit the
@@ -139,25 +143,26 @@ def to_prometheus_text(snapshot: Dict[str, Any]) -> str:
     HELP text are escaped per the exposition format (backslash, quote,
     newline — :func:`escape_label_value`), so a pathological stage name
     degrades to an ugly series, never to an exposition the scraper rejects.
-    Every name starts with :data:`METRIC_PREFIX`."""
+    Every name starts with ``prefix`` (:data:`METRIC_PREFIX`; an empty one
+    leaves the ids bare), and ``labels`` is stamped onto every series."""
     lines: List[str] = []
     for name, value in sorted((snapshot.get('counters') or {}).items()):
-        metric = _metric_name(name)
-        series = _format_labels(_series_labels(name))
+        metric = _metric_name(name, prefix)
+        series = _format_labels(_series_labels(name, labels))
         lines.append(_help_line(metric, 'counter', name))
         lines.append('# TYPE {} counter'.format(metric))
         lines.append('{}{} {}'.format(metric, series, _format_value(value)))
     for name, value in sorted((snapshot.get('gauges') or {}).items()):
-        metric = _metric_name(name)
-        series = _format_labels(_series_labels(name))
+        metric = _metric_name(name, prefix)
+        series = _format_labels(_series_labels(name, labels))
         lines.append(_help_line(metric, 'gauge', name))
         lines.append('# TYPE {} gauge'.format(metric))
         lines.append('{}{} {}'.format(metric, series, _format_value(value)))
     for name, hist in sorted((snapshot.get('histograms') or {}).items()):
-        metric = _metric_name(name)
+        metric = _metric_name(name, prefix)
         lines.append(_help_line(metric, 'histogram', name))
         lines.append('# TYPE {} histogram'.format(metric))
-        _render_histogram_series(lines, metric, hist, _series_labels(name))
+        _render_histogram_series(lines, metric, hist, _series_labels(name, labels))
     return '\n'.join(lines) + '\n'
 
 
@@ -186,7 +191,7 @@ def to_prometheus_text_labeled(snapshots: Dict[str, Dict[str, Any]],
             lines.append(_help_line(metric, kind, name))
             lines.append('# TYPE {} {}'.format(metric, kind))
             for key in members[section][name]:
-                series = dict(_series_labels(name), **{label: key})
+                series = _series_labels(name, {label: key})
                 value = snapshots[key][section][name]
                 if section == 'histograms':
                     _render_histogram_series(lines, metric, value, series)

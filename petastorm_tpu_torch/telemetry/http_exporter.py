@@ -104,7 +104,7 @@ class MetricsHttpServer(object):
     (evaluated fresh per request — attach the SLO-refresh side effects
     there). ``labeled_fn`` (optional) returns ``{label_value: snapshot}``
     rendered as a per-``label`` exposition block under
-    ``petastorm_tpu_<label>`` (e.g. ``petastorm_tpu_worker_decode_*`` series
+    ``prefix + '_' + label`` (e.g. ``petastorm_tpu_worker_decode_*`` series
     carrying ``{worker="3"}``) — aggregate and per-member series use
     DISTINCT metric namespaces so PromQL ``sum()`` over the labeled family
     never double-counts the aggregate. ``extra_text_fn`` appends
@@ -116,8 +116,10 @@ class MetricsHttpServer(object):
                  health_fn: Optional[SnapshotFn] = None,
                  labeled_fn: Optional[LabeledFn] = None,
                  label: str = 'worker',
-                 extra_text_fn: Optional[TextFn] = None) -> None:
+                 extra_text_fn: Optional[TextFn] = None,
+                 prefix: str = METRIC_PREFIX) -> None:
         self._snapshot_fn = snapshot_fn
+        self._prefix = prefix
         self._labeled_fn = labeled_fn
         self._label = label
         self._extra_text_fn = extra_text_fn
@@ -174,13 +176,13 @@ class MetricsHttpServer(object):
     def render_metrics(self) -> str:
         """The full ``/metrics`` body: aggregate exposition + optional
         per-label block + optional extra pre-rendered text."""
-        text = to_prometheus_text(self._snapshot_fn())
+        text = to_prometheus_text(self._snapshot_fn(), prefix=self._prefix)
         if self._labeled_fn is not None:
             labeled = self._labeled_fn()
             if labeled:
                 text += to_prometheus_text_labeled(
                     labeled, self._label,
-                    prefix='{}_{}'.format(METRIC_PREFIX, self._label))
+                    prefix='{}_{}'.format(self._prefix, self._label))
         if self._extra_text_fn is not None:
             text += self._extra_text_fn()
         return text
@@ -209,7 +211,7 @@ class MetricsHttpServer(object):
         self.stop()
 
 
-def service_state_text(state: Dict[str, Any]) -> str:
+def service_state_text(state: Dict[str, Any], prefix: str = METRIC_PREFIX) -> str:
     """Render a dispatcher ``state`` snapshot as per-client / per-worker
     labeled gauge series: queue depth, in-flight and served counts per
     ``{client="<name>"}``, assigned items and heartbeat age per
@@ -219,7 +221,7 @@ def service_state_text(state: Dict[str, Any]) -> str:
     lines = []
 
     def gauge(metric: str, label: str, key: str, value: float) -> None:
-        name = '{}_{}'.format(METRIC_PREFIX, metric)
+        name = '{}_{}'.format(prefix, metric)
         if not any(line.startswith('# TYPE {} '.format(name))
                    for line in lines):
             lines.append('# HELP {} petastorm_tpu service state gauge '

@@ -153,7 +153,8 @@ class SloTracker(object):
 
     def __init__(self, policy: Optional[SloPolicy] = None,
                  jsonl: Optional[JsonlEventLogger] = None,
-                 on_breach: Optional[Callable[[Dict[str, Any]], None]] = None) -> None:
+                 on_breach: Optional[Callable[[Dict[str, Any]], None]] = None,
+                 history_size: int = HISTORY_SIZE) -> None:
         self.policy = policy if policy is not None else SloPolicy()
         self._jsonl = jsonl
         self._on_breach = on_breach
@@ -162,7 +163,7 @@ class SloTracker(object):
         self._evaluations = 0
         self._in_breach = False
         self._history: Deque[Dict[str, Any]] = collections.deque(
-            maxlen=self.HISTORY_SIZE)
+            maxlen=max(int(history_size), 1))
 
     def observe_breaches(self, callback: Callable[[Dict[str, Any]], None]) -> None:
         """Attach (or replace) the ok→breach edge observer: called once a
@@ -178,7 +179,7 @@ class SloTracker(object):
 
     def history(self) -> list:
         """The trailing evaluated points (oldest first, bounded by
-        ``HISTORY_SIZE``): ``{'elapsed_s', 'efficiency',
+        ``history_size``): ``{'elapsed_s', 'efficiency',
         'goodput_rows_per_sec', 'wait_seconds', 'breached'}`` each. Also carried on every
         :meth:`evaluate` report as ``report['history']`` and in the
         ``/vars`` document as ``slo_history``."""

@@ -198,6 +198,11 @@ class Unischema(object):
         """A row namedtuple of this schema's fields from keyword arguments."""
         return self.namedtuple(**{k: kwargs[k] for k in self._fields})
 
+    def make_namedtuple_from_dict(self, row_dict):
+        """:meth:`make_namedtuple` from a row dict (keys beyond the schema's
+        fields are ignored)."""
+        return self.namedtuple(**{k: row_dict[k] for k in self._fields})
+
     def as_arrow_schema(self):
         """Arrow schema of the *encoded* (storage) representation."""
         return pa.schema([pa.field(f.name, f.arrow_type(), nullable=bool(f.nullable))
@@ -310,6 +315,19 @@ def _default_encode(field, value):
     if isinstance(value, np.generic):
         return value.item()
     return value
+
+
+def insert_explicit_nulls(schema, row_dict):
+    """petastorm's row helper: set ``row_dict[name] = None`` for each nullable
+    field it lacks (in place, and returned); a missing non-nullable field
+    raises ``ValueError``."""
+    for name, field in schema.fields.items():
+        if name not in row_dict:
+            if not field.nullable:
+                raise ValueError('Field {} is not found in row and is not nullable'
+                                 .format(name))
+            row_dict[name] = None
+    return row_dict
 
 
 def decode_row(row_dict, schema):

@@ -10,9 +10,10 @@ from petastorm_tpu_torch.workers import EmptyResultError, VentilatedItemProcesse
 
 class DummyPool(object):
     """Zero-parallelism pool: each ventilated item is processed synchronously
-    inside ``get_results``."""
+    inside ``get_results``. ``results_queue_size`` is accepted for the other
+    pools' signature and unused (results are produced on demand)."""
 
-    def __init__(self):
+    def __init__(self, results_queue_size=None):
         self._ventilator_queue = deque()
         self._results = deque()
         self._worker = None
@@ -31,7 +32,9 @@ class DummyPool(object):
     def ventilate(self, **kwargs):
         self._ventilator_queue.append(kwargs)
 
-    def get_results(self):
+    def get_results(self, timeout=None):
+        """Next result, processed inline; ``timeout`` is unused (nothing
+        runs in the background to wait for)."""
         while True:
             while self._results:
                 result = self._results.popleft()
@@ -58,3 +61,7 @@ class DummyPool(object):
 
     def join(self):
         pass
+
+    @property
+    def diagnostics(self):
+        return {'output_queue_size': len(self._results)}

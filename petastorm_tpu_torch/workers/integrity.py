@@ -17,6 +17,10 @@ files, so a test of the CRC path is exact whatever the interleaving.
 
 import os
 import zlib
+from typing import Union
+
+#: one frame of a payload
+Frame = Union[bytes, bytearray, memoryview]
 
 #: environment variable of the test-only corruption hook: ``<state_dir>:<times>``
 TEST_SHM_CORRUPT_ENV = 'PETASTORM_TPU_TORCH_TEST_SHM_CORRUPT'

@@ -14,10 +14,23 @@ the pool needs: its shm slots are reused once a result is read).
 
 import json
 import pickle
+from typing import Any
 
 import numpy as np
 
+#: a wire frame: bytes, a memoryview or a ``pa.Buffer``
+Frame = Any
+
 _META_KEY = b'petastorm_tpu.columnar.v1'
+
+#: the most distinct names ``stats['sidecar_column_names']`` keeps
+_SIDECAR_NAMES_CAP = 64
+
+
+def new_wire_stats():
+    """Fresh receive-side counters for :func:`decode_columnar`'s ``stats``."""
+    return {'batches': 0, 'bytes_copied': 0, 'bytes_zero_copy': 0,
+            'sidecar_columns': 0, 'sidecar_column_names': []}
 
 
 def columns_num_rows(columns):
@@ -64,27 +77,32 @@ def encode_columnar(columns, num_rows, meta_extra=None):
     return sink.getvalue(), pickle.dumps(sidecar_cols, protocol=5)
 
 
-def decode_columnar(ipc_buffer, sidecar, writable=True):
-    """The :func:`encode_columnar` pair back to ``{name: column}``.
-    ``ipc_buffer`` is a ``pa.Buffer`` (e.g. a slice of a memory map). With
-    ``writable=False`` numeric columns are READ-ONLY views of its memory,
-    which they keep alive."""
-    return decode_columnar_with_meta(ipc_buffer, sidecar, writable)[0]
-
-
-def decode_columnar_with_meta(ipc_buffer, sidecar, writable=True, stats=None):
-    """:func:`decode_columnar` returning ``(columns, meta)``, ``meta`` being the
-    schema metadata with the ``meta_extra`` keys. ``ipc_buffer`` may also be
-    bytes or a memoryview. ``stats['bytes_copied']`` counts the bytes copied
-    into writable columns."""
+def decode_columnar(ipc_frame, sidecar_frame, writable=True, stats=None):
+    """The :func:`encode_columnar` pair back to ``(columns, meta)``, ``meta``
+    being the schema metadata with the ``meta_extra`` keys. ``ipc_frame`` is
+    a ``pa.Buffer`` (a slice of a memory map, say), bytes or a memoryview.
+    With ``writable=False`` numeric columns are READ-ONLY views of its memory,
+    which they keep alive. ``stats`` (a :func:`new_wire_stats` dict) is
+    updated in place: ``batches``, ``bytes_copied`` (the sidecar and the
+    columns copied to be writable), ``bytes_zero_copy`` (columns served as
+    views), ``sidecar_columns`` and the first 64 ``sidecar_column_names``."""
     import pyarrow as pa
 
-    if not isinstance(ipc_buffer, pa.Buffer):
-        ipc_buffer = pa.py_buffer(ipc_buffer)
-    with pa.ipc.open_stream(ipc_buffer) as reader:
+    if not isinstance(ipc_frame, pa.Buffer):
+        ipc_frame = pa.py_buffer(ipc_frame)
+    with pa.ipc.open_stream(ipc_frame) as reader:
         batch = reader.read_next_batch()
         meta = json.loads(batch.schema.metadata[_META_KEY].decode('utf-8'))
-    columns = pickle.loads(memoryview(sidecar))
+    sidecar = memoryview(sidecar_frame)
+    columns = pickle.loads(sidecar)
+    if stats is not None:
+        stats['batches'] += 1
+        stats['bytes_copied'] += sidecar.nbytes
+        stats['sidecar_columns'] += len(columns)
+        names = stats['sidecar_column_names']
+        for name in columns:
+            if name not in names and len(names) < _SIDECAR_NAMES_CAP:
+                names.append(name)
     for i, field in enumerate(batch.schema):
         col = batch.column(i)
         spec = meta['columns'][field.name]
@@ -99,6 +117,8 @@ def decode_columnar_with_meta(ipc_buffer, sidecar, writable=True, stats=None):
             values = values.copy()
             if stats is not None:
                 stats['bytes_copied'] += values.nbytes
+        elif stats is not None:
+            stats['bytes_zero_copy'] += values.nbytes
         columns[field.name] = values
     return columns, meta
 
@@ -133,11 +153,20 @@ class ArrowIpcSerializer(object):
     the ``telemetry``, ``trace`` and ``lineage`` sidecars in the metadata); anything else, an
     :class:`~petastorm_tpu_torch.ngram_worker.NGramWindows` for one, as one
     pickle. Receiving copies every column into ordinary writable arrays, so no
-    array outlives the slot or frame it was read from."""
+    array outlives the slot or frame it was read from; ``writable=False``
+    leaves the numeric columns READ-ONLY views of the incoming frame, which
+    only a transport that keeps the frame alive may use (not the shm ring,
+    whose slots are reused once a result is read)."""
 
-    def __init__(self):
-        #: receive-side counts: payloads, and bytes copied into new memory
-        self.stats = {'batches': 0, 'bytes_copied': 0}
+    def __init__(self, writable=True):
+        self._writable = writable
+        #: receive-side counts (:func:`new_wire_stats`)
+        self.stats = new_wire_stats()
+
+    @property
+    def writable(self):
+        """True when receiving copies columns into ordinary writable arrays."""
+        return self._writable
 
     def serialize(self, obj):
         from petastorm_tpu_torch.reader_worker import ColumnarBatch
@@ -158,15 +187,14 @@ class ArrowIpcSerializer(object):
         return [_MARKER_ARROW, ipc_buf, sidecar]
 
     def deserialize(self, frames):
-        self.stats['batches'] += 1
         if bytes(frames[0]) == _MARKER_PICKLE:
+            self.stats['batches'] += 1
             self.stats['bytes_copied'] += memoryview(frames[1]).nbytes
             return pickle.loads(frames[1])
         from petastorm_tpu_torch.reader_worker import ColumnarBatch
         from petastorm_tpu_torch.resilience import QuarantineRecord
-        self.stats['bytes_copied'] += memoryview(frames[2]).nbytes
-        columns, meta = decode_columnar_with_meta(frames[1], frames[2], writable=True,
-                                                  stats=self.stats)
+        columns, meta = decode_columnar(frames[1], frames[2], writable=self._writable,
+                                        stats=self.stats)
         item_id = meta['item_id']
         quarantine = meta['quarantine']
         return ColumnarBatch(columns, meta['num_rows'],

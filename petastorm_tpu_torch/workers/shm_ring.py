@@ -166,15 +166,17 @@ class ShmRing(object):
 
 class ShmRingWriter(object):
     """A worker's attachment: writes frames into its own slots and tracks which
-    of them await a release."""
+    of them await a release. ``checksum=False`` skips the CRC: descriptors
+    carry ``crc=None`` and the pool does not verify them."""
 
     def __init__(self, name, worker_slot, generation, slots_per_worker, slot_bytes,
-                 data_offset=0):
+                 data_offset=0, checksum=True):
         from multiprocessing import shared_memory
         self.worker_slot = worker_slot
         self.generation = generation
         self.slot_bytes = slot_bytes
         self._data_offset = data_offset
+        self.checksum = checksum
         self._first_slot = worker_slot * slots_per_worker
         self._slots_per_worker = slots_per_worker
         self._free = list(range(self._first_slot, self._first_slot + slots_per_worker))
@@ -212,11 +214,12 @@ class ShmRingWriter(object):
         base = self._data_offset + ring_slot * self.slot_bytes
         offset = base
         lengths = []
-        crc = 0
+        crc = 0 if self.checksum else None
         for frame in frames:
             view = memoryview(frame).cast('B')
             self._shm.buf[offset:offset + view.nbytes] = view
-            crc = zlib.crc32(view, crc) & 0xFFFFFFFF
+            if crc is not None:
+                crc = zlib.crc32(view, crc) & 0xFFFFFFFF
             offset += view.nbytes
             lengths.append(view.nbytes)
         corrupt_for_test(self._shm.buf, base, offset - base)
@@ -230,6 +233,10 @@ class ShmRingWriter(object):
             return
         if ring_slot not in self._free:
             self._free.append(ring_slot)
+
+    def slot_range(self):
+        """``(first_slot, slots_per_worker)`` of this writer's slots."""
+        return self._first_slot, self._slots_per_worker
 
     def close(self):
         """Unmap the segment (the pool unlinks it)."""

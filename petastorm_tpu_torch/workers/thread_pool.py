@@ -16,7 +16,8 @@ import time
 import traceback
 
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry, telemetry_enabled
-from petastorm_tpu_torch.workers import EmptyResultError, VentilatedItemProcessedMessage
+from petastorm_tpu_torch.workers import (EmptyResultError, TimeoutWaitingForResultError,
+                                         VentilatedItemProcessedMessage)
 
 logger = logging.getLogger(__name__)
 
@@ -78,13 +79,15 @@ class WorkerThread(threading.Thread):
 class ThreadPool(object):
     """N worker threads, each owning a worker instance; the bounded results
     queue gives backpressure. :meth:`set_workers_count` grows the pool to at
-    most ``4 * workers_count``. ``profiling_enabled`` wraps the workers' items
-    in cProfile and logs the aggregate at :meth:`join`."""
+    most ``max_workers_count`` (default ``4 * workers_count``).
+    ``profiling_enabled`` wraps the workers' items in cProfile and logs the
+    aggregate at :meth:`join`."""
 
     def __init__(self, workers_count, results_queue_size=DEFAULT_RESULTS_QUEUE_SIZE,
-                 profiling_enabled=False):
+                 profiling_enabled=False, max_workers_count=None):
         self.workers_count = workers_count
-        self._max_workers_count = 4 * workers_count
+        self._max_workers_count = max(int(max_workers_count or 4 * workers_count),
+                                      workers_count)
         self._results_queue = queue.Queue(results_queue_size)
         self._ventilator_queue = queue.Queue()
         self._threads = []
@@ -146,8 +149,11 @@ class ThreadPool(object):
             self._resize_cond.notify_all()
         return value
 
-    def ventilate(self, **kwargs):
-        """Enqueue one work item (the worker's ``process`` keyword arguments)."""
+    def ventilate(self, *args, **kwargs):
+        """Enqueue one work item (the worker's ``process`` keyword arguments;
+        positional ones raise ``TypeError``)."""
+        if args:
+            raise TypeError('ventilate accepts keyword arguments only')
         self._ventilator_queue.put(kwargs)
 
     def _put_result(self, result):
@@ -160,11 +166,13 @@ class ThreadPool(object):
             except queue.Full:
                 continue
 
-    def get_results(self):
+    def get_results(self, timeout=None):
         """Next result payload; raises EmptyResultError once all ventilated work
         finished and the queue drained, or once the pool was stopped with the
         queue empty (a stopped ventilator never completes, and a consumer
-        waiting here must still return); re-raises worker exceptions."""
+        waiting here must still return); TimeoutWaitingForResultError when
+        ``timeout`` seconds pass without one; re-raises worker exceptions."""
+        deadline = None if timeout is None else time.monotonic() + timeout
         wait_start = time.perf_counter()
         while True:
             try:
@@ -177,6 +185,8 @@ class ThreadPool(object):
                     raise self._ventilator.error
                 if self._ventilator is not None and self._ventilator.completed():
                     raise EmptyResultError()
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutWaitingForResultError()
                 try:
                     result = self._results_queue.get(timeout=0.1)
                 except queue.Empty:
@@ -217,6 +227,10 @@ class ThreadPool(object):
                 logger.warning('Worker thread(s) %s still alive after the join timeout; '
                                'their profiles are left out', stragglers)
             self._log_profile()
+
+    @property
+    def diagnostics(self):
+        return {'output_queue_size': self._results_queue.qsize()}
 
     def _collect_profile(self, profiler):
         with self._profiles_lock:

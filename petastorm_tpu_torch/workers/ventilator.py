@@ -9,7 +9,28 @@ import threading
 import numpy as np
 
 
-class ConcurrentVentilator(object):
+class Ventilator(object):
+    """The ventilator interface a pool drives: ``start``, ``processed_item``
+    (the consumer finished one item: backpressure accounting), ``completed``
+    (no item will ever be ventilated again) and ``stop``."""
+
+    def __init__(self, ventilate_fn):
+        self._ventilate_fn = ventilate_fn
+
+    def start(self):
+        raise NotImplementedError()
+
+    def processed_item(self):
+        raise NotImplementedError()
+
+    def completed(self):
+        raise NotImplementedError()
+
+    def stop(self):
+        raise NotImplementedError()
+
+
+class ConcurrentVentilator(Ventilator):
     """Feeds ``items_to_ventilate`` (list of kwargs dicts) from a daemon thread,
     keeping at most ``max_ventilation_queue_size`` items in flight, for
     ``iterations`` epochs (None = forever), shuffling the item order each epoch
@@ -36,7 +57,7 @@ class ConcurrentVentilator(object):
         if iterations is not None and (not isinstance(iterations, int) or iterations < 1):
             raise ValueError('iterations must be a positive integer or None, got {!r}'
                              .format(iterations))
-        self._ventilate_fn = ventilate_fn
+        super().__init__(ventilate_fn)
         self._items_to_ventilate = list(items_to_ventilate)
         self._iterations = iterations
         self._iterations_remaining = iterations
