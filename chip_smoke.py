@@ -71,7 +71,7 @@ version on the card, then drives the port's two paths at full width:
   ``MoETransformerLM`` (embed 512, 4 heads, 2 layers, 8 experts in every
   layer, top-1 Switch routing at capacity factor 1.25, bfloat16, weights from
   ``--seed``) with dense causal attention, Adam, one warm-up and 8 timed
-  steps and a profiled one; switch_routing on the card and on the CPU must
+  steps and a profiled one; global_routing on the card and on the CPU must
   agree bit for bit on the first batch's router probabilities, and the first
   layer's MoE output in float32 must match a per-token loop reference (14a);
   the same model, weights and batches with the causal flash kernels, whose
@@ -79,9 +79,17 @@ version on the card, then drives the port's two paths at full width:
   batch must be within 1e-3 of 14a's loss with under 1% of tokens rerouted
   (14b); then a one-rank NCCL process group: ``sharded_moe_ffn`` against the
   MoE layer's local path, and ``ring_attention_sharded`` (causal and
-  segmented) at [2, 8192, 4, 128] against the flash kernels (14c). One card
-  runs one rank, so no exchange happens: the ring's rotation and merge and
-  the expert all-to-all across ranks are held by the CPU tests;
+  segmented) at [2, 8192, 4, 128] against the flash kernels, and 14a's
+  model, weights and first batch on the flash kernels routed over the
+  global batch (``MoETransformerLM(batch_group=, expert_group=)`` on a
+  ``('data', 'expert')`` mesh of 1 x 1) against the same model with the
+  JAX module's dense-mask MoE layer (``switch_routing``'s ``[S, X, C]``
+  dispatch and combine einsums), forward and backward in bfloat16 and in
+  float32: the same drop fractions bit for bit, logits, aux and gradients
+  within tolerance, then 1 + 8 Adam steps of each beside 14b's and a
+  layer's peak memory in both (14c). One card runs one rank, so no exchange
+  happens: the ring's rotation and merge and the expert exchange across
+  ranks are held by the CPU tests;
 - data- and pipeline-parallel training (phase 15) on a one-rank NCCL group
   (``initialize_distributed`` on a file store of its own, destroyed after
   the phase): phase 7's token store -> ``make_reader`` sharded by the mesh's
@@ -304,6 +312,7 @@ from petastorm_tpu_torch.telemetry.history import COMPARE_EXIT_CODES, load_recor
 from petastorm_tpu_torch.telemetry.incident import (EXIT_CODES as INCIDENT_EXIT_CODES,
                                                     IncidentPolicy, scan_bundles)
 from petastorm_tpu_torch.telemetry.lineage import EXIT_SEED, LineagePolicy, load_manifest
+from petastorm_tpu_torch.telemetry.slo import SloPolicy
 from petastorm_tpu_torch.test_util.fault_injection import (FaultRule, FaultSchedule,
                                                            fault_injecting_filesystem)
 from petastorm_tpu_torch.benchmark.linkprobe import probe_link, streaming_ceiling_rows_per_sec
@@ -320,8 +329,8 @@ from petastorm_tpu_torch.codecs import CompressedNdarrayCodec, DctImageCodec, Sc
 from petastorm_tpu_torch.etl import dataset_metadata
 from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset, write_table_files
 from petastorm_tpu_torch.graft_entry import COMBO_STEPS, dryrun_multichip
-from petastorm_tpu_torch.models.moe import (MoETransformerLM, moe_aux_total, moe_drop_fractions,
-                                            switch_routing)
+from petastorm_tpu_torch.models.moe import (MoETransformerLM, collect_sown, global_routing,
+                                            moe_aux_total, moe_drop_fractions, switch_routing)
 from petastorm_tpu_torch.models.moe import _capacity as moe_capacity
 from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.transformer import next_token_loss
@@ -331,7 +340,7 @@ from petastorm_tpu_torch.ops.index_shuffle import epoch_round_keys, random_index
 from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_loss,
                                              segment_causal_attention)
 from petastorm_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
-from petastorm_tpu_torch.ops.sharded_moe import sharded_moe_ffn
+from petastorm_tpu_torch.ops.sharded_moe import gelu, sharded_moe_ffn
 from petastorm_tpu_torch.parallel import loader as loader_module
 from petastorm_tpu_torch.parallel.checkpoint import restore_across_topology
 from petastorm_tpu_torch.parallel.topology import (TopologyPolicy, compose_global_digest,
@@ -1096,24 +1105,36 @@ def device_breakdown(step, drop_notes=False):
     wall time, the card's device time summed over its kernels, split into
     each flash kernel and everything else, the number of times each flash
     kernel ran on the card (``calls``: the trace's own events, so a CUDA
-    graph replay's kernels count too), and the idle share (1 - device time /
-    wall time; the profiler's own cost makes it an upper bound). With
+    graph replay's kernels count too; a trace can lose a kernel's record,
+    as phase 7b's did, so ``launches`` holds the wrappers' own count of the
+    step's eager launches beside them, and ``trace_shortfall`` the
+    difference: negative for a CUDA graph's replays, which no wrapper
+    counts), the idle share (1 - device time /
+    wall time; the profiler's own cost makes it an upper bound), and the
+    host's side: the operator events recorded (``host_ops``, nested ones
+    included) and the six with the most self CPU time. With
     ``drop_notes`` it also returns what the exported trace says about
     dropped or lost records (``drop_notes``: each string of the trace that
     names a drop, an overflow or a loss)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = read_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+    after = read_counts()
+    launches = {name: after[name] - before[name] for name in FLASH_KERNEL_NAMES}
     device_ms = dict.fromkeys(list(FLASH_KERNEL_NAMES) + ['other'], 0.0)
     calls = dict.fromkeys(FLASH_KERNEL_NAMES, 0)
-    by_kernel = {}
+    by_kernel, by_host_op, host_ops = {}, {}, 0
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
+            host_ops += event.count
+            by_host_op[event.key[:60]] = (by_host_op.get(event.key[:60], 0.0)
+                                          + event.self_cpu_time_total / 1e3)
             continue
         group = next((name for name, key in FLASH_KERNEL_NAMES.items() if key in event.key),
                      'other')
@@ -1126,7 +1147,10 @@ def device_breakdown(step, drop_notes=False):
     top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
     result = {'wall_ms': wall_ms, 'device_ms': device_ms, 'device_busy_ms': busy_ms,
               'idle_share': 1 - busy_ms / wall_ms, 'top_kernels_ms': dict(top),
-              'calls': calls}
+              'calls': calls, 'launches': launches,
+              'trace_shortfall': {name: launches[name] - calls[name] for name in calls},
+              'host_ops': host_ops,
+              'top_host_ms': dict(sorted(by_host_op.items(), key=lambda item: -item[1])[:6])}
     if drop_notes:
         fd, path = tempfile.mkstemp(suffix='.json')
         os.close(fd)
@@ -2102,10 +2126,14 @@ def split_cache_line(result, card):
 
 
 def breakdown_line(breakdown):
-    return 'wall {:.2f} ms, device {:.2f} ms ({}), idle share {:.4f}'.format(
+    line = 'wall {:.2f} ms, device {:.2f} ms ({}), idle share {:.4f}'.format(
         breakdown['wall_ms'], breakdown['device_busy_ms'],
         ', '.join('{} {:.2f}'.format(name, ms) for name, ms in breakdown['device_ms'].items()),
         breakdown['idle_share'])
+    if any(breakdown['launches'].values()) and breakdown['calls'] != breakdown['launches']:
+        line += '; the trace counted {} of the wrappers\' {} launches'.format(
+            breakdown['calls'], breakdown['launches'])
+    return line
 
 
 def lm_line(phase, name, result, card):
@@ -2412,16 +2440,27 @@ MOE_REROUTED_LIMIT = 0.01
 #: tests/test_moe.py
 MOE_CHECK_TOKENS = 1024
 MOE_CHECK_TOL = (2e-4, 2e-5)
-#: 14c: sharded_moe_ffn against MoEMlp's local path, float32, relative to max|ref|
+#: 14c: sharded_moe_ffn against MoEMlp's local path, float32, relative to
+#: max|ref|; also the routed LM's logits and aux, and its float32 gradients
 EXCHANGE_RTOL = 1e-5
+#: 14c: the routed LM's bfloat16 gradients against the dense-mask layer's,
+#: relative to each one's largest magnitude. Both compute the same forward
+#: (a slot holds one token exactly, a combine is one product), but the
+#: gate's gradient is a float32 dot over the embedding in another order, and
+#: a 1-ulp difference there can flip a bfloat16 rounding in the token
+#: gradients (one bfloat16 ulp is up to 2^-7 of the largest magnitude). The
+#: largest share measured on an H100 was 0.004808 (pos_embed); the limit is
+#: about 3.25 times that.
+ROUTED_BF16_GRAD_SHARE = 2.0 ** -6
 #: 14c's ring: [B, T, H, D] of bench.py's flash section at the LM path's batch
 RING_SHAPE = (LM_BATCH, LM['max_len'], LM['heads'], LM['embed'] // LM['heads'])
 
 
-def moe_model(seed, attention_fn=None):
-    """The phase's MoETransformerLM, bf16, its weights drawn from ``seed``."""
-    return MoETransformerLM(dtype=torch.bfloat16, attention_fn=attention_fn,
-                            generator=torch.Generator().manual_seed(seed), **MOE)
+def moe_model(seed, attention_fn=None, dtype=torch.bfloat16, **groups):
+    """The phase's MoETransformerLM, bf16 unless ``dtype``, its weights drawn
+    from ``seed``; ``groups``: its ``batch_group`` and ``expert_group``."""
+    return MoETransformerLM(dtype=dtype, attention_fn=attention_fn,
+                            generator=torch.Generator().manual_seed(seed), **MOE, **groups)
 
 
 def moe_loss(model, tokens, attention_fn=None, drops=None):
@@ -2454,23 +2493,23 @@ def top1_experts(model, inputs):
 
 
 def routing_check(moe, x):
-    """switch_routing on the card and on the CPU on the same router
-    probabilities (the first layer's, on the first batch): dispatch equal bit
-    for bit, combine exactly; its time on the card at this shape."""
+    """global_routing (the MoE layer's routing) on the card and on the CPU on
+    the same router probabilities (the first layer's, on the first batch):
+    slots equal bit for bit, gates exactly; its time on the card at this
+    shape."""
     tokens = x.reshape(-1, x.shape[-1])
     with torch.no_grad():
         probs = torch.softmax(moe.router(tokens.float()), dim=-1)
-        cap = moe_capacity(tokens.shape[0], MOE['num_experts'], 1, moe.capacity_factor)
-        card = switch_routing(probs, cap, 1)
-        host = switch_routing(probs.cpu(), cap, 1)
-        ms = cuda_ms(lambda: switch_routing(probs, cap, 1), reps=5)
-    result = {'shape': [tokens.shape[0], MOE['num_experts'], cap],
-              'dispatch_equal': torch.equal(card[0].cpu(), host[0]),
-              'combine_equal': torch.equal(card[1].cpu(), host[1]),
-              'aux': float(card[2]), 'aux_host': float(host[2]),
-              'drop_fraction': float(card[3]), 'drop_fraction_host': float(host[3]), 'ms': ms}
-    check(result['dispatch_equal'] and result['combine_equal'],
-          'switch_routing on the card differs from the CPU: {}'.format(result))
+        card = global_routing(probs, moe.capacity_factor, 1)
+        host = global_routing(probs.cpu(), moe.capacity_factor, 1)
+        ms = cuda_ms(lambda: global_routing(probs, moe.capacity_factor, 1), reps=5)
+    result = {'shape': [tokens.shape[0], MOE['num_experts'], card[2]],
+              'slots_equal': torch.equal(card[0].cpu(), host[0]),
+              'gate_equal': torch.equal(card[1].cpu(), host[1]),
+              'aux': float(card[3]), 'aux_host': float(host[3]),
+              'drop_fraction': float(card[4]), 'drop_fraction_host': float(host[4]), 'ms': ms}
+    check(result['slots_equal'] and result['gate_equal'] and card[2] == host[2],
+          'global_routing on the card differs from the CPU: {}'.format(result))
     return result
 
 
@@ -2513,37 +2552,6 @@ def moe_output_check(moe, x):
     check(result['drop_fraction'] == 0.0 and result['tol_share'] <= 1,
           'the MoE layer differs from the loop reference: {}'.format(result))
     return result
-
-
-def einsum_times(moe, x):
-    """Device time of the dispatch einsum (bf16) and the combine einsum
-    (float32) of one MoE layer at the main path's shape, each forward and
-    backward (the dispatch needs no gradient, the combine two), with the
-    FLOPs of one of their products."""
-    tokens = x.reshape(-1, x.shape[-1]).detach()
-    with torch.no_grad():
-        probs = torch.softmax(moe.router(tokens.float()), dim=-1)
-    cap = moe_capacity(tokens.shape[0], MOE['num_experts'], 1, moe.capacity_factor)
-    dispatch, combine = (t.detach() for t in switch_routing(probs, cap, 1)[:2])
-    gen = torch.Generator().manual_seed(0)
-    expert_out = torch.randn(MOE['num_experts'], cap, MOE['embed'], generator=gen).to(
-        tokens.device)
-    tokens = tokens.to(torch.bfloat16).requires_grad_()
-    dispatch = dispatch.to(torch.bfloat16)
-    expert_out.requires_grad_()
-    combine.requires_grad_()
-    slots = torch.einsum('sd,sxc->xcd', tokens, dispatch)
-    mixed = torch.einsum('xcd,sxc->sd', expert_out, combine)
-    slot_grad, mix_grad = torch.ones_like(slots), torch.ones_like(mixed)
-    return {
-        'shape': [tokens.shape[0], MOE['num_experts'], cap, MOE['embed']],
-        'flop_per_product': 2 * tokens.shape[0] * MOE['num_experts'] * cap * MOE['embed'],
-        'dispatch_fwd_ms': cuda_ms(lambda: torch.einsum('sd,sxc->xcd', tokens, dispatch)),
-        'dispatch_bwd_ms': cuda_ms(lambda: torch.autograd.grad(slots, tokens, slot_grad,
-                                                               retain_graph=True)),
-        'combine_fwd_ms': cuda_ms(lambda: torch.einsum('xcd,sxc->sd', expert_out, combine)),
-        'combine_bwd_ms': cuda_ms(lambda: torch.autograd.grad(
-            mixed, (expert_out, combine), mix_grad, retain_graph=True))}
 
 
 def attention_vs_dense(seen):
@@ -2589,8 +2597,8 @@ def train_moe(model, batches, drops, attention_fn=None):
 def phase_moe(tmp, seed):
     """Phase 14a: bench.py's moe section at its width: a token store ->
     make_reader -> InMemTorchLoader -> MoETransformerLM (dense causal
-    attention) -> Adam, with the on-card routing and MoE-output checks, the
-    einsums' times and a profiled step. Returns the result, the initial
+    attention) -> Adam, with the on-card routing and MoE-output checks and a
+    profiled step. Returns the result, the initial
     weights, the batches and the first batch's reference numbers for 14b."""
     path = os.path.join(tmp, 'moe_tokens')
     start = time.perf_counter()
@@ -2622,7 +2630,6 @@ def phase_moe(tmp, seed):
         moe = model.blocks[0].moe
         routing = routing_check(moe, inputs[0])
         output = moe_output_check(moe, inputs[0])
-        einsums = einsum_times(moe, inputs[0])
         drops = []
         # the timed window fetches each batch after the first from the loader
         result, optimizer, step_loss = train_moe(
@@ -2630,7 +2637,7 @@ def phase_moe(tmp, seed):
     breakdown = device_breakdown(lambda: adam_step(optimizer, step_loss, batches[0]))
     check(result['counts']['dense_fallbacks'] == 0, 'the MoE path counted a dense fallback')
     result.update(first_batch=first_batch, routing=routing, moe_output=output,
-                  einsums=einsums, breakdown=breakdown, store_write_s=store_write_s)
+                  breakdown=breakdown, store_write_s=store_write_s)
     return result, initial, batches, inputs, experts
 
 
@@ -2714,17 +2721,151 @@ def ring_case(mesh, causal, segments, seed):
     return result
 
 
-def phase_one_rank(tmp, seed, moe, x):
+def routed_pass(model, tokens):
+    """One forward and backward of ``model`` on ``tokens`` (the loss of
+    bench.py, the causal flash kernels): logits, each layer's aux and drop
+    fraction, and every parameter's gradient."""
+    model.zero_grad(set_to_none=True)
+    logits, losses = model(tokens, attention_fn=causal_flash)
+    loss = next_token_loss(logits, tokens) + moe_aux_total(losses, MOE_AUX_WEIGHT)
+    loss.backward()
+    return {'logits': logits.detach(),
+            'aux': torch.stack(collect_sown(losses, 'moe_aux')).detach(),
+            'drops': torch.stack(moe_drop_fractions(losses)).detach(),
+            'grads': {name: p.grad.detach().clone() for name, p in model.named_parameters()}}
+
+
+def dense_mask_forward(layer, x):
+    """The JAX module's MoE layer written as it is there, for ``layer`` 's
+    weights: switch_routing's ``[S, X, C]`` dispatch and combine masks and
+    the einsums ``sd,sxc->xcd``, the FFN, ``xcd,sxc->sd`` (combined in
+    float32), all experts on this device."""
+    batch, seqlen, d = x.shape
+    tokens = x.reshape(batch * seqlen, d)
+    probs = torch.softmax(layer.router(tokens.float()), dim=-1)
+    cap = moe_capacity(tokens.shape[0], layer.num_experts, layer.num_selected,
+                       layer.capacity_factor)
+    dispatch, combine, aux, drop_fraction = switch_routing(probs, cap, layer.num_selected)
+    compute = layer.dtype
+    expert_in = torch.einsum('sd,sxc->xcd', tokens.to(compute), dispatch.to(compute))
+    h = gelu(torch.einsum('xcd,xdf->xcf', expert_in, layer.w1.to(compute)))
+    expert_out = torch.einsum('xcf,xfd->xcd', h, layer.w2.to(compute))
+    y = torch.einsum('xcd,sxc->sd', expert_out.float(), combine.float())
+    return (y.reshape(batch, seqlen, d).to(x.dtype),
+            {'moe_aux': aux, 'moe_drop_fraction': drop_fraction})
+
+
+def dense_mask_model(seed, initial, dtype=torch.bfloat16):
+    """The phase's model with ``initial`` 's weights whose MoE layers run
+    :func:`dense_mask_forward`: the plain reference of the routed layer."""
+    model = moe_model(seed, dtype=dtype)
+    model.load_state_dict(initial)
+    for block in model.blocks:
+        if hasattr(block, 'moe'):
+            block.moe.forward = functools.partial(dense_mask_forward, block.moe)
+    return model
+
+
+def layer_peak_bytes(layer, x):
+    """The card memory one MoE layer's forward takes on top of what was
+    allocated before it (no gradient kept)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        layer(x)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def routed_case(mesh, seed, initial, first, dtype, grad_share):
+    """14a's weights and first batch through MoETransformerLM(batch_group=,
+    expert_group=) on the one-rank ('data', 'expert') mesh against the same
+    model with the dense-mask layer (:func:`dense_mask_model`), in
+    ``dtype``: drop fractions bit for bit, logits and aux within
+    EXCHANGE_RTOL of max|ref|, every gradient within ``grad_share`` of its
+    largest magnitude, and both passes' forward-and-backward ms."""
+    models = {'dense_mask': dense_mask_model(seed, initial, dtype),
+              'routed': moe_model(seed, dtype=dtype, batch_group=mesh['data'],
+                                  expert_group=mesh['expert'])}
+    models['routed'].load_state_dict(initial)
+    want, got = (routed_pass(models[name], first) for name in ('dense_mask', 'routed'))
+    grad_shares = {name: float((got['grads'][name] - g).abs().max() / g.abs().max())
+                   for name, g in want['grads'].items()}
+    result = {'dtype': str(dtype).replace('torch.', ''),
+              'drops': want['drops'].tolist(), 'routed_drops': got['drops'].tolist(),
+              'drops_equal': torch.equal(want['drops'], got['drops']),
+              'logits_err': float((got['logits'] - want['logits']).abs().max()),
+              'logits_ref': float(want['logits'].abs().max()),
+              'aux_err': float((got['aux'] - want['aux']).abs().max()),
+              'aux_ref': float(want['aux'].abs().max()),
+              'max_grad_share': max(grad_shares.values()),
+              'worst_grad': max(grad_shares, key=grad_shares.get),
+              'grad_share_limit': grad_share,
+              'dense_mask_ms': cuda_ms(lambda: routed_pass(models['dense_mask'], first),
+                                       reps=3),
+              'routed_ms': cuda_ms(lambda: routed_pass(models['routed'], first), reps=3)}
+    check(result['drops_equal'],
+          'the routed LM drops otherwise than the dense-mask layer: {}'.format(result))
+    check(result['logits_err'] <= EXCHANGE_RTOL * result['logits_ref']
+          and result['aux_err'] <= EXCHANGE_RTOL * result['aux_ref']
+          and result['max_grad_share'] <= grad_share,
+          'the routed LM differs from the dense-mask layer: {}'.format(result))
+    return result
+
+
+def phase_routed(mesh, seed, initial, batches, x):
+    """14c's routed LM: :func:`routed_case` in bfloat16 and in float32, then
+    14b's 1 + MOE_STEPS Adam steps through the dense-mask layer and through
+    the routed path (K2-K4 layers x steps each), a profiled step of each,
+    and the first layer's peak memory in both on 14a's first-layer input,
+    beside the ``[X, C_global, D]`` buffer's bytes."""
+    first = batches[0]['tokens']
+    result = {'bf16': routed_case(mesh, seed, initial, first, torch.bfloat16,
+                                  ROUTED_BF16_GRAD_SHARE),
+              'float32': routed_case(mesh, seed, initial, first, torch.float32,
+                                     EXCHANGE_RTOL)}
+    models = {'dense_mask': dense_mask_model(seed, initial),
+              'routed': moe_model(seed, batch_group=mesh['data'], expert_group=mesh['expert'])}
+    models['routed'].load_state_dict(initial)
+    for name, model in models.items():
+        train, optimizer, step_loss = train_moe(model, iter(batches), [], causal_flash)
+        launches = {kernel: train['counts'][kernel] for kernel in FLASH_PRODUCTS}
+        check(all(n == MOE['layers'] * train['steps_run'] for n in launches.values())
+              and train['counts']['dense_fallbacks'] == 0,
+              'the {} MoE path launched {}'.format(name, train['counts']))
+        breakdown = device_breakdown(lambda: adam_step(optimizer, step_loss, batches[0]))
+        result[name + '_train'] = dict(
+            {key: train[key] for key in ('step_ms_median', 'tokens_per_s', 'mfu',
+                                         'peak_memory_bytes', 'losses', 'steps_run',
+                                         'max_drop_fraction')},
+            launches=launches, breakdown=breakdown)
+    tokens = x.shape[0] * x.shape[1]
+    cap = moe_capacity(tokens, MOE['num_experts'], 1,
+                       models['routed'].blocks[0].moe.capacity_factor)
+    result.update(
+        buffer_shape=[MOE['num_experts'], cap, MOE['embed']],
+        buffer_bytes=(MOE['num_experts'] * cap + tokens) * MOE['embed'] * x.element_size(),
+        layer_peak_bytes=layer_peak_bytes(models['routed'].blocks[0].moe, x),
+        dense_mask_layer_peak_bytes=layer_peak_bytes(models['dense_mask'].blocks[0].moe, x))
+    return result
+
+
+def phase_one_rank(tmp, seed, initial, batches, x):
     """Phase 14c: a one-rank NCCL process group (a file store in the run's
     temporary directory). sharded_moe_ffn against MoEMlp's local path on the
-    same weights in float32, then ring_attention_sharded causal and
-    segmented-causal at RING_SHAPE against the flash kernels. World size 1
-    exchanges nothing: the rotation and the merge are held by the CPU tests."""
+    same weights in float32, ring_attention_sharded causal and
+    segmented-causal at RING_SHAPE against the flash kernels, then the LM
+    routed over the global batch (:func:`phase_routed`). World size 1
+    exchanges nothing: the rotation, the merge and the expert exchange across
+    ranks are held by the CPU tests."""
     dist.init_process_group('nccl', init_method='file://' + os.path.join(tmp, 'nccl_store'),
                             rank=0, world_size=1)
     try:
         mesh = make_mesh(('seq', 'expert'), (1, 1))
-        layer = copy.deepcopy(moe)
+        moe = moe_model(seed)
+        moe.load_state_dict(initial)
+        layer = copy.deepcopy(moe.blocks[0].moe)
         layer.dtype = torch.float32
         tokens = x.reshape(-1, x.shape[-1]).float()
         with torch.no_grad():
@@ -2744,35 +2885,31 @@ def phase_one_rank(tmp, seed, moe, x):
         segments = packed_segments(RING_SHAPE[0], RING_SHAPE[1], seed)
         rings = {'causal': ring_case(mesh, True, None, seed),
                  'segmented_causal': ring_case(mesh, True, segments, seed + 1)}
+        routed = phase_routed(make_mesh(('data', 'expert'), (1, 1)), seed, initial, batches, x)
     finally:
         dist.destroy_process_group()
-    return {'exchange': exchange, 'rings': rings, 'world_size': 1,
+    return {'exchange': exchange, 'rings': rings, 'routed': routed, 'world_size': 1,
             'ring_launches': {name: sum(r['counts'][name] for r in rings.values())
                               for name in FLASH_PRODUCTS}}
 
 
 def moe_lines(moe, moe_flash, one_rank, card):
-    einsums = moe['einsums']
-    fwd_bwd = {name: einsums[name + '_fwd_ms'] + einsums[name + '_bwd_ms']
-               for name in ('dispatch', 'combine')}
     return [
         'phase 14a MoE path (bench.py moe: {} steps (1 warm-up) of MoETransformerLM [{}x{}] '
         'embed {} x{} experts, {} layers, bf16, dense attention, InMemTorchLoader): '
         'tokens/s={:.1f} step_ms(median)={:.2f} model TFLOP/s={:.3f} MFU={:.5f} '
         'peak_memory={:.3f} GiB max drop fraction {:.4f} losses {:.4f}->{:.4f}; routing '
-        'card vs CPU: dispatch equal {}, combine equal {} ({:.4f} ms on the card); MoE output '
-        'vs loop reference max abs err {:.3e} (tol share {:.3f}); a layer\'s dispatch einsum '
-        'fwd+bwd {:.3f} ms (bf16), combine einsum fwd+bwd {:.3f} ms (float32), {:.3e} FLOP '
-        'a product; one profiled step: {}; top kernels {}; the store written in {:.2f} s '
+        'card vs CPU: slots equal {}, gates equal {} ({:.4f} ms on the card); MoE output '
+        'vs loop reference max abs err {:.3e} (tol share {:.3f}); one profiled step: {}; '
+        'top kernels {}; the store written in {:.2f} s '
         '[{}]'.format(
             moe['steps_run'], MOE_BATCH, MOE['max_len'], MOE['embed'], MOE['num_experts'],
             MOE['layers'], moe['tokens_per_s'], moe['step_ms_median'],
             moe['model_tflops_per_s'], moe['mfu'], moe['peak_memory_bytes'] / 2 ** 30,
             moe['max_drop_fraction'], moe['losses'][0], moe['losses'][-1],
-            moe['routing']['dispatch_equal'], moe['routing']['combine_equal'],
+            moe['routing']['slots_equal'], moe['routing']['gate_equal'],
             moe['routing']['ms'], moe['moe_output']['max_abs_err'],
-            moe['moe_output']['tol_share'], fwd_bwd['dispatch'], fwd_bwd['combine'],
-            einsums['flop_per_product'], breakdown_line(moe['breakdown']),
+            moe['moe_output']['tol_share'], breakdown_line(moe['breakdown']),
             {key: round(value, 3) for key, value in moe['breakdown']['top_kernels_ms'].items()},
             moe['store_write_s'], card),
         'phase 14b MoE path with the flash kernels: tokens/s={:.1f} step_ms(median)={:.2f} '
@@ -2794,7 +2931,38 @@ def moe_lines(moe, moe_flash, one_rank, card):
                     'flash_ms': round(r['flash_ms'], 4),
                     'tol_share': {label: round(r[label]['tol_share'], 4)
                                   for label in ('o', 'dq', 'dk', 'dv')}}
-             for name, r in one_rank['rings'].items()}, moe['phase_s'], card)]
+             for name, r in one_rank['rings'].items()}, moe['phase_s'], card),
+        routed_line(one_rank['routed'], moe_flash, card)]
+
+
+def routed_line(routed, moe_flash, card):
+    cases = {dtype: {key: (round(value, 9) if isinstance(value, float) else value)
+                     for key, value in routed[dtype].items()
+                     if key not in ('drops', 'routed_drops', 'dtype')}
+             for dtype in ('bf16', 'float32')}
+    steps = {name: '1 + {} Adam steps step_ms(median)={:.2f} tokens/s={:.1f} '
+                   'peak_memory={:.3f} GiB launches {}; one profiled step: {}; top kernels '
+                   '{}; {} host operator events, top host ms {}'.format(
+                       t['steps_run'] - 1, t['step_ms_median'], t['tokens_per_s'],
+                       t['peak_memory_bytes'] / 2 ** 30, t['launches'],
+                       breakdown_line(t['breakdown']),
+                       {key: round(value, 3)
+                        for key, value in t['breakdown']['top_kernels_ms'].items()},
+                       t['breakdown']['host_ops'],
+                       {key: round(value, 3)
+                        for key, value in t['breakdown']['top_host_ms'].items()})
+             for name, t in ((name, routed[name + '_train'])
+                             for name in ('dense_mask', 'routed'))}
+    return (
+        'phase 14c MoETransformerLM routed over the global batch (batch_group and '
+        'expert_group of one NCCL rank) vs the dense-mask layer: drop fractions {} (equal '
+        '{}); {}; dense-mask layer: {}; routed: {}; 14b (no groups): step_ms(median)={:.2f}; '
+        '[X, C, D] buffer {} ({} B with the dropped assignments\' rows); first layer forward '
+        'peak {} B routed vs {} B dense-mask [{}]'.format(
+            routed['bf16']['drops'], routed['bf16']['drops_equal'], cases,
+            steps['dense_mask'], steps['routed'], moe_flash['step_ms_median'],
+            routed['buffer_shape'], routed['buffer_bytes'], routed['layer_peak_bytes'],
+            routed['dense_mask_layer_peak_bytes'], card))
 
 
 # ------------------------------------- data- and pipeline-parallel training (phase 15)
@@ -2892,9 +3060,10 @@ def phase_pipeline_lm(tmp, seed, mesh):
           and counts['dense_fallbacks'] == 0,
           'flash kernels launched {} times on the pipeline path, expected {} each (layers x '
           'microbatches x steps)'.format(counts, per_step * result['steps_run']))
-    check(all(n == per_step for n in breakdown['calls'].values()),
-          'a profiled pipeline step ran the flash kernels {} times, expected {} each'
-          .format(breakdown['calls'], per_step))
+    check(all(n == per_step for n in breakdown['launches'].values())
+          and all(0 <= n < per_step for n in breakdown['trace_shortfall'].values()),
+          'a profiled pipeline step launched the flash kernels {} times, expected {} each '
+          '(the trace counted {})'.format(breakdown['launches'], per_step, breakdown['calls']))
     check(all(np.isfinite(losses)), 'non-finite pipeline loss {}'.format(losses))
     unpipelined_ms = statistics.median(unpipelined[1:]) * 1e3
     result.update(first_batch=parity, launches=launches, counts=counts, breakdown=breakdown,
@@ -4664,10 +4833,15 @@ def phase_incidents_history(tmp, args):
     # none), so every later read of its second half fails
     fs = fault_injecting_filesystem(FaultSchedule(os.path.join(tmp, '20c_faults'), [
         FaultRule('part_00001', kind='corrupt', corrupt_mode='truncate', times=1)]))
-    # the reader's diagnostics are not read: their SLO evaluation of a read
-    # with no training step behind it would be a breach edge of its own
+    # a read with no training step behind it is not what the input SLO
+    # measures: the quarantine bundle's capture evaluates the SLO as
+    # evidence, and once the read is past the policy's min_elapsed_s (1 s by
+    # default, so it depends on when a worker meets the corrupt half) that
+    # evaluation is a breach edge and a bundle of its own. No window of this
+    # read counts, and the reader's diagnostics are not read.
     with make_reader('file://' + path, workers_count=args.workers, on_error='skip',
-                     filesystem=fs, incidents=IncidentPolicy(home=home)) as reader:
+                     filesystem=fs, incidents=IncidentPolicy(home=home),
+                     slo_policy=SloPolicy(min_elapsed_s=3600.0)) as reader:
         rows = sum(batch.num_rows for batch in reader.iter_columnar())
         quarantined = len(reader.quarantine)
         second = reader._incidents.trigger('quarantine', args={'reason': 'error'})
@@ -5336,9 +5510,10 @@ def phase_composed_lm(tmp, seed):
     check(all(n == expected for n in launches.values()) and counts['dense_fallbacks'] == 0,
           '23b: flash kernels launched {}, expected {} each (layers x steps)'.format(
               counts, expected))
-    check(all(n == LM['layers'] for n in breakdown['calls'].values()),
-          '23b: a profiled step ran the flash kernels {} times, expected {} each'.format(
-              breakdown['calls'], LM['layers']))
+    check(all(n == LM['layers'] for n in breakdown['launches'].values())
+          and all(0 <= n < LM['layers'] for n in breakdown['trace_shortfall'].values()),
+          '23b: a profiled step launched the flash kernels {} times, expected {} each (the '
+          'trace counted {})'.format(breakdown['launches'], LM['layers'], breakdown['calls']))
     check(all(np.isfinite(losses)), '23b: non-finite loss {}'.format(losses))
     result.update(first_batch=parity, launches=launches, counts=counts, breakdown=breakdown,
                   host=host, allocated_before_bytes=allocated_before)
@@ -5707,9 +5882,7 @@ def main(argv=None):
         record['moe'], initial, batches, inputs, experts = phase_moe(tmp, args.seed)
         record['moe_flash'] = phase_moe_flash(args.seed, initial, batches, inputs, experts,
                                               record['moe']['first_batch'])
-        moe = moe_model(args.seed)
-        moe.load_state_dict(initial)
-        record['one_rank'] = phase_one_rank(tmp, args.seed, moe.blocks[0].moe, inputs[0])
+        record['one_rank'] = phase_one_rank(tmp, args.seed, initial, batches, inputs[0])
         record['moe']['phase_s'] = time.perf_counter() - phase_start
         for line in moe_lines(record['moe'], record['moe_flash'], record['one_rank'], card):
             log(line)

@@ -8,11 +8,15 @@ Both configurations are fed by the same input pipeline (``write_rows`` ->
 
 - **default (ep)**: :class:`petastorm_tpu_torch.MoETransformerLM` with
   ``expert_group=mesh['expert']`` on a ``('data', 'expert')`` mesh: each rank
-  holds ``num_experts / expert`` experts and exchanges the routed tokens with
-  an explicit all-to-all. Every rank reads its own rows (the batch is
-  sharded over both dimensions, the reader by the global rank), so the
-  replicated weights' gradients are averaged over every rank and the
-  experts' over the data ranks that hold the same experts.
+  holds ``num_experts / expert`` experts. Every rank reads its own rows (the
+  batch is sharded over both dimensions, the reader by the global rank), so
+  every rank is in the batch group (``batch_group``, the world in global
+  rank order) and the layers route the global batch as the JAX example's
+  do. Each rank's loss is its rows' mean plus the global load-balance term,
+  the same on every rank; the replicated weights' gradients are averaged
+  over every rank and the experts' summed over the data ranks that hold the
+  same experts and divided by the world size, which gives the gradient of
+  the global mean loss plus that term.
 - **``--pipeline-stages N`` (pp)**: an embedding, ``N`` transformer
   ``Block`` s pipelined over a ``('stage', 'data')`` mesh by
   :func:`petastorm_tpu_torch.parallel.pipeline.make_pipeline` (the GPipe
@@ -180,7 +184,8 @@ def train_moe(dataset_url, batch_size=8, epochs=2, expert_axis_size=None, learni
                      device=device)
     model = MoETransformerLM(vocab=VOCAB, embed=EMBED, heads=HEADS, layers=2,
                              num_experts=max(2, expert_axis_size), moe_every=2,
-                             dtype=torch.float32, expert_group=mesh['expert'], device=device,
+                             dtype=torch.float32, expert_group=mesh['expert'],
+                             batch_group=dist.group.WORLD, device=device,
                              generator=torch.Generator().manual_seed(0))
     experts = [p for name, p in model.named_parameters() if name.endswith(('.w1', '.w2'))]
     replicated = [p for name, p in model.named_parameters()

@@ -39,6 +39,7 @@ import hashlib
 import logging
 import os
 import pickle
+import shutil
 import struct
 import tempfile
 import threading
@@ -75,6 +76,9 @@ class CacheBase(object):
         result, stored."""
         raise NotImplementedError()
 
+    def cleanup(self):
+        """Remove the cache's resources (best effort); nothing by default."""
+
 
 class NullCache(CacheBase):
     """Pass-through: always calls the fill function."""
@@ -101,6 +105,8 @@ class LocalDiskCache(CacheBase):
         default board; each process re-registers its own).
     :param shards: accepted for petastorm's signature and unused (entries
         live in 256 subdirectories whatever it says).
+    :param cleanup: :meth:`cleanup` removes the whole cache directory (make
+        it reachable through ``cache_extra_settings={'cleanup': True}``).
     """
 
     #: this format's file suffix; eviction counts every known suffix, so two
@@ -109,12 +115,13 @@ class LocalDiskCache(CacheBase):
     _ALL_SUFFIXES = ('.pkl', '.arrow')
 
     def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0, breaker=None,
-                 shards=None):
+                 shards=None, cleanup=False):
         if expected_row_size_bytes and size_limit_bytes < 100 * expected_row_size_bytes:
             raise ValueError('Cache size_limit_bytes={} is too small for rows of ~{} bytes'
                              .format(size_limit_bytes, expected_row_size_bytes))
         self._path = path
         self._size_limit_bytes = size_limit_bytes
+        self._cleanup = cleanup
         self._lock = threading.Lock()
         self.stats = _new_cache_stats()
         self._decode_failure_logged = False
@@ -300,6 +307,11 @@ class LocalDiskCache(CacheBase):
         """Bytes of the entries on disk."""
         return sum(size for _, size, _ in self._iter_entries())
 
+    def cleanup(self):
+        """Remove the cache directory when built with ``cleanup=True``."""
+        if self._cleanup:
+            shutil.rmtree(self._path, ignore_errors=True)
+
 
 class ArrowIpcDiskCache(LocalDiskCache):
     """Decoded-rowgroup cache with memory-mapped hits (see the module
@@ -310,8 +322,9 @@ class ArrowIpcDiskCache(LocalDiskCache):
     _SUFFIX = '.arrow'
 
     def __init__(self, path, size_limit_bytes, expected_row_size_bytes=0, writable_hits=False,
-                 breaker=None, shards=None):
-        super().__init__(path, size_limit_bytes, expected_row_size_bytes, breaker=breaker)
+                 breaker=None, shards=None, cleanup=False):
+        super().__init__(path, size_limit_bytes, expected_row_size_bytes, breaker=breaker,
+                         cleanup=cleanup)
         self._writable_hits = writable_hits
         #: set by make_reader when ``cache_extra_settings`` names
         #: ``writable_hits``: the consumer's requirement, not an autotuner knob

@@ -16,8 +16,9 @@ token store, ``make_reader`` reads it, the loaders lay the batch out on a
    epochs summing the batches;
 3. pp + dp: transformer ``Block`` s pipelined over ``'stage'``
    (``make_pipeline``), the batch over ``'data'``;
-4. ep + dp: ``MoETransformerLM(expert_group=)`` on a ``('data', 'expert')``
-   mesh;
+4. ep + dp: ``MoETransformerLM(expert_group=, batch_group=)`` on a
+   ``('data', 'expert')`` mesh, routing the global batch as the JAX module
+   does;
 5. dp + sp + ep on one ``('data', 'seq', 'expert')`` mesh: ring attention
    and ``sharded_moe_ffn``, six Adam steps whose loss must fall;
 6. pp x tp x dp on one ``('stage', 'data', 'model')`` mesh: a pipeline of
@@ -50,10 +51,9 @@ Defined differences from the JAX script:
   sums the gradients over the batch dimensions, as GSPMD does for the JAX
   script. Where the batch is copied over ``'expert'`` (phases 4 and 5) each
   copy's loss is also divided by the expert group's size and the gradients
-  of everything but the experts are summed over it.
-- **Phase 4 routes each data shard's tokens** with the capacity of the
-  local count (``MoEMlp(expert_group=)``); the JAX module routes the global
-  batch.
+  of everything but the experts are summed over it. Phase 4's load-balance
+  term is global and the same on every rank, so it is divided with the rest
+  of the share and the ranks' shares add up to it once.
 - **Each rank writes its own copy of the store** in a temporary directory
   and reads it on one worker thread (the JAX script's two), so that the
   ranks of one ``'data'`` coordinate, which read the same rowgroups, get
@@ -305,8 +305,9 @@ def phase_pp_dp(mesh, weights, batch):
 
 def phase_ep_dp(mesh, weights, batch):
     """Phase 4: one SGD step of ``MoETransformerLM`` with its experts over
-    ``'expert'`` (one expert group a data coordinate), next-token loss plus
-    0.01 times the load-balance loss."""
+    ``'expert'`` (one expert group a data coordinate) and the batch over
+    ``'data'`` (the batch group), next-token loss plus 0.01 times the
+    load-balance loss of the global batch."""
     import torch
 
     from petastorm_tpu_torch.models.moe import (MoETransformerLM, expert_partition_specs,
@@ -320,11 +321,13 @@ def phase_ep_dp(mesh, weights, batch):
     model = MoETransformerLM(vocab=V, embed=EP_EMBED, heads=EP_HEADS, layers=2,
                              num_experts=experts, max_len=tokens.shape[1],
                              dtype=torch.float32, expert_group=mesh['expert'],
-                             device=tokens.device)
+                             batch_group=mesh['data'], device=tokens.device)
     model.load_state_dict({k: shard_by_spec(v, specs[k], mesh) for k, v in state.items()})
     logits, losses = model(tokens)
-    copies = axis_size(mesh, 'data') * axis_size(mesh, 'expert')
-    share = (next_token_loss(logits, tokens) + moe_aux_total(losses, weight=0.01)) / copies
+    # this rank's rows' mean and the global aux, over its share of the mean
+    # (data) and its copies (expert): the ranks' shares sum to the JAX loss
+    ranks = axis_size(mesh, 'data') * axis_size(mesh, 'expert')
+    share = (next_token_loss(logits, tokens) + moe_aux_total(losses, weight=0.01)) / ranks
     loss, grads = _step(dict(model.named_parameters()), specs, mesh, share,
                         torch.optim.SGD(model.parameters(), lr=1e-2), ('data', 'expert'))
     return _record(mesh, batch, loss, grads, names=('tokens',))

@@ -3,14 +3,16 @@
 :func:`switch_routing` computes what the JAX function computes (top-k
 routing with a static capacity ``C = ceil(capacity_factor * k * tokens /
 experts)``, slot-major priority, one-hot dispatch and combine ``[S, X, C]``,
-the Switch load-balance loss and the drop fraction), so :class:`MoEMlp`,
+the Switch load-balance loss and the drop fraction), and
+:func:`global_routing` gives each assignment the same slot without the
+masks, so :class:`MoEMlp`,
 :class:`MoEBlock` and :class:`MoETransformerLM` take the flax weights
 (:func:`petastorm_tpu_torch.convert.moe_state_dict_from_flax`) and agree with
 them on outputs, losses and gradients. As there:
 
 - the router is float32 on float32 tokens; ``w1``/``w2`` are float32
   ``[experts, d, f]`` / ``[experts, f, d]`` parameters cast to ``dtype``; the
-  dispatch and FFN einsums run in ``dtype`` and the combine in float32;
+  experts' slots and FFN run in ``dtype`` and the combine in float32;
 - tokens past an expert's capacity get zero from the MoE branch and ride the
   block's residual.
 
@@ -23,14 +25,37 @@ Where the port differs:
   :func:`moe_drop_fractions` read. A module attribute written in ``forward``
   would be written again by a checkpoint recompute and go stale in a CUDA
   graph.
-- **Expert parallelism is an explicit exchange.** The JAX ``MoEMlp`` leaves
-  the all-to-all to XLA and routes over the global batch. Here
-  ``MoEMlp(expert_group=...)`` holds only its rank's ``X / ne`` experts and
-  runs :func:`~petastorm_tpu_torch.ops.sharded_moe.expert_alltoall_ffn`. It
-  routes each rank's local tokens, with the capacity from the local count,
-  as ``sharded_moe_ffn`` does: a defined difference from the JAX module,
-  whose outputs it equals when no token is dropped; its losses are the
-  rank's own.
+- **The sharding is passed in.** The JAX ``MoEMlp`` reads from its input's
+  sharding which devices hold distinct tokens and leaves the exchange to
+  XLA; under ``jit`` the sharding changes where the work runs, not what is
+  computed. Here ``MoEMlp(expert_group=, batch_group=)`` names the groups:
+  ``expert_group`` shares out the experts (each rank holds ``X / ne``),
+  ``batch_group`` is the group over which the batch dimension is sharded,
+  its ranks in the order of the global batch (rows copied over the expert
+  group count once). It routes the global batch as the JAX module does
+  (:func:`global_routing`) and runs
+  :func:`~petastorm_tpu_torch.ops.sharded_moe.routed_expert_ffn`, so its
+  outputs, ``moe_aux``, ``moe_drop_fraction`` and gradients are the JAX
+  module's on the whole batch at any capacity. ``expert_group`` needs
+  ``batch_group`` (a one-rank group where every rank of the expert group
+  holds the whole batch); without either group the layer runs on one device.
+- **No dense masks.** :class:`MoEMlp` does not build ``switch_routing`` 's
+  ``[S, X, C]`` dispatch and combine: it scatters each kept assignment into
+  its slot and gathers it back, which is the same arithmetic (a slot holds
+  one token, a combine is one product per assignment) in ``[X*C + k*S, d]``
+  memory. :func:`switch_routing` stays the twin of the JAX function, and
+  :func:`~petastorm_tpu_torch.ops.sharded_moe.sharded_moe_ffn` uses it.
+
+**Loss and gradients across ranks.** ``moe_aux`` and ``moe_drop_fraction``
+are global and the same on every rank, and the exchange's backward sums
+over the ranks, so autograd differentiates the sum of every rank's loss.
+Divide each rank's whole loss, the aux term included, so that the ranks'
+losses add up to the global one: a rank that holds ``1/n`` of the distinct
+rows and is one of ``c`` copies of them (the expert group's size where the
+rows are copied over it, else 1) takes ``(mean loss of its rows + weight *
+aux) / (n * c)``. Then sum each gradient over the batch group and over the
+copies, and each expert's over the ranks that hold that expert; the sums
+are ``jax.grad`` of the whole-batch loss.
 
 Modules live on CUDA unless ``device='cpu'``; ``generator`` (a CPU
 ``torch.Generator``, None for torch's global one) draws the weights.
@@ -45,7 +70,7 @@ from torch import nn
 
 from petastorm_tpu_torch.models.transformer import (Block, Dense, LayerNorm, TransformerLM,
                                                     _lecun_normal_, attention_sublayer)
-from petastorm_tpu_torch.ops.sharded_moe import expert_alltoall_ffn, gelu
+from petastorm_tpu_torch.ops.sharded_moe import all_reduce_sum, routed_expert_ffn
 from petastorm_tpu_torch.parallel.loader import resolve_device
 from petastorm_tpu_torch.parallel.mesh import process_group
 
@@ -93,6 +118,62 @@ def switch_routing(probs, capacity, num_selected):
     return dispatch, combine, aux, drop_fraction
 
 
+def global_routing(probs, capacity_factor, num_selected, batch_group=None):
+    """:func:`switch_routing` over the global batch, each rank holding a
+    piece of it: ``probs [S_local, X]`` -> ``(slots [S_local, k], gate
+    [S_local, k], capacity, aux, drop_fraction)``.
+
+    ``batch_group`` holds the pieces in the order of the global ``[B*T]``
+    tokens, every rank the same number (None: this rank's tokens are the
+    whole batch). Each rank counts its assignments per slot and expert
+    (int32, exact as JAX's cumsum) and gathers every rank's counts. An
+    assignment's position in its expert is then the assignments to that
+    expert in earlier slots, everywhere, plus those in its slot from the
+    ranks before this one and from this rank's earlier tokens: the position
+    JAX's slot-major cumsum gives it over the global batch. The capacity
+    comes from the global token count; ``slots`` is ``expert * capacity +
+    position`` for a kept assignment and ``X * capacity`` for a dropped one.
+    ``aux`` (from the global ``frac_tokens`` and ``mean_probs``, summed with
+    autograd) and ``drop_fraction`` (over the global ``k * S``) are the same
+    on every rank."""
+    n_tokens, n_exp = probs.shape
+    k = num_selected
+    if k > n_exp:
+        raise ValueError('num_selected={} exceeds num_experts={}'.format(k, n_exp))
+    gate, expert_idx = torch.topk(probs, k, dim=-1)                       # [S, k]
+    if k > 1:
+        gate = gate / gate.sum(dim=-1, keepdim=True)
+    onehot = F.one_hot(expert_idx, n_exp).to(torch.int32)                # [S, k, X]
+    counts = onehot.sum(dim=0, dtype=torch.int32)                         # [k, X]
+    index, size, every = 0, 1, counts[None]
+    if batch_group is not None:
+        batch_group = process_group(batch_group)
+        index, size = dist.get_rank(batch_group), dist.get_world_size(batch_group)
+        every = [torch.empty_like(counts) for _ in range(size)]
+        dist.all_gather(every, counts, group=batch_group)
+        every = torch.stack(every)                                        # [ranks, k, X]
+    global_tokens = size * n_tokens
+    per_slot = every.sum(dim=0, dtype=torch.int32)                        # [k, X]
+    offset = (torch.cumsum(per_slot, dim=0, dtype=torch.int32) - per_slot
+              + every[:index].sum(dim=0, dtype=torch.int32))
+    # this rank's earlier tokens with the same slot and expert
+    before = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    position = ((before + offset) * onehot).sum(dim=-1, dtype=torch.int32)   # [S, k]
+    capacity = _capacity(global_tokens, n_exp, k, capacity_factor)
+    slots = torch.where(position < capacity, expert_idx * capacity + position,
+                        n_exp * capacity)
+
+    # each expert keeps its first `capacity` assignments
+    kept = per_slot.sum(dim=0, dtype=torch.int32).clamp(max=capacity).sum()
+    drop_fraction = 1.0 - kept.float() / float(k * global_tokens)
+    prob_sum = probs.sum(dim=0)
+    if batch_group is not None:
+        prob_sum = all_reduce_sum(prob_sum, batch_group)
+    frac_tokens = per_slot[0].float() / global_tokens
+    aux = n_exp * (frac_tokens * (prob_sum / global_tokens)).sum()
+    return slots, gate, capacity, aux, drop_fraction
+
+
 class MoEMlp(nn.Module):
     """Top-k routed expert MLP ``[B, T, D] -> ([B, T, D], losses)``, with
     ``losses = {'moe_aux': aux, 'moe_drop_fraction': drop}``.
@@ -100,22 +181,32 @@ class MoEMlp(nn.Module):
     ``expert_group`` (a ``ProcessGroup`` or a one-dimensional ``DeviceMesh``
     of ``ne`` ranks) shards the experts: rank ``i`` of the group holds experts
     ``i*X/ne .. (i+1)*X/ne - 1`` (drawn as the whole tensor, so the shards of
-    one generator seed make up the unsharded module's weights) and the
-    forward runs the all-to-all exchange, routing this rank's tokens."""
+    one generator seed make up the unsharded module's weights).
+    ``batch_group`` (likewise) is the group over which the batch dimension
+    is sharded, its ranks in the order of the global batch; ``expert_group``
+    needs it, since only it says which ranks hold distinct tokens. The
+    forward routes the global batch (:func:`global_routing`) and runs
+    :func:`~petastorm_tpu_torch.ops.sharded_moe.routed_expert_ffn`; with
+    neither group that is the single-device layer."""
 
     def __init__(self, embed, num_experts, capacity_factor=1.25, num_selected=1,
-                 hidden_mult=4, dtype=torch.bfloat16, expert_group=None, device=None,
-                 generator=None):
+                 hidden_mult=4, dtype=torch.bfloat16, expert_group=None, batch_group=None,
+                 device=None, generator=None):
         super().__init__()
         if num_selected > num_experts:
             raise ValueError('num_selected={} exceeds num_experts={}'.format(
                 num_selected, num_experts))
+        if expert_group is not None and batch_group is None:
+            raise ValueError('expert_group needs batch_group, the group that shards the '
+                             'batch (a one-rank group where every rank of the expert group '
+                             'holds the whole batch)')
         device = resolve_device(device)
         self.num_experts = num_experts
         self.capacity_factor = capacity_factor
         self.num_selected = num_selected
         self.dtype = dtype
         self.expert_group = None if expert_group is None else process_group(expert_group)
+        self.batch_group = None if batch_group is None else process_group(batch_group)
         rank, size = 0, 1
         if self.expert_group is not None:
             rank, size = dist.get_rank(self.expert_group), dist.get_world_size(self.expert_group)
@@ -136,22 +227,13 @@ class MoEMlp(nn.Module):
 
     def forward(self, x):
         batch, seqlen, d = x.shape
-        n_tokens = batch * seqlen
-        cap = _capacity(n_tokens, self.num_experts, self.num_selected, self.capacity_factor)
-        tokens = x.reshape(n_tokens, d)
+        tokens = x.reshape(batch * seqlen, d)
         # the router in float32: the softmax over experts must not run in bf16
         probs = torch.softmax(self.router(tokens.float()), dim=-1)            # [S, X]
-        dispatch, combine, aux, drop_fraction = switch_routing(probs, cap, self.num_selected)
-        compute = self.dtype
-        if self.expert_group is not None:
-            y = expert_alltoall_ffn(tokens.to(compute), dispatch, combine, self.w1, self.w2,
-                                    self.expert_group)
-        else:
-            expert_in = torch.einsum('sd,sxc->xcd', tokens.to(compute),
-                                     dispatch.to(compute))                    # [X, C, D]
-            h = gelu(torch.einsum('xcd,xdf->xcf', expert_in, self.w1.to(compute)))
-            expert_out = torch.einsum('xcf,xfd->xcd', h, self.w2.to(compute))
-            y = torch.einsum('xcd,sxc->sd', expert_out.float(), combine.float())
+        slots, gate, cap, aux, drop_fraction = global_routing(
+            probs, self.capacity_factor, self.num_selected, self.batch_group)
+        y = routed_expert_ffn(tokens.to(self.dtype), slots, gate, cap, self.w1, self.w2,
+                              self.batch_group, self.expert_group)
         losses = {'moe_aux': aux, 'moe_drop_fraction': drop_fraction}
         return y.reshape(batch, seqlen, d).to(x.dtype), losses
 
@@ -161,7 +243,7 @@ class MoEBlock(nn.Module):
     ``forward(x, attention_fn) -> (x, {'MoEMlp_0': losses})``."""
 
     def __init__(self, embed, heads, num_experts, capacity_factor=1.25, num_selected=1,
-                 dtype=torch.bfloat16, expert_group=None, generator=None):
+                 dtype=torch.bfloat16, expert_group=None, batch_group=None, generator=None):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
@@ -170,7 +252,8 @@ class MoEBlock(nn.Module):
         self.proj = Dense(embed, embed, bias=False, dtype=dtype, generator=generator)
         self.norm_mlp = LayerNorm(embed)
         self.moe = MoEMlp(embed, num_experts, capacity_factor, num_selected, dtype=dtype,
-                          expert_group=expert_group, device='cpu', generator=generator)
+                          expert_group=expert_group, batch_group=batch_group, device='cpu',
+                          generator=generator)
 
     def forward(self, x, attention_fn):
         x = attention_sublayer(x, self.heads, attention_fn, self.norm_attn, self.qkv,
@@ -184,17 +267,19 @@ class MoETransformerLM(TransformerLM):
     ``(logits [B, T, vocab] float32, losses)``. Block ``i`` is an
     :class:`MoEBlock` when ``(i + 1) % moe_every == 0`` (1: all), else a dense
     :class:`~petastorm_tpu_torch.models.transformer.Block`. ``expert_group``
-    shards every MoE layer's experts over a process group (see
+    shards every MoE layer's experts over a process group and
+    ``batch_group`` names the group that shards the batch (see
     :class:`MoEMlp`)."""
 
     def __init__(self, vocab=256, embed=64, heads=4, layers=2, num_experts=4,
                  capacity_factor=1.25, num_selected=1, moe_every=1, max_len=8192,
-                 dtype=torch.bfloat16, attention_fn=None, expert_group=None, remat=False,
-                 device=None, generator=None):
+                 dtype=torch.bfloat16, attention_fn=None, expert_group=None, batch_group=None,
+                 remat=False, device=None, generator=None):
         # plain attributes, set before the base class builds the blocks
         # through make_block
         self._moe = dict(num_experts=num_experts, capacity_factor=capacity_factor,
-                         num_selected=num_selected, expert_group=expert_group)
+                         num_selected=num_selected, expert_group=expert_group,
+                         batch_group=batch_group)
         self.moe_every = moe_every
         super().__init__(vocab, embed, heads, layers, max_len, dtype, attention_fn, remat,
                          device, generator)

@@ -1,11 +1,13 @@
 """Expert parallelism with the exchange written out: the counterpart of
-``petastorm_tpu.ops.sharded_moe``.
+``petastorm_tpu.ops.sharded_moe``, and the exchange of ``MoEMlp``.
 
-The JAX package leaves the expert all-to-all of ``MoEMlp`` to XLA and spells it
-out only inside ``shard_map``; torch has no compiler to place it, so the port's
-expert parallelism is this module (``MoEMlp(expert_group=...)`` calls
-:func:`expert_alltoall_ffn`). Its data path, on the same routing math
-(:func:`petastorm_tpu_torch.models.moe.switch_routing`):
+The JAX package leaves the expert exchange of ``MoEMlp`` to XLA and spells
+out an all-to-all only inside ``shard_map``; torch has no compiler to place
+either, so this module writes both.
+
+:func:`sharded_moe_ffn` and :func:`expert_alltoall_ffn` are the twins of the
+JAX functions: routing on each rank's own tokens, with the capacity of the
+local count, and the all-to-all:
 
 1. each rank dispatches its local tokens into per-expert capacity slots
    ``[experts, C_local, d]`` (a one-hot einsum, exact in any dtype);
@@ -17,11 +19,29 @@ expert parallelism is this module (``MoEMlp(expert_group=...)`` calls
 4. the inverse exchange returns the results to the tokens' ranks, where the
    combine einsum weighs them back into token order in float32.
 
+:func:`routed_expert_ffn` is ``MoEMlp`` 's expert FFN, on routing over the
+global batch (:func:`~petastorm_tpu_torch.models.moe.global_routing`); on
+one device (no groups) it exchanges nothing. Across ranks it keeps the
+layout that GSPMD gives the JAX module's sharding hints (``expert_in``
+sharded over ``'expert'`` only): every rank scatters its kept assignments
+into a zero ``[X, C_global, d]`` buffer, the buffer is summed over the batch
+group (the ranks' slots are disjoint, so the sum is exact), each rank runs
+its ``X / ne`` experts on its slice, the outputs are gathered over the
+expert group, and each rank combines its own tokens' slots in float32.
+
 Rank ``i`` of the expert group holds experts ``i*X_local .. (i+1)*X_local - 1``:
 build the group so that its rank order is the expert index
-(:func:`~petastorm_tpu_torch.parallel.mesh.make_mesh` does). The gradient
-goes through :class:`_AllToAll`, whose backward is the same exchange applied
-to the gradient (with equal splits the all-to-all is its own transpose).
+(:func:`~petastorm_tpu_torch.parallel.mesh.make_mesh` does). Every exchange
+is an ``autograd.Function`` whose backward is its transpose:
+:class:`_AllToAll` exchanges the gradient the same way (with equal splits the
+all-to-all is its own transpose), :class:`_AllReduce` sums it, and
+:class:`_AllGather` reduce-scatters it (each rank gets its own piece, summed
+over the group). Each rank's loss is its share of the global one, so the
+gather's backward sums; ``ring_attention_sharded`` 's gather keeps the
+rank's slice instead, because there every rank takes the same loss from the
+gathered tensor. (``torch.distributed.nn.functional`` is deprecated in
+torch 2.13, and its ``all_gather`` backward on a gloo subgroup names the
+peers by their global ranks.)
 """
 
 import functools
@@ -43,6 +63,10 @@ def _all_to_all(x, group):
     return out
 
 
+#: torch 2.13 names ``reduce_scatter_tensor`` ``reduce_scatter_single``
+_reduce_scatter = getattr(dist, 'reduce_scatter_single', None) or dist.reduce_scatter_tensor
+
+
 class _AllToAll(torch.autograd.Function):
     """``all_to_all_single`` over ``group`` with equal splits of dim 0,
     differentiable: the backward exchanges the gradient the same way."""
@@ -55,6 +79,51 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _all_to_all(grad, ctx.group), None
+
+
+class _AllReduce(torch.autograd.Function):
+    """``all_reduce`` (sum) over ``group``, differentiable: every rank gets
+    the sum, so each rank's input gradient is the sum of every rank's output
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` concatenated on dim 0 in ``group`` 's rank order,
+    differentiable: the gradient is reduce-scattered, so each rank gets its
+    own piece summed over the group (``1 / ne`` of an all-reduce's bytes)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        out = grad.new_empty(grad.shape[0] // dist.get_world_size(ctx.group), *grad.shape[1:])
+        _reduce_scatter(out, grad, group=ctx.group)
+        return out, None
+
+
+def all_reduce_sum(x, group):
+    """``x`` summed over ``group`` (a ``ProcessGroup`` or a one-dimensional
+    ``DeviceMesh``); its gradient is summed over the group too."""
+    return _AllReduce.apply(x, process_group(group))
 
 
 def expert_alltoall_ffn(tokens, dispatch, combine, w1, w2, group):
@@ -116,3 +185,53 @@ def sharded_moe_ffn(tokens, router_kernel, w1, w2, group, capacity_factor=1.25,
     dispatch, combine, aux, drop_fraction = switch_routing(probs, cap, num_selected)
     out = expert_alltoall_ffn(tokens, dispatch, combine, w1, w2, group)
     return out, aux, drop_fraction
+
+
+def routed_expert_ffn(tokens, slots, gate, capacity, w1, w2, batch_group=None,
+                      expert_group=None):
+    """The expert FFN on routing over the global batch: ``[S_local, d]`` ->
+    ``[S_local, d]`` float32.
+
+    :param tokens: ``[S_local, d]`` this rank's tokens, in the compute dtype.
+    :param slots: ``[S_local, k]`` int64, each assignment's slot ``expert *
+        capacity + position`` in the global order, ``X * capacity`` or more
+        where it was dropped (from
+        :func:`~petastorm_tpu_torch.models.moe.global_routing`).
+    :param gate: ``[S_local, k]`` float32 gate weights.
+    :param capacity: ``C_global``, the slots of one expert.
+    :param w1: ``[X_local, d, f]`` this rank's experts (``X_local = X / ne``).
+    :param w2: ``[X_local, f, d]`` likewise.
+    :param batch_group: the ranks that hold distinct tokens (None: this
+        rank's tokens are the whole batch).
+    :param expert_group: the ``ne`` ranks that share out the experts (None:
+        this rank holds all of them).
+    """
+    index, ne = 0, 1
+    if expert_group is not None:
+        expert_group = process_group(expert_group)
+        index, ne = dist.get_rank(expert_group), dist.get_world_size(expert_group)
+    x_local = w1.shape[0]
+    n_exp, dtype, width = x_local * ne, tokens.dtype, tokens.shape[1]
+    rows = n_exp * capacity
+    assignments = slots.numel()
+    # every assignment gets a row of its own: its slot when kept, one past the
+    # X * C slots when dropped. No index repeats, so the copy in and the
+    # gather out (and their backward passes) have no collisions to serialize.
+    flat = slots.reshape(-1)
+    flat = torch.where(flat < rows, flat, rows + torch.arange(assignments, device=flat.device))
+    source = tokens[:, None, :].expand(-1, slots.shape[1], -1).reshape(-1, width)
+    expert_in = tokens.new_zeros(rows + assignments, width).index_copy(0, flat, source)[:rows]
+    if batch_group is not None:
+        expert_in = all_reduce_sum(expert_in, batch_group)
+    expert_in = expert_in.view(n_exp, capacity, width)[index * x_local:(index + 1) * x_local]
+
+    h = gelu(torch.einsum('xcd,xdf->xcf', expert_in, w1.to(dtype)))
+    out = torch.einsum('xcf,xfd->xcd', h, w2.to(dtype))
+    if expert_group is not None:
+        out = _AllGather.apply(out, expert_group)                            # [X, C, d]
+
+    # each assignment's slot back in token order (zero rows for the dropped),
+    # weighed in float32
+    out = torch.cat([out.reshape(rows, width).float(),
+                     out.new_zeros(assignments, width, dtype=torch.float32)])
+    return (out.index_select(0, flat).view(*slots.shape, width) * gate[..., None]).sum(dim=1)

@@ -1,17 +1,25 @@
-"""Columnar shuffling buffers over host batches: dicts of ``(n, ...)`` numpy
-arrays (or lists for ragged and raw-payload fields).
+"""Columnar shuffling buffers: dicts of ``(n, ...)`` numpy arrays or torch
+tensors on any device (or lists for ragged and raw-payload fields).
 
-A copy of ``petastorm_tpu.parallel.shuffling_buffer`` (without its torch-tensor
-columns, which the port's loader never buffers): the random buffer draws from
-the same ``numpy.random.default_rng(seed)`` stream in the same calls, so both
-packages emit rows in the same order for the same seed and input. Chunks are
-kept as separate parts and only the rows a retrieve touches are copied. Not
-thread safe.
+A copy of ``petastorm_tpu.parallel.shuffling_buffer``: the random buffer draws
+from the same ``numpy.random.default_rng(seed)`` stream in the same calls, so
+both packages emit rows in the same order for the same seed and input. A
+tensor column is gathered and concatenated on its own device, so
+``BatchedDataLoader`` shuffles tensors that its ``transform_fn`` put on the
+card there. Chunks are kept as separate parts and only the rows a retrieve
+touches are copied. Not thread safe. The module imports no torch: the process
+pool's workers load it.
 """
 
+import sys
 from collections import deque
 
 import numpy as np
+
+
+def _is_torch_tensor(value):
+    torch = sys.modules.get('torch')
+    return torch is not None and isinstance(value, torch.Tensor)
 
 
 def _gather(columns, indices):
@@ -19,6 +27,8 @@ def _gather(columns, indices):
     for name, col in columns.items():
         if isinstance(col, np.ndarray):
             out[name] = col[indices]
+        elif _is_torch_tensor(col):
+            out[name] = col[np.asarray(indices)]
         else:
             out[name] = [col[i] for i in indices]
     return out
@@ -30,6 +40,9 @@ def _concat_parts(parts):
         values = [p[name] for p in parts]
         if isinstance(values[0], np.ndarray) and values[0].ndim >= 1:
             out[name] = np.concatenate(values) if len(values) > 1 else values[0]
+        elif _is_torch_tensor(values[0]):
+            import torch
+            out[name] = torch.cat(values) if len(values) > 1 else values[0]
         else:
             merged = []
             for v in values:

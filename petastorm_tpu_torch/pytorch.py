@@ -15,9 +15,7 @@ The defined difference: each loader takes ``device=None``, resolved by
 land on the card (a pinned host copy, then a ``non_blocking`` copy on the
 current stream) unless the caller passes ``device='cpu'``, which keeps them on
 the host as the JAX package's adapters do. ``InMemBatchedDataLoader`` holds
-its rows on ``device`` and gathers each batch there. ``BatchedDataLoader``
-applies ``transform_fn`` to each batch's columns after its shuffling buffer
-(the JAX adapter applies it before): the port's buffer holds host columns.
+its rows on ``device`` and gathers each batch there.
 """
 
 import decimal
@@ -184,10 +182,10 @@ class DataLoader(LoaderBase):
 
 class BatchedDataLoader(LoaderBase):
     """Columnar loader over a ``make_batch_reader`` reader: each rowgroup's
-    columns go through a shuffling buffer (random with
-    ``shuffling_queue_capacity``), and every batch's columns through
-    ``transform_fn`` (default ``torch.as_tensor``); the last batch may be
-    smaller."""
+    columns go through ``transform_fn`` (default ``torch.as_tensor``), then
+    through a shuffling buffer (random with ``shuffling_queue_capacity``);
+    the last batch may be smaller. A ``transform_fn`` that puts the columns
+    on the card makes the buffer gather and concatenate them there."""
 
     def __init__(self, reader, batch_size=1, transform_fn=None,
                  shuffling_queue_capacity=0, seed=None, device=None):
@@ -210,17 +208,13 @@ class BatchedDataLoader(LoaderBase):
         else:
             buffer = NoopShufflingBuffer()
         for batch in self.reader:
-            buffer.add_many({name: _writable_contiguous(_sanitize_value(name, col))
-                             for name, col in batch._asdict().items()})
+            buffer.add_many({name: self.transform_fn(_writable_contiguous(
+                _sanitize_value(name, col))) for name, col in batch._asdict().items()})
             while buffer.can_retrieve(self.batch_size):
-                yield self._tensors(buffer.retrieve(self.batch_size))
+                yield buffer.retrieve(self.batch_size)
         buffer.finish()
         while buffer.can_retrieve(1):
-            yield self._tensors(buffer.retrieve(self.batch_size))
-
-    def _tensors(self, columns):
-        return {name: self.transform_fn(_writable_contiguous(col))
-                for name, col in columns.items()}
+            yield buffer.retrieve(self.batch_size)
 
 
 class InMemBatchedDataLoader(LoaderBase):

@@ -190,7 +190,11 @@ def test_eviction_drops_what_jax_drops(tmp_path, cls):
 
 
 def test_a_corrupt_entry_is_served_as_a_miss(tmp_path):
-    cache = ArrowIpcDiskCache(str(tmp_path), LIMIT)
+    from petastorm_tpu_torch.resilience import BreakerBoard
+    # a breaker of its own: the failure it records must not reach the
+    # process's default board, which later readers in this process report
+    cache = ArrowIpcDiskCache(str(tmp_path), LIMIT,
+                              breaker=BreakerBoard().breaker('cache:corrupt-entry'))
     value = {'x': np.arange(10)}
     cache.get('k', lambda: value)
     (path,) = [os.path.join(r, f) for r, _, fs in os.walk(str(tmp_path)) for f in fs]
@@ -245,3 +249,40 @@ def test_cache_counts_by_epoch(store, tmp_path):
     assert diag['cache_by_epoch'] == {0: {'hits': 0, 'misses': 4},
                                       1: {'hits': 4, 'misses': 0}}
     assert (diag['cache_hits'], diag['cache_misses']) == (4, 4)
+
+
+def _entries(path):
+    return sorted(os.path.relpath(os.path.join(root, name), path)
+                  for root, _, names in os.walk(path) for name in names)
+
+
+@pytest.mark.parametrize('cache_format', ['arrow-ipc', 'pickle'])
+@pytest.mark.parametrize('cleanup', [True, False])
+def test_cleanup_removes_the_directory_as_jax_does(store, tmp_path, cache_format, cleanup):
+    """cache_extra_settings={'cleanup': ...} reaches the cache's constructor in
+    both packages; a read fills the same entries, and cleanup() removes the
+    whole directory only when asked, as the JAX cache does. The base class
+    and the null cache clean up nothing."""
+    from petastorm_tpu import cache as jax_cache
+    from petastorm_tpu import reader as jax_reader
+    from petastorm_tpu_torch import cache as port_cache
+    from petastorm_tpu_torch import reader as port_reader
+    kwargs = dict(reader_pool_type='dummy', shuffle_row_groups=False, cache_type='local-disk',
+                  cache_size_limit=LIMIT, cache_format=cache_format,
+                  cache_extra_settings={'cleanup': cleanup})
+    found = []
+    for make, module, name in ((make_reader, port_reader, 'port'),
+                               (jax_make_reader, jax_reader, 'jax')):
+        location = str(tmp_path / name)
+        with make(store, cache_location=location, **kwargs) as reader:
+            rows = _rows(reader)
+        entries = _entries(location)
+        cache = module._make_cache('local-disk', location, LIMIT, None, {'cleanup': cleanup},
+                                   cache_format, False)
+        cache.cleanup()
+        found.append((rows, entries, os.path.exists(location)))
+    assert found[0] == found[1]
+    rows, entries, exists = found[0]
+    assert len(rows) == ROWS and len(entries) == 4 and exists is not cleanup
+    for module in (port_cache, jax_cache):
+        assert module.CacheBase().cleanup() is None and module.NullCache().cleanup() is None

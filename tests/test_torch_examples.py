@@ -152,3 +152,43 @@ def test_long_context_twin_first_batch_equals_the_jax_examples(tmp_path, mode):
     for name in theirs:
         assert ours[name].numpy().dtype == theirs[name].dtype
         np.testing.assert_array_equal(ours[name].numpy(), theirs[name])
+
+
+# ------------------------------------------------ the TensorFlow twins
+
+def test_hello_world_tensorflow_twin(tmp_path):
+    pytest.importorskip('tensorflow')
+    from examples.hello_world.petastorm_dataset import torch_generate_petastorm_dataset
+    from examples.hello_world.petastorm_dataset.torch_tensorflow_hello_world import main
+    url = 'file://' + str(tmp_path / 'hello_world')
+    torch_generate_petastorm_dataset.main(['-o', url, '-n', '6'])
+    ids = main(['-d', url])
+    assert len(ids) == len(set(ids)) == 3 and set(ids) <= set(range(6))
+
+
+def test_external_tensorflow_twin(tmp_path):
+    pytest.importorskip('tensorflow')
+    from examples.hello_world.external_dataset.torch_generate_external_dataset import (
+        generate_external_dataset)
+    from examples.hello_world.external_dataset.torch_tensorflow_hello_world import main
+    url = 'file://' + str(tmp_path / 'external')
+    generate_external_dataset(url, 40)
+    ids = np.concatenate(main(['-d', url])).tolist()
+    assert len(ids) == len(set(ids)) > 0 and set(ids) <= set(range(40))
+
+
+def test_mnist_tensorflow_twin_trains(mnist_store):
+    pytest.importorskip('tensorflow')
+    from examples.mnist import torch_tf_example
+    metrics = torch_tf_example.main(['--dataset-url', mnist_store, '--batch-size', '32',
+                                     '--steps', '6'])
+    assert np.isfinite(metrics).all()
+
+
+def test_converter_tensorflow_twin_trains(tmp_path):
+    pytest.importorskip('tensorflow')
+    from examples.converter import torch_tensorflow_converter_example
+    loss = torch_tensorflow_converter_example.main(['--cache-dir', str(tmp_path),
+                                                    '--steps', '5'])
+    assert _finite(loss)
+    assert os.listdir(str(tmp_path)) == []   # the converter deleted its store

@@ -48,6 +48,11 @@ SLICE_18_MODULES = tuple(os.path.join('analysis', name) for name in (
         'locks.py', 'lifecycle.py', 'determinism.py', 'journal.py', 'ratchet.py'))
 #: the composed-parallelism slice (the twin of __graft_entry__.py)
 SLICE_19_MODULES = ('graft_entry.py', os.path.join('parallel', 'tensor_parallel.py'))
+#: the TensorFlow example twins
+TF_TWINS = (('hello_world', 'petastorm_dataset', 'torch_tensorflow_hello_world.py'),
+            ('hello_world', 'external_dataset', 'torch_tensorflow_hello_world.py'),
+            ('mnist', 'torch_tf_example.py'),
+            ('converter', 'torch_tensorflow_converter_example.py'))
 #: the examples/hello_world twins, both halves
 HELLO_WORLD_TWINS = tuple(
     ('hello_world', half, 'torch_{}.py'.format(name))
@@ -102,7 +107,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert os.path.join(REPO, 'chip_smoke.py') in files and len(files) > 20
     for twin in (('moe', 'torch_example.py'), ('converter', 'torch_converter_example.py'),
                  ('mnist', 'torch_example.py'), ('imagenet', 'torch_example.py'),
-                 ('long_context', 'torch_example.py')) + HELLO_WORLD_TWINS:
+                 ('long_context', 'torch_example.py')) + HELLO_WORLD_TWINS + TF_TWINS:
         assert os.path.join(REPO, 'examples', *twin) in files
     for module in ('converter.py', 'pytorch.py', 'utils.py', 'arrow_helpers.py',
                    'generator.py', os.path.join('etl', 'legacy.py'),
@@ -192,7 +197,10 @@ _BLOCKED_RUN = textwrap.dedent('''
                  'imagenet.torch_example', 'long_context.torch_example',
                  'moe.torch_example', 'hello_world.petastorm_dataset.torch_hello_world',
                  'hello_world.petastorm_dataset.torch_pytorch_hello_world',
-                 'hello_world.external_dataset.torch_hello_world'):
+                 'hello_world.external_dataset.torch_hello_world',
+                 'hello_world.petastorm_dataset.torch_tensorflow_hello_world',
+                 'hello_world.external_dataset.torch_tensorflow_hello_world',
+                 'mnist.torch_tf_example', 'converter.torch_tensorflow_converter_example'):
         importlib.import_module('examples.' + twin)
     from petastorm_tpu_torch.tools import doctor
     assert doctor.collect_report(link=False)['healthy']

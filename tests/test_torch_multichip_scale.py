@@ -9,8 +9,8 @@ and of the dry run it drives.
   MoETransformerLM, phase 6's stages), converted by ``convert.py``. Phases
   1, 3, 4 and 6: the loss and every gradient against the JAX package's
   dense network on the same global batch (``dense_attention``, flax
-  ``Block``, flax ``MoETransformerLM`` routed per data shard as the port's
-  ``MoEMlp(expert_group=)`` routes, the phase-6 MLP stages in sequence).
+  ``Block``, flax ``MoETransformerLM`` applied to the whole batch as the JAX
+  script applies it, the phase-6 MLP stages in sequence).
   Each phase's global batch holds rows of the store, and each rank its
   piece of it (under ``P('data', 'seq')`` its data rows' seq columns).
   Phase 2's carry equals twice the sum of every row (each epoch serves them
@@ -350,14 +350,10 @@ def _dryrun_references(weights, flax, record):
 
     moe = flax['moe_model']
     ep_tokens = record['ep_dp']['tokens']
-    shards = np.split(ep_tokens, 2)
 
     def ep_dp(params):
-        total = 0.0
-        for shard in shards:
-            logits, mods = moe.apply({'params': params}, shard, mutable='losses')
-            total = total + next_token_loss(logits, shard) + moe_aux_total(mods, weight=0.01)
-        return total / len(shards)
+        logits, mods = moe.apply({'params': params}, ep_tokens, mutable='losses')
+        return next_token_loss(logits, ep_tokens) + moe_aux_total(mods, weight=0.01)
     loss, grads = _value_and_grad(ep_dp, flax['moe'])
     refs['ep_dp'] = (loss, {k: v.numpy() for k, v in
                             moe_state_dict_from_flax({'params': grads}).items()})

@@ -230,3 +230,39 @@ def test_decimal_friendly_collate_equals_the_jax_adapter(case):
         got = got[-1] if isinstance(got, tuple) else got
         want = want[-1] if isinstance(want, tuple) else want
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _recording(seen):
+    def transform(column):
+        seen.append(len(column))
+        return torch.as_tensor(column)
+    return transform
+
+
+def _centered(column):
+    """Not row-wise: each rowgroup's column minus its mean."""
+    tensor = torch.as_tensor(column).to(torch.float64)
+    return tensor - tensor.mean()
+
+
+@pytest.mark.parametrize('case', sorted(BATCHED_CASES))
+def test_batched_dataloader_transforms_rowgroups_before_the_buffer(scalar_dataset, case):
+    """transform_fn sees each rowgroup's columns, before the shuffling buffer,
+    as in the JAX adapter: the row counts a recording transform sees, and
+    the batches of a transform that is not row-wise, are the JAX adapter's."""
+    from petastorm_tpu.pytorch import BatchedDataLoader as JaxBatched
+    from petastorm_tpu_torch.pytorch import BatchedDataLoader
+    kwargs = dict(BATCHED_CASES[case])
+    ours_seen, their_seen = [], []
+    ours_reader, their_reader = _batch_readers(scalar_dataset.url, ['id', 'float64'])
+    ours = _run(BatchedDataLoader(ours_reader, device='cpu', transform_fn=_recording(ours_seen),
+                                  **kwargs))
+    theirs = _run(JaxBatched(their_reader, transform_fn=_recording(their_seen), **kwargs))
+    _assert_batches_equal(ours, theirs)
+    # rowgroups, not batches
+    assert ours_seen == their_seen != [len(batch['id']) for batch in ours]
+
+    ours_reader, their_reader = _batch_readers(scalar_dataset.url, ['id', 'float64'])
+    ours = _run(BatchedDataLoader(ours_reader, device='cpu', transform_fn=_centered, **kwargs))
+    theirs = _run(JaxBatched(their_reader, transform_fn=_centered, **kwargs))
+    _assert_batches_equal(ours, theirs)

@@ -6,16 +6,29 @@ package's shard_map on a 2 x 2 mesh of the same shards:
 - MoEMlp(expert_group=...) with capacity_factor 4 (no token dropped) against
   the unsharded module from the same generator seed, outputs and the experts'
   gradients;
+- MoEMlp(expert_group=, batch_group=) against the JAX MoEMlp on the whole
+  global batch (the weights carried by convert.moe_state_dict_from_flax), at
+  capacity_factor 0.5 and 1.25, top-1 and top-2, in both token layouts:
+  tokens over 'data' copied over 'expert' (batch_group = the data group) and
+  tokens over all 4 ranks (batch_group = the world): outputs, moe_aux,
+  moe_drop_fraction, and the gradients of sum(y * probe) + aux by the
+  tokens, the router and the experts; then one MoETransformerLM step over
+  all 4 ranks: the loss and every gradient against jax.grad of the
+  whole-batch next_token_loss + moe_aux_total(weight=0.01);
 - the sp + ep layer of tests/test_sharded_moe.py: ring attention over 'seq',
   the expert FFN over 'expert', on a (seq=2, expert=2) mesh;
 - the errors: experts not divisible by the group, a wrong local slice, mesh
-  sizes that do not multiply to the world size.
+  sizes that do not multiply to the world size, an expert group without a
+  batch group.
 
 The ranks are this file run as a script (no JAX in them), joined by a file
 store under tmp_path. Tolerances: float32 outputs rtol 2e-4, atol 2e-5;
 gradients within 1e-4 of the largest magnitude. The JAX layer replicates the
 tokens over 'expert'; a torch rank's loss is divided by the expert group's
-size so that the expert replicas' gradients add up to the data shard's."""
+size so that the expert replicas' gradients add up to the data shard's. In
+the global-routing cases a rank's loss is its rows' part divided by its
+copies plus aux divided by the world size (aux is the same on every rank),
+so that the ranks' losses add up to the whole batch's."""
 
 import datetime
 import os
@@ -29,6 +42,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=2e-4, atol=2e-5)
 N_EXPERTS, DIM, HID, S = 8, 16, 32, 32   # as tests/test_sharded_moe.py
 LAYER = dict(B=4, T=16, H=2, D=64, X=4)   # the sp + ep layer (head_dim the kernels take)
+#: the global-routing cases: (layout, num_selected, capacity_factor); layout
+#: 'data' shards the rows over 'data' and copies them over 'expert', 'all'
+#: gives each of the 4 ranks its own rows
+ROUTED = [(layout, k, cf) for layout in ('data', 'all') for k in (1, 2) for cf in (0.5, 1.25)]
+ROUTED_X, ROUTED_SHAPE = 4, (4, 8, 16)
+ROUTED_LM = dict(vocab=32, embed=16, heads=2, layers=2, num_experts=4, max_len=8)
+
+
+def routed_name(layout, k, cf):
+    return 'routed_{}_k{}_c{}'.format(layout, k, cf)
 
 
 def run_world(script, tmp_path, inputs, world=4, timeout=240):
@@ -77,11 +100,16 @@ def _raises(fn):
 def _worker(rank, world, store, workdir):
     import torch.distributed as dist
 
-    from petastorm_tpu_torch.models.moe import MoEMlp
+    from petastorm_tpu_torch.models.moe import (MoEMlp, MoETransformerLM,
+                                                expert_partition_specs, moe_aux_total,
+                                                moe_drop_fractions)
+    from petastorm_tpu_torch.models.transformer import next_token_loss
     from petastorm_tpu_torch.ops.ring_attention import ring_attention
     from petastorm_tpu_torch.ops.sharded_moe import expert_alltoall_ffn, sharded_moe_ffn
     from petastorm_tpu_torch.parallel.mesh import make_mesh
+    from petastorm_tpu_torch.parallel.tensor_parallel import shard_by_spec
     init_world(rank, world, store)
+    rank, world_size = int(rank), int(world)
     inputs = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(workdir,
                                                                       'inputs.npz')).items()}
     out = {}
@@ -109,8 +137,8 @@ def _worker(rank, world, store, workdir):
     # MoEMlp(expert_group=...) against the unsharded module of the same seed
     x = inputs['x']
     kwargs = dict(capacity_factor=4.0, dtype=torch.float32, device='cpu')
-    sharded = MoEMlp(16, 4, expert_group=expert, generator=torch.Generator().manual_seed(11),
-                     **kwargs)
+    sharded = MoEMlp(16, 4, expert_group=expert, batch_group=data,
+                     generator=torch.Generator().manual_seed(11), **kwargs)
     whole = MoEMlp(16, 4, generator=torch.Generator().manual_seed(11), **kwargs)
     x_local = x[d * 2:(d + 1) * 2]
     y_sharded, losses = sharded(x_local)
@@ -122,6 +150,45 @@ def _worker(rank, world, store, workdir):
                mlp_w1_grad_want=whole.w1.grad[e * 2:(e + 1) * 2],
                mlp_router_grad=sharded.router.weight.grad,
                mlp_router_grad_want=whole.router.weight.grad)
+
+    # MoEMlp(expert_group=, batch_group=): the global batch routed as JAX does
+    world = dist.group.WORLD
+    state = {k[len('mlp.'):]: v for k, v in inputs.items() if k.startswith('mlp.')}
+    for layout, k, cf in ROUTED:
+        rows, copies, batch = ((slice(d * 2, (d + 1) * 2), ne, data) if layout == 'data'
+                               else (slice(rank, rank + 1), 1, world))
+        layer = MoEMlp(16, ROUTED_X, capacity_factor=cf, num_selected=k, hidden_mult=2,
+                       dtype=torch.float32, expert_group=expert, batch_group=batch,
+                       device='cpu')
+        xl = ROUTED_X // ne
+        layer.load_state_dict({name: v[e * xl:(e + 1) * xl] if name in ('w1', 'w2') else v
+                               for name, v in state.items()})
+        x_rows = leaf(inputs['routed_x'][rows])
+        y, losses = layer(x_rows)
+        share = ((y * inputs['routed_probe'][rows]).sum() / copies
+                 + losses['moe_aux'] / dist.get_world_size())
+        share.backward()
+        name = routed_name(layout, k, cf)
+        out.update({name: y.detach(), name + '_aux': losses['moe_aux'].detach(),
+                    name + '_drop': losses['moe_drop_fraction'], name + '_x_grad': x_rows.grad,
+                    name + '_router_grad': layer.router.weight.grad,
+                    name + '_w1_grad': layer.w1.grad, name + '_w2_grad': layer.w2.grad})
+
+    # one MoETransformerLM step, every rank its own row
+    lm_state = {k[len('lm.'):]: v for k, v in inputs.items() if k.startswith('lm.')}
+    lm = MoETransformerLM(dtype=torch.float32, expert_group=expert, batch_group=world,
+                          device='cpu', **ROUTED_LM)
+    specs = expert_partition_specs(lm_state)
+    lm.load_state_dict({name: shard_by_spec(v, specs[name], mesh)
+                        for name, v in lm_state.items()})
+    lm_tokens = inputs['lm_tokens'][rank:rank + 1]
+    logits, losses = lm(lm_tokens)
+    share = ((next_token_loss(logits, lm_tokens) + moe_aux_total(losses, weight=0.01))
+             / world_size)
+    share.backward()
+    out['lm_loss'] = share.detach()
+    out['lm_drop'] = torch.stack(moe_drop_fractions(losses)).detach()
+    out.update({'lm_grad.' + name: p.grad for name, p in lm.named_parameters()})
 
     # the sp + ep layer on (seq=2, expert=2)
     layer_mesh = make_mesh(('seq', 'expert'), (2, 2), device='cpu')
@@ -147,6 +214,12 @@ def _worker(rank, world, store, workdir):
         torch.zeros(16, DIM), dispatch, dispatch, inputs['w1'], inputs['w2'], expert)))
     out['error_mesh'] = torch.tensor(_raises(lambda: make_mesh(('a', 'b'), (2, 3),
                                                                device='cpu')))
+    # an expert group with no batch group does not say which ranks hold
+    # distinct rows, so it is refused
+    out['error_no_batch_group'] = torch.tensor(
+        _raises(lambda: MoEMlp(16, 4, expert_group=expert, device='cpu'))
+        and _raises(lambda: MoETransformerLM(dtype=torch.float32, expert_group=expert,
+                                             device='cpu', **ROUTED_LM)))
     np.savez(os.path.join(workdir, 'rank{}.npz'.format(rank)),
              **{k: v.detach().numpy() for k, v in out.items()})
     dist.destroy_process_group()
@@ -169,6 +242,78 @@ def _inputs():
                 layer_router=(rng.randn(e, LAYER['X']) * 0.5).astype(np.float32),
                 layer_w1=(rng.randn(LAYER['X'], e, 2 * e) * 0.3 / np.sqrt(8)).astype(np.float32),
                 layer_w2=(rng.randn(LAYER['X'], 2 * e, e) * 0.3 / np.sqrt(16)).astype(np.float32))
+
+
+def _routed_inputs():
+    """The JAX MoEMlp's and MoETransformerLM's initial weights in the port's
+    layout (prefixed 'mlp.' and 'lm.'), the global batch, the probe and the
+    LM's tokens; with the flax modules and variables for the references."""
+    import jax
+    import jax.numpy as jnp
+
+    from petastorm_tpu.models.moe import MoEMlp as FlaxMoEMlp
+    from petastorm_tpu.models.moe import MoETransformerLM as FlaxLM
+    from petastorm_tpu_torch.convert import moe_state_dict_from_flax
+    rng = np.random.RandomState(7)
+    x = rng.randn(*ROUTED_SHAPE).astype(np.float32)
+    probe = rng.randn(*ROUTED_SHAPE).astype(np.float32)
+    tokens = rng.randint(0, ROUTED_LM['vocab'], (4, ROUTED_LM['max_len'])).astype(np.int32)
+    mlp_vars = jax.tree.map(np.asarray, FlaxMoEMlp(num_experts=ROUTED_X, hidden_mult=2).init(
+        jax.random.PRNGKey(3), jnp.asarray(x)))
+    lm_model = FlaxLM(dtype=jnp.float32, **ROUTED_LM)
+    lm_vars = {'params': jax.tree.map(np.asarray, lm_model.init(
+        jax.random.PRNGKey(5), jnp.asarray(tokens))['params'])}
+    inputs = {'routed_x': x, 'routed_probe': probe, 'lm_tokens': tokens}
+    inputs.update({'mlp.' + k: v.numpy() for k, v in moe_state_dict_from_flax(
+        {'params': mlp_vars['params']}).items()})
+    inputs.update({'lm.' + k: v.numpy() for k, v in moe_state_dict_from_flax(lm_vars).items()})
+    return inputs, {'params': mlp_vars['params']}, (lm_model, lm_vars)
+
+
+def _jax_routed(variables, x, probe, k, cf):
+    """The JAX MoEMlp on the whole batch: y, aux, drop fraction, and the
+    gradients of sum(y * probe) + aux by the tokens and (in the port's
+    layout) the weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from petastorm_tpu.models.moe import MoEMlp as FlaxMoEMlp
+    from petastorm_tpu_torch.convert import moe_state_dict_from_flax
+    model = FlaxMoEMlp(num_experts=ROUTED_X, capacity_factor=cf, num_selected=k,
+                       hidden_mult=2, dtype=jnp.float32)
+
+    def loss(params, x):
+        y, mods = model.apply(params, x, mutable='losses')
+        aux, drop = mods['losses']['moe_aux'][0], mods['losses']['moe_drop_fraction'][0]
+        return jnp.sum(y * probe) + aux, (y, aux, drop)
+
+    (_, (y, aux, drop)), (g_params, g_x) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(variables, jnp.asarray(x))
+    grads = {k: v.numpy() for k, v in moe_state_dict_from_flax(
+        jax.tree.map(np.asarray, g_params)).items()}
+    return np.asarray(y), float(aux), float(drop), np.asarray(g_x), grads
+
+
+def _jax_lm(lm, tokens):
+    """jax.grad of the whole batch's next_token_loss + moe_aux_total(weight
+    0.01): the loss, the drop fractions and the gradients in the port's
+    names."""
+    import jax
+    import jax.numpy as jnp
+
+    from petastorm_tpu.models.moe import moe_aux_total, moe_drop_fractions
+    from petastorm_tpu.models.transformer import next_token_loss
+    from petastorm_tpu_torch.convert import moe_state_dict_from_flax
+    model, variables = lm
+
+    def loss(params):
+        logits, mods = model.apply(params, jnp.asarray(tokens), mutable='losses')
+        return (next_token_loss(logits, jnp.asarray(tokens)) + moe_aux_total(mods, weight=0.01),
+                jnp.stack(moe_drop_fractions(mods)))
+
+    (value, drops), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(variables)
+    return float(value), np.asarray(drops), {k: v.numpy() for k, v in moe_state_dict_from_flax(
+        jax.tree.map(np.asarray, grads)).items()}
 
 
 def _jax_ffn(inputs, num_selected=1):
@@ -222,8 +367,55 @@ def _close_grads(got, want, name):
                                err_msg=name)
 
 
+def _check_routed(ranks, by, mlp_vars, inputs):
+    """The global-routing cases against the JAX MoEMlp on the whole batch."""
+    x, probe = inputs['routed_x'], inputs['routed_probe']
+    for layout, k, cf in ROUTED:
+        name = routed_name(layout, k, cf)
+        y, aux, drop, g_x, grads = _jax_routed(mlp_vars, x, probe, k, cf)
+        if cf < 1:
+            assert drop > 0, name
+        for (d, e), r in by.items():
+            rows = slice(d * 2, (d + 1) * 2) if layout == 'data' else slice(2 * d + e,
+                                                                            2 * d + e + 1)
+            np.testing.assert_allclose(r[name], y[rows], err_msg=name, **TOL)
+            np.testing.assert_allclose(r[name + '_aux'], aux, err_msg=name, **TOL)
+            np.testing.assert_allclose(r[name + '_drop'], drop, err_msg=name, **TOL)
+            if layout == 'all':
+                _close_grads(r[name + '_x_grad'], g_x[rows], name + ' tokens')
+        if layout == 'data':
+            for d in range(2):
+                _close_grads(by[d, 0][name + '_x_grad'] + by[d, 1][name + '_x_grad'],
+                             g_x[d * 2:(d + 1) * 2], name + ' tokens')
+        _close_grads(sum(r[name + '_router_grad'] for r in ranks), grads['router.weight'],
+                     name + ' router')
+        for e in range(2):
+            for w in ('w1', 'w2'):
+                key = '{}_{}_grad'.format(name, w)
+                _close_grads(by[0, e][key] + by[1, e][key], grads[w][e * 2:(e + 1) * 2],
+                             name + ' ' + w)
+
+
+def _check_routed_lm(ranks, by, lm, tokens):
+    """One MoETransformerLM step over all 4 ranks against jax.grad of the
+    whole batch's loss."""
+    loss, drops, grads = _jax_lm(lm, tokens)
+    np.testing.assert_allclose(sum(float(r['lm_loss']) for r in ranks), loss, **TOL)
+    for r in ranks:
+        np.testing.assert_allclose(r['lm_drop'], drops, **TOL)
+    for name, want in grads.items():
+        if name.endswith(('.w1', '.w2')):
+            for e in range(2):
+                _close_grads(by[0, e]['lm_grad.' + name] + by[1, e]['lm_grad.' + name],
+                             want[e * 2:(e + 1) * 2], 'lm ' + name)
+        else:
+            _close_grads(sum(r['lm_grad.' + name] for r in ranks), want, 'lm ' + name)
+
+
 def test_expert_parallel_ops_on_a_gloo_world_of_four(tmp_path):
     inputs = _inputs()
+    routed, mlp_vars, lm = _routed_inputs()
+    inputs.update(routed)
     ranks = run_world(os.path.abspath(__file__), tmp_path, inputs)
     # rank = 2 * data + expert on the (data, expert) mesh, 2 * seq + expert on the layer's
     by = {(r // 2, r % 2): ranks[r] for r in range(4)}
@@ -263,8 +455,13 @@ def test_expert_parallel_ops_on_a_gloo_world_of_four(tmp_path):
         np.testing.assert_allclose(r['layer'], want_layer[:, s * t_local:(s + 1) * t_local],
                                    **TOL)
 
+    # MoEMlp and MoETransformerLM over the global batch against JAX
+    _check_routed(ranks, by, mlp_vars, inputs)
+    _check_routed_lm(ranks, by, lm, inputs['lm_tokens'])
+
     for r in ranks:
         assert r['error_indivisible'] and r['error_slice'] and r['error_mesh']
+        assert r['error_no_batch_group']
 
 
 if __name__ == '__main__':

@@ -37,10 +37,6 @@ DEFINED_DIFFERENCES = {
     'benchmark/mfu.py:mfu_fields': ("XLA's cost analysis; the port counts FLOPs analytically", 18),
     'benchmark/throughput.py:READ_JAX': ('the port reads with READ_TORCH', 18),
     'benchmark/throughput.py:reader_throughput(jax_batch_size)': ('torch_batch_size', 14),
-    'cache.py:CacheBase.cleanup': ('no cleanup option in the port', 8),
-    'cache.py:LocalDiskCache(cleanup)': ('no cleanup option in the port', 8),
-    'cache.py:LocalDiskCache.cleanup': ('no cleanup option in the port', 8),
-    'cache.py:ArrowIpcDiskCache(cleanup)': ('no cleanup option in the port', 8),
     'converter.py:DatasetConverter.make_jax_loader': ('make_torch_loader', 12),
     'models/moe.py:expert_partition_specs(params)': ('the specs follow the state_dict', 10),
     'models/moe.py:expert_partition_specs(expert_axis)': (_MESH, 10),
