@@ -3638,9 +3638,10 @@ def wait_split(events, wall_s):
 def timed_copy_upload(copies):
     """The loader's ``upload_columns`` with a CUDA event pair around the one
     pinned copy alone, on the current stream (the loader's side stream):
-    the same packing and staging, then ``(start, end, bytes)`` appended to
-    ``copies``."""
-    def upload(columns, device, out=None):
+    the same packing and staging, the loader's own ``before_copy`` hook
+    (its ``h2d_on_device`` span) called where ``upload_columns`` calls it,
+    then ``(start, end, bytes)`` appended to ``copies``."""
+    def upload(columns, device, out=None, before_copy=None):
         check(out is None, 'the timed upload serves the loader only')
         layout, nbytes = loader_module.packed_layout(columns)
         host = torch.empty(max(nbytes, 1), dtype=torch.uint8,
@@ -3649,6 +3650,8 @@ def timed_copy_upload(copies):
         for _, start, col in layout:
             host_np[start:start + col.nbytes] = col.reshape(-1).view(np.uint8)
         events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        if before_copy is not None:
+            before_copy()
         events[0].record()
         buf = host.to(device, non_blocking=True)
         events[1].record()
@@ -3746,6 +3749,10 @@ def phase_telemetry_imagenet(tmp, args):
                                                                              steps))
     copy_median = statistics.median(copy_ms)
     bytes_median = statistics.median(copy_bytes)
+    # the loader's own span of the same copies: those resolved by the snapshot
+    on_device = (snapshot.get('histograms') or {}).get('h2d_on_device') or {'count': 0}
+    check(1 <= on_device['count'] <= steps,
+          '17a: {} h2d_on_device spans for {} batches'.format(on_device['count'], steps))
     return {'steps': steps, 'rowgroups': rowgroups, 'rows': result['rows'],
             'rows_per_s': result['rows_per_s'],
             'input_stall_fraction': result['input_stall_fraction'],
@@ -3756,6 +3763,8 @@ def phase_telemetry_imagenet(tmp, args):
             'h2d_span_ms_median': statistics.median(h2d_us) / 1e3, 'waits': waits,
             'copy_ms': copy_ms, 'copy_ms_median': copy_median, 'copy_bytes': copy_bytes,
             'copy_gb_per_s': bytes_median / (copy_median * 1e6),
+            'h2d_on_device_ms_mean': on_device['mean'] * 1e3,
+            'h2d_on_device_count': on_device['count'],
             'trace_events': summary['events'], 'flow_events': len(flows),
             'processes': len(summary['processes']),
             'metrics_series': len(series), 'phase_s': time.perf_counter() - phase_start}
@@ -3993,7 +4002,8 @@ def telemetry_imagenet_line(imagenet, main_path, card):
     return ('phase 17a ImageNet instrumented (process pool of {} workers, trace, '
            '/metrics): stage counts {} ({} batches, {} rowgroups); shares {}; top {} -> '
            '{!r}; h2d span median {:.4f} ms (host) against the copy\'s {:.4f} ms on the card '
-           'for {} B ({:.2f} GB/s); rows/s {:.2f} stall {:.4f} beside phase 5\'s {:.2f} and '
+           'for {} B ({:.2f} GB/s; the loader\'s h2d_on_device mean {:.4f} ms over {}); '
+           'rows/s {:.2f} stall {:.4f} beside phase 5\'s {:.2f} and '
            '{:.4f}; shuffle_wait: fill {:.2f} ms, then {:.2f} ms in all (median {:.3f}, max {:.3f}'
            ', {:.4f} of the epoch); trace {} events, {} flow events, {} processes; K1 {} '
            'launches; {:.1f} s [{}]'.format(imagenet['processes'] - 1, imagenet['stage_counts'], imagenet['steps'],
@@ -4001,6 +4011,7 @@ def telemetry_imagenet_line(imagenet, main_path, card):
                          imagenet['recommendation'], imagenet['h2d_span_ms_median'],
                          imagenet['copy_ms_median'], int(statistics.median(
                              imagenet['copy_bytes'])), imagenet['copy_gb_per_s'],
+                         imagenet['h2d_on_device_ms_mean'], imagenet['h2d_on_device_count'],
                          imagenet['rows_per_s'], imagenet['input_stall_fraction'],
                          main_path['rows_per_s'], main_path['input_stall_fraction'],
                          *(imagenet['waits'][key] for key in (
@@ -5209,14 +5220,18 @@ def phase_remote_topology(tmp, args, record, card):
 ANALYZER = 'petastorm_tpu_torch.analysis'
 #: the port's call graph before its analyzer joined it (120 files)
 PORT_CALLGRAPH_BEFORE = 1665
-PIPECHECK_DIRECTIVE = re.compile(r'#\s*pipecheck:\s*disable=[A-Za-z0-9_,-]+\s*--\s*\S')
+PIPECHECK_DIRECTIVE = re.compile(r'#\s*pipecheck:\s*disable=([A-Za-z0-9_,-]+)\s*--\s*\S')
+#: directives that quiet the JAX package's analyzer alone: the port's own
+#: stages (PORT_STAGES), which the port's telemetry-names rule accepts
+JAX_ONLY_DIRECTIVES = frozenset({'telemetry-names'})
 #: 22b's rename in the port's worker
 RESULT_SHM_SEND = "channel.send(('result_shm', current['token'], descriptor.to_bytes()))"
 
 
 def port_sources(root):
     """The port's ``.py`` files as the analyzer walks them, and the
-    suppression directives with a reason among them."""
+    suppression directives with a reason among them that the port's own
+    analyzer honours (not those of ``JAX_ONLY_DIRECTIVES``)."""
     files, directives = 0, 0
     for directory, dirs, names in os.walk(root):
         dirs[:] = [d for d in dirs if d != '__pycache__' and not d.startswith('.')]
@@ -5224,7 +5239,8 @@ def port_sources(root):
             if name.endswith('.py'):
                 files += 1
                 with open(os.path.join(directory, name), encoding='utf-8') as f:
-                    directives += len(PIPECHECK_DIRECTIVE.findall(f.read()))
+                    directives += sum(rules not in JAX_ONLY_DIRECTIVES for rules
+                                      in PIPECHECK_DIRECTIVE.findall(f.read()))
     return files, directives
 
 

@@ -6,7 +6,8 @@ a fresh histogram that no dashboard, no ``attribute_bottleneck`` knob-map
 entry, and no doc row knows about. This rule closes that hole statically:
 
 - ``stage_span('x')`` / ``record_stage('x', ...)`` → ``x`` must be in
-  ``STAGES`` (``telemetry/spans.py``);
+  ``STAGES`` (``telemetry/spans.py``) or the port's own ``PORT_STAGES``
+  beside it (accepted wherever ``STAGES`` is);
 - ``<registry>.observe('x', ...)`` → ``x`` in ``STAGES`` or
   ``SIZE_HISTOGRAMS``;
 - ``<registry>.inc('x')`` → ``x`` in ``COUNTERS``;
@@ -82,6 +83,8 @@ def _catalog_from_tree(tree: ast.Module, origin: str) -> Optional[_Catalog]:
     size_histograms = extract_string_tuple(tree, 'SIZE_HISTOGRAMS') or []
     trace_instants = extract_string_tuple(tree, 'TRACE_INSTANTS') or []
     gauges = extract_string_tuple(tree, 'GAUGES') or []
+    # the port's own stages are accepted wherever STAGES are
+    stages += extract_string_tuple(tree, 'PORT_STAGES') or []
     return _Catalog(tuple(stages), tuple(counters), tuple(size_histograms),
                     tuple(trace_instants), origin, gauges=tuple(gauges))
 
@@ -146,8 +149,8 @@ class TelemetryNamesRule(Rule):
     name = 'telemetry-names'
     description = ('stage_span/record_stage/observe/inc/gauge/trace_complete/'
                    'trace_instant names must exist in the telemetry catalog '
-                   '(STAGES / COUNTERS / SIZE_HISTOGRAMS / GAUGES / '
-                   'TRACE_INSTANTS in telemetry/spans.py); '
+                   '(STAGES and PORT_STAGES / COUNTERS / SIZE_HISTOGRAMS / '
+                   'GAUGES / TRACE_INSTANTS in telemetry/spans.py); '
                    'Knob()/catalog.knob() ids must exist in KNOB_IDS '
                    '(autotune/knobs.py); the cost profiler\'s COST_STAGES '
                    '(telemetry/cost_model.py) must be a subset of STAGES')

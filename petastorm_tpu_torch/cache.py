@@ -43,11 +43,10 @@ import shutil
 import struct
 import tempfile
 import threading
-import time
 import zlib
 
 from petastorm_tpu_torch.errors import CacheCorruptionError
-from petastorm_tpu_torch.telemetry.spans import record_stage, stage_span
+from petastorm_tpu_torch.telemetry.spans import stage_span
 
 logger = logging.getLogger(__name__)
 
@@ -214,15 +213,14 @@ class LocalDiskCache(CacheBase):
                                exc_info=True)
             else:
                 logger.debug('cache entry %s is unreadable', file_path, exc_info=True)
-            delete_start = time.perf_counter()
-            try:
-                os.unlink(file_path)
-            except OSError:
-                pass   # a concurrent reader may have removed it already
-            with self._lock:
-                self.stats['corrupt_entries'] += 1
-            self._breaker.record_failure()
-            record_stage('cache_corrupt', time.perf_counter() - delete_start)
+            with stage_span('cache_corrupt'):
+                try:
+                    os.unlink(file_path)
+                except OSError:
+                    pass   # a concurrent reader may have removed it already
+                with self._lock:
+                    self.stats['corrupt_entries'] += 1
+                self._breaker.record_failure()
         with self._lock:
             self.stats['misses'] += 1
         value = fill_cache_func()

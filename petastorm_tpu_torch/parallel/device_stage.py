@@ -42,7 +42,6 @@ Differences from the JAX stage, all deliberate:
 from __future__ import annotations
 
 import collections
-import time
 import zlib
 from dataclasses import dataclass
 from io import BytesIO
@@ -57,6 +56,7 @@ from petastorm_tpu_torch.decode_engine import (RAW_ENC_DEFLATE, RAW_ENC_NPY,
                                                RAW_ENC_SUFFIX, RAW_HW_SUFFIX,
                                                stack_if_uniform)
 from petastorm_tpu_torch.ops import raw_decode
+from petastorm_tpu_torch.telemetry.spans import host_span
 
 #: suffix of the loader-private stored-deflate segment-table column
 _SEGS_SUFFIX = '__segs'
@@ -420,7 +420,8 @@ class DeviceDecodeStage:
     def throttle(self, done: Optional[Any]) -> float:
         """Bound the decode work queued ahead of the train step: append this
         batch's completion event (None on the CPU, where work is synchronous)
-        and, past the ring depth, wait for the OLDEST batch to finish. Returns
+        and, past the ring depth, wait for the OLDEST batch to finish, inside
+        the profiler range ``petastorm_tpu_torch.loader.d2d_wait``. Returns
         the seconds the host spent blocked in ``Event.synchronize()`` (the
         loader's ``d2d_wait`` stage)."""
         if done is None:
@@ -429,7 +430,7 @@ class DeviceDecodeStage:
         waited = 0.0
         while len(self._ring) > self._depth:
             oldest = self._ring.popleft()
-            start = time.perf_counter()
-            oldest.synchronize()
-            waited += time.perf_counter() - start
+            with host_span('loader', 'd2d_wait') as wait:
+                oldest.synchronize()
+            waited += wait.seconds
         return waited

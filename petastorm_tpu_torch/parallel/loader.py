@@ -50,14 +50,24 @@ loop blocked on the prefetch queue), ``collate``, ``h2d``, ``device_decode``
 and ``d2d_wait`` land in the loader's registry (and, while tracing is armed,
 on the flight recorder's timeline; :meth:`TorchDataLoader.observe_traced`);
 :meth:`TorchDataLoader.telemetry_snapshot` merges them with the reader's.
-Every span is host wall time: ``h2d`` covers the pinned staging copy and the
-asynchronous issue of the upload, not the copy's time on the card, and
-``d2d_wait`` the host blocked on the decode tail's ring. The stages are also
-``torch.profiler.record_function`` ranges
-(``petastorm_tpu_torch.loader.{wait_input,h2d,device_decode}`` and
-``petastorm_tpu_torch.loader.scan_stream.h2d``), so they show in a profiler
-trace beside the kernels they feed. ``metrics_port=`` serves the merged
-snapshot, ``slo_policy=`` sets :meth:`TorchDataLoader.efficiency_report`'s
+These spans are host wall time: ``h2d`` covers the pinned staging copy and
+the asynchronous issue of the upload, and ``d2d_wait`` the host blocked on
+the decode tail's ring. The port adds ``deliver``, the loader's own host
+time on the training thread from the queue's return to the yield, and on
+the card three spans timed by CUDA events (:class:`DeviceSpans`, resolved
+off the training thread): ``h2d_on_device`` (the copy on the loader's
+stream, from an event recorded after the staging to one recorded after the
+copy's issue), ``decode_tail_on_device`` (the end of the copy to the decode
+tail's last launch: the kernels and any stretch the stream waited for the
+producer thread to issue them) and ``input_stall_on_device`` (the training
+stream waiting for the batch beyond its own queued work). These are stream
+time, issue included, not kernel time. While torch's profiler
+records, each host scope is also the range
+``petastorm_tpu_torch.loader.<stage>`` on the thread that runs it
+(``shuffle_wait`` as ``wait_input``, ``scan_stream``'s upload as
+``scan_stream.h2d``; :mod:`~petastorm_tpu_torch.telemetry.spans`), so a
+profile shows the loader's threads beside the kernels they feed.
+``metrics_port=`` serves the merged snapshot, ``slo_policy=`` sets :meth:`TorchDataLoader.efficiency_report`'s
 target, ``PETASTORM_TPU_TELEMETRY_JSONL`` streams periodic snapshots from
 the consumer loop, and over a reader built with ``autotune=`` the loader adds
 its knobs (prefetch, decode-tail depth, shuffle-buffer floor) to the
@@ -86,7 +96,9 @@ from petastorm_tpu_torch.ops.raw_decode import torch_dtype
 from petastorm_tpu_torch.parallel.graphs import ProgramCache, StepProgram, program_state
 from petastorm_tpu_torch.parallel.shuffling_buffer import (NoopShufflingBuffer,
                                                            RandomShufflingBuffer)
+from petastorm_tpu_torch.telemetry import spans as _spans
 from petastorm_tpu_torch.telemetry import tracing as _tracing
+from petastorm_tpu_torch.telemetry.registry import telemetry_enabled
 
 _END = object()
 #: scan_stream keeps this many (step_fn, chunk-shape) programs per loader
@@ -163,6 +175,45 @@ class LoaderStats(object):
         snapshot['input_stall_fraction'] = (min(1.0, snapshot['wait_time_s'] / total)
                                             if total > 0 else 0.0)
         return snapshot
+
+
+class DeviceSpans(object):
+    """Spans on the card's clock: each entry is one batch's ``(stage, start,
+    end)`` spans between timing-enabled CUDA events (stream time: what the
+    stream ran between them and any stretch it stood idle), kept pending
+    until every event of the entry has completed, then observed into
+    ``registry`` in seconds (a span whose end came first, as a wait that
+    never waited, reads 0). Nothing synchronizes: :meth:`resolve` queries
+    the leading entries and stops at the first still running. The loader's producer thread calls it
+    once a batch, the training thread only at the stream's end: each query
+    and observation on the training thread is time the step's issue waits
+    for (the thread shares the interpreter lock with the reader's). An entry
+    still pending when the loader stops is dropped."""
+
+    def __init__(self, registry):
+        self._registry = registry
+        self._pending = collections.deque()
+        self._lock = threading.Lock()
+
+    def add(self, spans):
+        """Queue one batch's spans."""
+        with self._lock:
+            self._pending.append(spans)
+
+    def resolve(self):
+        """Observe every leading entry whose events have all completed."""
+        while True:
+            with self._lock:
+                if not self._pending or not all(
+                        start.query() and end.query() for _, start, end in self._pending[0]):
+                    return
+                spans = self._pending.popleft()
+            for stage, start, end in spans:
+                self._registry.observe(stage, max(0.0, start.elapsed_time(end)) / 1e3)
+
+
+def _timing_event():
+    return torch.cuda.Event(enable_timing=True)
 
 
 class TorchDataLoader(object):
@@ -279,6 +330,8 @@ class TorchDataLoader(object):
         self._lineage_steps = 0
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == 'cuda' and device_put else None)
+        #: the card's side of the loader (see the module docstring)
+        self._device_spans = DeviceSpans(self.telemetry) if self._stream is not None else None
         self._scan_stream_programs = ProgramCache(
             _SCAN_STREAM_CACHE_MAX,
             'scan_stream built more than {limit} distinct (step_fn, chunk-shape) programs; '
@@ -397,53 +450,76 @@ class TorchDataLoader(object):
                                           name='petastorm-tpu-torch-loader-producer')
         self._producer.start()
         try:
-            last_emit = time.monotonic()
+            last_emit = time.perf_counter()
             while True:
-                wait_start = time.monotonic()
-                with torch.profiler.record_function('petastorm_tpu_torch.loader.wait_input'):
+                with _spans.host_span('loader', 'wait_input') as wait:
                     item = self._queue.get()
-                now = time.monotonic()
+                now = time.perf_counter()
                 if item is _END:
+                    if self._device_spans is not None:
+                        self._device_spans.resolve()
                     if self._error is not None:
                         raise self._error
                     self._mark_delivered(None)   # drop_last / buffer-drain leftovers
                     return
-                batch, rows, done = item
-                self.stats.add(wait_time_s=now - wait_start,
-                               total_time_s=now - last_emit, batches=1, rows=rows)
-                # shuffle_wait: the training loop blocked on the input pipeline
-                # for this batch (monotonic clock: the timeline leg back-dates)
-                self.observe_traced('shuffle_wait', now - wait_start)
-                if self._telemetry_jsonl is not None and self._telemetry_jsonl.due():
-                    # one snapshot for the interval line and the SLO check
-                    snapshot = self.telemetry_snapshot()
-                    self._evaluate_slo(snapshot)
-                    self._telemetry_jsonl.emit(snapshot, event='loader_interval')
-                elif self._sentinel is not None:
-                    # the sentinel's windows without a JSONL: one float
-                    # compare a batch between them
-                    from petastorm_tpu_torch.telemetry.slo import slo_clock
-                    if self._sentinel.due(slo_clock() - self._started_at):
-                        self._evaluate_slo(self.telemetry_snapshot())
-                last_emit = now
-                if done is not None:
-                    consumer = torch.cuda.current_stream(self.device)
-                    consumer.wait_event(done)
-                    for tensor in batch.values():
-                        tensor.record_stream(consumer)
-                if self._shardings is not None and self._device_put:
-                    batch = self._shardings.distribute(batch, cut=self._device_decoded())
-                self._mark_delivered(rows)
-                self._lineage_steps += 1
-                lineage = getattr(self.reader, '_lineage', None)
-                if lineage is not None:
-                    # manifest records written from here on carry this step
-                    lineage.stamp_step(self._lineage_steps)
+                with _spans.host_span('loader', 'deliver') as deliver:
+                    batch, rows, done, copy = item
+                    self.stats.add(wait_time_s=wait.seconds,
+                                   total_time_s=now - last_emit, batches=1, rows=rows)
+                    # shuffle_wait: the training loop blocked on the input
+                    # pipeline for this batch
+                    self.observe_traced('shuffle_wait', wait.seconds, start_pc=wait.start)
+                    if self._telemetry_jsonl is not None and self._telemetry_jsonl.due():
+                        # one snapshot for the interval line and the SLO check
+                        snapshot = self.telemetry_snapshot()
+                        self._evaluate_slo(snapshot)
+                        self._telemetry_jsonl.emit(snapshot, event='loader_interval')
+                    elif self._sentinel is not None:
+                        # the sentinel's windows without a JSONL: one float
+                        # compare a batch between them
+                        from petastorm_tpu_torch.telemetry.slo import slo_clock
+                        if self._sentinel.due(slo_clock() - self._started_at):
+                            self._evaluate_slo(self.telemetry_snapshot())
+                    last_emit = now
+                    if done is not None:
+                        self._await_batch(batch, done, copy)
+                    if self._shardings is not None and self._device_put:
+                        batch = self._shardings.distribute(batch, cut=self._device_decoded())
+                    self._mark_delivered(rows)
+                    self._lineage_steps += 1
+                    lineage = getattr(self.reader, '_lineage', None)
+                    if lineage is not None:
+                        # manifest records written from here on carry this step
+                        lineage.stamp_step(self._lineage_steps)
+                self.telemetry.observe('deliver', deliver.seconds)  # pipecheck: disable=telemetry-names -- deliver is the port's own stage (PORT_STAGES), which the JAX package's catalog lacks
                 yield batch
         finally:
             self._stop_event.set()
             self._in_iter = False
             self._drain_queue()
+
+    def _await_batch(self, batch, done, copy):
+        """Make the training stream wait for the loader's stream at ``done``
+        and keep the batch's memory until the training stream's work on it
+        ends. With ``copy`` (the upload's events, telemetry on) the batch's
+        spans join :class:`DeviceSpans`: the decode tail's only where a
+        recipe ran (``done`` is then not the copy's end), and the stall from
+        an event the training stream reaches just before its wait to
+        ``done``, since the stream stands still from there until ``done``
+        completes (0 where ``done`` came first)."""
+        consumer = torch.cuda.current_stream(self.device)
+        if copy is not None:
+            reached = _timing_event()
+            reached.record(consumer)
+            copy_start, copy_end = copy
+            entry = [('h2d_on_device', copy_start, copy_end)]
+            if done is not copy_end:
+                entry.append(('decode_tail_on_device', copy_end, done))
+            entry.append(('input_stall_on_device', reached, done))
+            self._device_spans.add(entry)
+        consumer.wait_event(done)
+        for tensor in batch.values():
+            tensor.record_stream(consumer)
 
     def _drain_queue(self, _empty=queue.Empty, _is_finalizing=sys.is_finalizing):
         # bound at definition time: this runs from generator finalizers, which
@@ -529,27 +605,28 @@ class TorchDataLoader(object):
     def _sanitize(self, columns):
         # collate: host batch assembly, sanitizing and padding (with the
         # host-mode decode of raw-shipped fields, also a device_decode span)
-        collate_start = time.perf_counter()
-        passthrough = frozenset()
-        stage = self._device_stage
-        if stage is not None:
-            decode_start = time.perf_counter()
-            columns, decoded_any = stage.sanitize_decode(columns)
-            if decoded_any:
-                self.stats.add(device_fallback_batches=1)
-                self.observe_traced('device_decode', time.perf_counter() - decode_start,
-                                    start_pc=decode_start)
-            passthrough = stage.passthrough_names
-        out = sanitize_columns(columns, self._pad_ragged, self._device_put,
-                               passthrough=passthrough)
-        self.observe_traced('collate', time.perf_counter() - collate_start,
-                            start_pc=collate_start)
+        with _spans.host_span('loader', 'collate') as collate:
+            passthrough = frozenset()
+            stage = self._device_stage
+            if stage is not None:
+                with _spans.host_span('loader', 'device_decode') as decode:
+                    columns, decoded_any = stage.sanitize_decode(columns)
+                if decoded_any:
+                    self.stats.add(device_fallback_batches=1)
+                    self.observe_traced('device_decode', decode.seconds,
+                                        start_pc=decode.start)
+                passthrough = stage.passthrough_names
+            out = sanitize_columns(columns, self._pad_ragged, self._device_put,
+                                   passthrough=passthrough)
+        self.observe_traced('collate', collate.seconds, start_pc=collate.start)
         return out
 
     def _emit(self, columns, out_queue, stop_event):
         rows = _num_rows(columns)
+        if self._device_spans is not None:
+            self._device_spans.resolve()
         if not self._device_put:
-            self._put((columns, rows, None), out_queue, stop_event)
+            self._put((columns, rows, None, None), out_queue, stop_event)
             return
         stage = self._device_stage
         if self._shardings is not None:
@@ -559,22 +636,28 @@ class TorchDataLoader(object):
         prepare_s = 0.0
         if stage is not None and not stage.host_mode:
             # the decode tail's host half: pack/plan raw payloads for upload
-            prepare_start = time.perf_counter()
-            columns, recipe = stage.prepare(columns)
-            prepare_s = time.perf_counter() - prepare_start
-        done = None
+            with _spans.host_span('loader', 'device_decode') as prepare:
+                columns, recipe = stage.prepare(columns)
+            prepare_s = prepare.seconds
+        done = copy = None
         if self._stream is not None:
             with torch.cuda.stream(self._stream):
-                batch = self._finish(columns, stage, recipe, prepare_s)
-                done = torch.cuda.Event()
-                done.record(self._stream)
+                batch, copy = self._finish(columns, stage, recipe, prepare_s)
+                if copy is None:
+                    done = torch.cuda.Event()
+                    done.record(self._stream)
+                elif recipe:
+                    done = _timing_event()
+                    done.record(self._stream)
+                else:
+                    done = copy[1]
         else:
-            batch = self._finish(columns, stage, recipe, prepare_s)
+            batch, _ = self._finish(columns, stage, recipe, prepare_s)
         if recipe:
             waited = stage.throttle(done)
             if waited:
                 self.observe_traced('d2d_wait', waited)
-        self._put((batch, rows, done), out_queue, stop_event)
+        self._put((batch, rows, done, copy), out_queue, stop_event)
 
     def _device_decoded(self):
         """The columns decoded on the device: their pieces are cut there."""
@@ -582,29 +665,34 @@ class TorchDataLoader(object):
         return frozenset() if stage is None or stage.host_mode else stage.passthrough_names
 
     def _finish(self, columns, stage, recipe, prepare_s=0.0):
-        """Upload, then run the decode tail, on the current stream. ``h2d``
-        times the upload call on the host (staging copy and asynchronous
-        issue), ``device_decode`` the decode tail's host time (``prepare_s``
-        plus issuing ``finish``'s launches)."""
-        h2d_start = time.perf_counter()
-        with torch.profiler.record_function('petastorm_tpu_torch.loader.h2d'):
+        """Upload, then run the decode tail, on the current stream; returns
+        ``(batch, copy)``. ``h2d`` times the upload call on the host (staging
+        copy and asynchronous issue), ``device_decode`` the decode tail's
+        host time (``prepare_s`` plus issuing ``finish``'s launches). On the
+        loader's CUDA stream with telemetry on, ``copy`` is the pair of
+        timing events around the copy alone (recorded after the staging);
+        None otherwise."""
+        copy = (_timing_event(), _timing_event()) if (
+            self._stream is not None and telemetry_enabled()) else None
+        before_copy = copy[0].record if copy is not None else None
+        with _spans.host_span('loader', 'h2d') as h2d:
             if self._coalesce_fields and coalescible(columns):
-                batch = upload_columns(columns, self.device)
+                batch = upload_columns(columns, self.device, before_copy=before_copy)
                 self.stats.add(coalesced_uploads=1)
             else:
-                batch = upload_fields(columns, self.device)
+                batch = upload_fields(columns, self.device, before_copy=before_copy)
                 self.stats.add(per_field_uploads=1)
-        self.observe_traced('h2d', time.perf_counter() - h2d_start, start_pc=h2d_start)
+            if copy is not None:
+                copy[1].record()
+        self.observe_traced('h2d', h2d.seconds, start_pc=h2d.start)
         if recipe:
-            finish_start = time.perf_counter()
             stored_before = stage.stored_batches
-            with torch.profiler.record_function('petastorm_tpu_torch.loader.device_decode'):
+            with _spans.host_span('loader', 'device_decode') as finish:
                 batch = stage.finish(batch, recipe)
             self.stats.add(device_decode_batches=1,
                            device_stored_batches=int(stage.stored_batches > stored_before))
-            self.observe_traced('device_decode',
-                                prepare_s + time.perf_counter() - finish_start)
-        return batch
+            self.observe_traced('device_decode', prepare_s + finish.seconds)
+        return batch, copy
 
     def _put(self, item, out_queue, stop_event):
         while not stop_event.is_set():
@@ -639,6 +727,9 @@ class TorchDataLoader(object):
         program of its own (one more capture); the final sub-batch-size
         remainder is dropped (static shapes). Programs are cached per
         ``(step_fn, batches in the chunk)``: pass a stable ``step_fn`` object.
+        Its telemetry is host spans only (``collate`` and ``h2d``, the range
+        ``petastorm_tpu_torch.loader.scan_stream.h2d``): no span on the
+        card's clock times a chunk.
 
         :param step_fn: ``step_fn(batch) -> aux``: one train step over a dict of
             ``(batch_size, ...)`` tensors, mutating the model and optimizer in
@@ -711,11 +802,9 @@ class TorchDataLoader(object):
                 raise ValueError('the stream\'s columns changed between chunks: {} then {}'
                                  .format(layout, _layout_key(chunk)))
             # the one pinned chunk copy, outside the graph's replay
-            h2d_start = time.perf_counter()
-            with torch.profiler.record_function(
-                    'petastorm_tpu_torch.loader.scan_stream.h2d'):
+            with _spans.host_span('loader', 'scan_stream.h2d') as h2d:
                 upload_columns(chunk, self.device, out=buffer)
-            self.observe_traced('h2d', time.perf_counter() - h2d_start, start_pc=h2d_start)
+            self.observe_traced('h2d', h2d.seconds, start_pc=h2d.start)
             self.stats.add(batches=n_batches, rows=usable)
             try:
                 return program.run()
@@ -881,7 +970,7 @@ class TorchDataLoader(object):
         """One loader-stage measurement into the loader's registry and, while
         tracing is armed, the flight recorder's timeline. ``start_pc`` is the
         ``perf_counter`` start; None back-dates by the duration (a stage
-        clocked on another timebase, as ``shuffle_wait``)."""
+        summed elsewhere, as ``d2d_wait``)."""
         self.telemetry.observe(stage, dur_s)
         if _tracing.trace_enabled():
             if start_pc is None:
@@ -1115,13 +1204,14 @@ def packed_layout(columns):
     return layout, offset
 
 
-def upload_columns(columns, device, out=None):
+def upload_columns(columns, device, out=None, before_copy=None):
     """Numeric host columns -> tensors on ``device`` through ONE packed uint8
     buffer: pinned and copied asynchronously on the current stream for CUDA,
     used in place on the CPU. Each field is a ``view(dtype)`` slice of the
     device buffer, aligned to 16 bytes. With ``out`` (a uint8 tensor on
     ``device`` of the packed size, e.g. a CUDA graph's static input) the copy
-    goes into it."""
+    goes into it. ``before_copy()`` runs after the staging, immediately
+    before a CUDA copy is issued."""
     layout, nbytes = packed_layout(columns)
     host = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                        pin_memory=device.type == 'cuda')
@@ -1134,8 +1224,12 @@ def upload_columns(columns, device, out=None):
             raise ValueError('out must be a uint8 tensor of {} bytes on {}, got {} {} on {}'
                              .format(host.numel(), device, tuple(out.shape), out.dtype,
                                      out.device))
+        if before_copy is not None:
+            before_copy()
         buf = out.copy_(host, non_blocking=True)
     elif device.type == 'cuda':
+        if before_copy is not None:
+            before_copy()
         buf = host.to(device, non_blocking=True)
     else:
         buf = host
@@ -1157,17 +1251,20 @@ def coalescible(columns):
     return True
 
 
-def upload_fields(columns, device):
-    """Host columns -> tensors on ``device``, one copy a field: each pinned
-    and copied asynchronously on the current stream for CUDA, a contiguous
-    native-endian copy on the CPU."""
+def upload_fields(columns, device, before_copy=None):
+    """Host columns -> tensors on ``device``, one copy a field: all pinned,
+    then each copied asynchronously on the current stream for CUDA, a
+    contiguous native-endian copy on the CPU. ``before_copy()`` runs after
+    the staging, immediately before the first CUDA copy is issued."""
     out = {}
     for name, col in columns.items():
         host = np.array(col, dtype=col.dtype.newbyteorder('='), order='C', copy=True)
         tensor = torch.from_numpy(host)
-        if device.type == 'cuda':
-            tensor = tensor.pin_memory().to(device, non_blocking=True)
-        out[name] = tensor
+        out[name] = tensor.pin_memory() if device.type == 'cuda' else tensor
+    if device.type == 'cuda':
+        if before_copy is not None:
+            before_copy()
+        out = {name: tensor.to(device, non_blocking=True) for name, tensor in out.items()}
     return out
 
 

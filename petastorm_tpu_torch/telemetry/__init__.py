@@ -8,9 +8,15 @@ process-pool workers import the worker side):
   write shards merged on ``snapshot()``, and snapshot-level merge (the
   cross-process primitive).
 - :mod:`~petastorm_tpu_torch.telemetry.spans` — stage spans over the data
-  plane (``fs_open`` .. ``h2d``); worker-process spans ride each published
-  batch's ``telemetry`` sidecar on the results channel and merge into the
-  consumer-side registry, so ONE snapshot covers every process.
+  plane (``fs_open`` .. ``h2d``, and the port's ``PORT_STAGES``: the
+  loader's ``deliver`` and its spans on the card's clock); worker-process
+  spans ride each published batch's ``telemetry`` sidecar on the results
+  channel and merge into the consumer-side registry, so ONE snapshot covers
+  every process. While torch's profiler records, each scoped span is also a
+  ``record_function`` range ``petastorm_tpu_torch.<side>.<stage>`` on the
+  thread that runs it, the one mechanism for the reader's and the loader's
+  ranges (``spans.open_range``); with the profiler off it costs one flag
+  read.
 - :mod:`~petastorm_tpu_torch.telemetry.export` — Prometheus text exposition
   and a periodic JSONL event log (dual-clock ``ts_unix``/``ts_mono`` stamps).
 - :mod:`~petastorm_tpu_torch.telemetry.http_exporter` — the scrape endpoint
@@ -55,8 +61,9 @@ from petastorm_tpu_torch.telemetry.registry import (Counter, Gauge,  # noqa: F40
                                                     merge_snapshots,
                                                     set_telemetry_enabled,
                                                     telemetry_enabled)
-from petastorm_tpu_torch.telemetry.spans import (STAGES, TRACE_INSTANTS,  # noqa: F401
-                                                 StageRecorder, drain_stage_times,
+from petastorm_tpu_torch.telemetry.spans import (PORT_STAGES, STAGES,  # noqa: F401
+                                                 TRACE_INSTANTS, StageRecorder,
+                                                 drain_stage_times,
                                                  record_stage, stage_span)
 from petastorm_tpu_torch.telemetry.tracing import (TraceRecorder,  # noqa: F401
                                                    reset_tracing, set_trace_enabled,

@@ -8,6 +8,8 @@ The input is any telemetry snapshot (``Reader.diagnostics['telemetry']``,
 computed over the LEAF latency stages only — envelope stages like
 ``cache_miss`` (which wraps ``rowgroup_read`` + ``decode``) are reported but
 excluded from the denominator, so the shares of independent work sum sensibly.
+The loader's spans on the card's clock (``DEVICE_CLOCK_STAGES``) are stream
+time, not a host thread's time, and are left out of the ranking.
 Stage seconds are summed across every process and thread that contributed, so
 a share is "fraction of all pipeline CPU/IO time", not wall-clock — with N
 parallel workers a 0.9 share can still hide behind prefetch, which is why the
@@ -24,7 +26,7 @@ import sys
 from typing import Any, Dict, List, Optional
 
 from petastorm_tpu_torch.telemetry.registry import SECONDS_UNIT
-from petastorm_tpu_torch.telemetry.spans import ENVELOPE_STAGES
+from petastorm_tpu_torch.telemetry.spans import DEVICE_CLOCK_STAGES, ENVELOPE_STAGES
 
 #: knob advice per dominant stage: (headline, detail) — the JAX package's
 #: headlines, with details that name the port's objects
@@ -190,6 +192,8 @@ def attribute_bottleneck(snapshot: Dict[str, Any],
     for name, hist in histograms.items():
         if float(hist.get('unit', SECONDS_UNIT)) != SECONDS_UNIT:
             continue  # size histograms (bytes) are not time shares
+        if name in DEVICE_CLOCK_STAGES:
+            continue  # stream time, not a host thread's: it ranks against no host stage
         total = float(hist.get('sum', 0.0))
         if total <= 0:
             continue

@@ -6,9 +6,10 @@ A *stage* is one step a row batch passes through on its way to the card —
 ``fs_open``, ``rowgroup_read``, ``decode``, ``transform``, ``shuffle``,
 ``cache_hit`` / ``cache_miss`` / ``cache_store``, ``serialize``,
 ``shm_slot_wait`` / ``shm_map`` / ``shm_release``, ``shuffle_wait``,
-``collate``, ``h2d``, ``device_decode`` / ``d2d_wait``. Every span is host
-wall time: ``h2d`` times the host's part of an upload (the pinned staging copy
-and the asynchronous issue), not the copy's time on the card. Worker-side
+``collate``, ``h2d``, ``device_decode`` / ``d2d_wait``. Every span of the
+catalog is host wall time: ``h2d`` times the host's part of an upload (the
+pinned staging copy and the asynchronous issue); the copy's stream time on
+the card is the port's ``h2d_on_device`` (``PORT_STAGES``). Worker-side
 stages execute in whatever process the pool runs them in, so their timings
 cannot be written into the consumer's registry directly; instead each worker
 thread accumulates them in a process-local :class:`StageRecorder` and the
@@ -24,13 +25,35 @@ and the serialize/slot-wait stages recorded by the process-pool worker main land
 on the same thread that publishes the next batch (they ride one item late —
 still the same process total).
 
-The catalog keeps the names of the one plane the port does not have yet
-(the ``topology_*`` counters and the ``host_reshard`` instant): nothing in
-the port records them.
+The catalog is the JAX package's, the topology plane's names included:
+``parallel/topology.py`` counts ``topology_frames_dropped`` and
+``host_reshard`` into the reader's registry and marks the ``host_reshard``
+instant when a reader of ``make_reader(topology=)`` joins as a reshard
+survivor. ``PORT_STAGES`` adds
+the port's own loader stages: ``deliver`` on the host clock and three spans
+on the card's clock (CUDA events, ``DEVICE_CLOCK_STAGES``). Each of those is
+stream time: the interval between two points a stream reaches, which holds
+the stream's work and any stretch it stood idle waiting for the host to
+issue more (the decode tail's span, between the copy's end and the last
+launch, holds the launches' issue as well as their kernels). Time-share
+attribution leaves them out, since stream time is not a host thread's.
+
+While torch's profiler records, every scoped span also opens
+``torch.profiler.record_function('petastorm_tpu_torch.<side>.<stage>')`` on
+the thread that does the work (:func:`open_range`): ``stage_span`` as
+``petastorm_tpu_torch.reader.<stage>``, the loader's scopes as
+``petastorm_tpu_torch.loader.<stage>`` (:class:`host_span`). A profile then
+holds the program's spans on the same clock as the card's activity. The
+check reads torch's own is-profiling flag, and only where torch is already
+imported: this module imports no torch, so process-pool workers load none.
+A back-dated :func:`record_stage` opens no range: ``cache_hit`` and
+``cache_miss`` (named once the lookup ends), ``range_fetch`` and
+``range_hedge`` stay off the profiler's timeline.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from types import TracebackType
@@ -73,6 +96,29 @@ STAGES = (
     'range_hedge',    # lifetime of one hedged duplicate GET, win or lose
                       # (storage/fetcher.py)
 )
+
+#: the port's own stages, beside the JAX package's catalog (pipecheck's
+#: telemetry-names rule accepts them wherever it accepts STAGES)
+PORT_STAGES = (
+    'deliver',                # the loader's own time on the training thread
+                              # from the queue's return to the yield (loader)
+    'h2d_on_device',          # the upload's copy on the loader's stream, card
+                              # clock: the copy and its issue (loader)
+    'decode_tail_on_device',  # the end of the copy to the decode tail's last
+                              # launch on the loader's stream, card clock:
+                              # kernels and issue (loader)
+    'input_stall_on_device',  # the training stream waiting for the loader's
+                              # stream beyond its own queued work, card clock
+                              # (loader)
+)
+
+#: PORT_STAGES timed by CUDA events: stream time, left out of time-share
+#: attribution (telemetry/analyze.py)
+DEVICE_CLOCK_STAGES = frozenset({'h2d_on_device', 'decode_tail_on_device',
+                                 'input_stall_on_device'})
+
+#: the profiler ranges' prefix: ``petastorm_tpu_torch.<side>.<stage>``
+RANGE_PREFIX = 'petastorm_tpu_torch.'
 
 #: stages whose span ENVELOPES other recorded stages (cache_miss wraps
 #: rowgroup_read+decode) — excluded from time-share attribution so shares of the
@@ -240,20 +286,88 @@ def drain_stage_times() -> Optional[Dict[str, Dict[str, Any]]]:
     return _process_recorder.drain()
 
 
+#: ``torch.autograd.profiler`` once torch is imported (never imported here)
+_autograd_profiler: Any = None
+
+
+def profiler_recording() -> bool:
+    """True while torch's profiler records: torch's own is-profiling flag,
+    read only where torch is already in ``sys.modules``."""
+    global _autograd_profiler
+    if _autograd_profiler is None:
+        _autograd_profiler = sys.modules.get('torch.autograd.profiler')
+        if _autograd_profiler is None:
+            return False
+    return bool(_autograd_profiler._is_profiler_enabled)
+
+
+def open_range(side: str, stage: str) -> Any:
+    """The profiler range ``petastorm_tpu_torch.<side>.<stage>``
+    (``record_function``), entered on the calling thread while torch's
+    profiler records; None otherwise, with the name never built. Close it
+    with :func:`close_range`."""
+    if not profiler_recording():
+        return None
+    scope = _autograd_profiler.record_function(RANGE_PREFIX + side + '.' + stage)
+    scope.__enter__()
+    return scope
+
+
+def close_range(scope: Any, exc_type: Optional[Type[BaseException]] = None,
+                exc: Optional[BaseException] = None,
+                tb: Optional[TracebackType] = None) -> None:
+    """Exit a range :func:`open_range` returned (None: nothing to close)."""
+    if scope is not None:
+        scope.__exit__(exc_type, exc, tb)
+
+
+class host_span(object):
+    """A host-clock scope inside the profiler range
+    ``petastorm_tpu_torch.<side>.<stage>`` while torch's profiler records:
+    ``start`` (``perf_counter``) and, after the block, ``seconds``. The
+    caller records them (the loader's scopes, whose stages land in the
+    loader's registry)."""
+
+    __slots__ = ('_side', '_stage', '_range', 'start', 'seconds')
+
+    def __init__(self, side: str, stage: str) -> None:
+        self._side = side
+        self._stage = stage
+        self._range: Any = None
+        self.start = 0.0
+        self.seconds = 0.0
+
+    def __enter__(self) -> 'host_span':
+        self._range = open_range(self._side, self._stage)
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type: Optional[Type[BaseException]],
+                 exc: Optional[BaseException],
+                 tb: Optional[TracebackType]) -> None:
+        self.seconds = time.perf_counter() - self.start
+        close_range(self._range, exc_type, exc, tb)
+        self._range = None
+
+
 class stage_span(object):
     """Context manager timing one stage into the process recorder:
-    ``with stage_span('decode'): ...``. Near-zero cost when telemetry is
-    disabled (one enabled check, no clock reads). Exceptions propagate; the
+    ``with stage_span('decode'): ...``, inside the profiler range
+    ``petastorm_tpu_torch.reader.<stage>`` while torch's profiler records.
+    Near-zero cost when telemetry is disabled (one enabled check, no clock
+    reads) and the profiler is off (one flag read). Exceptions propagate; the
     partial duration is still recorded (a stage that died slow is exactly the
     signal the bottleneck report wants)."""
 
-    __slots__ = ('_stage', '_start')
+    __slots__ = ('_stage', '_start', '_range')
 
     def __init__(self, stage: str) -> None:
         self._stage = stage
         self._start = 0.0
+        self._range: Any = None
 
     def __enter__(self) -> 'stage_span':
+        self._range = open_range('reader', self._stage)
         if _registry.telemetry_enabled() or _tracing.trace_enabled():
             self._start = time.perf_counter()
         return self
@@ -261,6 +375,8 @@ class stage_span(object):
     def __exit__(self, exc_type: Optional[Type[BaseException]],
                  exc: Optional[BaseException],
                  tb: Optional[TracebackType]) -> None:
+        close_range(self._range, exc_type, exc, tb)
+        self._range = None
         if self._start:
             duration = time.perf_counter() - self._start
             _process_recorder.record(self._stage, duration)

@@ -202,9 +202,9 @@ def test_multi_block_stored_field_matches_jax_stage(tmp_path, monkeypatch):
     uploaded = []
     upload = loader_module.upload_columns
 
-    def spy(columns, device):
+    def spy(columns, device, **kwargs):
         uploaded.append(sorted(columns))
-        return upload(columns, device)
+        return upload(columns, device, **kwargs)
 
     monkeypatch.setattr(loader_module, 'upload_columns', spy)
     reader_kwargs = {'device_decode_fields': ['v']}

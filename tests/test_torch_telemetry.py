@@ -234,6 +234,9 @@ def test_slo_tracker_gives_the_jax_packages_breach_edges(target):
 
 def test_disabled_telemetry_leaves_the_registry_empty():
     assert registry.telemetry_enabled()
+    # what an earlier test in this process recorded on this thread (the
+    # storage engine's spans, used without a reader) is not this test's
+    spans.drain_stage_times()
     registry.set_telemetry_enabled(False)
     try:
         reg = registry.MetricsRegistry()

@@ -202,7 +202,8 @@ def test_a_batch_read_through_the_loaders_matches_jax(plain_store, pool, armed):
         snapshot = loader.telemetry_snapshot()
         trace = tracing.trace_snapshot()
     assert batches == jax_batches
-    assert _counts(snapshot) == _counts(jax_snapshot)
+    # the port's loader adds its own deliver stage, once a batch
+    assert _counts(snapshot) == dict(_counts(jax_snapshot), deliver=len(batches))
     for stage in ('shuffle_wait', 'h2d'):
         assert snapshot['histograms'][stage]['count'] == len(batches) == 10
     assert snapshot['histograms']['collate']['count'] == 4
