@@ -332,8 +332,9 @@ from petastorm_tpu_torch.graft_entry import COMBO_STEPS, dryrun_multichip
 from petastorm_tpu_torch.models.moe import (MoETransformerLM, collect_sown, global_routing,
                                             moe_aux_total, moe_drop_fractions, switch_routing)
 from petastorm_tpu_torch.models.moe import _capacity as moe_capacity
-from petastorm_tpu_torch.models.resnet import ResNet50
+from petastorm_tpu_torch.models.resnet import BatchNorm, ResNet50, batch_norm_calls
 from petastorm_tpu_torch.models.transformer import next_token_loss
+from petastorm_tpu_torch.ops import batch_norm as bn
 from petastorm_tpu_torch.ops import raw_decode
 from petastorm_tpu_torch.ops.image import normalize_image
 from petastorm_tpu_torch.ops.index_shuffle import epoch_round_keys, random_index_shuffle
@@ -759,6 +760,10 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
     check(launches == steps == stats['device_stored_batches'],
           'K1 launched {} times over {} batches ({} stored batches): not on every batch'
           .format(launches, steps, stats['device_stored_batches']))
+    bn_launches = {name: counts['bn_' + name] for name in bn.batch_norm.launches}
+    check(bn_launches == {'stats': 53 * steps, 'apply': 49 * steps, 'backward': 49 * steps},
+          'the batch norm ran {} passes over {} steps, not 53 statistics, 49 apply and 49 '
+          'backward a step'.format(bn_launches, steps))
     return {'steps': steps, 'rows': stats['rows'], 'wall_s': wall_s,
             'rows_per_s': stats['rows'] / wall_s,
             'steady_rows_per_s': (stats['rows'] - args.batch) / (wall_s - first_in_window_s),
@@ -766,7 +771,8 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
             'step_ms_median': statistics.median(step_s) * 1e3,
             'step_ms': [s * 1e3 for s in step_s],
             'peak_memory_bytes': torch.cuda.max_memory_allocated(),
-            'losses': losses, 'k1_launches': launches, 'counts': counts,
+            'losses': losses, 'k1_launches': launches, 'bn_launches': bn_launches,
+            'counts': counts,
             'first_batch_s': first_batch_s, 'items_per_epoch': items_per_epoch,
             'diagnostics': diagnostics,
             'decode_span': {'s': float(decode.get('sum', 0.0)),
@@ -1004,6 +1010,135 @@ def phase_flash(seed):
     return result
 
 
+def bn_step_calls(batch, seed):
+    """The inputs of the 49 batch-norm calls (53 batch norms) of one ResNet-50
+    step at ``batch`` and 224 pixels: (x, norm, kwargs, grad) each, random
+    bf16 activations, float32 shortcuts and output gradients in the output's
+    dtype, all channels-last on the card."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def activation(c, h, w, dtype):
+        return (torch.randn(batch, h, w, c, device='cuda', generator=gen)
+                .to(dtype).permute(0, 3, 1, 2))
+
+    calls = []
+    for c, h, w, mode, out_dtype in batch_norm_calls([3, 4, 6, 3]):
+        kwargs = {'relu': True, 'out_dtype': out_dtype}
+        if mode == bn.ADD_RELU:
+            kwargs['residual'] = activation(c, h, w, torch.float32)
+        if mode == bn.NORM_ADD_RELU:
+            kwargs['shortcut'] = (activation(c, h, w, torch.bfloat16), BatchNorm(c).to('cuda'))
+        calls.append((activation(c, h, w, torch.bfloat16), BatchNorm(c).to('cuda'), kwargs,
+                      activation(c, h, w, out_dtype)))
+    return calls
+
+
+def bn_bound_ms(calls):
+    """The least time of one step's batch norms, forward and backward: every
+    input byte read once and every output byte written once (x, the
+    shortcut's input or the residual, the output; then the output's
+    gradient, the saved inputs, dx and the shortcut's gradient), plus each
+    per-channel vector read or written once."""
+    moved = 0
+    for x, _, kwargs, grad in calls:
+        inputs = [x] + [kwargs[k] for k in ('residual',) if k in kwargs]
+        if 'shortcut' in kwargs:
+            inputs.append(kwargs['shortcut'][0])
+        activations = sum(t.numel() * t.element_size() for t in inputs)
+        out = grad.numel() * grad.element_size()
+        norms = 1 + ('shortcut' in kwargs)
+        # weight, bias, running mean and var read, the running averages written;
+        # backward: dweight and dbias written
+        vectors = norms * 8 * x.shape[1] * 4
+        moved += 2 * activations + 2 * out + vectors   # forward + backward
+    return moved / HBM_BYTES_PER_S * 1e3, moved
+
+
+def phase_batch_norm(seed, batch=128):
+    """K5 (``csrc/batch_norm.cu``) against its plain version at every one of
+    the 49 calls of a ResNet-50 step at ``batch`` (``bn.batch_norm_check``);
+    then one step's calls timed, forward and backward: the kernels' device
+    time, the plain version's, and the yardstick ``F.batch_norm`` (cuDNN,
+    never called by the port) with the same ReLU and add; and the byte
+    bound."""
+    calls = bn_step_calls(batch, seed)
+    worst, flips = {}, 0
+    for index, (x, norm, kwargs, grad) in enumerate(calls):
+        result = bn.batch_norm_check(x, norm, grad, **kwargs)
+        check(result['ok'], 'batch norm call {} ({}) differs from its plain version: {}'.format(
+            index, tuple(x.shape), result))
+        flips += result['mask_flips']
+        for name, reading in result.items():
+            if isinstance(reading, dict):
+                worst[name] = max(worst.get(name, 0.0), reading['tol_share'])
+    modes = [bn._mode(kw['relu'], kw.get('residual'), kw.get('shortcut'))
+             for _, _, kw, _ in calls]
+    saved = []
+    for (x, norm, kwargs, _), mode in zip(calls, modes):
+        x2, norm2 = kwargs.get('shortcut', (None, None))
+        _, stats, stats2 = bn.forward_passes(x, norm, mode, kwargs['out_dtype'],
+                                             kwargs.get('residual'), x2, norm2)
+        saved.append((stats, stats2))
+
+    def forward():
+        for (x, norm, kwargs, _), mode in zip(calls, modes):
+            x2, norm2 = kwargs.get('shortcut', (None, None))
+            bn.forward_passes(x, norm, mode, kwargs['out_dtype'], kwargs.get('residual'), x2,
+                              norm2)
+
+    def backward():
+        for (x, norm, kwargs, grad), mode, (stats, stats2) in zip(calls, modes, saved):
+            x2, norm2 = kwargs.get('shortcut', (None, None))
+            bn.backward_passes(grad, x, stats, norm.bias, mode, True, kwargs.get('residual'),
+                               x2, stats2, None if norm2 is None else norm2.bias)
+
+    def leaf(t):
+        return t.detach().requires_grad_()
+
+    # every input a leaf, so the plain version and the yardstick compute each
+    # gradient the kernels compute (dx, the shortcut's input or the residual)
+    leaves = []
+    for x, _, kwargs, _ in calls:
+        kwargs = dict(kwargs)
+        if 'residual' in kwargs:
+            kwargs['residual'] = leaf(kwargs['residual'])
+        if 'shortcut' in kwargs:
+            kwargs['shortcut'] = (leaf(kwargs['shortcut'][0]), kwargs['shortcut'][1])
+        leaves.append((leaf(x), kwargs))
+
+    def plain():
+        for (x, kwargs), (_, norm, _, grad) in zip(leaves, calls):
+            out = bn.batch_norm_plain(x, norm, **kwargs)
+            torch.autograd.backward(out, grad)
+
+    def library():
+        for (x, kwargs), (_, norm, _, grad) in zip(leaves, calls):
+            def cudnn(x, norm):
+                return F.batch_norm(x, norm.running_mean, norm.running_var, norm.weight,
+                                    norm.bias, training=True, momentum=0.1, eps=norm.eps)
+            y = cudnn(x, norm)
+            if 'residual' in kwargs:
+                y = kwargs['residual'] + y
+            if 'shortcut' in kwargs:
+                y = cudnn(*kwargs['shortcut']) + y
+            torch.autograd.backward(F.relu(y), grad.to(y.dtype))
+
+    forward_ms = device_ms(forward, 3)
+    backward_ms = device_ms(backward, 3)
+    reset_counts()
+    both_ms = device_ms(lambda: (forward(), backward()), 3)
+    counts = dict(bn.batch_norm.launches)
+    bound_ms, moved = bn_bound_ms(calls)
+    return {'batch': batch, 'calls': len(calls), 'batch_norms': len(calls) + modes.count(
+                bn.NORM_ADD_RELU),
+            'mask_flips': flips, 'worst_tol_share': worst,
+            'forward_ms': forward_ms, 'backward_ms': backward_ms, 'ms': both_ms,
+            'plain_ms': cuda_ms(plain, reps=2, runs=3, warmup=1),
+            'library_ms': cuda_ms(library, reps=3, runs=3, warmup=2),
+            'bound_ms': bound_ms, 'bound_bytes': moved, 'bound_share': bound_ms / both_ms,
+            'timed_counts': counts}
+
+
 def flash_errors(flash_result, labels):
     return max(case[label]['max_abs_err'] for case in flash_result['cases'].values()
                for label in labels)
@@ -1017,12 +1152,16 @@ def reset_counts():
     for name in flash.flash_attention.launches:
         flash.flash_attention.launches[name] = 0
     flash.dense_fallbacks = 0
+    for name in bn.batch_norm.launches:
+        bn.batch_norm.launches[name] = 0
 
 
 def read_counts():
-    """Every kernel's launch count and the dense-fallback count."""
+    """Every kernel's launch count and the dense-fallback count; the batch
+    norm's passes as ``bn_stats``, ``bn_apply`` and ``bn_backward``."""
     return {'stored_copy': raw_decode.stored_inflate.launches,
-            **flash.flash_attention.launches, 'dense_fallbacks': flash.dense_fallbacks}
+            **flash.flash_attention.launches, 'dense_fallbacks': flash.dense_fallbacks,
+            **{'bn_' + name: n for name, n in bn.batch_norm.launches.items()}}
 
 
 def causal_flash(q, k, v):
@@ -5773,6 +5912,9 @@ def ptxas_report(name):
         for line in f:
             if 'Function properties for ' in line:
                 kernel = short_kernel_name(line.rsplit('Function properties for ', 1)[1])
+                count = sum(1 for name in report if name.split('#')[0] == kernel)
+                if count:   # another instance of a template the short name drops
+                    kernel = '{}#{}'.format(kernel, count + 1)
             elif kernel and 'spill stores' in line:
                 numbers = [int(w) for w in line.replace(',', ' ').split() if w.isdigit()]
                 report[kernel] = {'spill_bytes': numbers[1] + numbers[2]}
@@ -5845,6 +5987,9 @@ def main(argv=None):
               sorted(sm90), sorted(BF16_FLASH_KERNELS)))
     log('phase 2 build: {} in {:.3f} s; registers (spill bytes) of the bf16 flash '
         'kernels: {}'.format(', '.join(cuda_build.KERNELS), record['build_s'], sm90))
+    log('phase 2 batch norm kernels, registers (spill bytes): {}'.format(
+        {kernel: '{registers} ({spill_bytes})'.format(**info)
+         for kernel, info in record['ptxas']['batch_norm'].items()}))
 
     k1 = phase_k1(args.batch, args.seed)
     record['k1'] = k1
@@ -5867,6 +6012,17 @@ def main(argv=None):
                       {name: {key: round(value, 5) for key, value in row.items()
                               if key.endswith('ms')}
                        for name, row in flash_result['timing'].items()}, card))
+
+    record['batch_norm'] = bnr = phase_batch_norm(args.seed, args.batch)
+    log('phase 4b K5 batch norm vs plain at the {} calls ({} batch norms) of a ResNet-50 step '
+        'at batch {}: within tolerance (worst share {:.3f}, {} ReLU mask flips within '
+        'rounding of 0); forward {:.4f} + backward {:.4f} ms, together ms={:.4f} '
+        'bound_ms={:.4f} ({:.1%} of bound, {:.3f} GB) plain_ms={:.4f} library_ms={:.4f} '
+        '[{}]'.format(bnr['calls'], bnr['batch_norms'], bnr['batch'],
+                      max(bnr['worst_tol_share'].values()), bnr['mask_flips'],
+                      bnr['forward_ms'], bnr['backward_ms'], bnr['ms'], bnr['bound_ms'],
+                      bnr['bound_share'], bnr['bound_bytes'] / 1e9, bnr['plain_ms'],
+                      bnr['library_ms'], card))
 
     tmp = tempfile.mkdtemp(prefix='petastorm_tpu_torch_smoke_')
     try:
@@ -5975,6 +6131,17 @@ def main(argv=None):
             # F.scaled_dot_product_attention: its forward for K2, its backward
             # (dQ, dK and dV together) for K3 and K4
             'library_ms': timing['library_ms']})
+    bnr = record['batch_norm']
+    kernels.append({
+        'name': 'batch_norm', 'route': 'cuda',
+        'source': 'petastorm_tpu_torch/csrc/batch_norm.cu',
+        'replaces': None,   # flax's nn.BatchNorm, which XLA fuses: no Pallas kernel
+        'launches': record['main_path']['bn_launches'],
+        'max_tol_share': max(bnr['worst_tol_share'].values()),
+        'ms': bnr['ms'], 'forward_ms': bnr['forward_ms'], 'backward_ms': bnr['backward_ms'],
+        'plain_ms': bnr['plain_ms'], 'bound_ms': bnr['bound_ms'], 'bound_by': 'bytes',
+        # F.batch_norm (cuDNN) with the same ReLU and adds, forward and backward
+        'library_ms': bnr['library_ms']})
     kernels = {'kernels': kernels}
     record.update(kernels)
     write_record(record, args.out)

@@ -4,7 +4,8 @@ Each kernel source has a plain C interface and is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``
 (seconds per source, against minutes for an extension that includes
 PyTorch's headers). A source may export several entry points (the three
-flash-attention kernels share one). Libraries land in
+flash-attention kernels share one; the batch norm's six passes share
+``batch_norm.cu``). Libraries land in
 ``petastorm_tpu_torch/_build/``, named by a digest of their source and the
 headers beside it (``csrc/*.cuh``), so an edited source or header rebuilds
 and an unchanged one is reused. :func:`load` compiles
@@ -27,6 +28,8 @@ BUILD_DIR = os.path.join(_PACKAGE_DIR, '_build')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: library name -> (source under csrc/, {exported C function: ctypes argtypes})
 KERNELS = {
@@ -43,6 +46,25 @@ KERNELS = {
         # stream
         'flash_bwd_dkv': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P),
+    }),
+    'batch_norm': ('batch_norm.cu', {
+        # x, m, c, p_rows, partial, stream
+        'bn_stats': (_P, _L, _I, _I, _P, _P),
+        # partial, p_rows, m, c, weight, running_mean, running_var, stats, keep, take,
+        # eps, training, stream
+        'bn_finalize': (_P, _I, _L, _I, _P, _P, _P, _P, _F, _F, _F, _I, _P),
+        # x, stats, bias, x2, stats2, bias2, res, out, m, c, mode, out_bf16, stream
+        'bn_apply': (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+        # dy, x, stats, bias, x2, stats2, bias2, res, m, c, mode, dy_bf16, p_rows,
+        # partial, stream
+        'bn_backward_reduce': (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P),
+        # partial, p_rows, m, c, stats, stats2, dweight, dbias, dweight2, dbias2, coef,
+        # coef2, training, stream
+        'bn_backward_finalize': (_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+        # dy, x, stats, bias, coef, x2, stats2, bias2, coef2, res, dx, dx2, dres, m, c,
+        # mode, dy_bf16, stream
+        'bn_backward_apply': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
+                              _I, _P),
     }),
 }
 

@@ -5,9 +5,20 @@ agree on logits and batch statistics.
 
 Matching flax, not torch defaults:
 
-- Inputs are NHWC ``[B, H, W, C]`` like the JAX model; convolutions run in
-  ``dtype`` (bfloat16 by default) on weights kept in float32, batch norm runs
-  in float32 and the classifier in float32.
+- Inputs are NHWC ``[B, H, W, C]`` like the JAX model (so on the card every
+  activation is channels-last memory behind an NCHW view); convolutions run
+  in ``dtype`` (bfloat16 by default) on weights kept in float32, batch norm
+  runs in float32 and the classifier in float32.
+- Each batch norm is one call of
+  :func:`petastorm_tpu_torch.ops.batch_norm.batch_norm` with what follows it
+  folded in: the ReLU, and in a block's last one the shortcut (the input, or
+  the projection's own batch norm) added before the ReLU. On the card that is
+  the hand-written kernels, on the CPU the same PyTorch operators as ever.
+  The first two of a block write ``dtype``: their only reader is the next
+  convolution, which casts to ``dtype`` first, so rounding the float32 ReLU
+  there is the same result (and its backward the same float32 gradient). The
+  stem's feeds the max pool, and a block's last is the float32 block output
+  that identity shortcuts carry, so both write float32.
 - ``padding='SAME'`` pads asymmetrically: a stride-2 3x3 window on an even
   input pads 0 before and 1 after. Torch's symmetric ``padding=1`` would shift
   every window by a pixel, so :func:`_same_pad` pads explicitly, with ``-inf``
@@ -30,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from petastorm_tpu_torch.ops.batch_norm import batch_norm
 from petastorm_tpu_torch.parallel.loader import resolve_device
 
 
@@ -77,7 +89,9 @@ class Conv(nn.Module):
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` on NCHW
     input: float32 statistics over (N, H, W), the biased fast variance, and
-    running averages that move by 0.1 of the batch statistics in training."""
+    running averages that move by 0.1 of the batch statistics in training.
+    ``forward`` takes :func:`~petastorm_tpu_torch.ops.batch_norm.batch_norm`'s
+    ``relu``, ``residual``, ``shortcut`` and ``out_dtype``."""
 
     def __init__(self, channels, momentum=0.9, eps=1e-5, zero_scale=False):
         super().__init__()
@@ -89,18 +103,9 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.eps = eps
 
-    def forward(self, x):
-        x = x.to(torch.float32)
-        if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+    def forward(self, x, relu=False, residual=None, shortcut=None, out_dtype=torch.float32):
+        return batch_norm(x, self, relu=relu, residual=residual, shortcut=shortcut,
+                          out_dtype=out_dtype)
 
 
 class BottleneckBlock(nn.Module):
@@ -122,13 +127,12 @@ class BottleneckBlock(nn.Module):
             self.norm_proj = BatchNorm(filters * 4)
 
     def forward(self, x):
-        residual = x
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        if self.conv_proj is not None:
-            residual = self.norm_proj(self.conv_proj(residual))
-        return F.relu(residual + y)
+        y = self.bn1(self.conv1(x), relu=True, out_dtype=self.conv2.dtype)
+        y = self.bn2(self.conv2(y), relu=True, out_dtype=self.conv3.dtype)
+        if self.conv_proj is None:
+            return self.bn3(self.conv3(y), relu=True, residual=x)
+        return self.bn3(self.conv3(y), relu=True,
+                        shortcut=(self.conv_proj(x), self.norm_proj))
 
 
 class ResNet(nn.Module):
@@ -162,12 +166,38 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = self.bn_init(self.conv_init(x), relu=True)
         x = F.max_pool2d(_same_pad(x, 3, 2, value=float('-inf')), 3, 2)
         for block in self.blocks:
             x = block(x)
         x = x.mean(dim=(2, 3))
         return self.head(x.to(torch.float32))
+
+
+def batch_norm_calls(stage_sizes, num_filters=64, image=224, dtype=torch.bfloat16):
+    """The batch-norm calls of one forward of ``ResNet(stage_sizes,
+    num_filters=num_filters, dtype=dtype)`` on ``image`` x ``image`` inputs, in
+    order: ``(channels, height, width, mode, out_dtype)``, ``mode`` one of
+    :mod:`~petastorm_tpu_torch.ops.batch_norm`'s ``RELU``, ``ADD_RELU`` and
+    ``NORM_ADD_RELU`` (the last normalises two inputs, the block's and its
+    projection's)."""
+    from petastorm_tpu_torch.ops.batch_norm import ADD_RELU, NORM_ADD_RELU, RELU
+    size = -(-image // 2)
+    calls = [(num_filters, size, size, RELU, torch.float32)]
+    size = -(-size // 2)
+    in_ch = num_filters
+    for stage, block_count in enumerate(stage_sizes):
+        filters = num_filters * 2 ** stage
+        for block in range(block_count):
+            stride = 2 if stage > 0 and block == 0 else 1
+            calls.append((filters, size, size, RELU, dtype))
+            size = -(-size // stride)
+            calls.append((filters, size, size, RELU, dtype))
+            projected = in_ch != filters * 4 or stride != 1
+            calls.append((filters * 4, size, size, NORM_ADD_RELU if projected else ADD_RELU,
+                          torch.float32))
+            in_ch = filters * 4
+    return calls
 
 
 def ResNet50(**kwargs):
