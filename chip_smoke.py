@@ -10,7 +10,10 @@ version on the card, then drives the port's two paths at full width:
   containers) -> ``make_reader(device_decode_fields=...)`` on a thread pool ->
   ``TorchDataLoader`` with on-card stored inflate (K1), DCT decode, random
   crop, flip and normalize -> ResNet-50 (bfloat16, random weights from
-  ``--seed``) for one epoch of SGD steps;
+  ``--seed``) for one epoch of SGD steps, each step's forward and backward a
+  replay of the model's CUDA graphs (captured in the warm-up step); then
+  the host issue and end of a step, graphed against eager, with nothing
+  else running and under the loader (5h);
 - the long-context LM path: a store of 64 rows of 8192 int32 tokens ->
   ``make_reader`` -> ``TorchDataLoader(batch_size=2)`` -> ``TransformerLM``
   (embed 512, 4 heads, 4 layers, bfloat16) with the flash-attention kernels
@@ -342,6 +345,7 @@ from petastorm_tpu_torch.ops.packing import (pack_sequences, packed_next_token_l
                                              segment_causal_attention)
 from petastorm_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
 from petastorm_tpu_torch.ops.sharded_moe import gelu, sharded_moe_ffn
+from petastorm_tpu_torch.parallel.graphs import WARMUP_STEPS as GRAPH_WARMUP_STEPS
 from petastorm_tpu_torch.parallel import loader as loader_module
 from petastorm_tpu_torch.parallel.checkpoint import restore_across_topology
 from petastorm_tpu_torch.parallel.topology import (TopologyPolicy, compose_global_digest,
@@ -674,10 +678,24 @@ def phase_k1(batch, seed):
     return result
 
 
+def graph_counts(model):
+    """The model's CUDA-graph counters: captures, replays and training calls
+    on the card that ran eagerly."""
+    counters = model.graphs.telemetry.snapshot()['counters']
+    return {name: counters.get('model_graph_' + name, 0)
+            for name in ('capture', 'replay', 'eager_on_card')}
+
+
+#: the batch norm's passes in one ResNet-50 step (53 batch norms in 49 calls)
+BN_STEP = {'stats': 53, 'apply': 49, 'backward': 49}
+
+
 def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_reader,
-                    loader_kwargs=None, service_url=None, reader_kwargs=None):
+                    loader_kwargs=None, service_url=None, reader_kwargs=None, eager=False):
     """One epoch of the main path; returns its measurements and the (idx,
-    label, embedding) it delivered. The reader (``factory``: ``make_reader``,
+    label, embedding) it delivered. The steps call the model, whose training
+    forward and backward replay its CUDA graphs, or with ``eager`` its
+    ``forward_eager``. The reader (``factory``: ``make_reader``,
     or ``make_batch_reader`` for phase 16c) runs on a thread pool of
     ``args.workers``, on ``reader_pool``, or through the input service at
     ``service_url`` (phase 19), with ``reader_kwargs`` too (phase 24's
@@ -691,23 +709,32 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
     spawn is not)."""
     torch.manual_seed(args.seed)
     model = ResNet50(num_classes=1000).train()
+    forward = model.forward_eager if eager else model
     optimizer = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
     crop = args.crop
     # one step on random data first, so the epoch's step times exclude
-    # cuDNN's first-call setup
+    # cuDNN's first-call setup and the graphs' capture
     warm = torch.randn(args.batch, crop, crop, 3, device='cuda').to(torch.bfloat16)
     check({p.device.type for p in model.parameters()} == {'cuda'},
           'ResNet50 did not build its parameters on the card')
-    F.cross_entropy(model(warm), torch.zeros(args.batch, dtype=torch.int64,
-                                              device='cuda')).backward()
+    captured = dict(bn.batch_norm.captured)
+    F.cross_entropy(forward(warm), torch.zeros(args.batch, dtype=torch.int64,
+                                                device='cuda')).backward()
     optimizer.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
+    bn_captured = {name: n - captured[name] for name, n in bn.batch_norm.captured.items()}
+    check(bn_captured == ({name: 0 for name in BN_STEP} if eager else BN_STEP),
+          'the capture of the warm-up step recorded {} batch-norm passes, not {}'.format(
+              bn_captured, 'none' if eager else BN_STEP))
+    graphs_before = graph_counts(model)
+    captured = dict(bn.batch_norm.captured)
     transform = DeviceTransform(crop=(crop, crop), random_flip=True,
                                 normalize=(IMAGENET_MEAN, IMAGENET_STD),
                                 normalize_dtype='bfloat16', seed=args.seed)
     delivered = []
     losses = []
     step_s = []
+    issue_s = []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     open_start = time.perf_counter()
@@ -739,15 +766,18 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
                   'label/idx dtype')
             delivered.append((batch['idx'].clone(), batch['label'].clone(),
                               batch['embedding'].clone()))
-            loss = F.cross_entropy(model(batch['image']), batch['label'])
+            loss = F.cross_entropy(forward(batch['image']), batch['label'])
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             optimizer.step()
+            issue_s.append(time.perf_counter() - step_start)
             losses.append(loss.detach())
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - step_start)
         wall_s = time.perf_counter() - start
         counts = read_counts()
+        graphs = {name: n - graphs_before[name] for name, n in graph_counts(model).items()}
+        in_loop = {name: n - captured[name] for name, n in bn.batch_norm.captured.items()}
         stats = loader.stats.as_dict()
         diagnostics = reader.diagnostics
         items_per_epoch = reader.items_per_epoch
@@ -761,15 +791,25 @@ def phase_main_path(url, args, reader_pool=None, inspect=None, factory=make_read
           'K1 launched {} times over {} batches ({} stored batches): not on every batch'
           .format(launches, steps, stats['device_stored_batches']))
     bn_launches = {name: counts['bn_' + name] for name in bn.batch_norm.launches}
-    check(bn_launches == {'stats': 53 * steps, 'apply': 49 * steps, 'backward': 49 * steps},
-          'the batch norm ran {} passes over {} steps, not 53 statistics, 49 apply and 49 '
-          'backward a step'.format(bn_launches, steps))
+    # passes that ran in the steps: launched by an eager step, or replayed
+    # (a capture in the loop, for a new batch shape, launches its warm-up's)
+    bn_passes = {name: bn_launches[name] + n * (graphs['replay']
+                                                - GRAPH_WARMUP_STEPS * graphs['capture'])
+                 for name, n in BN_STEP.items()}
+    check(bn_passes == {name: n * steps for name, n in BN_STEP.items()}
+          and in_loop == {name: n * graphs['capture'] for name, n in BN_STEP.items()},
+          'the batch norm ran {} passes over {} steps ({} launched, {} graph replays, {} '
+          'captures recording {}), not 53 statistics, 49 apply and 49 backward a step'.format(
+              bn_passes, steps, bn_launches, graphs['replay'], graphs['capture'], in_loop))
     return {'steps': steps, 'rows': stats['rows'], 'wall_s': wall_s,
             'rows_per_s': stats['rows'] / wall_s,
             'steady_rows_per_s': (stats['rows'] - args.batch) / (wall_s - first_in_window_s),
             'input_stall_fraction': stats['input_stall_fraction'],
             'step_ms_median': statistics.median(step_s) * 1e3,
             'step_ms': [s * 1e3 for s in step_s],
+            'issue_ms_median': statistics.median(issue_s) * 1e3,
+            'issue_ms': [s * 1e3 for s in issue_s],
+            'graphs': graphs, 'bn_captured': bn_captured, 'bn_passes': bn_passes,
             'peak_memory_bytes': torch.cuda.max_memory_allocated(),
             'losses': losses, 'k1_launches': launches, 'bn_launches': bn_launches,
             'counts': counts,
@@ -5924,6 +5964,55 @@ def ptxas_report(name):
     return report
 
 
+def step_host_ms(forward, model, images, labels, steps=12, warm=2):
+    """SGD steps of ``model`` through ``forward`` on one batch already on the
+    card, nothing else running: each step's host issue (its start to
+    ``optimizer.step()``'s return) and end (to a synchronize's return), ms."""
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    issue, end = [], []
+    for index in range(warm + steps):
+        start = time.perf_counter()
+        loss = F.cross_entropy(forward(images), labels)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        issued = time.perf_counter()
+        torch.cuda.synchronize()
+        if index >= warm:
+            issue.append((issued - start) * 1e3)
+            end.append((time.perf_counter() - start) * 1e3)
+    return {'issue_ms': issue, 'end_ms': end, 'issue_ms_median': statistics.median(issue),
+            'end_ms_median': statistics.median(end)}
+
+
+def phase_host_issue(url, args):
+    """5h: the host issue and end of a ResNet-50 step at phase 5's batch,
+    graphed (the model's CUDA graphs) against eager (``forward_eager``), on
+    one batch with nothing else running, and the eager one under phase 5's
+    loader (the graphed one there is phase 5 itself)."""
+    crop = args.crop
+    images = torch.randn(args.batch, crop, crop, 3, device='cuda').to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (args.batch,), device='cuda')
+    alone = {}
+    for name in ('graphed', 'eager'):
+        torch.manual_seed(args.seed)
+        model = ResNet50(num_classes=1000).train()
+        alone[name] = step_host_ms(model if name == 'graphed' else model.forward_eager, model,
+                                   images, labels)
+        alone[name]['graphs'] = graph_counts(model)
+        del model
+        torch.cuda.empty_cache()
+    check(alone['graphed']['graphs'] == {'capture': 1, 'replay': 14, 'eager_on_card': 0}
+          and alone['eager']['graphs'] == {'capture': 0, 'replay': 0, 'eager_on_card': 0},
+          '5h: graph counters {} (graphed) and {} (eager)'.format(
+              alone['graphed']['graphs'], alone['eager']['graphs']))
+    eager_path, _ = phase_main_path(url, args, eager=True)
+    return {'alone': alone,
+            'loader_eager': {key: eager_path[key] for key in (
+                'steps', 'rows_per_s', 'issue_ms_median', 'issue_ms', 'step_ms_median',
+                'step_ms', 'bn_launches', 'graphs', 'peak_memory_bytes')}}
+
+
 def phase_imagenet(tmp, args, record, card):
     """Phases 5 and 6: the ImageNet device-decode path and its image check."""
     path = os.path.join(tmp, 'imagenet')
@@ -5944,6 +6033,19 @@ def phase_imagenet(tmp, args, record, card):
                       main_path['peak_memory_bytes'] / 2 ** 30, main_path['losses'][0],
                       main_path['losses'][-1], main_path['k1_launches'],
                       main_path['steps'], record['store_write_s'], card))
+    record['host_issue'] = host = phase_host_issue(url, args)
+    alone, eager = host['alone'], host['loader_eager']
+    log('phase 5h ResNet-50 step at batch {}, host issue / end (median ms): alone graphed '
+        '{:.2f} / {:.2f}, eager {:.2f} / {:.2f}; under the loader graphed {:.2f} / {:.2f} '
+        '({:.2f} rows/s, peak {:.3f} GiB), eager {:.2f} / {:.2f} ({:.2f} rows/s, peak {:.3f} '
+        'GiB); graphs {}; K5 passes recorded by the capture {}, launched in the graphed '
+        'epoch {} [{}]'.format(
+            args.batch, alone['graphed']['issue_ms_median'], alone['graphed']['end_ms_median'],
+            alone['eager']['issue_ms_median'], alone['eager']['end_ms_median'],
+            main_path['issue_ms_median'], main_path['step_ms_median'], main_path['rows_per_s'],
+            main_path['peak_memory_bytes'] / 2 ** 30, eager['issue_ms_median'],
+            eager['step_ms_median'], eager['rows_per_s'], eager['peak_memory_bytes'] / 2 ** 30,
+            main_path['graphs'], main_path['bn_captured'], main_path['bn_launches'], card))
     record['image_check'] = phase_image_check(url, blobs, args)
     log('phase 6 images: {}'.format(record['image_check']))
 

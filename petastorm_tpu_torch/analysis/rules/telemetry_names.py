@@ -10,7 +10,8 @@ entry, and no doc row knows about. This rule closes that hole statically:
   beside it (accepted wherever ``STAGES`` is);
 - ``<registry>.observe('x', ...)`` → ``x`` in ``STAGES`` or
   ``SIZE_HISTOGRAMS``;
-- ``<registry>.inc('x')`` → ``x`` in ``COUNTERS``;
+- ``<registry>.inc('x')`` → ``x`` in ``COUNTERS`` or the port's own
+  ``PORT_COUNTERS`` beside it;
 - ``<registry>.gauge('x')`` → ``x`` in ``GAUGES`` (the SLO / service gauge
   surface — docs/observability.md "Efficiency SLOs");
 - ``COST_STAGES`` declared in ``telemetry/cost_model.py`` → every entry in
@@ -80,6 +81,8 @@ def _catalog_from_tree(tree: ast.Module, origin: str) -> Optional[_Catalog]:
     if stages is None:
         return None
     counters = extract_string_tuple(tree, 'COUNTERS') or []
+    # and the port's own counters wherever COUNTERS are
+    counters += extract_string_tuple(tree, 'PORT_COUNTERS') or []
     size_histograms = extract_string_tuple(tree, 'SIZE_HISTOGRAMS') or []
     trace_instants = extract_string_tuple(tree, 'TRACE_INSTANTS') or []
     gauges = extract_string_tuple(tree, 'GAUGES') or []
@@ -149,7 +152,8 @@ class TelemetryNamesRule(Rule):
     name = 'telemetry-names'
     description = ('stage_span/record_stage/observe/inc/gauge/trace_complete/'
                    'trace_instant names must exist in the telemetry catalog '
-                   '(STAGES and PORT_STAGES / COUNTERS / SIZE_HISTOGRAMS / '
+                   '(STAGES and PORT_STAGES / COUNTERS and PORT_COUNTERS / '
+                   'SIZE_HISTOGRAMS / '
                    'GAUGES / TRACE_INSTANTS in telemetry/spans.py); '
                    'Knob()/catalog.knob() ids must exist in KNOB_IDS '
                    '(autotune/knobs.py); the cost profiler\'s COST_STAGES '

@@ -29,6 +29,13 @@ Matching flax, not torch defaults:
   stores that biased value (torch's ``BatchNorm2d`` stores the unbiased one).
 - The last batch norm of each block starts with scale zero.
 
+On the card, a training call with gradients on runs the forward as one
+captured CUDA graph and its backward as another
+(:class:`~petastorm_tpu_torch.parallel.graphs.ModuleGraphs`, in
+``ResNet.graphs``): the same kernels in the same order as
+:meth:`ResNet.forward_eager`, which every other call runs (the CPU,
+evaluation, ``no_grad``, a step captured whole around the model).
+
 Like every entry point of the port, the model lives on CUDA unless the caller
 passes ``device='cpu'``; without a card a CUDA request raises. Weights are
 drawn on the CPU from torch's default generator, then moved, so a seed gives
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from petastorm_tpu_torch.ops.batch_norm import batch_norm
+from petastorm_tpu_torch.parallel.graphs import ModuleGraphs
 from petastorm_tpu_torch.parallel.loader import resolve_device
 
 
@@ -138,7 +146,8 @@ class BottleneckBlock(nn.Module):
 class ResNet(nn.Module):
     """ResNet with bottleneck blocks. ``forward`` takes NHWC images and returns
     float32 logits; ``train()``/``eval()`` select batch or running statistics.
-    Parameters live on ``device`` (CUDA unless ``'cpu'`` is passed)."""
+    Parameters live on ``device`` (CUDA unless ``'cpu'`` is passed). On the
+    card a training call replays the captured graphs of ``graphs``."""
 
     def __init__(self, stage_sizes, num_classes=1000, num_filters=64,
                  dtype=torch.bfloat16, in_channels=3, device=None):
@@ -162,9 +171,16 @@ class ResNet(nn.Module):
                               a=-2 * math.sqrt(1.0 / fan_in) / .87962566103423978,
                               b=2 * math.sqrt(1.0 / fan_in) / .87962566103423978)
         nn.init.zeros_(self.head.bias)
+        #: the training forward and backward as CUDA graphs, with their counters
+        self.graphs = ModuleGraphs(type(self).__name__)
         self.to(device)
 
     def forward(self, x):
+        return self.graphs(self, self.forward_eager, x)
+
+    def forward_eager(self, x):
+        """The forward as PyTorch operators and the batch-norm kernels, one
+        call each."""
         x = x.permute(0, 3, 1, 2)
         x = self.bn_init(self.conv_init(x), relu=True)
         x = F.max_pool2d(_same_pad(x, 3, 2, value=float('-inf')), 3, 2)

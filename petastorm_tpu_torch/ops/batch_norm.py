@@ -326,7 +326,10 @@ def batch_norm(x, norm, relu=False, residual=None, shortcut=None, out_dtype=torc
                             None if norm2 is None else norm2.bias, norm, norm2, mode, out_dtype)
 
 
-#: statistics, apply and backward passes since the counts were last set to 0
+#: statistics, apply and backward passes launched through the wrappers since
+#: the counts were last set to 0; a CUDA graph's replay (ResNet's training
+#: step on the card) runs its recorded passes without a wrapper, so replays
+#: count neither here nor in ``captured``
 batch_norm.launches = {'stats': 0, 'apply': 0, 'backward': 0}
 #: the same passes recorded into CUDA graph captures (replays run them)
 batch_norm.captured = {'stats': 0, 'apply': 0, 'backward': 0}

@@ -31,7 +31,9 @@ The catalog is the JAX package's, the topology plane's names included:
 instant when a reader of ``make_reader(topology=)`` joins as a reshard
 survivor. ``PORT_STAGES`` adds
 the port's own loader stages: ``deliver`` on the host clock and three spans
-on the card's clock (CUDA events, ``DEVICE_CLOCK_STAGES``). Each of those is
+on the card's clock (CUDA events, ``DEVICE_CLOCK_STAGES``), and
+``graph_capture``, a model's capture of its CUDA graphs on the host clock,
+whose counters are ``PORT_COUNTERS``. Each of the three card-clock spans is
 stream time: the interval between two points a stream reaches, which holds
 the stream's work and any stretch it stood idle waiting for the host to
 issue more (the decode tail's span, between the copy's end and the last
@@ -100,6 +102,9 @@ STAGES = (
 #: the port's own stages, beside the JAX package's catalog (pipecheck's
 #: telemetry-names rule accepts them wherever it accepts STAGES)
 PORT_STAGES = (
+    'graph_capture',          # a module's warm-up and capture of its forward
+                              # and backward graphs, host clock, synchronised
+                              # (parallel/graphs.py:ModuleGraphs)
     'deliver',                # the loader's own time on the training thread
                               # from the queue's return to the yield (loader)
     'h2d_on_device',          # the upload's copy on the loader's stream, card
@@ -166,6 +171,18 @@ COUNTERS = (
                                   # after a host join/leave/lease expiry
     'topology_frames_dropped',    # membership-journal frames that failed
                                   # CRC replay (torn tail / flipped byte)
+)
+
+#: the port's own counters, beside COUNTERS (pipecheck's telemetry-names rule
+#: accepts them wherever it accepts COUNTERS): a module's CUDA graphs
+#: (parallel/graphs.py:ModuleGraphs, in its own registry)
+PORT_COUNTERS = (
+    'model_graph_capture',        # a forward and backward graph pair captured
+    'model_graph_replay',         # a training call replayed as the graphs
+    'model_graph_eager_on_card',  # a training call on the card that ran
+                                  # eagerly (no gradients, inside another
+                                  # capture, or the last replay's backward
+                                  # still to come)
 )
 
 #: declared size histograms (``registry.observe(name, n, unit=BYTES_UNIT)``

@@ -140,11 +140,12 @@ def test_self_application_is_clean(port_report):
         'rules': [cls.name for cls in ALL_RULES]}
     assert port_report.files == len(_py_files(PORT)) >= 136
     directives = _directives(PORT)
-    # the one telemetry-names directive (the loader's ``deliver``) quiets the
-    # JAX package's analyzer, whose catalog lacks the port's own stages; the
-    # port's rule accepts them, so here it suppresses nothing
-    assert [rule for rule, _ in directives].count('telemetry-names') == 1
-    assert port_report.suppressed == len(directives) - 1 == 2
+    # the telemetry-names directives (the loader's ``deliver``; the model
+    # graphs' ``graph_capture`` and three counters) quiet the JAX package's
+    # analyzer, whose catalog lacks the port's own stages and counters; the
+    # port's rule accepts them, so here they suppress nothing
+    assert [rule for rule, _ in directives].count('telemetry-names') == 5
+    assert port_report.suppressed == len(directives) - 5 == 2
     assert all(reason.strip() for _rule, reason in directives)
     # the whole-program graph of the port, larger than before the analyzer
     # joined it (1,665 functions over 120 files)

@@ -369,16 +369,22 @@ def test_kernels_replay_in_a_cuda_graph(card):
 
 @pytest.mark.cuda
 def test_resnet50_step_runs_every_batch_norm_through_the_kernels(card):
-    """One training step: 53 statistics passes, 49 apply and 49 backward."""
+    """One training step: 53 statistics passes, 49 apply and 49 backward,
+    launched once for each of the CUDA graphs' warm-up steps and recorded
+    once by their capture (the step itself is the first replay)."""
+    from petastorm_tpu_torch.parallel.graphs import WARMUP_STEPS
     torch.manual_seed(0)
     model = ResNet50(num_classes=10).train()
     images = torch.randn(4, 64, 64, 3, device=card).to(torch.bfloat16)
-    for name in bn.batch_norm.launches:
-        bn.batch_norm.launches[name] = 0
+    for counts in (bn.batch_norm.launches, bn.batch_norm.captured):
+        for name in counts:
+            counts[name] = 0
     loss = F.cross_entropy(model(images), torch.zeros(4, dtype=torch.int64, device=card))
     loss.backward()
     torch.cuda.synchronize()
-    assert bn.batch_norm.launches == {'stats': 53, 'apply': 49, 'backward': 49}
+    per_step = {'stats': 53, 'apply': 49, 'backward': 49}
+    assert bn.batch_norm.captured == per_step
+    assert bn.batch_norm.launches == {k: WARMUP_STEPS * n for k, n in per_step.items()}
     assert torch.isfinite(loss)
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())

@@ -1,6 +1,6 @@
-"""The whole-program helper (``parallel/graphs.py``) and the two scan entry
-points on the card. The file imports nothing of JAX, so on the machine with
-the card it runs alone:
+"""The whole-program helper (``parallel/graphs.py``), the two scan entry
+points on the card, and the module graphs' routing and warm-up undo. The
+file imports nothing of JAX, so on the machine with the card it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_graphs.py
 
@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from petastorm_tpu_torch.parallel.graphs import WARMUP_STEPS, StepProgram, program_state
+from petastorm_tpu_torch.parallel import graphs
+from petastorm_tpu_torch.parallel.graphs import (WARMUP_STEPS, StepProgram, program_state,
+                                                 route, warm_up_undone)
 
 GRAPH_RTOL = 1e-5
 
@@ -64,6 +66,95 @@ def test_eager_program_refuses_other_aux():
     program = StepProgram(lambda batch: 1.5, lambda i: {}, 2, (), 'cpu')
     with pytest.raises(TypeError, match='step_fn must return'):
         program.run()
+
+
+@pytest.mark.parametrize('device_type', ['cuda', 'cpu'])
+@pytest.mark.parametrize('training', [True, False])
+@pytest.mark.parametrize('grad_enabled', [True, False])
+@pytest.mark.parametrize('capturing', [False, True])
+def test_module_graphs_route(device_type, training, grad_enabled, capturing):
+    """Graphs only on the card in training with gradients and no capture
+    under way; another training call on the card counts as eager on the
+    card; the CPU and evaluation are plain eager calls."""
+    if device_type == 'cpu' or not training:
+        want = 'eager'
+    elif grad_enabled and not capturing:
+        want = 'graphs'
+    else:
+        want = 'eager_on_card'
+    assert route(device_type, training, grad_enabled, capturing) == want
+
+
+def test_a_whole_step_capture_is_a_capture_under_way():
+    with graphs._whole_step_capture():
+        with graphs._whole_step_capture():
+            assert graphs.capture_under_way()
+        assert graphs.capture_under_way()
+    assert graphs._step_captures.depth == 0
+
+
+def _bn_model_and_sgd():
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(6, 8), torch.nn.BatchNorm1d(8),
+                                torch.nn.ReLU(), torch.nn.Dropout(0.25), torch.nn.Linear(8, 3))
+    return model, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+
+
+def _bn_step(model, opt):
+    def step(batch):
+        loss = torch.nn.functional.cross_entropy(model(batch['x']), batch['y'])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return step
+
+
+def test_warm_up_undone_leaves_the_state_step_program_starts_from():
+    """On CPU tensors: after warm-up steps that train, move the running
+    statistics, create momentum buffers and draw dropout masks, every
+    parameter and buffer has its value back at its address, the new momentum
+    buffers are zero, the random state is restored and the gradients stay;
+    an eager StepProgram from there computes what one from an untouched copy
+    computes, bit for bit."""
+    model, opt = _bn_model_and_sgd()
+    twin = copy.deepcopy(model)
+    twin_opt = torch.optim.SGD(twin.parameters(), lr=0.1, momentum=0.9)
+    batches = [{'x': torch.randn(16, 6), 'y': torch.randint(0, 3, (16,))} for _ in range(3)]
+    tensors = list(model.parameters()) + list(model.buffers())
+    before = [(t.data_ptr(), t.detach().clone()) for t in tensors]
+    step = _bn_step(model, opt)
+    rng = torch.get_rng_state()
+    warm_up_undone((model, opt), 'cpu', lambda: [step(b) for b in batches])
+    assert torch.equal(torch.get_rng_state(), rng)
+    assert all(t.data_ptr() == ptr and torch.equal(t, value)
+               for t, (ptr, value) in zip(tensors, before))
+    buffers = [opt.state[p]['momentum_buffer'] for p in model.parameters()]
+    assert all(not b.any() for b in buffers)
+    assert all(p.grad is not None for p in model.parameters())   # left as they are
+    graphs._drop_grads((model, opt))   # as StepProgram does after it
+    torch.manual_seed(1)   # the same dropout masks on both sides
+    got = StepProgram(step, lambda i: batches[i], 3, (model, opt), 'cpu').run()
+    torch.manual_seed(1)
+    want = StepProgram(_bn_step(twin, twin_opt), lambda i: batches[i], 3, (twin, twin_opt),
+                       'cpu').run()
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 twin.state_dict().values()))
+
+
+def test_module_graphs_are_not_copied_or_pickled():
+    import pickle
+    from petastorm_tpu_torch.models.resnet import ResNet
+    model = ResNet(stage_sizes=[1], num_filters=8, num_classes=3, device='cpu').train()
+    model.graphs._programs.get('key', lambda: 'program')
+    for other in (copy.deepcopy(model), pickle.loads(pickle.dumps(model))):
+        assert other.graphs is not model.graphs and len(other.graphs._programs) == 0
+        assert other.graphs.name == 'ResNet'
+    assert len(model.graphs._programs) == 1
+    # on the CPU every call is a plain eager call: nothing is counted
+    model(torch.randn(2, 16, 16, 3)).sum().backward()
+    assert model.graphs.telemetry.snapshot()['counters'] == {}
 
 
 def _mnist_loader(tmp_path, device, rows=96, batch_size=32):
